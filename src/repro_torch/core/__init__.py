@@ -1,0 +1,55 @@
+"""DGTP core on PyTorch: the paper's planner on the torch engine.
+
+Task placement (IFS/ETP), online execution & flow scheduling (OES + the
+baseline policies) as one batched event program on a CUDA card (or the
+CPU, when asked), the audit quantities (Delta, traffic summary) and the
+dataset traffic profiles.
+"""
+from .analysis import max_degree, one_iteration_degrees, traffic_summary
+from .cluster import (
+    ClusterSpec,
+    Machine,
+    Placement,
+    TaskSpec,
+    heterogeneous_cluster,
+    is_feasible,
+    testbed_cluster,
+    violation_fraction,
+)
+from .dgtp import DEFAULT_N_CHAINS, Plan, plan, plan_baseline
+from .engine import (
+    CLASS_TRAINING,
+    EPS,
+    POLICY_NAMES,
+    ScheduleResult,
+    TaskEvent,
+    expected_makespan,
+    expected_makespan_many,
+    mean_batch_makespans,
+    monte_carlo_draws,
+    resolve_device,
+)
+from .engine_torch import (
+    PARITY_ATOL,
+    PARITY_RTOL,
+    simulate_batch_torch,
+    simulate_torch,
+)
+from .placement import (
+    ETPResult,
+    distdgl_placement,
+    etp_multichain,
+    etp_search,
+    group_move_candidates,
+    ifs_placement,
+)
+from .profiles import (
+    OGBN_PAPERS100M,
+    OGBN_PRODUCTS,
+    PROFILES,
+    REDDIT,
+    build_workload_from_profile,
+)
+from .workload import Edge, Realization, TrafficModel, Workload, build_gnn_workload
+
+__all__ = [k for k in dir() if not k.startswith("_")]

@@ -1,0 +1,101 @@
+"""The port stands alone: no JAX, nothing of ``repro``, CUDA by default.
+
+  * an AST scan of every module under ``src/repro_torch/`` and of the
+    scripts ``chip_smoke.py`` and ``engine_probe.py`` finds no import of
+    ``jax`` or of ``repro``;
+  * importing the port in a fresh interpreter leaves both out of
+    ``sys.modules``;
+  * an entry point called without ``device`` runs on CUDA, so with no
+    card present it raises instead of falling back to the CPU.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _forbidden(name):
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_no_jax_or_reference_imports_in_source():
+    files = sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "engine_probe.py",
+    ]
+    assert len(files) > 10
+    bad = [
+        (str(f.relative_to(ROOT)), name)
+        for f in files
+        for name in _imports(f)
+        if _forbidden(name)
+    ]
+    assert bad == []
+
+
+def test_import_leaves_jax_and_reference_unloaded():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.convert, repro_torch.core\n"
+        "import repro_torch.kernels.waterfill\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_default_device_is_cuda(monkeypatch):
+    from repro_torch.core import (
+        build_gnn_workload,
+        heterogeneous_cluster,
+        ifs_placement,
+        plan,
+        resolve_device,
+        simulate_torch,
+    )
+
+    wl = build_gnn_workload(
+        n_stores=2, n_workers=1, samplers_per_worker=1, n_ps=1, n_iters=2,
+        store_to_sampler_gb=0.5, sampler_to_worker_gb=0.3, grad_gb=0.2,
+        store_exec_s=0.3, sampler_exec_s=0.4, worker_exec_s=0.8,
+        ps_exec_s=0.2,
+    )
+    cluster = heterogeneous_cluster(3, seed=0)
+    p = ifs_placement(wl, cluster, seed=0)
+    r = wl.realize(seed=0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert resolve_device("cpu").type == "cpu"
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="cuda"):
+        simulate_torch(wl, cluster, p, r)
+    with pytest.raises(RuntimeError, match="cuda"):
+        plan(wl, cluster, realization=r, budget=2, sim_iters=2)
+    # explicitly asking for the CPU works
+    assert simulate_torch(wl, cluster, p, r, device="cpu").makespan > 0
