@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py        # on a machine with one CUDA card
 
-Drives the port's main path on the card, DGTP planning, and holds it
-against the port's own CPU path and against the plain version of every
-kernel.  Phases, in order; any failure ends the run with a non-zero exit:
+Drives the port's two paths on the card, DGTP planning and GraphSAGE
+training, and holds them against the port's own CPU path and against the
+plain version of every kernel.  Phases, in order; any failure ends the
+run with a non-zero exit:
 
-  1. build the waterfill kernel from ``src/repro_torch/kernels/csrc`` with
-     nvcc for sm_90a;
+  1. build both kernels (waterfill, sage_aggregate) from
+     ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one nvcc per
+     source, all started together;
   2. the kernel against its plain version on the card, at every shape
      the main path gives it (B=1024 with EG=1400, M=16 and with EG=72,
      M=4; B=1 with EG=72, M=4), on inputs with tied priority keys: exact
@@ -22,13 +24,25 @@ kernel.  Phases, in order; any failure ends the run with a non-zero exit:
      simulated iterations, seed 0) and ``plan_baseline("distdgl")``, each
      committed schedule held against the CPU engine;
   5. a profiled short run per job (the device's busy share, the kernel
-     launches per iteration, the top device rows), the kernel table's
-     JSON line, the card's name and power limit, and the closing status
-     line.
+     launches per iteration, the top device rows);
+  6. GraphSAGE at the ogbn-products widths (in 100, hidden 256, 47
+     classes, 3 layers, fan-outs 5/10/15, 2000 seeds per batch) on a
+     240,000-node synthetic graph: the aggregation kernel against its
+     plain version at the three shapes one batch gives it (exact in
+     fp32, 3e-2 in bf16, plus all-padding rows and an odd M), with
+     times beside its bound and ``F.embedding_bag``; one forward and
+     backward on the card against the same on the CPU; then five SGD
+     steps, the measured-traffic calibration and
+     ``plan_baseline("distdgl")`` (its fifo commit launches waterfill);
+     then one profiled step (the device's busy share);
+  7. the kernel table's JSON line, the card's name and power limit, and
+     the closing status line.
 
-Phases 3 and 4 are the main path: the kernel launch counts are set to 0
-just before phase 3 and read just after phase 4.  Imports nothing of JAX
-or of the ``repro`` package.
+Two main paths, each with the kernel launch counts set to 0 just before
+it and read just after: phases 3-4 (planning) and the training steps,
+calibration and baseline plan of phase 6 (GraphSAGE).  Each phase's
+seconds are printed on a ``[time]`` line.  Imports nothing of JAX or of
+the ``repro`` package.
 """
 from __future__ import annotations
 
@@ -50,9 +64,20 @@ WIDTH = 1024
 N_CHECK = 8  # instances held against the CPU engine
 # worker processes for the CPU references; they run while the card works
 CPU_WORKERS = 6
-# H100 SXM data sheet: HBM3 bandwidth and the fp64 (non-tensor) peak
+# H100 SXM data sheet: HBM3 bandwidth and the fp64 and fp32 (non-tensor) peaks
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOP_PER_S = 34e12
+FP32_FLOP_PER_S = 67e12
+# GraphSAGE phase: the ogbn-products widths (core/profiles.py, and the
+# reference's SageConfig defaults) and the paper's per-worker mini-batch;
+# the graph is cut from ogbn-products' 2.4M nodes to 240k (a batch's
+# support barely grows past this size, and building it costs host time)
+SAGE_NODES = 240_000
+SAGE_BATCH = 2000
+SAGE_FANOUTS = (5, 10, 15)
+SAGE_STEPS = 5
+SAGE_ATOL = 1e-4  # card against CPU: logits, loss and gradients
+BF16_ATOL = 3e-2  # the JAX package's kernel sweep tolerance for bf16
 
 
 def _jobs():
@@ -400,6 +425,281 @@ def phase_profile(cands):
                   f"{a.key[:70]}", flush=True)
 
 
+def _sage_x(batch_feats, blocks, hidden, seed):
+    """(label, x, idx) of the three aggregations of one forward: layer 0
+    gathers the batch's features, layers 1 and 2 the hidden rows (seeded
+    ReLU'd normals of the shape the forward gives them)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    x = batch_feats
+    L = len(blocks)
+    for l in range(L):
+        idx = blocks[L - 1 - l]
+        out.append((f"layer {l}", x, idx))
+        x = torch.relu(torch.randn(idx.shape[0], hidden, device="cuda",
+                                   generator=gen))
+    return out
+
+
+def _device_ms(fn, reps, flush=False):
+    """Device time per call, without the host's time to issue it: a spin
+    kernel holds the card while the host enqueues every call between two
+    events, so the calls then run back to back and the events time the
+    device alone.  The spin must outlast the enqueueing (checked).  When
+    it does not, the spin is lengthened and the calls halved: the card's
+    launch queue holds a limited number of entries, and the host blocks
+    once it is full (the plain version launches ~110 kernels a call).
+    ``flush`` writes 128 MB before each call, outside its events, which
+    evicts the 50 MB L2."""
+    import torch
+
+    buf = torch.empty(2**25, dtype=torch.float32, device="cuda") if flush else None
+    fn()
+    torch.cuda.synchronize()
+    cycles = 10**7
+    for _ in range(6):
+        pairs = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        torch.cuda._sleep(cycles)
+        spun = torch.cuda.Event()
+        spun.record()
+        for t0, t1 in pairs:
+            if flush:
+                buf.fill_(1.0)
+            t0.record()
+            fn()
+            t1.record()
+        host_ahead = not spun.query()
+        torch.cuda.synchronize()
+        if host_ahead:
+            return sum(t0.elapsed_time(t1) for t0, t1 in pairs) / reps
+        cycles *= 4
+        reps = max(1, reps // 2)
+    raise AssertionError("the host could not enqueue the calls ahead of the card")
+
+
+def phase_sage_kernel(sa, batch, hidden):
+    """The aggregation kernel against its plain version at the three
+    shapes one batch gives it: exact in fp32, BF16_ATOL in bf16; all-
+    padding rows and an M that is not a multiple of 128; times beside the
+    bound and beside ``F.embedding_bag``.  Returns the JSON numbers summed
+    over the three shapes (one forward's aggregations)."""
+    import torch
+    import torch.nn.functional as F
+
+    rows = []
+    for label, x, idx in _sage_x(batch["feats"], batch["blocks"], hidden, 0):
+        N, Fdim = x.shape
+        M, K = idx.shape
+        got = sa.sage_aggregate(x, idx)
+        want = sa.sage_aggregate_plain(x, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            err = (got - want).abs().max().item()
+            raise AssertionError(f"sage kernel != plain at {label} (max {err})")
+        xb = x.to(torch.bfloat16)
+        err_bf16 = (sa.sage_aggregate(xb, idx).float()
+                    - sa.sage_aggregate_plain(xb, idx).float()).abs().max().item()
+        if not err_bf16 <= BF16_ATOL:
+            raise AssertionError(f"sage kernel bf16 at {label}: max err {err_bf16}")
+        # the yardstick: one PyTorch call with the same semantics
+        bag_idx = torch.where(idx < 0, N, idx).long()
+        bag_x = torch.cat([x, x.new_zeros(1, Fdim)])
+        lib = lambda: F.embedding_bag(bag_idx, bag_x, mode="mean", padding_idx=N)
+        err_lib = (lib() - want).abs().max().item()
+        kernel = lambda: sa.sage_aggregate(x, idx)
+        plain = lambda: sa.sage_aggregate_plain(x, idx)
+        # device time per call with the 50 MB L2 flushed before each call
+        # (x is 7-37 MB, so back-to-back calls find it in L2 and beat the
+        # memory bound); the hot kernel time is printed beside it
+        ms = _device_ms(kernel, 20, flush=True)
+        hot_ms = _device_ms(kernel, 50)
+        plain_ms = _device_ms(plain, 4, flush=True)
+        library_ms = _device_ms(lib, 20, flush=True)
+        call_ms = _cuda_ms(kernel, 50)
+        lib_call_ms = _cuda_ms(lib, 50)
+        # least time: idx read once, each distinct row of x that a valid
+        # id names read once, the output written once; one add per
+        # gathered value and one divide per output value at the fp32 peak
+        valid = idx[idx >= 0]
+        n_valid = valid.numel()
+        n_rows = int(torch.unique(valid).numel())
+        n_bytes = M * K * 4 + n_rows * Fdim * 4 + M * Fdim * 4
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = (n_valid * Fdim + M * Fdim) / FP32_FLOP_PER_S * 1e3
+        bound = max(bytes_ms, ops_ms)
+        print(
+            f"[sage kernel] {label}: x {tuple(x.shape)} fp32, idx {tuple(idx.shape)} "
+            f"({n_valid} valid ids, {n_rows} distinct rows): exact match, bf16 "
+            f"max err {err_bf16:.3g}; device time per call, L2 flushed: kernel "
+            f"{ms:.4f} ms (hot {hot_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+            f"embedding_bag {library_ms:.4f} ms (max diff {err_lib:.3g}); bound "
+            f"{bound:.6f} ms ({n_bytes} bytes, {100 * bound / ms:.1f}% of the "
+            f"kernel's time); back-to-back calls, host included: kernel "
+            f"{call_ms:.4f} ms, embedding_bag {lib_call_ms:.4f} ms",
+            flush=True,
+        )
+        rows.append(dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                         max_abs_err=(got - want).abs().max().item()))
+    # all-padding rows and an M that is not a multiple of 128
+    x, idx = batch["feats"], batch["blocks"][-1][:1037].clone()
+    idx[:64] = -1
+    got = sa.sage_aggregate(x, idx)
+    if not (torch.equal(got, sa.sage_aggregate_plain(x, idx))
+            and (got[:64] == 0).all()):
+        raise AssertionError("sage kernel: all-padding rows or odd M differ")
+    print("[sage kernel] M=1037 with 64 all-padding rows: exact match, "
+          "padding rows 0", flush=True)
+    out = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms",
+                                                  "bound_ms", "bytes_ms", "ops_ms")}
+    out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    out["bound_by"] = "bytes" if out["bytes_ms"] >= out["ops_ms"] else "operations"
+    return out
+
+
+def phase_sage(sa, wf):
+    """GraphSAGE on the card: the kernel checks, card-vs-CPU parity, then
+    the main path (training steps, calibration, DistDGL baseline plan)
+    with the launch counts set to 0 just before and read just after, then
+    one profiled step.  Returns the kernel numbers and the path's
+    launches per kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import plan_baseline, testbed_cluster
+    from repro_torch.core.units import BYTES_PER_GB, BYTES_PER_MIB
+    from repro_torch.core.workload import build_gnn_workload
+    from repro_torch.data.graph import sample_blocks, synthetic_graph
+    from repro_torch.models import GraphSAGE, SageConfig, batch_to, sage_loss, sgd_step
+
+    # full fp32 products on both sides of the card-vs-CPU comparison
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = SageConfig(in_dim=100, hidden=256, n_classes=47, n_layers=3)
+    t0 = time.perf_counter()
+    g = synthetic_graph(n_nodes=SAGE_NODES, n_feats=cfg.in_dim,
+                        n_classes=cfg.n_classes, n_parts=4, seed=0)
+    print(f"[sage] graph: {g.n_nodes} nodes, {len(g.indices)} edges, "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(0)
+
+    def sample():
+        seeds = rng.choice(g.train_nodes, SAGE_BATCH, replace=False)
+        return sample_blocks(g, seeds, SAGE_FANOUTS, rng)
+
+    feats, blocks, labels, _ = sample()
+    print(f"[sage] batch: feats {feats.shape}, blocks "
+          f"{[b.shape for b in blocks]}", flush=True)
+    batch = batch_to(feats, blocks, labels, device="cuda")
+    with torch.no_grad():
+        kern = phase_sage_kernel(sa, batch, cfg.hidden)
+
+    # one forward and backward on the card against the same on the CPU
+    model = GraphSAGE(cfg, device="cuda", seed=0)
+    ref = GraphSAGE(cfg, device="cpu", seed=0)
+    cpu_batch = batch_to(feats, blocks, labels, device="cpu")
+    with torch.no_grad():
+        d_logits = (model(batch["feats"], batch["blocks"]).cpu()
+                    - ref(cpu_batch["feats"], cpu_batch["blocks"])).abs().max().item()
+    loss_g, _ = sage_loss(model, batch)
+    loss_g.backward()
+    loss_c, _ = sage_loss(ref, cpu_batch)
+    loss_c.backward()
+    d_loss = abs(loss_g.item() - loss_c.item())
+    d_grad = max((pg.grad.cpu() - pc.grad).abs().max().item()
+                 for pg, pc in zip(model.parameters(), ref.parameters()))
+    print(f"[sage] card vs cpu, batch 1: logits max diff {d_logits:.3g}, loss "
+          f"{loss_g.item():.6f} vs {loss_c.item():.6f} (diff {d_loss:.3g}), "
+          f"gradients max diff {d_grad:.3g} (atol {SAGE_ATOL})", flush=True)
+    if not max(d_logits, d_loss, d_grad) <= SAGE_ATOL:
+        raise AssertionError("GraphSAGE on the card disagrees with the CPU")
+    model.zero_grad(set_to_none=True)
+
+    # the main path: SGD steps, calibration, the DistDGL baseline plan
+    sa.sage_aggregate.launches = 0
+    wf.waterfill_fill.launches = 0
+    losses, store_bytes, split = [], [], []
+    for _ in range(SAGE_STEPS):
+        t0 = time.perf_counter()
+        feats, blocks, labels, per_store = sample()
+        t1 = time.perf_counter()
+        batch = batch_to(feats, blocks, labels, device="cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        loss, m = sage_loss(model, batch)
+        loss.backward()
+        sgd_step(model, lr=0.1)
+        losses.append(loss.item())  # a sync
+        t3 = time.perf_counter()
+        store_bytes.append(sum(per_store.values()))
+        split.append((t1 - t0, t2 - t1, t3 - t2))
+    vol_gb = float(np.mean(store_bytes)) / BYTES_PER_GB
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    wl = build_gnn_workload(
+        n_stores=4, n_workers=6, samplers_per_worker=2, n_ps=1, n_iters=40,
+        store_to_sampler_gb=vol_gb, sampler_to_worker_gb=vol_gb,
+        grad_gb=param_bytes / BYTES_PER_GB,
+        store_exec_s=0.04, sampler_exec_s=0.08, worker_exec_s=0.15,
+        ps_exec_s=0.015, pmr=float(np.max(store_bytes) / np.mean(store_bytes)),
+    )
+    dd = plan_baseline(wl, testbed_cluster(), baseline="distdgl",
+                       realization=wl.realize(seed=0), device="cuda")
+    torch.cuda.synchronize()
+    launches = {"sage_aggregate": sa.sage_aggregate.launches,
+                "waterfill_fill": wf.waterfill_fill.launches}
+    print(f"[sage] losses over {SAGE_STEPS} SGD steps: "
+          f"{' '.join(f'{v:.4f}' for v in losses)}", flush=True)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"GraphSAGE training did not learn: {losses}")
+    sp = np.array(split)
+    print(f"[sage] step split (mean of {SAGE_STEPS}): sampling on the host "
+          f"{sp[:, 0].mean():.4f} s, H2D copy {sp[:, 1].mean():.4f} s, forward "
+          f"+ backward + SGD {sp[:, 2].mean():.4f} s; per step "
+          f"{' / '.join(f'{a:.3f}+{b:.4f}+{c:.4f}' for a, b, c in sp)}",
+          flush=True)
+    print(f"[sage] calibrated: {vol_gb * BYTES_PER_GB / BYTES_PER_MIB:.1f} MiB per "
+          f"batch, PMR {np.max(store_bytes) / np.mean(store_bytes):.3f}; DistDGL "
+          f"baseline makespan {dd.schedule.makespan:.3f} s; launches on the path: "
+          f"{launches}", flush=True)
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"the GraphSAGE path never launched {name}")
+
+    # one profiled step: the device's busy share of a whole step
+    def step():
+        feats, blocks, labels, _ = sample()
+        loss, _ = sage_loss(model, batch_to(feats, blocks, labels, device="cuda"))
+        loss.backward()
+        sgd_step(model, lr=0.1)
+        torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        wall = time.perf_counter() - t0
+    rows = sorted(
+        (a for a in prof.key_averages() if a.device_type == DeviceType.CUDA),
+        key=_device_us, reverse=True,
+    )
+    dev_ms = sum(_device_us(a) for a in rows) / 1e3
+    print(f"[sage profile] one step: wall {wall:.3f} s profiled, device busy "
+          f"{dev_ms:.2f} ms ({100 * dev_ms / 1e3 / wall:.2f}% of the wall)",
+          flush=True)
+    for a in rows[:8]:
+        print(f"[sage profile]   {_device_us(a) / 1e3:9.3f} ms {a.count:5d}x "
+              f"{a.key[:70]}", flush=True)
+    return kern, launches
+
+
+def _phase_done(name, t0):
+    print(f"[time] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return time.perf_counter()
+
+
 def main() -> int:
     import torch
 
@@ -407,29 +707,44 @@ def main() -> int:
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import sage_aggregate as sa
     from repro_torch.kernels import waterfill as wf
 
-    t_start = time.perf_counter()
+    t_start = t = time.perf_counter()
     print(f"[device] {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}", flush=True)
-    _, secs, log = wf.build()
-    print(f"[build] waterfill.cu built in {secs:.1f} s", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"[build] {line.strip()}", flush=True)
+    for src, (_, secs, log) in zip(
+        (wf.SOURCE, sa.SOURCE), _build.build(wf.SOURCE, sa.SOURCE)
+    ):
+        print(f"[build] {src.name} built in {secs:.1f} s", flush=True)
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"[build] {line.strip()}", flush=True)
+    t = _phase_done("build (both kernels, in parallel)", t)
 
     kern = phase_kernel(wf)
+    t = _phase_done("waterfill kernel checks", t)
 
-    # the main path: counts set to 0 here, read after the plan phase
+    # the planning path: counts set to 0 here, read after the plan phase
     wf.waterfill_fill.launches = 0
+    sa.sage_aggregate.launches = 0
     with ProcessPoolExecutor(CPU_WORKERS, mp_context=get_context("spawn")) as pool:
         cands, pending, gpu = phase_engine(wf, pool)
+        t = _phase_done("engine at width 1024", t)
         phase_plan(wf)
         launches = wf.waterfill_fill.launches
+        t = _phase_done("plan() and the DistDGL baseline", t)
         check_engine(pending, gpu)
+        t = _phase_done("waiting for the CPU references", t)
     if launches == 0:
         raise AssertionError("the main path never launched the waterfill kernel")
     phase_profile(cands)
+    t = _phase_done("engine profile", t)
+
+    sage, sage_launches = phase_sage(sa, wf)
+    t = _phase_done("GraphSAGE (graph, kernel checks, parity, training, "
+                    "calibration, profile)", t)
 
     line = {
         "kernels": [
@@ -438,16 +753,31 @@ def main() -> int:
                 "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/waterfill.cu",
                 "replaces": "src/repro/kernels/waterfill.py:64",
-                "launches": launches,
+                "launches": launches + sage_launches["waterfill_fill"],
                 "max_abs_err": kern["max_abs_err"],
                 "ms": kern["ms"],
                 "plain_ms": kern["plain_ms"],
                 "bound_ms": kern["bound_ms"],
                 "bound_by": kern["bound_by"],
                 "library_ms": None,
-            }
+            },
+            {
+                "name": "sage_aggregate",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/sage_aggregate.cu",
+                "replaces": "src/repro/kernels/sage_aggregate.py:83",
+                "launches": sage_launches["sage_aggregate"],
+                "max_abs_err": sage["max_abs_err"],
+                "ms": sage["ms"],
+                "plain_ms": sage["plain_ms"],
+                "bound_ms": sage["bound_ms"],
+                "bound_by": sage["bound_by"],
+                "library_ms": sage["library_ms"],
+            },
         ]
     }
+    print(f"[launches] planning path: waterfill_fill {launches}; GraphSAGE "
+          f"path: {sage_launches}", flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(line))
     smi = subprocess.run(

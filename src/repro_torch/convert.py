@@ -4,15 +4,20 @@
 ``Placement`` or ``Realization`` into the port's own class of the same
 name.  It reads the object's plain fields and numpy arrays by attribute
 (duck-typed), so nothing of ``repro`` is imported; arrays are copied.
+``sage_from_reference(params, cfg)`` builds the port's ``GraphSAGE`` with
+the weights of the JAX package's ``init_sage`` parameter dict.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Mapping
 
 import numpy as np
+import torch
 
 from .core.cluster import ClusterSpec, Machine, Placement, TaskSpec
+from .core.engine import DeviceLike
 from .core.workload import Edge, Realization, TrafficModel, Workload
+from .models.gnn import GraphSAGE, SageConfig
 
 
 def _traffic(t: Any) -> TrafficModel:
@@ -66,3 +71,30 @@ def from_reference(obj: Any) -> Any:
     if hasattr(obj, "y"):
         return Placement(np.array(obj.y, dtype=np.int64))
     raise TypeError(f"no port counterpart for {type(obj).__name__}")
+
+
+def sage_from_reference(
+    params: Mapping[str, Any], cfg: Any, *, device: DeviceLike = None,
+) -> GraphSAGE:
+    """The port's GraphSAGE holding the reference's weights.
+
+    ``params`` is the reference's ``init_sage`` dict as arrays (``w{l}``
+    [2·d_l, d_{l+1}], ``b{l}`` [d_{l+1}], ``head`` [hidden, n_classes]);
+    ``cfg`` is read for ``in_dim``, ``hidden``, ``n_classes`` and
+    ``n_layers``.  ``nn.Linear`` stores [out, in], so the matrices are
+    transposed."""
+    port_cfg = SageConfig(
+        in_dim=int(cfg.in_dim), hidden=int(cfg.hidden),
+        n_classes=int(cfg.n_classes), n_layers=int(cfg.n_layers),
+    )
+    model = GraphSAGE(port_cfg, device=device)
+
+    def _t(a: Any) -> torch.Tensor:
+        return torch.as_tensor(np.array(a, dtype=np.float32))
+
+    with torch.no_grad():
+        for l, lin in enumerate(model.layers):
+            lin.weight.copy_(_t(params[f"w{l}"]).T)
+            lin.bias.copy_(_t(params[f"b{l}"]))
+        model.head.weight.copy_(_t(params["head"]).T)
+    return model

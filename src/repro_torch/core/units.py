@@ -4,7 +4,7 @@ The subset of the JAX package's ``repro.core.units`` that the port's
 copies of the cluster, workload and profile modules need: ``Annotated``
 aliases that tag plain ``float`` / ``np.ndarray`` annotations with a
 :class:`Unit` marker (erased at runtime), and the named byte-scale
-constant.  The static checker reads its alias registry from the JAX
+constants.  The static checker reads its alias registry from the JAX
 package's module; these aliases carry the same symbols.
 """
 from __future__ import annotations
@@ -35,3 +35,5 @@ SecondsArray = Annotated["np.ndarray", Unit("s")]
 
 #: GiB convention, as in the JAX package's units module
 BYTES_PER_GB = float(2**30)
+#: MiB, for reporting sampled bytes
+BYTES_PER_MIB = float(2**20)

@@ -19,63 +19,28 @@ or raises.  Each launch adds one to ``waterfill_fill.launches``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
+from . import _build
+
 # grants at or below EPS are dropped; equal to repro_torch.core.engine.EPS
 # (kept here so the kernels package imports nothing of core)
 EPS = 1e-9
 
-_SOURCE = Path(__file__).resolve().parent / "csrc" / "waterfill.cu"
-# build outputs go to <repo>/build (listed in .gitignore)
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+SOURCE = Path(__file__).resolve().parent / "csrc" / "waterfill.cu"
 # a block may use up to 227 KB of shared memory on Hopper
 _MAX_SMEM_BYTES = 232_448
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-)
 
 _LIB: Optional[ctypes.CDLL] = None
 
 
-def _nvcc() -> str:
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin)")
-
-
 def build() -> Tuple[Path, float, str]:
     """Compile the kernel if its library is missing; returns
-    ``(library path, build seconds, compiler output)``.  The library name
-    carries a hash of the source, so an edited source is rebuilt."""
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"waterfill_{digest}.so"
-    if lib.exists():
-        return lib, 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, lib)
-    return lib, secs, proc.stdout + proc.stderr
+    ``(library path, build seconds, compiler output)``."""
+    return _build.build(SOURCE)[0]
 
 
 def _library() -> ctypes.CDLL:

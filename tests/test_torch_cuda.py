@@ -1,7 +1,9 @@
-"""The torch engine on a CUDA card against the same engine on the CPU.
+"""The port on a CUDA card against the same port on the CPU.
 
-Marked ``cuda``: every test skips without a card (the engine's fifo and
-mrtf rates launch a CUDA kernel, which has no CPU mode).  On a machine
+The torch engine, the GraphSAGE aggregation kernel against its plain
+version, and GraphSAGE's forward and backward.  Marked ``cuda``: every
+test skips without a card (the engine's fifo and mrtf rates and the
+aggregation launch CUDA kernels, which have no CPU mode).  On a machine
 with one, run the card's tests (this file and the waterfill kernel's):
 
     python -m pytest -m cuda tests/test_torch_cuda.py tests/test_torch_waterfill.py
@@ -22,7 +24,10 @@ from repro_torch.core import (
     ifs_placement,
     simulate_batch_torch,
 )
+from repro_torch.data.graph import sample_blocks, synthetic_graph
+from repro_torch.kernels.sage_aggregate import sage_aggregate, sage_aggregate_plain
 from repro_torch.kernels.waterfill import waterfill_fill
+from repro_torch.models import GraphSAGE, SageConfig, batch_to, sage_loss
 
 pytestmark = pytest.mark.cuda
 
@@ -58,3 +63,67 @@ def test_engine_matches_cpu(cuda, policy):
         assert np.allclose(g.task_start_matrix(wl.J, 4),
                            r.task_start_matrix(wl.J, 4),
                            rtol=PARITY_RTOL, atol=PARITY_ATOL, equal_nan=True)
+
+
+def _sage_inputs(seed, n, f, m, k):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, f)).astype(np.float32)
+    idx = rng.integers(-1, n, (m, k)).astype(np.int32)
+    idx[1] = -1  # an all-padding row
+    return x, idx
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,f,m,k,misalign", [
+    (500, 64, 128, 8, False),
+    (300, 128, 64, 16, False),
+    (1000, 100, 1037, 15, False),  # F = 100 (wide fp32, narrow bf16); odd M
+    (400, 30, 77, 40, False),  # F not a multiple of 4; K > 32
+    (600, 256, 300, 5, True),  # x not 16-byte aligned: narrow path
+])
+def test_sage_kernel_matches_plain(cuda, n, f, m, k, misalign, dtype):
+    """The aggregation kernel equals its plain version bit for bit in
+    fp32 (same j order, IEEE division); bf16 within 3e-2."""
+    x, idx = _sage_inputs(17, n, f, m, k)
+    dt = getattr(torch, dtype)
+    if misalign:
+        flat = torch.from_numpy(x).reshape(-1).to(cuda, dt)
+        xt = torch.empty(n * f + 1, dtype=dt, device=cuda)[1:].copy_(flat).reshape(n, f)
+        assert xt.data_ptr() % 16 != 0
+    else:
+        xt = torch.from_numpy(x).to(cuda, dt)
+    it = torch.from_numpy(idx).to(cuda)
+    before = sage_aggregate.launches
+    got = sage_aggregate(xt, it)
+    torch.cuda.synchronize()
+    assert sage_aggregate.launches == before + 1
+    want = sage_aggregate_plain(xt, it)
+    assert got.dtype == dt
+    if dtype == "float32":
+        assert torch.equal(got, want)
+    else:
+        assert (got.float() - want.float()).abs().max().item() <= 3e-2
+    assert (got[1] == 0).all()
+
+
+def test_graphsage_on_card_matches_cpu(cuda):
+    """One forward and backward on the card (three kernel launches) against
+    the same on the CPU (the plain version): loss and every gradient within
+    1e-4 (the backward's index_add_ sums in atomic order on the card)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = synthetic_graph(n_nodes=3000, n_parts=4, seed=0)
+    rng = np.random.default_rng(0)
+    seeds = rng.choice(g.train_nodes, 128, replace=False)
+    feats, blocks, labels, _ = sample_blocks(g, seeds, (5, 10, 15), rng)
+    cfg = SageConfig(in_dim=100, hidden=64, n_classes=47, n_layers=3)
+    on_card = GraphSAGE(cfg, device=cuda, seed=0)
+    on_cpu = GraphSAGE(cfg, device="cpu", seed=0)
+    before = sage_aggregate.launches
+    loss_g, _ = sage_loss(on_card, batch_to(feats, blocks, labels, device=cuda))
+    loss_g.backward()
+    assert sage_aggregate.launches == before + 3
+    loss_c, _ = sage_loss(on_cpu, batch_to(feats, blocks, labels, device="cpu"))
+    loss_c.backward()
+    assert abs(loss_g.item() - loss_c.item()) < 1e-4
+    for pg, pc in zip(on_card.parameters(), on_cpu.parameters()):
+        assert (pg.grad.cpu() - pc.grad).abs().max().item() < 1e-4

@@ -1,8 +1,9 @@
 """The port stands alone: no JAX, nothing of ``repro``, CUDA by default.
 
   * an AST scan of every module under ``src/repro_torch/`` and of the
-    scripts ``chip_smoke.py`` and ``engine_probe.py`` finds no import of
-    ``jax`` or of ``repro``;
+    scripts ``chip_smoke.py``, ``engine_probe.py`` and
+    ``examples/train_graphsage_torch.py`` finds no import of ``jax`` or of
+    ``repro``;
   * importing the port in a fresh interpreter leaves both out of
     ``sys.modules``;
   * an entry point called without ``device`` runs on CUDA, so with no
@@ -40,6 +41,7 @@ def _imports(path):
 def test_no_jax_or_reference_imports_in_source():
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "engine_probe.py",
+        ROOT / "examples" / "train_graphsage_torch.py",
     ]
     assert len(files) > 10
     bad = [
@@ -55,7 +57,8 @@ def test_import_leaves_jax_and_reference_unloaded():
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.convert, repro_torch.core\n"
-        "import repro_torch.kernels.waterfill\n"
+        "import repro_torch.kernels.waterfill, repro_torch.kernels.sage_aggregate\n"
+        "import repro_torch.data, repro_torch.models\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
@@ -99,3 +102,45 @@ def test_default_device_is_cuda(monkeypatch):
         plan(wl, cluster, realization=r, budget=2, sim_iters=2)
     # explicitly asking for the CPU works
     assert simulate_torch(wl, cluster, p, r, device="cpu").makespan > 0
+
+
+def test_graphsage_defaults_to_cuda(monkeypatch):
+    """The model, the batch loader and the example run on CUDA unless asked
+    for the CPU; without a card they raise.  The aggregation follows its
+    tensors: a CUDA tensor launches the kernel (a card is needed even to
+    make one), a tensor on another device raises, and only a CPU tensor
+    takes the plain version."""
+    import importlib.util
+
+    import numpy as np
+
+    from repro_torch.kernels.sage_aggregate import sage_aggregate
+    from repro_torch.models import GraphSAGE, SageConfig, batch_to
+
+    spec = importlib.util.spec_from_file_location(
+        "train_graphsage_torch", ROOT / "examples" / "train_graphsage_torch.py"
+    )
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+
+    cfg = SageConfig(in_dim=4, hidden=8, n_classes=3, n_layers=1)
+    feats = np.zeros((3, 4), np.float32)
+    blocks = [np.array([[1, 2], [-1, -1]], np.int32)]
+    labels = np.zeros(2, np.int64)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        GraphSAGE(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        batch_to(feats, blocks, labels)
+    with pytest.raises(RuntimeError, match="cuda"):
+        example.main(["--steps", "1"])
+    x = torch.zeros(3, 4)
+    idx = torch.tensor(blocks[0])
+    with pytest.raises(ValueError, match="no sage_aggregate kernel"):
+        sage_aggregate(x.to("meta"), idx.to("meta"))
+    # explicitly asking for the CPU works, and launches no kernel
+    before = sage_aggregate.launches
+    model = GraphSAGE(cfg, device="cpu")
+    batch = batch_to(feats, blocks, labels, device="cpu")
+    assert model(batch["feats"], batch["blocks"]).shape == (2, 3)
+    assert sage_aggregate.launches == before
