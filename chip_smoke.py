@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py        # on a machine with one CUDA card
 
-Drives the port's two paths on the card, DGTP planning and GraphSAGE
-training, and holds them against the port's own CPU path and against the
-plain version of every kernel.  Phases, in order; any failure ends the
-run with a non-zero exit:
+Drives the port's three paths on the card, DGTP planning, GraphSAGE
+training and LM serving, and holds them against the port's own CPU path
+and against the plain version of every kernel.  Phases, in order; any
+failure ends the run with a non-zero exit:
 
-  1. build both kernels (waterfill, sage_aggregate) from
+  1. build the three kernels (waterfill, sage_aggregate, flash_attention) from
      ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one nvcc per
      source, all started together;
   2. the kernel against its plain version on the card, at every shape
@@ -35,17 +35,34 @@ run with a non-zero exit:
      steps, the measured-traffic calibration and
      ``plan_baseline("distdgl")`` (its fifo commit launches waterfill);
      then one profiled step (the device's busy share);
-  7. the kernel table's JSON line, the card's name and power limit, and
+  7. LM serving (internlm2-1.8b, bf16, random weights from a seeded
+     generator on the card): the attention kernel against its plain
+     version at the five sweep shapes of ``tests/test_kernels.py``, the
+     prefill shape q [4, 16, 2048, 128] over 8 KV heads and the decode
+     shape q [8, 16, 1, 128] against a [8, 2048, 8, 128] cache at three
+     positions (fp32 within 2e-5, bf16 within 2e-2), with times beside
+     its bound and ``F.scaled_dot_product_attention``; ``prefill`` of
+     4 x 2048 tokens through the kernel against the same with the plain
+     attention; 2 layers at full width in fp32 on the card against the
+     CPU, and decode against forward; decode against forward at full
+     depth in bf16; then ``ServeEngine`` (16 requests, 8 slots, smax
+     2048, 128 new tokens each) and one profiled tick;
+  8. the kernel table's JSON line, the card's name and power limit, and
      the closing status line.
 
-Two main paths, each with the kernel launch counts set to 0 just before
-it and read just after: phases 3-4 (planning) and the training steps,
-calibration and baseline plan of phase 6 (GraphSAGE).  Each phase's
-seconds are printed on a ``[time]`` line.  Imports nothing of JAX or of
-the ``repro`` package.
+Three main paths, each with the kernel launch counts set to 0 just
+before it and read just after: phases 3-4 (planning), the training
+steps, calibration and baseline plan of phase 6 (GraphSAGE), and the
+``ServeEngine`` run of phase 7 (LM serving).  Each phase's seconds are
+printed on a ``[time]`` line.  ``--only lm_serve`` builds the kernels
+and runs phase 7 alone (for work on that path; it prints no closing
+status line).  Imports nothing of JAX or of the ``repro`` package.
 """
 from __future__ import annotations
 
+import argparse
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -78,6 +95,26 @@ SAGE_FANOUTS = (5, 10, 15)
 SAGE_STEPS = 5
 SAGE_ATOL = 1e-4  # card against CPU: logits, loss and gradients
 BF16_ATOL = 3e-2  # the JAX package's kernel sweep tolerance for bf16
+# LM serving phase: the default arch of launch/serve.py at full width
+LM_ARCH = "internlm2-1.8b"
+LM_PREFILL = (4, 2048)  # sequences, tokens
+LM_REQUESTS, LM_SLOTS, LM_SMAX, LM_MAX_TOKENS = 16, 8, 2048, 128
+# the attention sweep of tests/test_kernels.py and its tolerances
+FLASH_SWEEP = [  # (b, h, sq, sk, d, causal, window, softcap)
+    (1, 2, 256, 256, 64, True, None, None),
+    (2, 1, 128, 256, 128, True, 64, None),
+    (1, 2, 256, 256, 64, True, None, 30.0),
+    (1, 1, 128, 128, 64, False, None, None),
+    (2, 2, 384, 384, 32, True, 128, 50.0),
+]
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+DECODE_POSITIONS = (0, 1023, 2047)
+BF16_FLOP_PER_S = 989e12  # H100 SXM, dense tensor cores
+# 2 layers at full width in fp32, card against CPU: only the order of the
+# sums differs (cuBLAS and the kernel against the CPU's BLAS and the plain
+# version), ~1e-6 relative in fp32; 1e-3 on values of order 1-10 leaves
+# room for the 2048- and 8192-long dot products over 2 layers
+LM_FP32_ATOL = 1e-3
 
 
 def _jobs():
@@ -695,33 +732,362 @@ def phase_sage(sa, wf):
     return kern, launches
 
 
+@contextlib.contextmanager
+def _plain_attention():
+    """The model's attention through the kernel's plain version, on the
+    card (a check only: the port always calls the kernel)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers as ly
+
+    saved = ly.flash_attention
+    ly.flash_attention = fa.flash_attention_plain
+    try:
+        yield
+    finally:
+        ly.flash_attention = saved
+
+
+def _flash_qkv(seed, B, H, KV, Sq, Sk, D, dtype):
+    """Seeded q [B, H, Sq, D] and k, v [B, KV, Sk, D] on the card, as views
+    of [B, S, N, D] tensors (the layout the model hands the kernel)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(S, N):
+        return torch.randn(B, S, N, D, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+
+    return draw(Sq, H), draw(Sk, KV), draw(Sk, KV)
+
+
+def _flash_bound(B, H, KV, Sq, D, n_pairs, n_keys, elt):
+    """Least time on the card: 4 D flops per unmasked (q, k) pair at the
+    bf16 tensor-core peak, against q and o written or read once and the
+    K and V positions the queries see read once, at the HBM rate."""
+    flops = 4 * D * n_pairs
+    n_bytes = elt * (2 * B * H * Sq * D + 2 * B * KV * n_keys * D)
+    ops_ms = flops / BF16_FLOP_PER_S * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), flops, n_bytes
+
+
+def phase_flash_kernel(fa):
+    """The attention kernel against its plain version at the sweep, prefill
+    and decode shapes (fp32 and bf16), and its times at the prefill and
+    decode shapes in bf16.  Returns the JSON numbers: the decode at the
+    full cache (position 2047), the serving path's launch."""
+    import torch
+    import torch.nn.functional as F
+
+    worst = 0.0
+    checks = []
+    for i, (b, h, sq, sk, d, causal, window, softcap) in enumerate(FLASH_SWEEP):
+        checks.append((f"sweep {i}", (b, h, h, sq, sk, d), dict(
+            causal=causal, window=window, softcap=softcap)))
+    B, S = LM_PREFILL
+    checks.append(("prefill", (B, 16, 8, S, S, 128), dict(causal=True)))
+    for pos in DECODE_POSITIONS:
+        checks.append((f"decode pos {pos}", (LM_SLOTS, 16, 8, 1, LM_SMAX, 128),
+                       dict(causal=True, q_offset=pos)))
+    for seed, (label, shape, kw) in enumerate(checks):
+        errs = {}
+        for dtype in ("float32", "bfloat16"):
+            q, k, v = _flash_qkv(seed, *shape, getattr(torch, dtype))
+            got = fa.flash_attention(q, k, v, **kw)
+            want = fa.flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            if not err <= FLASH_TOL[dtype]:
+                raise AssertionError(f"flash kernel != plain at {label} {dtype}: "
+                                     f"max err {err} (tol {FLASH_TOL[dtype]})")
+            errs[dtype] = err
+            worst = max(worst, err) if dtype == "float32" else worst
+            del q, k, v, got, want
+        print(f"[flash kernel] {label}: q {shape[:2] + shape[3:4] + shape[5:]} "
+              f"over {shape[2]} KV heads x {shape[4]} keys, {kw}: max err fp32 "
+              f"{errs['float32']:.3g}, bf16 {errs['bfloat16']:.3g}", flush=True)
+
+    # times in bf16 (the model's dtype), L2 flushed before each call
+    timed = [("prefill", (B, 16, 8, S, S, 128), dict(causal=True), None)]
+    timed += [(f"decode pos {pos}", (LM_SLOTS, 16, 8, 1, LM_SMAX, 128),
+               dict(causal=True, q_offset=pos), pos) for pos in DECODE_POSITIONS]
+    rows = {}
+    for label, (b, h, kv, sq, sk, d), kw, pos in timed:
+        q, k, v = _flash_qkv(7, b, h, kv, sq, sk, d, torch.bfloat16)
+        kernel = lambda: fa.flash_attention(q, k, v, **kw)
+        plain = lambda: fa.flash_attention_plain(q, k, v, **kw)
+        if pos is None:
+            lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                         enable_gqa=True)
+        else:  # the one query row sees keys 0..pos
+            kk, vv = k[:, :, : pos + 1], v[:, :, : pos + 1]
+            lib = lambda: F.scaled_dot_product_attention(q, kk, vv, enable_gqa=True)
+        err_lib = (lib().float() - plain().float()).abs().max().item()
+        ms = _device_ms(kernel, 10 if pos is None else 50, flush=True)
+        plain_ms = _device_ms(plain, 2 if pos is None else 10, flush=True)
+        library_ms = _device_ms(lib, 10 if pos is None else 50, flush=True)
+        mask = fa.causal_mask(sq, sk, kw.get("window"), kw.get("q_offset", 0),
+                              kw["causal"], device="cuda")
+        n_pairs = b * h * int(mask.sum().item())
+        n_keys = int(mask.any(0).sum().item())
+        bound, by, flops, n_bytes = _flash_bound(b, h, kv, sq, d, n_pairs, n_keys, 2)
+        print(
+            f"[flash kernel] {label} bf16: device time per call, L2 flushed: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"scaled_dot_product_attention {library_ms:.4f} ms (max diff to "
+            f"plain {err_lib:.3g}); bound {bound:.6f} ms by {by} ({flops} "
+            f"flops, {n_bytes} bytes; {100 * bound / ms:.1f}% of the kernel's "
+            f"time)", flush=True)
+        rows[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound, bound_by=by)
+        del q, k, v
+    out = dict(rows[f"decode pos {DECODE_POSITIONS[-1]}"])
+    out["max_abs_err"] = worst
+    return out
+
+
+def phase_lm(fa):
+    """internlm2-1.8b on the card: prefill through the kernel against the
+    plain attention, fp32 card against CPU at 2 layers, decode against
+    forward, then the main path (ServeEngine, counts set to 0 just before
+    and read just after) and one profiled tick.  Returns the path's
+    flash launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import TransformerLM
+    from repro_torch.serve import Request, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    model = TransformerLM(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, head_dim "
+          f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab} padded to {model.vp}; "
+          f"{n_params} parameters in {cfg.dtype} (param_count {cfg.param_count()}), "
+          f"initialised on the card in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # prefill of 4 x 2048 tokens: the kernel against the plain attention
+    B, S = LM_PREFILL
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+    before = fa.flash_attention.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = model.prefill(toks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_launch = fa.flash_attention.launches - before
+    with _plain_attention():
+        want = model.prefill(toks)
+    if not (torch.isfinite(got[:, : cfg.vocab]).all() and got.shape == (B, model.vp)):
+        raise AssertionError("prefill logits not finite or of the wrong shape")
+    if n_launch != cfg.n_layers:
+        raise AssertionError(f"prefill launched the kernel {n_launch} times")
+    d_pre = (got - want)[:, : cfg.vocab].abs().max().item()
+    agree = int((got.argmax(-1) == want.argmax(-1)).sum().item())
+    print(f"[lm] prefill {B} x {S} tokens, bf16: {wall:.3f} s (first call), "
+          f"{n_launch} kernel launches; against the plain attention: max abs "
+          f"logit diff {d_pre:.4g} (logits in [{got[:, :cfg.vocab].min().item():.3f}, "
+          f"{got[:, :cfg.vocab].max().item():.3f}]), argmax agrees on {agree} of "
+          f"{B}", flush=True)
+
+    # 2 layers at full width in fp32: the card's kernel path against the
+    # CPU's plain path, and decode against forward on the card
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    cpu_m = TransformerLM(cfg2, device="cpu").init(torch.Generator().manual_seed(2))
+    card_m = TransformerLM(cfg2, device="cuda")
+    card_m.load_state_dict(cpu_m.state_dict())
+    toks2 = torch.randint(0, cfg.vocab, (2, 256), generator=torch.Generator().manual_seed(3))
+    h_card = card_m.forward(toks2.cuda()).cpu()
+    h_cpu = cpu_m.forward(toks2)
+    l_card, l_cpu = card_m.prefill(toks2.cuda()).cpu(), cpu_m.prefill(toks2)
+    d_h = (h_card - h_cpu).abs().max().item()
+    d_l = (l_card - l_cpu)[:, : cfg.vocab].abs().max().item()
+    print(f"[lm] 2 layers, full width, fp32, 2 x 256 tokens: card (kernel) vs "
+          f"cpu (plain): hidden max diff {d_h:.3g}, last logits max diff "
+          f"{d_l:.3g} (atol {LM_FP32_ATOL})", flush=True)
+    if not max(d_h, d_l) <= LM_FP32_ATOL:
+        raise AssertionError("the card's fp32 LM disagrees with the CPU's")
+    del cpu_m
+
+    def decode_vs_forward(m, n_pos, batch):
+        tk = torch.randint(0, cfg.vocab, (batch, n_pos),
+                           generator=torch.Generator().manual_seed(4)).cuda()
+        full = m._logits(m.forward(tk))[..., : cfg.vocab]
+        cache = m.cache_struct(batch, n_pos)
+        errs, agree = [], 0
+        for t in range(n_pos):
+            cache, lg = m.decode_step(cache, tk[:, t], t)
+            lg = lg[:, : cfg.vocab]
+            errs.append((lg - full[:, t]).abs().max().item())
+            agree += int((lg.argmax(-1) == full[:, t].argmax(-1)).all().item())
+        return errs, agree
+
+    errs, agree = decode_vs_forward(card_m, 16, 2)
+    print(f"[lm] decode vs forward, 2 layers fp32 on the card, 16 positions: "
+          f"max err per position {' '.join(f'{e:.2g}' for e in errs)}; argmax "
+          f"agrees at {agree} of 16", flush=True)
+    if not (errs[0] < 1e-3 and max(errs) < 1e-2 and agree == 16):
+        raise AssertionError("fp32 decode disagrees with the forward")
+    del card_m
+    errs, agree = decode_vs_forward(model, 16, LM_SLOTS)
+    print(f"[lm] decode vs forward, {cfg.n_layers} layers bf16, {LM_SLOTS} "
+          f"sequences, 16 positions: max err per position "
+          f"{' '.join(f'{e:.2g}' for e in errs)}; argmax agrees on all "
+          f"sequences at {agree} of 16 positions", flush=True)
+    if not all(np.isfinite(errs)):
+        raise AssertionError("bf16 decode or forward not finite")
+
+    # the main path: ServeEngine at launch/serve.py's defaults, smax 2048
+    # and 128 new tokens each
+    def requests(n, max_tokens):
+        return [Request(rid=i, prompt=[1 + i % 13, 2, 3], max_tokens=max_tokens)
+                for i in range(n)]
+
+    engine = ServeEngine(model, n_slots=LM_SLOTS, smax=LM_SMAX)
+    reqs = requests(LM_REQUESTS, LM_MAX_TOKENS)
+    for r in reqs:
+        engine.submit(r)
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = 0
+    stats = engine.run()
+    launches = fa.flash_attention.launches
+    ms_tick = 1e3 * stats["wall_s"] / stats["ticks"]
+    print(f"[lm serve] {LM_REQUESTS} requests, {LM_SLOTS} slots, smax {LM_SMAX}, "
+          f"{LM_MAX_TOKENS} new tokens each: {stats['tokens']} tokens over "
+          f"{stats['ticks']} ticks in {stats['wall_s']:.3f} s: "
+          f"{stats['tok_per_s']:.1f} tokens/s, {ms_tick:.3f} ms per tick; "
+          f"flash launches {launches} ({launches / stats['ticks']:.1f} per tick)",
+          flush=True)
+    if launches == 0:
+        raise AssertionError("the serving path never launched flash_attention")
+    if launches != cfg.n_layers * stats["ticks"]:
+        raise AssertionError(f"expected {cfg.n_layers} launches per tick")
+    if not all(r.done for r in reqs) or stats["tokens"] != LM_REQUESTS * (LM_MAX_TOKENS + 1):
+        raise AssertionError("the engine did not finish every request")
+    if not all(0 <= t < cfg.vocab for r in reqs for t in r.out):
+        raise AssertionError("the engine emitted a token outside the vocabulary")
+    # the first wave (admitted at position 0, on a clean cache) against a
+    # teacher-forced forward of the same sequences
+    first = reqs[:LM_SLOTS]
+    seqs = torch.tensor([r.prompt[:1] + r.out for r in first], device="cuda")
+    with torch.no_grad():
+        pred = model._logits(model.forward(seqs[:, :-1]))[..., : cfg.vocab].argmax(-1)
+    gen_from = len(first[0].prompt) - 1  # positions whose next token was generated
+    tf_agree = (pred[:, gen_from:] == seqs[:, gen_from + 1:]).float().mean().item()
+    print(f"[lm serve] first wave's {seqs.shape[1] - 1 - gen_from} generated "
+          f"tokens per request against a teacher-forced bf16 forward: "
+          f"{100 * tf_agree:.1f}% agree", flush=True)
+
+    # one profiled tick (8 busy slots, past the prompt feed)
+    engine = ServeEngine(model, n_slots=LM_SLOTS, smax=LM_SMAX)
+    for r in requests(LM_SLOTS, 16):
+        engine.submit(r)
+    for _ in range(4):
+        engine.tick()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.tick()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(
+        (a for a in prof.key_averages() if a.device_type == DeviceType.CUDA),
+        key=_device_us, reverse=True,
+    )
+    dev_ms = sum(_device_us(a) for a in rows) / 1e3
+    n_kernels = sum(a.count for a in rows)
+    print(f"[lm profile] one tick at position {engine.pos - 1}: wall {1e3 * wall:.3f} "
+          f"ms profiled, device busy {dev_ms:.3f} ms ({100 * dev_ms / 1e3 / wall:.1f}% "
+          f"of the profiled wall, {100 * dev_ms / ms_tick:.1f}% of the engine run's "
+          f"mean tick), {n_kernels} device operations", flush=True)
+    # the tick's device time split: the attention kernel, the matrix
+    # products (cuBLAS), and the rest (copies, casts, norms, RoPE, adds)
+    split = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    for a in rows:
+        key = a.key.lower()
+        part = ("flash_attention" if "flash_decode" in key or "flash_tiled" in key
+                else "matmul" if any(w in key for w in ("gemm", "nvjet", "gemv"))
+                else "other")
+        split[part] += _device_us(a) / 1e3
+    print("[lm profile] device time split: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in split.items()), flush=True)
+    for a in rows[:10]:
+        print(f"[lm profile]   {_device_us(a) / 1e3:9.3f} ms {a.count:5d}x "
+              f"{a.key[:70]}", flush=True)
+    return launches
+
+
 def _phase_done(name, t0):
     print(f"[time] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
     return time.perf_counter()
 
 
-def main() -> int:
+def _flash_entry(flash, launches):
+    return {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:102",
+        "launches": launches,
+        "max_abs_err": flash["max_abs_err"],
+        "ms": flash["ms"],
+        "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound_ms"],
+        "bound_by": flash["bound_by"],
+        "library_ms": flash["library_ms"],
+    }
+
+
+def phase_lm_serve(fa, t):
+    """Phase 7: the attention kernel's checks and times, then the LM."""
+    flash = phase_flash_kernel(fa)
+    t = _phase_done("flash_attention kernel checks and times", t)
+    launches = phase_lm(fa)
+    t = _phase_done("LM serving (internlm2-1.8b: prefill, parity, decode, "
+                    "ServeEngine, profile)", t)
+    return flash, launches, t
+
+
+def main(argv=None) -> int:
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", choices=("lm_serve",), default=None,
+                    help="build the kernels and run this phase alone")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import sage_aggregate as sa
     from repro_torch.kernels import waterfill as wf
 
     t_start = t = time.perf_counter()
     print(f"[device] {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}", flush=True)
-    for src, (_, secs, log) in zip(
-        (wf.SOURCE, sa.SOURCE), _build.build(wf.SOURCE, sa.SOURCE)
-    ):
+    sources = (wf.SOURCE, sa.SOURCE, fa.SOURCE)
+    for src, (_, secs, log) in zip(sources, _build.build(*sources)):
         print(f"[build] {src.name} built in {secs:.1f} s", flush=True)
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"[build] {line.strip()}", flush=True)
-    t = _phase_done("build (both kernels, in parallel)", t)
+    t = _phase_done("build (three kernels, in parallel)", t)
+    if args.only == "lm_serve":
+        flash, flash_launches, t = phase_lm_serve(fa, t)
+        print(json.dumps({"kernels": [_flash_entry(flash, flash_launches)]}))
+        print(f"[done] {time.perf_counter() - t_start:.1f} s (lm_serve only)")
+        return 0
 
     kern = phase_kernel(wf)
     t = _phase_done("waterfill kernel checks", t)
@@ -745,6 +1111,8 @@ def main() -> int:
     sage, sage_launches = phase_sage(sa, wf)
     t = _phase_done("GraphSAGE (graph, kernel checks, parity, training, "
                     "calibration, profile)", t)
+
+    flash, flash_launches, t = phase_lm_serve(fa, t)
 
     line = {
         "kernels": [
@@ -774,10 +1142,12 @@ def main() -> int:
                 "bound_by": sage["bound_by"],
                 "library_ms": sage["library_ms"],
             },
+            _flash_entry(flash, flash_launches),
         ]
     }
     print(f"[launches] planning path: waterfill_fill {launches}; GraphSAGE "
-          f"path: {sage_launches}", flush=True)
+          f"path: {sage_launches}; serving path: flash_attention "
+          f"{flash_launches}", flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(line))
     smi = subprocess.run(

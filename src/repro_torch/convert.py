@@ -5,10 +5,13 @@
 name.  It reads the object's plain fields and numpy arrays by attribute
 (duck-typed), so nothing of ``repro`` is imported; arrays are copied.
 ``sage_from_reference(params, cfg)`` builds the port's ``GraphSAGE`` with
-the weights of the JAX package's ``init_sage`` parameter dict.
+the weights of the JAX package's ``init_sage`` parameter dict, and
+``lm_from_reference(params, cfg)`` the port's dense ``TransformerLM`` with
+those of ``TransformerLM.init``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Mapping
 
 import numpy as np
@@ -17,7 +20,9 @@ import torch
 from .core.cluster import ClusterSpec, Machine, Placement, TaskSpec
 from .core.engine import DeviceLike
 from .core.workload import Edge, Realization, TrafficModel, Workload
+from .models.config import BLOCK_PATTERNS, LMConfig
 from .models.gnn import GraphSAGE, SageConfig
+from .models.model import TransformerLM
 
 
 def _traffic(t: Any) -> TrafficModel:
@@ -97,4 +102,46 @@ def sage_from_reference(
             lin.weight.copy_(_t(params[f"w{l}"]).T)
             lin.bias.copy_(_t(params[f"b{l}"]))
         model.head.weight.copy_(_t(params["head"]).T)
+    return model
+
+
+def lm_config_from_reference(cfg: Any) -> LMConfig:
+    """The port's ``LMConfig`` of a reference ``ModelConfig``: every field
+    the port has, read by name.  Raises ``NotImplementedError`` for a
+    block pattern, MoE, SSM or frontend that the port does not run."""
+    if (cfg.block_pattern not in BLOCK_PATTERNS or cfg.moe is not None
+            or cfg.ssm is not None or cfg.frontend is not None):
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs the {BLOCK_PATTERNS} block pattern "
+            f"without MoE, SSM or frontend; got {cfg.block_pattern!r}"
+        )
+    return LMConfig(**{f.name: getattr(cfg, f.name)
+                       for f in dataclasses.fields(LMConfig)})
+
+
+def lm_from_reference(
+    params: Mapping[str, Any], cfg: Any, *, device: DeviceLike = None,
+) -> TransformerLM:
+    """The port's TransformerLM holding the reference's weights.
+
+    ``params`` is the pytree of the reference's ``TransformerLM.init``
+    (blocks stacked over layers on axis 0; ``final_norm`` stacked over
+    one), as arrays of any float dtype; each is read as fp32 and cast to
+    the parameter's dtype (exact for bf16 weights)."""
+    model = TransformerLM(lm_config_from_reference(cfg), device=device)
+
+    def put(dst: torch.Tensor, src: Any) -> None:
+        dst.copy_(torch.from_numpy(np.array(src, dtype=np.float32)))
+
+    with torch.no_grad():
+        put(model.embed, params["embed"])
+        if model.head is not None:
+            put(model.head, params["head"])
+        for name, w in model.final_norm.items():
+            put(w, params["final_norm"][name][0])
+        blocks = params["blocks"]
+        for l, blk in enumerate(model.blocks):
+            for group in ("attn", "mlp", "ln_attn", "ln_mlp"):
+                for name, w in blk[group].items():
+                    put(w, blocks[group][name][l])
     return model

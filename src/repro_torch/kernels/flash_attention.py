@@ -1,0 +1,194 @@
+"""Attention forward: a CUDA kernel and its plain version.
+
+``flash_attention(q, k, v, causal=, window=, softcap=, scale=, q_offset=)``
+is the port of the JAX package's Pallas kernel
+``repro.kernels.flash_attention.flash_attention`` and of its wrapper
+``repro.kernels.ops.flash_attention``: q [B, H, Sq, D], k and v [B, KV,
+Sk, D] with ``H % KV == 0`` -> [B, H, Sq, D] in q's dtype, where query
+head h reads KV head ``h // (H // KV)`` (the grouping of
+``repro.models.layers._attend``).  The TPU kernel takes K and V already
+repeated to H heads; this function of grouped heads equals it applied to
+``k.repeat_interleave(H // KV, 1)``.
+
+  * on CUDA tensors it launches ``csrc/flash_attention.cu`` (a tiled
+    kernel for prefill, a key-parallel one for Sq == 1), built with
+    ``nvcc`` for ``sm_90a`` into ``build/`` at first use and loaded with
+    ``ctypes``; the tensors are read through their strides, so views of
+    the model's [B, S, N, D] projections and of the [B, Smax, KV, D]
+    cache are neither copied nor transposed;
+  * on CPU tensors it runs ``flash_attention_plain``, the oracle
+    ``repro.kernels.ref.flash_attention_ref`` written out in torch: fp32
+    scores, masked entries set to -1e30, a softmax, and weights rounded
+    to v's dtype before the product with v.
+
+There is no fallback between the two: a CUDA tensor launches the kernel
+or raises.  Each launch adds one to ``flash_attention.launches``.  There
+is no backward yet (ROADMAP Queue 2 item 3b): an input that requires a
+gradient is refused.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+# dtype codes of the C interface
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 96, 128)
+NEG_INF = -1e30  # the masked score of the TPU kernel and of the oracle
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def build() -> Tuple[Path, float, str]:
+    """Compile the kernel if its library is missing; returns
+    ``(library path, build seconds, compiler output)``."""
+    return _build.build(SOURCE)[0]
+
+
+def _library() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        path, _, _ = build()
+        lib = ctypes.CDLL(str(path))
+        vp, ci, ll, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        lib.repro_flash_attention.argtypes = (
+            [vp] * 4 + [ll] * 12 + [ci] * 6 + [cf, cf] + [ci] * 4 + [vp]
+        )
+        lib.repro_flash_attention.restype = ci
+        _LIB = lib
+    return _LIB
+
+
+def causal_mask(sq: int, sk: int, window: Optional[int], offset: int = 0,
+                causal: bool = True, device=None) -> torch.Tensor:
+    """[Sq, Sk] boolean mask of the keys each query sees: ``offset`` is the
+    absolute position of query 0 (for decode, the write position); with
+    ``causal`` key j <= query i + offset, with ``window`` also
+    j > i + offset - window."""
+    iq = torch.arange(sq, device=device)[:, None] + offset
+    jk = torch.arange(sk, device=device)[None, :]
+    m = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        m &= jk <= iq
+    if window is not None:
+        m &= jk > iq - window
+    return m
+
+
+def flash_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, window: Optional[int] = None,
+    softcap: Optional[float] = None, scale: Optional[float] = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """The same function as the kernel, written out plainly, for tensors
+    on any device (the oracle's formula, with grouped KV heads)."""
+    d = q.shape[-1]
+    group = q.shape[1] // k.shape[1]
+    scale = scale if scale is not None else d**-0.5
+    kr = k.repeat_interleave(group, dim=1)
+    vr = v.repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr.float()) * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    mask = causal_mask(q.shape[2], k.shape[2], window, q_offset, causal,
+                       device=q.device)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), vr.float())
+    return out.to(q.dtype)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: Optional[int], softcap: Optional[float], q_offset: int) -> None:
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be 4-D, got {tuple(t.shape)}")
+        if t.requires_grad and torch.is_grad_enabled():
+            raise NotImplementedError(
+                "flash_attention has no backward yet (ROADMAP Queue 2 item 3b)"
+            )
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    B, H, _, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if k.shape[1] == 0 or H % k.shape[1] != 0:
+        raise ValueError(f"{H} query heads do not group over {k.shape[1]} KV heads")
+    if k.shape[2] == 0:
+        raise ValueError("no keys")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+    if softcap is not None and softcap < 0:
+        raise ValueError(f"softcap must be > 0 or None, got {softcap}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+
+
+def _launch(q, k, v, causal, window, softcap, scale, q_offset) -> torch.Tensor:
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dimension {D} not in the kernel's {HEAD_DIMS}")
+    if max(q.stride(3), k.stride(3), v.stride(3)) != 1:
+        raise ValueError("the head dimension of q, k and v must be contiguous")
+    if max(Sq, Sk) + q_offset >= 2**31:
+        raise ValueError("positions too large for the kernel's int32 indices")
+    # the output in q's memory layout (a [B, S, H, D] view stays one)
+    o = torch.empty_like(q)
+    if o.stride(3) != 1:
+        o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    # a window that reaches past key 0 from the last query masks nothing
+    win = window if window is not None and window <= Sq + q_offset else 0
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+            B, H, KV, Sq, Sk, D, float(scale), float(softcap or 0.0),
+            int(causal), int(win), int(q_offset), _DTYPES[q.dtype], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: error {err}")
+    flash_attention.launches += 1
+    return o
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, window: Optional[int] = None,
+    softcap: Optional[float] = None, scale: Optional[float] = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """softmax(mask(softcap(scale * q k^T))) v over grouped KV heads.
+
+    q [B, H, Sq, D], k and v [B, KV, Sk, D], float32 or bfloat16, any
+    strides with the last dimension contiguous; query position i is
+    ``i + q_offset``, key position j is j.  ``scale`` defaults to
+    D**-0.5.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel (D in ``HEAD_DIMS``)."""
+    _check(q, k, v, window, softcap, q_offset)
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, scale=scale,
+                                     q_offset=q_offset)
+    if q.device.type == "cuda":
+        return _launch(q, k, v, causal, window, softcap, scale, q_offset)
+    raise ValueError(f"no flash_attention kernel for device {q.device}")
+
+
+flash_attention.launches = 0  # type: ignore[attr-defined]

@@ -7,7 +7,9 @@
   * importing the port in a fresh interpreter leaves both out of
     ``sys.modules``;
   * an entry point called without ``device`` runs on CUDA, so with no
-    card present it raises instead of falling back to the CPU.
+    card present it raises instead of falling back to the CPU (the
+    planner, GraphSAGE and its example, the LM and
+    ``repro_torch.launch.serve``).
 """
 import ast
 import os
@@ -59,6 +61,8 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import repro_torch, repro_torch.convert, repro_torch.core\n"
         "import repro_torch.kernels.waterfill, repro_torch.kernels.sage_aggregate\n"
         "import repro_torch.data, repro_torch.models\n"
+        "import repro_torch.kernels.flash_attention, repro_torch.configs\n"
+        "import repro_torch.serve, repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
@@ -144,3 +148,29 @@ def test_graphsage_defaults_to_cuda(monkeypatch):
     batch = batch_to(feats, blocks, labels, device="cpu")
     assert model(batch["feats"], batch["blocks"]).shape == (2, 3)
     assert sage_aggregate.launches == before
+
+
+def test_lm_serving_defaults_to_cuda(monkeypatch):
+    """The LM, its serving driver and the attention follow the same rule:
+    without ``device`` they run on CUDA and raise with no card; a tensor
+    on neither the CPU nor a card raises; only the CPU takes the plain
+    version, and launches nothing."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import serve
+    from repro_torch.models import TransformerLM
+
+    cfg = get_smoke_config("internlm2-1.8b")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TransformerLM(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--smoke", "--requests", "1"])
+    q = torch.zeros(1, 2, 4, 16)
+    with pytest.raises(ValueError, match="no flash_attention kernel"):
+        flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+    before = flash_attention.launches
+    stats = serve.main(["--smoke", "--device", "cpu", "--requests", "2",
+                        "--max-tokens", "2"])
+    assert stats["tokens"] == 2 * 3
+    assert flash_attention.launches == before

@@ -1,0 +1,81 @@
+"""The port's ServeEngine against the JAX package's, and its driver.
+
+On the same fp32 weights (carried across with ``convert.lm_from_reference``)
+the two engines, fed the same requests, emit the same tokens: identical
+``out`` lists for every request and identical tick and token counts.
+Both make the reference's choices (admission order, token-by-token prompt
+feed, greedy argmax, one lock-step ``pos``, caches not reset on admit),
+so a request admitted into a used slot reads what its predecessor left;
+6 requests over 4 slots exercise that.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+from repro.configs import get_smoke_config
+from repro.models import build_model
+from repro.serve.engine import Request as RefRequest
+from repro.serve.engine import ServeEngine as RefEngine
+from repro.sharding import single_device_ctx
+from repro_torch.convert import lm_from_reference
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.launch import serve as port_serve
+from repro_torch.serve import Request, ServeEngine
+
+
+def _requests(cls, n, max_tokens):
+    return [cls(rid=i, prompt=[1 + i % 13, 2, 3], max_tokens=max_tokens)
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "starcoder2-3b"])
+def test_engine_emits_reference_tokens(arch):
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    model = build_model(cfg, single_device_ctx())
+    params = model.init(jax.random.key(0))
+    ref = RefEngine(model, params, n_slots=4, smax=32)
+    port = ServeEngine(lm_from_reference(params, cfg, device="cpu"),
+                       n_slots=4, smax=32)
+    ref_reqs, port_reqs = _requests(RefRequest, 6, 5), _requests(Request, 6, 5)
+    for r, p in zip(ref_reqs, port_reqs):
+        ref.submit(r)
+        port.submit(p)
+    want, got = ref.run(), port.run()
+    assert [p.out for p in port_reqs] == [r.out for r in ref_reqs]
+    assert all(p.done for p in port_reqs)
+    assert (got["ticks"], got["tokens"]) == (want["ticks"], want["tokens"])
+    # the reference counts the fed-back prompt tokens toward max_tokens,
+    # so a 3-token prompt ends after max_tokens + 1 generated tokens
+    assert port.pos == ref.pos and got["tokens"] == 6 * (5 + 1)
+
+
+def test_engine_stops_at_smax():
+    """A cache that fills stops the engine, as in the reference."""
+    cfg = dataclasses.replace(get_smoke_config("phi3-mini-3.8b"), dtype="float32")
+    model = build_model(cfg, single_device_ctx())
+    params = model.init(jax.random.key(1))
+    ref = RefEngine(model, params, n_slots=2, smax=8)
+    port = ServeEngine(lm_from_reference(params, cfg, device="cpu"), n_slots=2, smax=8)
+    ref_reqs, port_reqs = _requests(RefRequest, 3, 20), _requests(Request, 3, 20)
+    for r, p in zip(ref_reqs, port_reqs):
+        ref.submit(r)
+        port.submit(p)
+    want, got = ref.run(), port.run()
+    assert got["ticks"] == want["ticks"] == 8
+    assert [p.out for p in port_reqs] == [r.out for r in ref_reqs]
+    assert len(port.queue) == 1 and not port_reqs[0].done
+
+
+def test_serve_driver_on_cpu(capsys):
+    """``python -m repro_torch.launch.serve --smoke --device cpu``: the
+    reference's defaults (16 requests, 8 slots, smax 128, 16 new tokens
+    each) on the CPU, through the attention's plain version."""
+    before = flash_attention.launches
+    stats = port_serve.main(["--smoke", "--device", "cpu", "--seed", "3"])
+    assert flash_attention.launches == before
+    assert stats["tokens"] == 16 * (16 + 1) and stats["ticks"] > 0
+    assert "internlm2-smoke" in capsys.readouterr().out
