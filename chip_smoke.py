@@ -3,14 +3,15 @@
 
     python3 chip_smoke.py        # on a machine with one CUDA card
 
-Drives the port's three paths on the card, DGTP planning, GraphSAGE
-training and LM serving, and holds them against the port's own CPU path
-and against the plain version of every kernel.  Phases, in order; any
-failure ends the run with a non-zero exit:
+Drives the port's paths on the card, DGTP planning, GraphSAGE training
+and LM serving (dense, mamba2 and MoE), and holds them against the
+port's own CPU path and against the plain version of every kernel.
+Phases, in order; any failure ends the run with a non-zero exit:
 
-  1. build the three kernels (waterfill, sage_aggregate, flash_attention) from
-     ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one nvcc per
-     source, all started together;
+  1. build the five kernels (waterfill, sage_aggregate, flash_attention,
+     ssd_scan, moe_gemm) from ``src/repro_torch/kernels/csrc`` with nvcc
+     for sm_90a, one nvcc per source, all started together; TF32 off for
+     fp32 products and convolutions;
   2. the kernel against its plain version on the card, at every shape
      the main path gives it (B=1024 with EG=1400, M=16 and with EG=72,
      M=4; B=1 with EG=72, M=4), on inputs with tied priority keys: exact
@@ -47,16 +48,35 @@ failure ends the run with a non-zero exit:
      CPU, and decode against forward; decode against forward at full
      depth in bf16; then ``ServeEngine`` (16 requests, 8 slots, smax
      2048, 128 new tokens each) and one profiled tick;
-  8. the kernel table's JSON line, the card's name and power limit, and
+  8. mamba_serve (mamba2-1.3b, bf16, full width and depth, random
+     weights): the SSD scan kernel against its plain version at the
+     sweep shapes of ``tests/test_kernels.py``, the smoke config's chunk
+     of 32 and the prefill shape x [4, 2048, 64, 64] with d_state 128 and
+     chunk 256, also as views of one projection (fp32 within 1e-4, bf16
+     within 2e-2 of the output's largest magnitude), times at the
+     prefill shape; 2 layers at full width in fp32 on the card against
+     the CPU, and decode against forward; then the prefill of 4 x 2048
+     tokens and ``ServeEngine`` at phase 7's traffic, the prefill against
+     the plain scan, and one profiled tick;
+  9. moe_serve (llama4-scout-17b-a16e, bf16, full width, 8 of its 48
+     layers): the grouped GEMM kernel against its plain version at the
+     sweep shapes (an empty expert, rows past the sum) and the decode
+     (T = 8) and prefill (T = 8192) shapes, times beside the bound and
+     ``torch._grouped_mm``; 2 layers in fp32, kernels against plain
+     versions on the card, and decode against forward; then the prefill
+     and ``ServeEngine`` as in phase 8, and one profiled tick;
+ 10. the kernel table's JSON line, the card's name and power limit, and
      the closing status line.
 
-Three main paths, each with the kernel launch counts set to 0 just
+Five main paths, each with the kernel launch counts set to 0 just
 before it and read just after: phases 3-4 (planning), the training
-steps, calibration and baseline plan of phase 6 (GraphSAGE), and the
-``ServeEngine`` run of phase 7 (LM serving).  Each phase's seconds are
-printed on a ``[time]`` line.  ``--only lm_serve`` builds the kernels
-and runs phase 7 alone (for work on that path; it prints no closing
-status line).  Imports nothing of JAX or of the ``repro`` package.
+steps, calibration and baseline plan of phase 6 (GraphSAGE), the
+``ServeEngine`` run of phase 7 (LM serving), and the prefill followed by
+the ``ServeEngine`` run of phases 8 (mamba2) and 9 (MoE).  Each phase's
+seconds are printed on a ``[time]`` line.  ``--only lm_serve``,
+``mamba_serve`` or ``moe_serve`` builds the kernels and runs that phase
+alone (for work on that path; it prints no closing status line).
+Imports nothing of JAX or of the ``repro`` package.
 """
 from __future__ import annotations
 
@@ -110,6 +130,26 @@ FLASH_SWEEP = [  # (b, h, sq, sk, d, causal, window, softcap)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 DECODE_POSITIONS = (0, 1023, 2047)
 BF16_FLOP_PER_S = 989e12  # H100 SXM, dense tensor cores
+# mamba_serve: mamba2-1.3b at full width and depth, at phase 7's traffic;
+# the scan's sweep shapes of tests/test_kernels.py (b, s, h, hd, ds, chunk)
+MAMBA_ARCH = "mamba2-1.3b"
+SSD_SWEEP = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 64, 64)]
+# moe_serve: llama4-scout at full width and 8 of its 48 layers (its 16
+# experts are 4.03 GB a layer in bf16: 48 layers do not fit one card);
+# the grouped GEMM's sweep shapes of tests/test_kernels.py (t, d, f, e)
+MOE_ARCH = "llama4-scout-17b-a16e"
+MOE_LAYERS = 8
+MOE_SWEEP = [(256, 128, 128, 4), (512, 256, 256, 8)]
+# the new kernels against their plain versions, relative to the output's
+# largest magnitude: fp32 differs only in the order of sums; bf16 rounds
+# the output once (the plain versions round the same fp32 sums)
+KERNEL_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# a bf16 prefill through the kernels against the same prefill through the
+# plain versions, relative to the largest plain logit: only the rounding
+# differs, and it compounds over the layers (2.3% at internlm2-1.8b's 24
+# layers, 5.1% at mamba2-1.3b's 48, 5.8% at llama4-scout's 8, on an NVIDIA
+# H100 80GB HBM3 at 700 W); a wrong kernel moves logits by their own size
+PREFILL_RTOL = 0.1
 # 2 layers at full width in fp32, card against CPU: only the order of the
 # sums differs (cuBLAS and the kernel against the CPU's BLAS and the plain
 # version), ~1e-6 relative in fp32; 1e-3 on values of order 1-10 leaves
@@ -733,18 +773,32 @@ def phase_sage(sa, wf):
 
 
 @contextlib.contextmanager
-def _plain_attention():
-    """The model's attention through the kernel's plain version, on the
-    card (a check only: the port always calls the kernel)."""
+def _plain(*names):
+    """The model's calls of the named kernels ("flash", "ssd", "moe")
+    through their plain versions, on the card (a check only: the port
+    always calls the kernels)."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gemm as mg
+    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.models import layers as ly
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import ssm as ssm_mod
 
-    saved = ly.flash_attention
-    ly.flash_attention = fa.flash_attention_plain
+    sites = {
+        "flash": (ly, "flash_attention", fa.flash_attention_plain),
+        "ssd": (ssm_mod, "ssd_scan",
+                lambda *a, chunk: ss.ssd_scan_plain(*a, chunk=chunk)[0]),
+        "moe": (moe_mod, "moe_grouped_gemm", mg.moe_grouped_gemm_plain),
+    }
+    saved = [(sites[n][0], sites[n][1], getattr(sites[n][0], sites[n][1])) for n in names]
     try:
+        for n in names:
+            mod, attr, plain = sites[n]
+            setattr(mod, attr, plain)
         yield
     finally:
-        ly.flash_attention = saved
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
 
 
 def _flash_qkv(seed, B, H, KV, Sq, Sk, D, dtype):
@@ -771,24 +825,13 @@ def _flash_bound(B, H, KV, Sq, D, n_pairs, n_keys, elt):
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), flops, n_bytes
 
 
-def phase_flash_kernel(fa):
-    """The attention kernel against its plain version at the sweep, prefill
-    and decode shapes (fp32 and bf16), and its times at the prefill and
-    decode shapes in bf16.  Returns the JSON numbers: the decode at the
-    full cache (position 2047), the serving path's launch."""
+def _flash_checks(fa, checks, tag):
+    """Each (label, (B, H, KV, Sq, Sk, D), kwargs) of ``checks`` through
+    the attention kernel against its plain version, fp32 and bf16, within
+    FLASH_TOL.  Returns the largest fp32 error."""
     import torch
-    import torch.nn.functional as F
 
     worst = 0.0
-    checks = []
-    for i, (b, h, sq, sk, d, causal, window, softcap) in enumerate(FLASH_SWEEP):
-        checks.append((f"sweep {i}", (b, h, h, sq, sk, d), dict(
-            causal=causal, window=window, softcap=softcap)))
-    B, S = LM_PREFILL
-    checks.append(("prefill", (B, 16, 8, S, S, 128), dict(causal=True)))
-    for pos in DECODE_POSITIONS:
-        checks.append((f"decode pos {pos}", (LM_SLOTS, 16, 8, 1, LM_SMAX, 128),
-                       dict(causal=True, q_offset=pos)))
     for seed, (label, shape, kw) in enumerate(checks):
         errs = {}
         for dtype in ("float32", "bfloat16"):
@@ -803,11 +846,40 @@ def phase_flash_kernel(fa):
             errs[dtype] = err
             worst = max(worst, err) if dtype == "float32" else worst
             del q, k, v, got, want
-        print(f"[flash kernel] {label}: q {shape[:2] + shape[3:4] + shape[5:]} "
+        print(f"[{tag}] {label}: q {shape[:2] + shape[3:4] + shape[5:]} "
               f"over {shape[2]} KV heads x {shape[4]} keys, {kw}: max err fp32 "
               f"{errs['float32']:.3g}, bf16 {errs['bfloat16']:.3g}", flush=True)
+    return worst
+
+
+def _path_flash_checks(H, KV, D):
+    """The serving paths' attention shapes for H query heads over KV heads
+    of D: the prefill of LM_PREFILL and the decode of LM_SLOTS sequences
+    over an LM_SMAX cache at DECODE_POSITIONS."""
+    B, S = LM_PREFILL
+    checks = [("prefill", (B, H, KV, S, S, D), dict(causal=True))]
+    for pos in DECODE_POSITIONS:
+        checks.append((f"decode pos {pos}", (LM_SLOTS, H, KV, 1, LM_SMAX, D),
+                       dict(causal=True, q_offset=pos)))
+    return checks
+
+
+def phase_flash_kernel(fa):
+    """The attention kernel against its plain version at the sweep, prefill
+    and decode shapes (fp32 and bf16), and its times at the prefill and
+    decode shapes in bf16.  Returns the JSON numbers: the decode at the
+    full cache (position 2047), the serving path's launch."""
+    import torch
+    import torch.nn.functional as F
+
+    checks = []
+    for i, (b, h, sq, sk, d, causal, window, softcap) in enumerate(FLASH_SWEEP):
+        checks.append((f"sweep {i}", (b, h, h, sq, sk, d), dict(
+            causal=causal, window=window, softcap=softcap)))
+    worst = _flash_checks(fa, checks + _path_flash_checks(16, 8, 128), "flash kernel")
 
     # times in bf16 (the model's dtype), L2 flushed before each call
+    B, S = LM_PREFILL
     timed = [("prefill", (B, 16, 8, S, S, 128), dict(causal=True), None)]
     timed += [(f"decode pos {pos}", (LM_SLOTS, 16, 8, 1, LM_SMAX, 128),
                dict(causal=True, q_offset=pos), pos) for pos in DECODE_POSITIONS]
@@ -853,12 +925,9 @@ def phase_lm(fa):
     and read just after) and one profiled tick.  Returns the path's
     flash launches."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.models import TransformerLM
-    from repro_torch.serve import Request, ServeEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -885,7 +954,7 @@ def phase_lm(fa):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n_launch = fa.flash_attention.launches - before
-    with _plain_attention():
+    with _plain("flash"):
         want = model.prefill(toks)
     if not (torch.isfinite(got[:, : cfg.vocab]).all() and got.shape == (B, model.vp)):
         raise AssertionError("prefill logits not finite or of the wrong shape")
@@ -898,6 +967,7 @@ def phase_lm(fa):
           f"logit diff {d_pre:.4g} (logits in [{got[:, :cfg.vocab].min().item():.3f}, "
           f"{got[:, :cfg.vocab].max().item():.3f}]), argmax agrees on {agree} of "
           f"{B}", flush=True)
+    _gate_prefill("lm", d_pre, want[:, : cfg.vocab])
 
     # 2 layers at full width in fp32: the card's kernel path against the
     # CPU's plain path, and decode against forward on the card
@@ -918,27 +988,14 @@ def phase_lm(fa):
         raise AssertionError("the card's fp32 LM disagrees with the CPU's")
     del cpu_m
 
-    def decode_vs_forward(m, n_pos, batch):
-        tk = torch.randint(0, cfg.vocab, (batch, n_pos),
-                           generator=torch.Generator().manual_seed(4)).cuda()
-        full = m._logits(m.forward(tk))[..., : cfg.vocab]
-        cache = m.cache_struct(batch, n_pos)
-        errs, agree = [], 0
-        for t in range(n_pos):
-            cache, lg = m.decode_step(cache, tk[:, t], t)
-            lg = lg[:, : cfg.vocab]
-            errs.append((lg - full[:, t]).abs().max().item())
-            agree += int((lg.argmax(-1) == full[:, t].argmax(-1)).all().item())
-        return errs, agree
-
-    errs, agree = decode_vs_forward(card_m, 16, 2)
+    errs, agree = _decode_vs_forward(card_m, 16, 2)
     print(f"[lm] decode vs forward, 2 layers fp32 on the card, 16 positions: "
           f"max err per position {' '.join(f'{e:.2g}' for e in errs)}; argmax "
           f"agrees at {agree} of 16", flush=True)
     if not (errs[0] < 1e-3 and max(errs) < 1e-2 and agree == 16):
         raise AssertionError("fp32 decode disagrees with the forward")
     del card_m
-    errs, agree = decode_vs_forward(model, 16, LM_SLOTS)
+    errs, agree = _decode_vs_forward(model, 16, LM_SLOTS)
     print(f"[lm] decode vs forward, {cfg.n_layers} layers bf16, {LM_SLOTS} "
           f"sequences, 16 positions: max err per position "
           f"{' '.join(f'{e:.2g}' for e in errs)}; argmax agrees on all "
@@ -948,48 +1005,126 @@ def phase_lm(fa):
 
     # the main path: ServeEngine at launch/serve.py's defaults, smax 2048
     # and 128 new tokens each
-    def requests(n, max_tokens):
-        return [Request(rid=i, prompt=[1 + i % 13, 2, 3], max_tokens=max_tokens)
-                for i in range(n)]
-
-    engine = ServeEngine(model, n_slots=LM_SLOTS, smax=LM_SMAX)
-    reqs = requests(LM_REQUESTS, LM_MAX_TOKENS)
-    for r in reqs:
-        engine.submit(r)
+    engine, reqs = _engine(model)
     torch.cuda.synchronize()
     fa.flash_attention.launches = 0
     stats = engine.run()
     launches = fa.flash_attention.launches
+    ms_tick = _serve_checks("lm serve", model, stats, reqs,
+                            {"flash": (launches, cfg.n_layers)})
+    _teacher_forced("lm serve", model, reqs)
+    _profile_tick("lm profile", model, ms_tick,
+                  {"flash_attention": ("flash_decode", "flash_tiled")})
+    return launches
+
+
+def _gate_prefill(tag, d_pre, want):
+    """Fail unless the kernel path's prefill logits are within PREFILL_RTOL
+    of the largest plain logit (``want``, the vocab's columns)."""
+    lim = PREFILL_RTOL * want.abs().max().item()
+    print(f"[{tag}] prefill against the plain path: max abs logit diff "
+          f"{d_pre:.4g}, limit {lim:.4g} ({PREFILL_RTOL} of the largest plain "
+          f"logit)", flush=True)
+    if not d_pre <= lim:
+        raise AssertionError(f"{tag}: bf16 prefill through the kernels disagrees "
+                             f"with the plain path ({d_pre} > {lim})")
+
+
+def _decode_vs_forward(m, n_pos, batch):
+    """Logits of ``n_pos`` decode steps against the forward's at the same
+    positions (seeded tokens): the max error per position, and the number
+    of positions where the argmax agrees on every sequence."""
+    import torch
+
+    vocab = m.cfg.vocab
+    tk = torch.randint(0, vocab, (batch, n_pos),
+                       generator=torch.Generator().manual_seed(4)).cuda()
+    full = m._logits(m.forward(tk))[..., :vocab]
+    cache = m.cache_struct(batch, n_pos)
+    errs, agree = [], 0
+    for t in range(n_pos):
+        cache, lg = m.decode_step(cache, tk[:, t], t)
+        lg = lg[:, :vocab]
+        errs.append((lg - full[:, t]).abs().max().item())
+        agree += int((lg.argmax(-1) == full[:, t].argmax(-1)).all().item())
+    return errs, agree
+
+
+def _requests(n, max_tokens):
+    from repro_torch.serve import Request
+
+    return [Request(rid=i, prompt=[1 + i % 13, 2, 3], max_tokens=max_tokens)
+            for i in range(n)]
+
+
+def _engine(model):
+    """A ServeEngine at launch/serve.py's defaults (16 requests of
+    ``[1 + i % 13, 2, 3]``, 8 slots) with smax LM_SMAX and LM_MAX_TOKENS
+    new tokens each, the requests submitted."""
+    from repro_torch.serve import ServeEngine
+
+    engine = ServeEngine(model, n_slots=LM_SLOTS, smax=LM_SMAX)
+    reqs = _requests(LM_REQUESTS, LM_MAX_TOKENS)
+    for r in reqs:
+        engine.submit(r)
+    return engine, reqs
+
+
+def _serve_checks(tag, model, stats, reqs, launches):
+    """Prints the engine run's numbers and checks it: every request done
+    with its tokens in the vocabulary, and each kernel of ``launches``
+    (name -> (count, per tick)) launched its count per tick.  Returns the
+    mean ms per tick."""
+    vocab = model.cfg.vocab
     ms_tick = 1e3 * stats["wall_s"] / stats["ticks"]
-    print(f"[lm serve] {LM_REQUESTS} requests, {LM_SLOTS} slots, smax {LM_SMAX}, "
+    counts = ", ".join(f"{k} launches {n} ({n / stats['ticks']:.1f} per tick)"
+                       for k, (n, _) in launches.items())
+    print(f"[{tag}] {LM_REQUESTS} requests, {LM_SLOTS} slots, smax {LM_SMAX}, "
           f"{LM_MAX_TOKENS} new tokens each: {stats['tokens']} tokens over "
           f"{stats['ticks']} ticks in {stats['wall_s']:.3f} s: "
           f"{stats['tok_per_s']:.1f} tokens/s, {ms_tick:.3f} ms per tick; "
-          f"flash launches {launches} ({launches / stats['ticks']:.1f} per tick)",
-          flush=True)
-    if launches == 0:
-        raise AssertionError("the serving path never launched flash_attention")
-    if launches != cfg.n_layers * stats["ticks"]:
-        raise AssertionError(f"expected {cfg.n_layers} launches per tick")
+          f"{counts}", flush=True)
+    for name, (n, per_tick) in launches.items():
+        if n != per_tick * stats["ticks"]:
+            raise AssertionError(f"{tag}: {name} launched {n} times, expected "
+                                 f"{per_tick} per tick")
     if not all(r.done for r in reqs) or stats["tokens"] != LM_REQUESTS * (LM_MAX_TOKENS + 1):
-        raise AssertionError("the engine did not finish every request")
-    if not all(0 <= t < cfg.vocab for r in reqs for t in r.out):
-        raise AssertionError("the engine emitted a token outside the vocabulary")
-    # the first wave (admitted at position 0, on a clean cache) against a
-    # teacher-forced forward of the same sequences
+        raise AssertionError(f"{tag}: the engine did not finish every request")
+    if not all(0 <= t < vocab for r in reqs for t in r.out):
+        raise AssertionError(f"{tag}: the engine emitted a token outside the vocabulary")
+    return ms_tick
+
+
+def _teacher_forced(tag, model, reqs):
+    """The first wave (admitted at position 0, on a clean cache) against a
+    teacher-forced forward of the same sequences."""
+    import torch
+
+    vocab = model.cfg.vocab
     first = reqs[:LM_SLOTS]
     seqs = torch.tensor([r.prompt[:1] + r.out for r in first], device="cuda")
     with torch.no_grad():
-        pred = model._logits(model.forward(seqs[:, :-1]))[..., : cfg.vocab].argmax(-1)
+        pred = model._logits(model.forward(seqs[:, :-1]))[..., :vocab].argmax(-1)
     gen_from = len(first[0].prompt) - 1  # positions whose next token was generated
     tf_agree = (pred[:, gen_from:] == seqs[:, gen_from + 1:]).float().mean().item()
-    print(f"[lm serve] first wave's {seqs.shape[1] - 1 - gen_from} generated "
-          f"tokens per request against a teacher-forced bf16 forward: "
+    print(f"[{tag}] first wave's {seqs.shape[1] - 1 - gen_from} generated "
+          f"tokens per request against a teacher-forced {model.cfg.dtype} forward: "
           f"{100 * tf_agree:.1f}% agree", flush=True)
 
-    # one profiled tick (8 busy slots, past the prompt feed)
+
+def _profile_tick(tag, model, ms_tick, kernels):
+    """One profiled tick (8 busy slots, past the prompt feed): the
+    device's busy share and operation count, and the tick's device time
+    split into the kernels named in ``kernels`` (name -> key substrings),
+    the matrix products (cuBLAS) and the rest (copies, casts, norms, ...)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import ServeEngine
+
     engine = ServeEngine(model, n_slots=LM_SLOTS, smax=LM_SMAX)
-    for r in requests(LM_SLOTS, 16):
+    for r in _requests(LM_SLOTS, 16):
         engine.submit(r)
     for _ in range(4):
         engine.tick()
@@ -1005,46 +1140,524 @@ def phase_lm(fa):
     )
     dev_ms = sum(_device_us(a) for a in rows) / 1e3
     n_kernels = sum(a.count for a in rows)
-    print(f"[lm profile] one tick at position {engine.pos - 1}: wall {1e3 * wall:.3f} "
+    print(f"[{tag}] one tick at position {engine.pos - 1}: wall {1e3 * wall:.3f} "
           f"ms profiled, device busy {dev_ms:.3f} ms ({100 * dev_ms / 1e3 / wall:.1f}% "
           f"of the profiled wall, {100 * dev_ms / ms_tick:.1f}% of the engine run's "
           f"mean tick), {n_kernels} device operations", flush=True)
-    # the tick's device time split: the attention kernel, the matrix
-    # products (cuBLAS), and the rest (copies, casts, norms, RoPE, adds)
-    split = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    split = {name: 0.0 for name in kernels}
+    split.update(matmul=0.0, other=0.0)
     for a in rows:
         key = a.key.lower()
-        part = ("flash_attention" if "flash_decode" in key or "flash_tiled" in key
-                else "matmul" if any(w in key for w in ("gemm", "nvjet", "gemv"))
-                else "other")
+        part = next((name for name, subs in kernels.items()
+                     if any(sub in key for sub in subs)), None)
+        if part is None:
+            part = ("matmul" if any(w in key for w in ("gemm", "nvjet", "gemv"))
+                    else "other")
         split[part] += _device_us(a) / 1e3
-    print("[lm profile] device time split: " + ", ".join(
+    print(f"[{tag}] device time split: " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in split.items()), flush=True)
     for a in rows[:10]:
-        print(f"[lm profile]   {_device_us(a) / 1e3:9.3f} ms {a.count:5d}x "
+        print(f"[{tag}]   {_device_us(a) / 1e3:9.3f} ms {a.count:5d}x "
               f"{a.key[:70]}", flush=True)
+
+
+# ----------------------------------------------------------- mamba2, MoE
+def _free():
+    """Returns the memory of the models freed so far to the card."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _rel_err(got, want):
+    """Largest difference relative to the largest magnitude of ``want``."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp(min=1e-30)).item()
+
+
+def _ssd_inputs(seed, b, s, h, hd, ds, dtype, wide=False):
+    """Seeded scan inputs on the card: x, dt = softplus(normal), mamba2's
+    A = -linspace(1, 16, h), B and C.  With ``wide``, x, B and C are
+    views of one [b, s, h hd + 2 ds] projection (strided rows)."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    if wide:
+        proj = draw(b, s, h * hd + 2 * ds).to(dtype)
+        x = proj[..., : h * hd].view(b, s, h, hd)
+        Bm = proj[..., h * hd: h * hd + ds].view(b, s, 1, ds)
+        Cm = proj[..., h * hd + ds:].view(b, s, 1, ds)
+    else:
+        x, Bm, Cm = draw(b, s, h, hd).to(dtype), draw(b, s, ds).to(dtype), draw(b, s, ds).to(dtype)
+    dt = F.softplus(draw(b, s, h))
+    A = -torch.linspace(1.0, 16.0, h, device="cuda")
+    return x, dt, A, Bm, Cm
+
+
+def _ssd_bound(b, s, h, hd, ds, q, elt):
+    """Least time of the scan on the card: per (batch row, head, chunk)
+    the causal C B^T and W x products (q (q + 1) / 2 pairs), the carried
+    state's C h and the state update (q hd ds each), 2 flops a product,
+    at the bf16 tensor-core peak (fp32 peak for fp32 data); against x, y
+    written or read once, dt, B and C read once, at the HBM rate."""
+    pairs = q * (q + 1) // 2
+    flops = b * h * (s // q) * (2 * pairs * ds + 2 * pairs * hd + 4 * q * hd * ds)
+    n_bytes = elt * (2 * b * s * h * hd + 2 * b * s * ds) + 4 * (b * s * h + h)
+    ops_ms = flops / (BF16_FLOP_PER_S if elt == 2 else FP32_FLOP_PER_S) * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), flops, n_bytes
+
+
+def phase_ssd_kernel(ss):
+    """The SSD kernel against its plain version at the sweep shapes of
+    ``tests/test_kernels.py``, the smoke config's chunk of 32, and
+    mamba2-1.3b's prefill shape (plain and as views of one projection),
+    fp32 and bf16; its times at the prefill shape in bf16.  Returns the
+    JSON numbers (the prefill shape: the path's launches)."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MAMBA_ARCH)
+    B, S = LM_PREFILL
+    full = (B, S, cfg.ssm.n_heads(cfg.d_model), cfg.ssm.head_dim, cfg.ssm.d_state,
+            cfg.ssm.chunk)
+    checks = [(f"sweep {i}", shape, False) for i, shape in enumerate(SSD_SWEEP)]
+    checks += [("smoke chunk 32", (2, 96, 4, 16, 16, 32), False),
+               ("prefill", full, False),
+               ("prefill, x, B and C views of one projection", full, True)]
+    worst = 0.0
+    for seed, (label, (b, s, h, hd, ds, q), wide) in enumerate(checks):
+        errs = {}
+        for dtype in ("float32", "bfloat16"):
+            args = _ssd_inputs(seed, b, s, h, hd, ds, getattr(torch, dtype), wide)
+            got = ss.ssd_scan(*args, chunk=q)
+            want = ss.ssd_scan_plain(*args, chunk=q)[0]
+            torch.cuda.synchronize()
+            errs[dtype] = _rel_err(got, want)
+            if not errs[dtype] <= KERNEL_RTOL[dtype]:
+                raise AssertionError(f"ssd kernel != plain at {label} {dtype}: "
+                                     f"relative err {errs[dtype]} (tol {KERNEL_RTOL[dtype]})")
+            if dtype == "float32":
+                worst = max(worst, (got - want).abs().max().item())
+            del args, got, want
+        print(f"[ssd kernel] {label}: x [{b}, {s}, {h}, {hd}], d_state {ds}, chunk "
+              f"{q}: max err relative to the largest output, fp32 "
+              f"{errs['float32']:.3g}, bf16 {errs['bfloat16']:.3g}", flush=True)
+    args = _ssd_inputs(99, *full[:5], torch.bfloat16)
+    kernel = lambda: ss.ssd_scan(*args, chunk=full[5])
+    plain = lambda: ss.ssd_scan_plain(*args, chunk=full[5])
+    ms = _device_ms(kernel, 10, flush=True)
+    plain_ms = _device_ms(plain, 2, flush=True)
+    bound, by, flops, n_bytes = _ssd_bound(*full, 2)
+    print(f"[ssd kernel] prefill bf16: device time per call, L2 flushed: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, no library call computes it; "
+          f"bound {bound:.6f} ms by {by} ({flops} flops, {n_bytes} bytes; "
+          f"{100 * bound / ms:.1f}% of the kernel's time)", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
+                bound_by=by, max_abs_err=worst)
+
+
+def phase_mamba(ss, fa, mg):
+    """mamba2-1.3b on the card: fp32 card (kernel) against CPU (plain) at 2
+    layers and decode against forward; then the main path, the prefill
+    of 4 x 2048 tokens and the ServeEngine run, with the launch counts set
+    to 0 just before and read just after; the prefill against the plain
+    scan; one profiled tick.  Returns the path's ssd_scan launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import TransformerLM
+
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(MAMBA_ARCH)
+    # 2 layers at full width in fp32: the card's kernel path against the
+    # CPU's plain path, and decode against forward on the card
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    cpu_m = TransformerLM(cfg2, device="cpu").init(torch.Generator().manual_seed(2))
+    card_m = TransformerLM(cfg2, device="cuda")
+    card_m.load_state_dict(cpu_m.state_dict())
+    toks2 = torch.randint(0, cfg.vocab, (2, 512), generator=torch.Generator().manual_seed(3))
+    h_card = card_m.forward(toks2.cuda())
+    h_cpu = cpu_m.forward(toks2)
+    l_card, l_cpu = card_m._logits(h_card[:, -1]).cpu(), cpu_m._logits(h_cpu[:, -1])
+    d_h = (h_card.cpu() - h_cpu).abs().max().item()
+    d_l = (l_card - l_cpu)[:, : cfg.vocab].abs().max().item()
+    print(f"[mamba] 2 layers, full width, fp32, 2 x 512 tokens ("
+          f"{512 // cfg.ssm.chunk} chunks of {cfg.ssm.chunk}): card (kernel) vs "
+          f"cpu (plain): hidden max diff "
+          f"{d_h:.3g}, last logits max diff {d_l:.3g} (atol {LM_FP32_ATOL})", flush=True)
+    if not max(d_h, d_l) <= LM_FP32_ATOL:
+        raise AssertionError("the card's fp32 mamba2 disagrees with the CPU's")
+    del cpu_m, h_card
+    errs, agree = _decode_vs_forward(card_m, 16, 2)
+    print(f"[mamba] decode vs forward, 2 layers fp32 on the card, 16 positions: "
+          f"max err per position {' '.join(f'{e:.2g}' for e in errs)}; argmax "
+          f"agrees at {agree} of 16", flush=True)
+    if not (errs[0] < 1e-3 and max(errs) < 1e-2 and agree == 16):
+        raise AssertionError("fp32 mamba2 decode disagrees with the forward")
+    del card_m
+    _free()
+
+    t0 = time.perf_counter()
+    model = TransformerLM(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    s = cfg.ssm
+    print(f"[mamba] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"d_inner {s.d_inner(cfg.d_model)}, {s.n_heads(cfg.d_model)} SSM heads "
+          f"of {s.head_dim}, d_state {s.d_state}, chunk {s.chunk}, vocab "
+          f"{cfg.vocab} padded to {model.vp}; "
+          f"{sum(p.numel() for p in model.parameters())} parameters in "
+          f"{cfg.dtype} (param_count {cfg.param_count()}), initialised on the "
+          f"card in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the main path: the prefill, then the ServeEngine run
+    B, S = LM_PREFILL
+    toks = torch.randint(0, cfg.vocab, (B, S), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    engine, reqs = _engine(model)
+    torch.cuda.synchronize()
+    for counted in (ss.ssd_scan, fa.flash_attention, mg.moe_grouped_gemm):
+        counted.launches = 0
+    t0 = time.perf_counter()
+    got = model.prefill(toks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_pre = ss.ssd_scan.launches
+    stats = engine.run()
+    launches = ss.ssd_scan.launches
+    others = fa.flash_attention.launches + mg.moe_grouped_gemm.launches
+    if not (torch.isfinite(got[:, : cfg.vocab]).all() and got.shape == (B, model.vp)):
+        raise AssertionError("mamba2 prefill logits not finite or of the wrong shape")
+    if n_pre != cfg.n_layers or others:
+        raise AssertionError(f"mamba2 prefill launched ssd_scan {n_pre} times "
+                             f"and the other kernels {others} times")
+    with _plain("ssd"):
+        want = model.prefill(toks)
+    d_pre = (got - want)[:, : cfg.vocab].abs().max().item()
+    agree = int((got.argmax(-1) == want.argmax(-1)).sum().item())
+    print(f"[mamba] prefill {B} x {S} tokens, bf16: {wall:.3f} s (first call), "
+          f"{n_pre} ssd_scan launches; against the plain scan: max abs logit "
+          f"diff {d_pre:.4g} (logits in [{got[:, :cfg.vocab].min().item():.3f}, "
+          f"{got[:, :cfg.vocab].max().item():.3f}]), argmax agrees on {agree} "
+          f"of {B}", flush=True)
+    _gate_prefill("mamba", d_pre, want[:, : cfg.vocab])
+    h = engine.cache["h"]
+    print(f"[mamba serve] recurrent state {list(h.shape)} fp32, "
+          f"{h.numel() * h.element_size()} bytes", flush=True)
+    ms_tick = _serve_checks("mamba serve", model, stats, reqs,
+                            {"ssd_scan": (launches - n_pre, 0)})
+    _teacher_forced("mamba serve", model, reqs)
+    _profile_tick("mamba profile", model, ms_tick, {"ssd_scan": ("ssd_scan",)})
+    print(f"[mamba] peak device memory {torch.cuda.max_memory_allocated()} bytes",
+          flush=True)
     return launches
+
+
+def _moe_inputs(seed, t, d, f, e, dtype, gs):
+    """Seeded x [t, d] and w [e, d, f] (scaled 1/sqrt(d), as the model's)
+    on the card, and the group sizes as a device int32 tensor."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(t, d, generator=gen, device="cuda").to(dtype)
+    w = torch.randn(e, d, f, generator=gen, device="cuda").mul_(d ** -0.5).to(dtype)
+    return x, w, torch.tensor(gs, dtype=torch.int32, device="cuda")
+
+
+def _routed(seed, t, e, empty=()):
+    """Group sizes: top-1 routing of t tokens to e experts (uniform), or,
+    with ``empty``, a Dirichlet share of 0.9 t with those experts empty
+    (the sweep of tests/test_kernels.py)."""
+    rng = np.random.default_rng(seed)
+    if not empty:
+        return np.bincount(rng.integers(0, e, t), minlength=e).tolist()
+    share = rng.dirichlet(np.ones(e))
+    share[list(empty)] = 0.0
+    return np.floor(share / share.sum() * t * 0.9).astype(int).tolist()
+
+
+def _moe_bound(t, d, f, e, gs, elt):
+    """Least time of the grouped GEMM on the card: 2 flops per routed row
+    and product at the bf16 tensor-core peak (fp32 peak for fp32), against
+    the routed rows of x, the weights of the experts hit, the output and
+    the group sizes, each moved once, at the HBM rate."""
+    rows, hit = sum(gs), sum(1 for g in gs if g > 0)
+    flops = 2 * rows * d * f
+    n_bytes = elt * (rows * d + hit * d * f + t * f) + 4 * e
+    ops_ms = flops / (BF16_FLOP_PER_S if elt == 2 else FP32_FLOP_PER_S) * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), flops, n_bytes
+
+
+def _event_ms(fn, reps):
+    """Device time per call from events around each call, L2 flushed
+    before it, for a function that waits on the host inside (the plain
+    grouped GEMM reads the group sizes): its host time is included."""
+    import torch
+
+    buf = torch.empty(2**25, dtype=torch.float32, device="cuda")
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        buf.fill_(1.0)
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        total += t0.elapsed_time(t1)
+    return total / reps
+
+
+def _grouped_mm(x, w, gs, want):
+    """``torch._grouped_mm`` on the same inputs, the yardstick (the port
+    never calls it): a callable and a note, or None and the reason."""
+    import torch
+
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "torch has no _grouped_mm"
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
+    rows = int(gs.sum().item())
+    reason = ""
+    for label, wl in (("w as stored", w),
+                      ("w column-major", w.transpose(1, 2).contiguous().transpose(1, 2))):
+        fn = lambda wl=wl: torch._grouped_mm(x, wl, offs=offs)
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        except (RuntimeError, TypeError, ValueError) as err:
+            reason = f"torch._grouped_mm refused ({label}): {str(err).splitlines()[0]}"
+            continue
+        return fn, f"{label}, max diff to plain {_rel_err(out[:rows], want[:rows]):.3g} relative"
+    return None, reason
+
+
+def phase_moe_kernel(mg):
+    """The grouped-GEMM kernel against its plain version at the sweep
+    shapes of ``tests/test_kernels.py`` (an empty expert, rows past the
+    sum) and llama4-scout's decode (T = 8, gate/up and down) and prefill
+    (T = 8192, gate/up and down) shapes, fp32 and bf16; times at those four
+    shapes in bf16
+    beside the bound and ``torch._grouped_mm``.  Returns the JSON numbers
+    (the decode gate/up shape: the serving path's launches)."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MOE_ARCH)
+    D, Fe, E = cfg.d_model, cfg.moe.d_ff_expert, cfg.moe.n_experts
+    B, S = LM_PREFILL
+    big = [("decode gate/up", (LM_SLOTS, D, Fe, E), _routed(1, LM_SLOTS, E)),
+           ("decode down", (LM_SLOTS, Fe, D, E), _routed(1, LM_SLOTS, E)),
+           ("prefill gate/up", (B * S, D, Fe, E), _routed(2, B * S, E)),
+           ("prefill down", (B * S, Fe, D, E), _routed(2, B * S, E))]
+    checks = [(f"sweep {i}", shape, _routed(10 + i, shape[0], shape[3], empty=(1,)))
+              for i, shape in enumerate(MOE_SWEEP)] + big
+    worst = 0.0
+    for seed, (label, (t, d, f, e), gs) in enumerate(checks):
+        errs = {}
+        for dtype in ("float32", "bfloat16"):
+            x, w, g = _moe_inputs(seed, t, d, f, e, getattr(torch, dtype), gs)
+            got = mg.moe_grouped_gemm(x, w, g)
+            want = mg.moe_grouped_gemm_plain(x, w, g)
+            torch.cuda.synchronize()
+            errs[dtype] = _rel_err(got, want)
+            if not (errs[dtype] <= KERNEL_RTOL[dtype] and not got[sum(gs):].any()):
+                raise AssertionError(f"moe kernel != plain at {label} {dtype}: "
+                                     f"relative err {errs[dtype]} (tol {KERNEL_RTOL[dtype]})")
+            if dtype == "float32":
+                worst = max(worst, (got - want).abs().max().item())
+            del x, w, g, got, want
+        print(f"[moe kernel] {label}: x [{t}, {d}], w [{e}, {d}, {f}], {sum(gs)} rows "
+              f"over {sum(1 for v in gs if v)} experts: max err relative to the "
+              f"largest output, fp32 {errs['float32']:.3g}, bf16 {errs['bfloat16']:.3g}",
+              flush=True)
+    _free()
+    rows = {}
+    for label, (t, d, f, e), gs in big:
+        x, w, g = _moe_inputs(7, t, d, f, e, torch.bfloat16, gs)
+        want = mg.moe_grouped_gemm_plain(x, w, g)
+        kernel = lambda: mg.moe_grouped_gemm(x, w, g)
+        ms = _device_ms(kernel, 20 if t == LM_SLOTS else 5, flush=True)
+        plain_ms = _event_ms(lambda: mg.moe_grouped_gemm_plain(x, w, g), 5)
+        lib, note = _grouped_mm(x, w, g, want)
+        library_ms = _device_ms(lib, 20 if t == LM_SLOTS else 5, flush=True) if lib else None
+        bound, by, flops, n_bytes = _moe_bound(t, d, f, e, gs, 2)
+        lib_txt = f"{library_ms:.4f} ms ({note})" if lib else f"none ({note})"
+        print(f"[moe kernel] {label} bf16 ({sum(1 for v in gs if v)} experts hit): "
+              f"device time per call, L2 flushed: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms (host included: it reads the group sizes), "
+              f"torch._grouped_mm {lib_txt}; bound {bound:.6f} ms by {by} "
+              f"({flops} flops, {n_bytes} bytes; {100 * bound / ms:.1f}% of the "
+              f"kernel's time)", flush=True)
+        rows[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound, bound_by=by)
+        del x, w, g, want, lib
+        _free()
+    out = dict(rows["decode gate/up"])
+    out["max_abs_err"] = worst
+    return out
+
+
+def phase_moe(mg, fa):
+    """llama4-scout at full width and MOE_LAYERS of its 48 layers on the
+    card: at 2 layers in fp32 the kernel path against the plain path and
+    decode against forward; then the main path, the prefill of 4 x 2048
+    tokens and the ServeEngine run, with the launch counts set to 0 just
+    before and read just after; the prefill against the plain path; one
+    profiled tick.  Returns the path's launches per kernel."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import TransformerLM
+
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    # 2 layers at full width in fp32 (16 GB of experts): the kernels
+    # against their plain versions on the card (the CPU is too slow for
+    # them; the CPU tests hold the plain path to JAX), and decode against
+    # forward
+    m2 = TransformerLM(dataclasses.replace(cfg, n_layers=2, dtype="float32"),
+                       device="cuda").init(torch.Generator(device="cuda").manual_seed(2))
+    toks2 = torch.randint(0, cfg.vocab, (2, 256),
+                          generator=torch.Generator().manual_seed(3)).cuda()
+    h_k = m2.forward(toks2)
+    with _plain("flash", "moe"):
+        h_p = m2.forward(toks2)
+    d_h = (h_k - h_p).abs().max().item()
+    d_l = (m2._logits(h_k[:, -1]) - m2._logits(h_p[:, -1]))[:, : cfg.vocab].abs().max().item()
+    print(f"[moe] 2 layers, full width, fp32, 2 x 256 tokens: kernels vs plain "
+          f"on the card: hidden max diff {d_h:.3g}, last logits max diff {d_l:.3g} "
+          f"(atol {LM_FP32_ATOL})", flush=True)
+    if not max(d_h, d_l) <= LM_FP32_ATOL:
+        raise AssertionError("llama4 fp32: the kernels disagree with the plain path")
+    del h_k, h_p
+    errs, agree = _decode_vs_forward(m2, 16, 2)
+    print(f"[moe] decode vs forward, 2 layers fp32 on the card, 16 positions: "
+          f"max err per position {' '.join(f'{e:.2g}' for e in errs)}; argmax "
+          f"agrees at {agree} of 16", flush=True)
+    if not (errs[0] < 1e-3 and max(errs) < 1e-2 and agree == 16):
+        raise AssertionError("fp32 llama4 decode disagrees with the forward")
+    del m2
+    _free()
+
+    t0 = time.perf_counter()
+    model = TransformerLM(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    e = cfg.moe
+    print(f"[moe] {cfg.name} at {cfg.n_layers} of 48 layers: d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, head_dim {cfg.hd}, "
+          f"{e.n_experts} experts of d_ff {e.d_ff_expert}, top-{e.top_k}, vocab "
+          f"{cfg.vocab} padded to {model.vp}; "
+          f"{sum(p.numel() for p in model.parameters())} parameters in "
+          f"{cfg.dtype} (param_count {cfg.param_count()}), initialised on the "
+          f"card in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the main path: the prefill, then the ServeEngine run
+    B, S = LM_PREFILL
+    toks = torch.randint(0, cfg.vocab, (B, S), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    engine, reqs = _engine(model)
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = 0
+    mg.moe_grouped_gemm.launches = 0
+    t0 = time.perf_counter()
+    got = model.prefill(toks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pre = (mg.moe_grouped_gemm.launches, fa.flash_attention.launches)
+    stats = engine.run()
+    launches = {"moe_gemm": mg.moe_grouped_gemm.launches,
+                "flash_attention": fa.flash_attention.launches}
+    if not (torch.isfinite(got[:, : cfg.vocab]).all() and got.shape == (B, model.vp)):
+        raise AssertionError("llama4 prefill logits not finite or of the wrong shape")
+    if pre != (3 * cfg.n_layers, cfg.n_layers):
+        raise AssertionError(f"llama4 prefill launched (moe_gemm, flash) {pre} times")
+    with _plain("flash", "moe"):
+        want = model.prefill(toks)
+    d_pre = (got - want)[:, : cfg.vocab].abs().max().item()
+    agree = int((got.argmax(-1) == want.argmax(-1)).sum().item())
+    print(f"[moe] prefill {B} x {S} tokens, bf16: {wall:.3f} s (first call), "
+          f"{pre[0]} moe_gemm and {pre[1]} flash launches; against the plain "
+          f"path: max abs logit diff {d_pre:.4g} (logits in "
+          f"[{got[:, :cfg.vocab].min().item():.3f}, "
+          f"{got[:, :cfg.vocab].max().item():.3f}]), argmax agrees on {agree} "
+          f"of {B}", flush=True)
+    _gate_prefill("moe", d_pre, want[:, : cfg.vocab])
+    ms_tick = _serve_checks("moe serve", model, stats, reqs, {
+        "moe_gemm": (launches["moe_gemm"] - pre[0], 3 * cfg.n_layers),
+        "flash_attention": (launches["flash_attention"] - pre[1], cfg.n_layers)})
+    _teacher_forced("moe serve", model, reqs)
+    _profile_tick("moe profile", model, ms_tick,
+                  {"moe_gemm": ("moe_gemm",),
+                   "flash_attention": ("flash_decode", "flash_tiled")})
+    print(f"[moe] peak device memory {torch.cuda.max_memory_allocated()} bytes",
+          flush=True)
+    return launches
+
+
+def _entry(name, stem, replaces, nums, launches):
+    """One kernel's record of the JSON line (source csrc/<stem>.cu)."""
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{stem}.cu",
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": nums["max_abs_err"],
+        "ms": nums["ms"],
+        "plain_ms": nums["plain_ms"],
+        "bound_ms": nums["bound_ms"],
+        "bound_by": nums["bound_by"],
+        "library_ms": nums.get("library_ms"),
+    }
+
+
+def phase_mamba_serve(ss, fa, mg, t):
+    ssd = phase_ssd_kernel(ss)
+    t = _phase_done("ssd_scan kernel checks and times", t)
+    launches = phase_mamba(ss, fa, mg)
+    t = _phase_done("mamba2 serving (mamba2-1.3b: parity, decode, prefill, "
+                    "ServeEngine, profile)", t)
+    return _entry("ssd_scan", "ssd_scan", "src/repro/kernels/ssd_scan.py:83", ssd,
+                  launches), t
+
+
+def phase_moe_serve(mg, fa, t):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MOE_ARCH)
+    # llama4-scout's attention: 40 query heads over 8 KV heads, so decode
+    # runs the 4-head grouping with a partial second group (5 = 4 + 1)
+    flash_err = _flash_checks(fa, _path_flash_checks(cfg.n_heads, cfg.n_kv_heads, cfg.hd),
+                              "moe flash kernel")
+    t = _phase_done(f"flash_attention checks at {MOE_ARCH}'s shapes", t)
+    moe = phase_moe_kernel(mg)
+    t = _phase_done("moe_gemm kernel checks and times", t)
+    launches = phase_moe(mg, fa)
+    t = _phase_done(f"MoE serving (llama4-scout at {MOE_LAYERS} layers: parity, "
+                    "decode, prefill, ServeEngine, profile)", t)
+    entry = _entry("moe_gemm", "moe_gemm", "src/repro/kernels/moe_gemm.py:69", moe,
+                   launches["moe_gemm"])
+    return entry, launches["flash_attention"], flash_err, t
 
 
 def _phase_done(name, t0):
     print(f"[time] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
     return time.perf_counter()
-
-
-def _flash_entry(flash, launches):
-    return {
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:102",
-        "launches": launches,
-        "max_abs_err": flash["max_abs_err"],
-        "ms": flash["ms"],
-        "plain_ms": flash["plain_ms"],
-        "bound_ms": flash["bound_ms"],
-        "bound_by": flash["bound_by"],
-        "library_ms": flash["library_ms"],
-    }
 
 
 def phase_lm_serve(fa, t):
@@ -1057,12 +1670,17 @@ def phase_lm_serve(fa, t):
     return flash, launches, t
 
 
+def _flash_entry(flash, launches):
+    return _entry("flash_attention", "flash_attention",
+                  "src/repro/kernels/flash_attention.py:102", flash, launches)
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("lm_serve",), default=None,
-                    help="build the kernels and run this phase alone")
+    ap.add_argument("--only", choices=("lm_serve", "mamba_serve", "moe_serve"),
+                    default=None, help="build the kernels and run this phase alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
@@ -1070,23 +1688,40 @@ def main(argv=None) -> int:
         return 2
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gemm as mg
     from repro_torch.kernels import sage_aggregate as sa
+    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.kernels import waterfill as wf
 
     t_start = t = time.perf_counter()
     print(f"[device] {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}", flush=True)
-    sources = (wf.SOURCE, sa.SOURCE, fa.SOURCE)
+    sources = (wf.SOURCE, sa.SOURCE, fa.SOURCE, ss.SOURCE, mg.SOURCE)
     for src, (_, secs, log) in zip(sources, _build.build(*sources)):
         print(f"[build] {src.name} built in {secs:.1f} s", flush=True)
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"[build] {line.strip()}", flush=True)
-    t = _phase_done("build (three kernels, in parallel)", t)
-    if args.only == "lm_serve":
-        flash, flash_launches, t = phase_lm_serve(fa, t)
-        print(json.dumps({"kernels": [_flash_entry(flash, flash_launches)]}))
-        print(f"[done] {time.perf_counter() - t_start:.1f} s (lm_serve only)")
+    t = _phase_done("build (five kernels, in parallel)", t)
+    # full fp32 products and convolutions wherever the card is held to a
+    # plain or CPU result (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("[device] TF32 off: torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32}, torch.backends.cudnn."
+          f"allow_tf32 = {torch.backends.cudnn.allow_tf32}", flush=True)
+    if args.only is not None:
+        if args.only == "lm_serve":
+            flash, flash_launches, t = phase_lm_serve(fa, t)
+            entries = [_flash_entry(flash, flash_launches)]
+        elif args.only == "mamba_serve":
+            entry, t = phase_mamba_serve(ss, fa, mg, t)
+            entries = [entry]
+        else:
+            entry, _, _, t = phase_moe_serve(mg, fa, t)
+            entries = [entry]
+        print(json.dumps({"kernels": entries}))
+        print(f"[done] {time.perf_counter() - t_start:.1f} s ({args.only} only)")
         return 0
 
     kern = phase_kernel(wf)
@@ -1113,41 +1748,27 @@ def main(argv=None) -> int:
                     "calibration, profile)", t)
 
     flash, flash_launches, t = phase_lm_serve(fa, t)
+    ssd_entry, t = phase_mamba_serve(ss, fa, mg, t)
+    moe_entry, moe_flash_launches, moe_flash_err, t = phase_moe_serve(mg, fa, t)
+    flash["max_abs_err"] = max(flash["max_abs_err"], moe_flash_err)
 
     line = {
         "kernels": [
-            {
-                "name": "waterfill_fill",
-                "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/waterfill.cu",
-                "replaces": "src/repro/kernels/waterfill.py:64",
-                "launches": launches + sage_launches["waterfill_fill"],
-                "max_abs_err": kern["max_abs_err"],
-                "ms": kern["ms"],
-                "plain_ms": kern["plain_ms"],
-                "bound_ms": kern["bound_ms"],
-                "bound_by": kern["bound_by"],
-                "library_ms": None,
-            },
-            {
-                "name": "sage_aggregate",
-                "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/sage_aggregate.cu",
-                "replaces": "src/repro/kernels/sage_aggregate.py:83",
-                "launches": sage_launches["sage_aggregate"],
-                "max_abs_err": sage["max_abs_err"],
-                "ms": sage["ms"],
-                "plain_ms": sage["plain_ms"],
-                "bound_ms": sage["bound_ms"],
-                "bound_by": sage["bound_by"],
-                "library_ms": sage["library_ms"],
-            },
-            _flash_entry(flash, flash_launches),
+            _entry("waterfill_fill", "waterfill", "src/repro/kernels/waterfill.py:64",
+                   kern, launches + sage_launches["waterfill_fill"]),
+            _entry("sage_aggregate", "sage_aggregate",
+                   "src/repro/kernels/sage_aggregate.py:83", sage,
+                   sage_launches["sage_aggregate"]),
+            _flash_entry(flash, flash_launches + moe_flash_launches),
+            ssd_entry,
+            moe_entry,
         ]
     }
     print(f"[launches] planning path: waterfill_fill {launches}; GraphSAGE "
-          f"path: {sage_launches}; serving path: flash_attention "
-          f"{flash_launches}", flush=True)
+          f"path: {sage_launches}; LM serving path: flash_attention "
+          f"{flash_launches}; mamba2 path: ssd_scan {ssd_entry['launches']}; "
+          f"MoE path: moe_gemm {moe_entry['launches']}, flash_attention "
+          f"{moe_flash_launches}", flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(line))
     smi = subprocess.run(

@@ -6,8 +6,8 @@ name.  It reads the object's plain fields and numpy arrays by attribute
 (duck-typed), so nothing of ``repro`` is imported; arrays are copied.
 ``sage_from_reference(params, cfg)`` builds the port's ``GraphSAGE`` with
 the weights of the JAX package's ``init_sage`` parameter dict, and
-``lm_from_reference(params, cfg)`` the port's dense ``TransformerLM`` with
-those of ``TransformerLM.init``.
+``lm_from_reference(params, cfg)`` the port's ``TransformerLM`` (dense,
+moe or mamba2) with those of ``TransformerLM.init``.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import torch
 from .core.cluster import ClusterSpec, Machine, Placement, TaskSpec
 from .core.engine import DeviceLike
 from .core.workload import Edge, Realization, TrafficModel, Workload
-from .models.config import BLOCK_PATTERNS, LMConfig
+from .models.config import BLOCK_PATTERNS, LMConfig, MoESpec, SSMSpec
 from .models.gnn import GraphSAGE, SageConfig
 from .models.model import TransformerLM
 
@@ -107,16 +107,24 @@ def sage_from_reference(
 
 def lm_config_from_reference(cfg: Any) -> LMConfig:
     """The port's ``LMConfig`` of a reference ``ModelConfig``: every field
-    the port has, read by name.  Raises ``NotImplementedError`` for a
-    block pattern, MoE, SSM or frontend that the port does not run."""
-    if (cfg.block_pattern not in BLOCK_PATTERNS or cfg.moe is not None
-            or cfg.ssm is not None or cfg.frontend is not None):
+    the port has, read by name (the ``moe`` and ``ssm`` specs too).
+    Raises ``NotImplementedError`` for a block pattern or frontend that
+    the port does not run."""
+    if cfg.block_pattern not in BLOCK_PATTERNS or cfg.frontend is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the {BLOCK_PATTERNS} block pattern "
-            f"without MoE, SSM or frontend; got {cfg.block_pattern!r}"
+            f"{cfg.name}: the port runs the {BLOCK_PATTERNS} block patterns "
+            f"without a frontend; got {cfg.block_pattern!r}"
         )
-    return LMConfig(**{f.name: getattr(cfg, f.name)
-                       for f in dataclasses.fields(LMConfig)})
+
+    def spec(cls: Any, ref: Any) -> Any:
+        if ref is None:
+            return None
+        return cls(**{f.name: getattr(ref, f.name) for f in dataclasses.fields(cls)})
+
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(LMConfig)}
+    fields["moe"] = spec(MoESpec, cfg.moe)
+    fields["ssm"] = spec(SSMSpec, cfg.ssm)
+    return LMConfig(**fields)
 
 
 def lm_from_reference(
@@ -127,7 +135,11 @@ def lm_from_reference(
     ``params`` is the pytree of the reference's ``TransformerLM.init``
     (blocks stacked over layers on axis 0; ``final_norm`` stacked over
     one), as arrays of any float dtype; each is read as fp32 and cast to
-    the parameter's dtype (exact for bf16 weights)."""
+    the parameter's dtype (exact for bf16 weights).  The layer mappings
+    hold the reference's names: ``attn``, ``mlp`` or ``moe`` (router,
+    w_gate, w_up, w_down), ``ln_attn`` and ``ln_mlp``; a mamba2 layer
+    holds wz, wx, wB, wC, wdt, conv_x, conv_B, conv_C, A_log, D, dt_bias,
+    norm_scale, ln and out_proj."""
     model = TransformerLM(lm_config_from_reference(cfg), device=device)
 
     def put(dst: torch.Tensor, src: Any) -> None:
@@ -141,7 +153,11 @@ def lm_from_reference(
             put(w, params["final_norm"][name][0])
         blocks = params["blocks"]
         for l, blk in enumerate(model.blocks):
-            for group in ("attn", "mlp", "ln_attn", "ln_mlp"):
+            if model.cfg.block_pattern == "mamba2":
+                for name, w in blk.items():
+                    put(w, blocks[name][l])
+                continue
+            for group, _ in blk.named_children():
                 for name, w in blk[group].items():
                     put(w, blocks[group][name][l])
     return model

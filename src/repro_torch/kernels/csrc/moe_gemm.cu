@@ -1,0 +1,377 @@
+// The MoE grouped GEMM (ragged_dot), forward.
+//
+// Replaces the TPU kernel repro.kernels.moe_gemm.moe_gemm_padded (Pallas
+// body `_kernel`, src/repro/kernels/moe_gemm.py) behind its wrapper
+// repro.kernels.ops.moe_grouped_gemm.  x [T, D] holds token rows sorted
+// by expert; expert e owns the next group_sizes[e] rows, and
+//
+//   out[r] = x[r] . w[e]   (fp32 sums, written in x's dtype)
+//
+// for every row r of its segment; rows past sum(group_sizes) are zero.
+//
+// Group sizes on the card.  The TPU kernel takes a host-built layout in
+// which every 128-row block holds one expert (ops.padded_group_layout),
+// with the expert id prefetched as a scalar.  Here the group sizes stay a
+// device array and each block finds its own work: the grid runs over an
+// upper bound of row tiles, ceil(T / 64) + E (each segment needs
+// ceil(g / 64) tiles), and warp 0 of each block scans the E group sizes
+// (a per-lane run, then a warp scan) to map its tile to (expert, first
+// row, rows), or to a tile of the zero rows past the sum, or to nothing,
+// when it exits at once.  No host sync per call, and no weight of an
+// expert without rows is read.
+//
+// Tiles.  A block computes 64 rows x 128 output columns, 256 threads, in
+// one of two ways, chosen per block from its tile's row count:
+//
+//   * more than 4 rows (prefill): each thread 8 rows (ty + 8 i) x 4
+//     columns (tx + 32 j), summing over D in slices of 32 staged in shared
+//     memory as fp32 (x transposed, w as is), the next slice loaded into
+//     registers while the current one is used;
+//   * at most 4 rows (a decode step: top-1 over 8 slots gives an expert
+//     one or two rows): the block streams the expert's [D, 128] weight
+//     slab.  Each thread owns one 16-byte column vector and a share of
+//     the D rows, keeps 4 loads in flight with no barrier, and the shares
+//     are summed through shared memory at the end.  So the FMAs follow
+//     the rows there are, and the weights are read at the memory's pace.
+//
+// Bound.  Decode (llama4-scout, T = 8, top-1): each gate or up call reads
+// the weights of the distinct experts hit, up to 8 x 5120 x 8192 x 2 B =
+// 671 MB, about 0.20 ms at 3.35 TB/s: bound by bytes; the grid has 64
+// column tiles per expert hit (40 for the down projection), 280-450
+// blocks over the 132 SMs, three resident on each (launch bound: 85
+// registers a thread), so one wave.  Prefill (T =
+// 8192): 687 GFLOP per gate or up call, 0.69 ms at the 989 TFLOP/s bf16
+// tensor-core rate: bound by operations, which plain fp32 FMAs from
+// shared memory cannot approach; wgmma on bf16 tiles is the later
+// speed-up.
+//
+// Built with nvcc for sm_90a into a shared library with a plain C
+// interface (repro_torch/kernels/moe_gemm.py loads it with ctypes).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kRows = 64;     // rows of a tile
+constexpr int kCols = 128;    // output columns of a tile
+constexpr int kDepth = 32;    // slice of D staged in shared memory
+constexpr int kThreads = 256;
+constexpr int kXPitch = kRows + 1;  // x slice stored transposed, padded
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store(float v, float* p) { *p = v; }
+__device__ __forceinline__ void store(float v, __nv_bfloat16* p) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// 16-byte loads of weight rows: 4 floats or 8 bf16 values
+template <typename T> struct Vec;
+template <> struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ static void load(const float* p, float* out) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  }
+};
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void load(const __nv_bfloat16* p, float* out) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+};
+
+// a tile of at most kStreamRows rows streams its expert's weights
+constexpr int kStreamRows = 4;
+constexpr int kUnroll = 4;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTiledFloats = kDepth * kXPitch + kDepth * kCols;
+constexpr int kStreamFloats = kWarps * kStreamRows * kCols;
+constexpr int kSmemFloats = kTiledFloats > kStreamFloats ? kTiledFloats : kStreamFloats;
+
+struct Args {
+  const void* x;
+  const void* w;
+  const int* gs;
+  void* out;
+  long long x_rs;  // row stride of x (elements)
+  int T, D, F, E;
+};
+
+// out[r] = x[r] . W for the nrows <= kStreamRows rows of a tile, columns
+// f0.. of the tile (X, W and O already offset to the tile's first row and
+// expert).  Thread t owns the column vector t % V (V = kCols / N vectors
+// of N values) and the D rows k = t / V + (kThreads / V) i.
+template <typename T>
+__device__ void stream_rows(const Args& a, const T* X, const T* W, T* O, int nrows,
+                            int f0, float* red) {
+  constexpr int N = Vec<T>::N;
+  constexpr int V = kCols / N;             // column vectors of a tile: 16 or 32
+  constexpr int kStep = kThreads / V;      // D rows a block step covers
+  const int tid = threadIdx.x, v = tid % V;
+  const int c = f0 + v * N;
+  const bool col_ok = c < a.F;
+  float acc[kStreamRows][N];
+#pragma unroll
+  for (int r = 0; r < kStreamRows; ++r)
+#pragma unroll
+    for (int j = 0; j < N; ++j) acc[r][j] = 0.f;
+  for (int k0 = tid / V; k0 < a.D; k0 += kStep * kUnroll) {
+    float wv[kUnroll][N];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int k = k0 + u * kStep;
+      if (k < a.D && col_ok) {
+        Vec<T>::load(W + static_cast<long long>(k) * a.F + c, wv[u]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < N; ++j) wv[u][j] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int k = k0 + u * kStep;
+      if (k >= a.D) break;
+#pragma unroll
+      for (int r = 0; r < kStreamRows; ++r) {
+        if (r < nrows) {
+          const float xv = to_f32(X[r * a.x_rs + k]);
+#pragma unroll
+          for (int j = 0; j < N; ++j) acc[r][j] += xv * wv[u][j];
+        }
+      }
+    }
+  }
+  // lanes l and l + V of a warp hold the same columns when V < 32
+  if (V < 32) {
+#pragma unroll
+    for (int r = 0; r < kStreamRows; ++r)
+#pragma unroll
+      for (int j = 0; j < N; ++j) acc[r][j] += __shfl_down_sync(kFull, acc[r][j], V);
+  }
+  const int warp = tid / 32, lane = tid % 32;
+  if (lane < V) {
+#pragma unroll
+    for (int r = 0; r < kStreamRows; ++r) {
+      if (r < nrows) {
+#pragma unroll
+        for (int j = 0; j < N; ++j) red[(warp * kStreamRows + r) * kCols + v * N + j] = acc[r][j];
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < nrows * kCols; i += kThreads) {
+    const int r = i / kCols, col = i % kCols;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) sum += red[(w * kStreamRows + r) * kCols + col];
+    if (f0 + col < a.F) store(sum, O + static_cast<long long>(r) * a.F + f0 + col);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 3) moe_gemm_kernel(const Args a) {
+  constexpr int N = Vec<T>::N;
+  constexpr int kWVecs = kDepth * kCols / N / kThreads;  // w vectors a thread loads
+  constexpr int kXVals = kDepth * kRows / kThreads;      // x values a thread loads
+  // the tiled path's x and w slices, or the streaming path's partial sums
+  __shared__ __align__(16) float smem[kSmemFloats];
+  __shared__ int info[3];  // expert (-1: zero rows, -2: nothing), first row, rows
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int tile = blockIdx.y;
+  const int f0 = blockIdx.x * kCols;
+
+  // map this row tile to its expert's rows, from the group sizes
+  if (tid < 32) {
+    if (lane == 0) info[0] = -2;
+    __syncwarp();
+    const int per = (a.E + 31) / 32;
+    const int lo = lane * per, hi = min(a.E, lo + per);
+    int rows = 0, tiles = 0;
+    for (int e = lo; e < hi; ++e) {
+      const int g = max(a.gs[e], 0);
+      rows += g;
+      tiles += (g + kRows - 1) / kRows;
+    }
+    int ri = rows, ti = tiles;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int vr = __shfl_up_sync(kFull, ri, off);
+      const int vt = __shfl_up_sync(kFull, ti, off);
+      if (lane >= off) {
+        ri += vr;
+        ti += vt;
+      }
+    }
+    const int tot_rows = __shfl_sync(kFull, ri, 31);
+    const int tot_tiles = __shfl_sync(kFull, ti, 31);
+    int r_base = ri - rows, t_base = ti - tiles;
+    if (tile >= t_base && tile < t_base + tiles) {
+      for (int e = lo; e < hi; ++e) {
+        const int g = max(a.gs[e], 0);
+        const int nt = (g + kRows - 1) / kRows;
+        if (tile < t_base + nt) {
+          const int k = tile - t_base;
+          info[0] = e;
+          info[1] = r_base + k * kRows;
+          info[2] = min(kRows, g - k * kRows);
+          break;
+        }
+        t_base += nt;
+        r_base += g;
+      }
+    }
+    if (lane == 0 && tile >= tot_tiles) {
+      const int start = tot_rows + (tile - tot_tiles) * kRows;
+      if (start < a.T) {
+        info[0] = -1;
+        info[1] = start;
+        info[2] = min(kRows, a.T - start);
+      }
+    }
+  }
+  __syncthreads();
+  const int e = info[0], row0 = info[1];
+  if (e == -2 || row0 >= a.T) return;
+  const int nrows = min(info[2], a.T - row0);
+  T* out = static_cast<T*>(a.out);
+  if (e == -1) {  // rows past sum(group_sizes)
+    for (int i = tid; i < nrows * kCols; i += kThreads) {
+      const int r = i / kCols, c = f0 + i % kCols;
+      if (c < a.F) store(0.f, out + static_cast<long long>(row0 + r) * a.F + c);
+    }
+    return;
+  }
+
+  const T* X = static_cast<const T*>(a.x) + static_cast<long long>(row0) * a.x_rs;
+  const T* W = static_cast<const T*>(a.w) + static_cast<long long>(e) * a.D * a.F;
+  T* O = out + static_cast<long long>(row0) * a.F;
+  if (nrows <= kStreamRows) {
+    stream_rows<T>(a, X, W, O, nrows, f0, smem);
+    return;
+  }
+  float* xs = smem;                   // [kDepth][kXPitch] x slice, transposed
+  float* ws = smem + kDepth * kXPitch;  // [kDepth][kCols] w slice
+  const int ty = tid / 32, tx = lane;
+  float xr[kXVals];
+  float wr[kWVecs][N];
+
+  auto load = [&](int k0) {  // the slice k0.. into registers
+#pragma unroll
+    for (int m = 0; m < kXVals; ++m) {
+      const int v = tid + kThreads * m, r = v / kDepth, k = v % kDepth;
+      xr[m] = (r < nrows && k0 + k < a.D) ? to_f32(X[r * a.x_rs + k0 + k]) : 0.f;
+    }
+#pragma unroll
+    for (int m = 0; m < kWVecs; ++m) {
+      const int v = tid + kThreads * m;
+      const int k = v / (kCols / N), c = (v % (kCols / N)) * N;
+      if (k0 + k < a.D && f0 + c < a.F) {
+        Vec<T>::load(W + static_cast<long long>(k0 + k) * a.F + f0 + c, wr[m]);
+      } else {
+#pragma unroll
+        for (int u = 0; u < N; ++u) wr[m][u] = 0.f;
+      }
+    }
+  };
+  auto stage = [&]() {  // registers into shared memory
+#pragma unroll
+    for (int m = 0; m < kXVals; ++m) {
+      const int v = tid + kThreads * m, r = v / kDepth, k = v % kDepth;
+      xs[k * kXPitch + r] = xr[m];
+    }
+#pragma unroll
+    for (int m = 0; m < kWVecs; ++m) {
+      const int v = tid + kThreads * m;
+      const int k = v / (kCols / N), c = (v % (kCols / N)) * N;
+#pragma unroll
+      for (int u = 0; u < N; u += 4)
+        *reinterpret_cast<float4*>(&ws[k * kCols + c + u]) =
+            make_float4(wr[m][u], wr[m][u + 1], wr[m][u + 2], wr[m][u + 3]);
+    }
+  };
+
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  load(0);
+  stage();
+  __syncthreads();
+  for (int k0 = 0; k0 < a.D; k0 += kDepth) {
+    const bool more = k0 + kDepth < a.D;
+    if (more) load(k0 + kDepth);
+    // a warp with no rows in the tile only loads (uniform over the warp)
+#pragma unroll 4
+    for (int k = 0; k < kDepth && ty < nrows; ++k) {
+      float wv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wv[j] = ws[k * kCols + tx + 32 * j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (ty + 8 * i < nrows) {
+          const float xv = xs[k * kXPitch + ty + 8 * i];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] += xv * wv[j];
+        }
+      }
+    }
+    __syncthreads();
+    if (more) {
+      stage();
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = ty + 8 * i;
+    if (r >= nrows) continue;
+    T* o = O + static_cast<long long>(r) * a.F;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = f0 + tx + 32 * j;
+      if (c < a.F) store(acc[i][j], o + c);
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the grouped GEMM on `stream`; returns cudaGetLastError() (0 =
+// ok) or -1 for an unsupported dtype.  x [T, D] (row stride x_rs, last
+// dimension contiguous), w [E, D, F] contiguous, group_sizes [E] int32
+// and out [T, F] contiguous are device pointers; dtype 0 = float32, 1 =
+// bfloat16 (x, w and out).  F % 8 == 0.
+int repro_moe_gemm(const void* x, const void* w, const void* group_sizes,
+                   void* out, long long x_rs, int T, int D, int F, int E,
+                   int dtype, void* stream) {
+  if (T == 0 || F == 0) return 0;
+  const Args a{x, w, static_cast<const int*>(group_sizes), out, x_rs, T, D, F, E};
+  const dim3 grid((F + kCols - 1) / kCols, (T + kRows - 1) / kRows + E);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    moe_gemm_kernel<float><<<grid, kThreads, 0, s>>>(a);
+  } else if (dtype == 1) {
+    moe_gemm_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(a);
+  } else {
+    return -1;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

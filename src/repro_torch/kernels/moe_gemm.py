@@ -1,0 +1,144 @@
+"""The MoE grouped GEMM: a CUDA kernel and its plain version.
+
+``moe_grouped_gemm(x, w, group_sizes)`` is the port of the JAX package's
+Pallas kernel ``repro.kernels.moe_gemm.moe_gemm_padded`` behind its
+wrapper ``repro.kernels.ops.moe_grouped_gemm``, which computes the oracle
+``repro.kernels.ref.grouped_gemm_ref`` (``jax.lax.ragged_dot``): x [T, D]
+with its rows sorted by expert, w [E, D, F], group_sizes [E] -> [T, F] in
+x's dtype, where the ``group_sizes[e]`` rows of expert e's segment are
+multiplied by ``w[e]`` with fp32 sums, and the rows past
+``sum(group_sizes)`` are zero.
+
+  * on CUDA tensors it launches ``csrc/moe_gemm.cu``, built with ``nvcc``
+    for ``sm_90a`` into ``build/`` at first use and loaded with
+    ``ctypes``.  The group sizes stay on the card: each block of the
+    kernel finds its (expert, rows) from them itself, over a grid of
+    ``ceil(T / 64) + E`` row tiles (an upper bound on the tiles the
+    segments need), and tiles with no rows exit.  So a call never waits
+    for the host, and no weight of an expert without rows is read.  A
+    tile of up to 4 rows (a decode step) streams its expert's weights; a
+    larger one is tiled through shared memory;
+  * on CPU tensors it runs ``moe_grouped_gemm_plain``: a loop over the
+    experts of ``x[seg] @ w[e]`` in fp32, cast to x's dtype.
+
+The TPU kernel needs the rows padded so that each 128-row block holds one
+expert (``ops.padded_group_layout``); this kernel takes the segments as
+they are, so the layout has no counterpart here.  There is no fallback
+between the two routes: a CUDA tensor launches the kernel or raises.
+Each launch adds one to ``moe_grouped_gemm.launches``.  There is no
+backward (the reference has none): an input that requires a gradient is
+refused.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gemm.cu"
+# dtype codes of the C interface (x, w and the output)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VEC = 8  # F must be a multiple of this: w rows are read 16 bytes at a time
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def build() -> Tuple[Path, float, str]:
+    """Compile the kernel if its library is missing; returns
+    ``(library path, build seconds, compiler output)``."""
+    return _build.build(SOURCE)[0]
+
+
+def _library() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        path, _, _ = build()
+        lib = ctypes.CDLL(str(path))
+        vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.repro_moe_gemm.argtypes = [vp] * 4 + [ll] + [ci] * 5 + [vp]
+        lib.repro_moe_gemm.restype = ci
+        _LIB = lib
+    return _LIB
+
+
+def moe_grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor,
+                           group_sizes: torch.Tensor) -> torch.Tensor:
+    """The same function as the kernel, written out plainly, for tensors
+    on any device (it reads the group sizes on the host)."""
+    t = x.shape[0]
+    out = torch.zeros((t, w.shape[2]), dtype=x.dtype, device=x.device)
+    start = 0
+    for e, g in enumerate(group_sizes.tolist()):
+        g = max(min(int(g), t - start), 0)
+        if g:
+            out[start:start + g] = (x[start:start + g].float() @ w[e].float()).to(x.dtype)
+        start += g
+    return out
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> None:
+    for name, t in (("w", w), ("group_sizes", group_sizes)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    for name, t in (("x", x), ("w", w)):
+        if t.requires_grad and torch.is_grad_enabled():
+            raise NotImplementedError("moe_grouped_gemm has no backward (nor has the reference)")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if w.dtype != x.dtype:
+        raise TypeError(f"w is {w.dtype}, x {x.dtype}")
+    if group_sizes.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"group_sizes must be int32 or int64, got {group_sizes.dtype}")
+    if x.dim() != 2 or w.dim() != 3 or w.shape[1] != x.shape[1]:
+        raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} are not "
+                         "[T, D] and [E, D, F]")
+    if tuple(group_sizes.shape) != (w.shape[0],):
+        raise ValueError(f"group_sizes {tuple(group_sizes.shape)} does not match "
+                         f"{w.shape[0]} experts")
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    T, D = x.shape
+    E, _, F = w.shape
+    if F % VEC != 0:
+        raise ValueError(f"F = {F} is not a multiple of {VEC}")
+    if not w.is_contiguous() or w.data_ptr() % 16 != 0:
+        raise ValueError("w must be contiguous and 16-byte aligned")
+    if x.stride(1) != 1:
+        raise ValueError("the last dimension of x must be contiguous")
+    gs = group_sizes.to(torch.int32).contiguous()
+    out = torch.empty((T, F), dtype=x.dtype, device=x.device)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.repro_moe_gemm(
+            x.data_ptr(), w.data_ptr(), gs.data_ptr(), out.data_ptr(),
+            x.stride(0), T, D, F, E, _DTYPES[x.dtype], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"moe_gemm kernel launch failed: error {err}")
+    moe_grouped_gemm.launches += 1
+    return out
+
+
+def moe_grouped_gemm(x: torch.Tensor, w: torch.Tensor,
+                     group_sizes: torch.Tensor) -> torch.Tensor:
+    """``ragged_dot(x, w, group_sizes)``: x [T, D] sorted by expert, w [E,
+    D, F], group_sizes [E] (int32 or int64, ``sum <= T``) -> [T, F] in
+    x's dtype, rows past the sum zero.  x and w float32 or bfloat16.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel (F a
+    multiple of 8, w contiguous), without reading the group sizes on the
+    host."""
+    _check(x, w, group_sizes)
+    if x.device.type == "cpu":
+        return moe_grouped_gemm_plain(x, w, group_sizes)
+    if x.device.type == "cuda":
+        return _launch(x, w, group_sizes)
+    raise ValueError(f"no moe_grouped_gemm kernel for device {x.device}")
+
+
+moe_grouped_gemm.launches = 0  # type: ignore[attr-defined]

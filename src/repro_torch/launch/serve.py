@@ -2,14 +2,18 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve   # internlm2-1.8b on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama4-scout-17b-a16e --layers 8
 
 The port of ``repro.launch.serve``, with the same flags and defaults, plus
-``--device`` (default: the CUDA card; it raises when there is none) and
-``--seed`` (the weights' generator).
+``--device`` (default: the CUDA card; it raises when there is none),
+``--seed`` (the weights' generator) and ``--layers`` (cut the depth: the
+48 layers of llama4-scout, ~202 GB in bf16, do not fit one card).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 from typing import Dict, List, Optional
 
 import torch
@@ -31,8 +35,12 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     ap.add_argument("--device", default=None,
                     help="cpu or cuda (default: cuda; raises without a card)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve only the first this many layers (default: all)")
     args = ap.parse_args(argv)
     cfg = cfgs.get_smoke_config(args.arch) if args.smoke else cfgs.get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = TransformerLM(cfg, device=args.device)
     model.init(torch.Generator(device=model.device).manual_seed(args.seed))
     engine = ServeEngine(model, n_slots=args.slots, smax=args.smax)
@@ -42,7 +50,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
         )
     stats = engine.run()
     print(
-        f"{cfg.name}: {stats['tokens']} tokens over {stats['ticks']} ticks "
+        f"{cfg.name} ({cfg.n_layers} layers): {stats['tokens']} tokens over "
+        f"{stats['ticks']} ticks "
         f"({stats['tok_per_s']:.1f} tok/s, {args.slots} slots, {model.device})"
     )
     return stats

@@ -1,21 +1,58 @@
-"""The language model's configuration, for the ``dense`` block pattern.
+"""The language model's configuration: the ``dense``, ``moe`` and ``mamba2``
+block patterns.
 
-The port of the JAX package's ``repro.models.config.ModelConfig``, cut to
-the fields the dense path reads.  The MoE, SSM, hybrid, encoder and
-frontend fields, and the tensor-parallel ``attn_mode``, belong to block
-patterns and meshes the port does not run yet (ROADMAP Queue 1).
+The port of the JAX package's ``repro.models.config``, cut to the fields
+these three patterns read.  The hybrid (``zamba2``), ``gemma2``, encoder
+and frontend fields, the tensor-parallel ``attn_mode``, and the MoE
+``router_jitter`` (which no code of the reference reads either) belong to
+block patterns, meshes and knobs the port does not run (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional
 
-BLOCK_PATTERNS = ("dense",)
+BLOCK_PATTERNS = ("dense", "moe", "mamba2")
+
+
+@dataclass(frozen=True)
+class MoESpec:
+    """Top-k routed experts: ``n_experts`` SwiGLU experts of width
+    ``d_ff_expert``, ``top_k`` of them per token."""
+
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+
+
+@dataclass(frozen=True)
+class SSMSpec:
+    """A Mamba2 (SSD) block: ``d_inner = expand * d_model`` split into
+    heads of ``head_dim``; B and C of width ``d_state`` per group, shared
+    by the ``n_inner / n_groups`` heads of a group; a causal depthwise
+    convolution of width ``d_conv``; the scan in chunks of ``chunk``."""
+
+    d_state: int
+    head_dim: int = 64
+    expand: int = 2
+    d_conv: int = 4
+    n_groups: int = 1
+    chunk: int = 256
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
 
 
 @dataclass(frozen=True)
 class LMConfig:
-    """One dense architecture: uniform pre-norm attention + MLP blocks.
+    """One architecture.  ``block_pattern`` selects the layer stack:
+
+    dense   uniform pre-norm attention + MLP blocks
+    moe     attention + a top-k MoE MLP every layer (``moe``)
+    mamba2  pure SSD blocks, attention-free (``ssm``)
 
     ``norm`` is ``"rmsnorm"`` or ``"layernorm"``; ``mlp`` is ``"swiglu"``,
     ``"geglu"`` or ``"gelu"``; ``sliding_window``, ``attn_softcap``,
@@ -41,6 +78,8 @@ class LMConfig:
     logit_softcap: Optional[float] = None
     q_scale: Optional[float] = None  # default head_dim**-0.5
     embed_scale: bool = False  # multiply embeddings by sqrt(d_model)
+    moe: Optional[MoESpec] = None
+    ssm: Optional[SSMSpec] = None
     dtype: str = "bfloat16"
 
     @property
@@ -52,16 +91,35 @@ class LMConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding + blocks + head), the
-        reference's dense branch."""
+        reference's dense, mamba2 and moe branches."""
         d, f, v = self.d_model, self.d_ff, self.vocab
         hd, nh, nkv = self.hd, self.n_heads, self.n_kv_heads
         attn = d * nh * hd + 2 * d * nkv * hd + nh * hd * d
         mlp = 3 * d * f if self.mlp in ("swiglu", "geglu") else 2 * d * f
+        if self.block_pattern == "mamba2":
+            s = self.ssm
+            di, nh_s = s.d_inner(d), s.n_heads(d)
+            bc = 2 * s.n_groups * s.d_state
+            in_proj = d * (2 * di + bc + nh_s)
+            per_layer = in_proj + di * d + s.d_conv * (di + bc) + 2 * nh_s + di
+        elif self.block_pattern == "moe":
+            e = self.moe
+            per_layer = attn + 3 * d * e.d_ff_expert * e.n_experts + d * e.n_experts
+        else:
+            per_layer = attn + mlp
         embeds = v * d * (1 if self.tie_embeddings else 2)
-        return int(self.n_layers * (attn + mlp) + embeds)
+        return int(self.n_layers * per_layer + embeds)
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only the routed experts)."""
+        if self.moe is None:
+            return self.param_count()
+        e = self.moe
+        per_expert_layer = 3 * self.d_model * e.d_ff_expert * self.n_layers
+        return int(self.param_count() - per_expert_layer * (e.n_experts - e.top_k))
 
 
-# the reference's name for it; a second class *defined* as ModelConfig would
-# make repro-verify's by-name resolution of the reference's ``cfg:
+# the reference's name for it; a second class *defined* as ModelConfig
+# would make repro-verify's by-name resolution of the reference's ``cfg:
 # ModelConfig`` annotations ambiguous (RV003 would then see no reads)
 ModelConfig = LMConfig

@@ -1,20 +1,27 @@
-"""TransformerLM on PyTorch: the ``dense`` block pattern, for serving.
+"""TransformerLM on PyTorch: the ``dense``, ``moe`` and ``mamba2`` block
+patterns, for serving.
 
 The port of the JAX package's ``repro.models.model.TransformerLM`` for
-uniform pre-norm attention + MLP blocks (internlm2, phi3, starcoder2).
-The vocabulary is padded to a multiple of ``VOCAB_PAD`` and the padded
-logits are pushed to -1e30, as in the reference.  Public surface:
+uniform pre-norm attention + MLP blocks (internlm2, phi3, starcoder2),
+attention + top-k MoE blocks (llama4-scout, kimi-k2) and attention-free
+Mamba2 blocks (mamba2).  The vocabulary is padded to a multiple of
+``VOCAB_PAD`` and the padded logits are pushed to -1e30, as in the
+reference.  Public surface:
 
   TransformerLM(cfg, device=)  -> weights allocated on the device
   init(generator)              -> weights drawn at the reference's scales
   forward(tokens)              -> final-normed hidden states [B, S, d]
   prefill(tokens)              -> last-position logits [B, vocab_padded]
-  cache_struct(batch, smax)    -> zeroed KV cache {"k", "v"} [L, B, Smax, KV, hd]
+  cache_struct(batch, smax)    -> zeroed decode cache: KV {"k", "v"} [L,
+                                  B, Smax, KV, hd], or for mamba2 the
+                                  convolution windows and SSM state
+                                  {"conv_x", "conv_B", "conv_C", "h"}
   decode_step(cache, token, pos) -> (cache, logits [B, vocab_padded])
 
-The weights take no gradient: this slice serves (training waits for the
-attention kernel's backward, ROADMAP Queue 2 item 3b).  The other block
-patterns and the frontends raise ``NotImplementedError``.
+As in the reference, ``prefill`` returns logits only: it hands no state
+to ``decode_step``.  The weights take no gradient: this slice serves
+(training waits for the attention kernel's backward, ROADMAP Queue 2
+item 3b).  The other block patterns raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,6 +34,8 @@ from torch import nn
 
 from ..core.engine import DeviceLike, resolve_device
 from . import layers as ly
+from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .config import BLOCK_PATTERNS, LMConfig
 
 VOCAB_PAD = 2048
@@ -46,6 +55,14 @@ def _weights(shapes: Dict[str, Tuple[int, ...]], dtype: torch.dtype,
     })
 
 
+def _mixed(shapes: Tuple[Dict[str, Tuple[int, ...]], Dict[str, Tuple[int, ...]]],
+           dtype: torch.dtype, device: torch.device) -> nn.ParameterDict:
+    """Weights in the model's dtype and in fp32, in one mapping."""
+    p = _weights(shapes[0], dtype, device)
+    p.update(_weights(shapes[1], torch.float32, device))
+    return p
+
+
 def _norm(cfg: LMConfig, device: torch.device) -> nn.ParameterDict:
     names = ("scale", "bias") if cfg.norm == "layernorm" else ("scale",)
     return _weights({n: (cfg.d_model,) for n in names}, torch.float32, device)
@@ -53,8 +70,9 @@ def _norm(cfg: LMConfig, device: torch.device) -> nn.ParameterDict:
 
 class DenseBlock(nn.Module):
     """One layer's weights, in the reference's layout (``attn``: wq, wk,
-    wv, wo; ``mlp``: w_gate, w_up, w_down or w_up, w_down; ``ln_attn``
-    and ``ln_mlp``: scale, and bias for layernorm)."""
+    wv, wo; ``mlp``: w_gate, w_up, w_down or w_up, w_down, or for the moe
+    pattern ``moe``: router, w_gate, w_up, w_down; ``ln_attn`` and
+    ``ln_mlp``: scale, and bias for layernorm)."""
 
     def __init__(self, cfg: LMConfig, dtype: torch.dtype, device: torch.device) -> None:
         super().__init__()
@@ -62,10 +80,13 @@ class DenseBlock(nn.Module):
         self.attn = _weights(
             {"wq": (d, nh, hd), "wk": (d, nkv, hd), "wv": (d, nkv, hd),
              "wo": (nh, hd, d)}, dtype, device)
-        mlp = {"w_up": (d, f), "w_down": (f, d)}
-        if cfg.mlp in ("swiglu", "geglu"):
-            mlp = {"w_gate": (d, f), **mlp}
-        self.mlp = _weights(mlp, dtype, device)
+        if cfg.block_pattern == "moe":
+            self.moe = _mixed(moe_mod.moe_shapes(cfg), dtype, device)
+        else:
+            mlp = {"w_up": (d, f), "w_down": (f, d)}
+            if cfg.mlp in ("swiglu", "geglu"):
+                mlp = {"w_gate": (d, f), **mlp}
+            self.mlp = _weights(mlp, dtype, device)
         self.ln_attn = _norm(cfg, device)
         self.ln_mlp = _norm(cfg, device)
 
@@ -90,7 +111,13 @@ class TransformerLM(nn.Module):
         dev, dt = self.device, self.dtype
         self.embed = nn.Parameter(torch.empty(self.vp, cfg.d_model, dtype=dt, device=dev),
                                   requires_grad=False)
-        self.blocks = nn.ModuleList(DenseBlock(cfg, dt, dev) for _ in range(cfg.n_layers))
+        if cfg.block_pattern == "mamba2":
+            shapes = ssm_mod.mamba_shapes(cfg)
+            self.blocks = nn.ModuleList(_mixed(shapes, dt, dev)
+                                        for _ in range(cfg.n_layers))
+        else:
+            self.blocks = nn.ModuleList(DenseBlock(cfg, dt, dev)
+                                        for _ in range(cfg.n_layers))
         self.final_norm = _norm(cfg, dev)
         self.head: Optional[nn.Parameter] = None if cfg.tie_embeddings else nn.Parameter(
             torch.empty(self.vp, cfg.d_model, dtype=dt, device=dev), requires_grad=False)
@@ -112,23 +139,27 @@ class TransformerLM(nn.Module):
         def fill(w: torch.Tensor, scale: float) -> None:
             z = torch.randn(w.shape, generator=generator, dtype=torch.float32,
                             device=w.device)
-            w.copy_(z * scale)
+            w.copy_(z.mul_(scale))
+
+        def unit(norm: nn.ParameterDict) -> None:
+            norm["scale"].fill_(1.0)
+            if "bias" in norm:
+                norm["bias"].zero_()
 
         embed_scale = 1.0 / math.sqrt(cfg.d_model)
         fill(self.embed, embed_scale)
-        attn, mlp = ly.attn_scales(cfg), ly.mlp_scales(cfg)
         for blk in self.blocks:
-            for name, scale in attn.items():
-                fill(blk.attn[name], scale)
-            for name, scale in mlp.items():
-                fill(blk.mlp[name], scale)
-            for norm in (blk.ln_attn, blk.ln_mlp):
-                norm["scale"].fill_(1.0)
-                if "bias" in norm:
-                    norm["bias"].zero_()
-        self.final_norm["scale"].fill_(1.0)
-        if "bias" in self.final_norm:
-            self.final_norm["bias"].zero_()
+            if cfg.block_pattern == "mamba2":
+                ssm_mod.init_mamba_block(blk, cfg, generator)
+                continue
+            ffn, scales = ((blk.moe, moe_mod.moe_scales(cfg)) if cfg.block_pattern == "moe"
+                           else (blk.mlp, ly.mlp_scales(cfg)))
+            for group, group_scales in ((blk.attn, ly.attn_scales(cfg)), (ffn, scales)):
+                for name, scale in group_scales.items():
+                    fill(group[name], scale)
+            unit(blk.ln_attn)
+            unit(blk.ln_mlp)
+        unit(self.final_norm)
         if self.head is not None:
             fill(self.head, embed_scale)
         return self
@@ -148,10 +179,20 @@ class TransformerLM(nn.Module):
     # ----------------------------------------------------------------- stack
     def _apply_stack(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
+        if cfg.block_pattern == "mamba2":
+            for blk in self.blocks:
+                x = ssm_mod.apply_mamba_block(blk, x, cfg)
+            return x
         pos = torch.arange(x.shape[1], device=x.device)
         cos, sin = ly.rope_cos_sin(pos, cfg.hd, cfg.rope_theta)
         for idx, blk in enumerate(self.blocks):
-            x = ly.apply_dense_block(blk, x, cos, sin, cfg, self._window_for(idx))
+            w = self._window_for(idx)
+            if cfg.block_pattern == "moe":
+                x = x + ly.apply_attn(blk.attn, ly.apply_norm(blk.ln_attn, x, cfg),
+                                      cos, sin, cfg, w)
+                x = x + moe_mod.apply_moe(blk.moe, ly.apply_norm(blk.ln_mlp, x, cfg), cfg)
+            else:
+                x = ly.apply_dense_block(blk, x, cos, sin, cfg, w)
         return x
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -180,9 +221,15 @@ class TransformerLM(nn.Module):
 
     # --------------------------------------------------------------- serving
     def cache_struct(self, batch: int, smax: int) -> Cache:
-        """A zeroed KV cache in the reference's layout: ``k`` and ``v``
-        [L, B, Smax, KV, hd] in the model's dtype, on its device."""
+        """A zeroed decode cache on the model's device, in the reference's
+        layout: ``k`` and ``v`` [L, B, Smax, KV, hd] in the model's dtype,
+        or for mamba2 (which needs no ``smax``) ``conv_x``, ``conv_B`` and
+        ``conv_C`` [L, B, K-1, C] in the model's dtype and ``h`` [L, B, nh,
+        hd, ds] in fp32."""
         cfg = self.cfg
+        if cfg.block_pattern == "mamba2":
+            return ssm_mod.init_mamba_cache(cfg, cfg.n_layers, batch, self.dtype,
+                                            self.device)
         shape = (cfg.n_layers, batch, smax, cfg.n_kv_heads, cfg.hd)
         return {n: torch.zeros(shape, dtype=self.dtype, device=self.device)
                 for n in ("k", "v")}
@@ -191,17 +238,29 @@ class TransformerLM(nn.Module):
     def decode_step(self, cache: Cache, token: torch.Tensor,
                     pos: int) -> Tuple[Cache, torch.Tensor]:
         """One-token decode of token [B] at position ``pos`` (shared by the
-        whole batch).  Writes the cache in place at ``pos`` and returns it
-        with the logits [B, vocab_padded] (fp32)."""
+        whole batch).  Updates the cache in place (the KV entries at
+        ``pos``, or the mamba2 convolution windows and state) and returns
+        it with the logits [B, vocab_padded] (fp32)."""
         cfg = self.cfg
         x = self._embed(token[:, None])
-        positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
-        cos, sin = ly.rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
-        for idx, blk in enumerate(self.blocks):
-            x, _, _ = ly.decode_dense_block(
-                blk, x, cache["k"][idx], cache["v"][idx], pos, cos, sin, cfg,
-                self._window_for(idx),
-            )
+        if cfg.block_pattern == "mamba2":
+            for idx, blk in enumerate(self.blocks):
+                x = ssm_mod.decode_mamba_block(
+                    blk, x, {n: c[idx] for n, c in cache.items()}, cfg)
+        else:
+            positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+            cos, sin = ly.rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
+            for idx, blk in enumerate(self.blocks):
+                w = self._window_for(idx)
+                if cfg.block_pattern == "moe":
+                    a, _, _ = ly.decode_attn(
+                        blk.attn, ly.apply_norm(blk.ln_attn, x, cfg), cache["k"][idx],
+                        cache["v"][idx], pos, cos, sin, cfg, w)
+                    x = x + a
+                    x = x + moe_mod.apply_moe(blk.moe, ly.apply_norm(blk.ln_mlp, x, cfg),
+                                              cfg)
+                else:
+                    x, _, _ = ly.decode_dense_block(
+                        blk, x, cache["k"][idx], cache["v"][idx], pos, cos, sin, cfg, w)
         x = ly.apply_norm(self.final_norm, x, cfg)
         return cache, self._logits(x)[:, 0]
-

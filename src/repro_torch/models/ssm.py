@@ -1,0 +1,180 @@
+"""Mamba2 (SSD) blocks on PyTorch: the full-sequence and decode paths.
+
+The port of the JAX package's ``repro.models.ssm`` on one device (its
+tensor-parallel layout has no counterpart here).  A layer's parameters
+are a mapping of tensors in the reference's layout (one layer's slice of
+its stacked ``[L, ...]`` arrays): wz and wx [d, d_inner], wB and wC [d, G
+ds], wdt [d, nh], conv_x [K, d_inner], conv_B and conv_C [K, G ds] and
+out_proj [d_inner, d] in the model's dtype; A_log, D and dt_bias [nh],
+norm_scale [d_inner] and ln [d] in fp32.
+
+``apply_mamba_block`` runs the scan through ``kernels.ssd_scan`` (the
+kernel on the card, its plain version on the CPU) with B and C passed as
+[B, S, G, ds] views, never repeated over the heads; the reference's
+``ssd_chunked`` (with a starting and a final state) is the kernel's plain
+version ``kernels.ssd_scan.ssd_scan_plain``.  ``decode_mamba_block`` is
+the O(1) recurrent step in plain torch (the reference has no kernel for
+it).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.ssd_scan import ssd_scan
+from .config import LMConfig
+
+Params = Mapping[str, torch.Tensor]
+
+
+def _dims(cfg: LMConfig):
+    s = cfg.ssm
+    d = cfg.d_model
+    return s, d, s.d_inner(d), s.n_heads(d), s.head_dim, s.d_state, s.n_groups
+
+
+def mamba_shapes(cfg: LMConfig) -> Tuple[Dict[str, Tuple[int, ...]], Dict[str, Tuple[int, ...]]]:
+    """One layer's weight shapes: (model dtype, fp32)."""
+    s, d, di, nh, hd, ds, G = _dims(cfg)
+    return (
+        {"wz": (d, di), "wx": (d, di), "wB": (d, G * ds), "wC": (d, G * ds),
+         "wdt": (d, nh), "conv_x": (s.d_conv, di), "conv_B": (s.d_conv, G * ds),
+         "conv_C": (s.d_conv, G * ds), "out_proj": (di, d)},
+        {"A_log": (nh,), "D": (nh,), "dt_bias": (nh,), "norm_scale": (di,),
+         "ln": (d,)},
+    )
+
+
+@torch.no_grad()
+def init_mamba_block(p: Mapping[str, torch.Tensor], cfg: LMConfig,
+                     generator: torch.Generator) -> None:
+    """Draws one layer's weights in place at the reference's scales
+    (``init_mamba_block``): projections 1/sqrt(d), convolutions 0.1, the
+    output projection 1/sqrt(2 L d_inner); A_log = log(linspace(1, 16,
+    nh)), D = 1, dt_bias = 0 and the norm scales 1."""
+    s, d, di, nh, hd, ds, G = _dims(cfg)
+    s_in = 1.0 / math.sqrt(d)
+    s_out = 1.0 / math.sqrt(2 * max(cfg.n_layers, 1) * di)
+    scales = {"wz": s_in, "wx": s_in, "wB": s_in, "wC": s_in, "wdt": s_in,
+              "conv_x": 0.1, "conv_B": 0.1, "conv_C": 0.1, "out_proj": s_out}
+    for name, scale in scales.items():
+        w = p[name]
+        z = torch.randn(w.shape, generator=generator, dtype=torch.float32, device=w.device)
+        w.copy_(z.mul_(scale))
+    p["A_log"].copy_(torch.log(torch.linspace(1.0, 16.0, nh, dtype=torch.float32)))
+    p["D"].fill_(1.0)
+    p["dt_bias"].zero_()
+    p["norm_scale"].fill_(1.0)
+    p["ln"].fill_(1.0)
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal convolution, x [B, S, C] and w [K, C] -> [B, S, C],
+    as the reference writes it: K shifted products added one at a time
+    in x's dtype (not ``F.conv1d``, which on the card sums in fp32 or TF32
+    through cuDNN and so rounds elsewhere)."""
+    k, s = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(k):
+        out = out + xp[:, i:i + s, :] * w[i]
+    return out
+
+
+def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + exp(x)), with no threshold."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _projections(p: Params, x: torch.Tensor):
+    return x @ p["wz"], x @ p["wx"], x @ p["wB"], x @ p["wC"], x @ p["wdt"]
+
+
+def apply_mamba_block(p: Params, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    """Full mamba2 residual block (norm -> SSD -> gated norm -> out),
+    x [B, S, d]."""
+    s, d, di, nh, hd, ds, G = _dims(cfg)
+    b, seqlen, _ = x.shape
+    res = x
+    x = _rms(x, p["ln"])
+    z, xc, Bc, Cc, dt = _projections(p, x)
+    xc = F.silu(_causal_conv(xc, p["conv_x"]))
+    Bc = F.silu(_causal_conv(Bc, p["conv_B"]))
+    Cc = F.silu(_causal_conv(Cc, p["conv_C"]))
+    dt = _softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    xh = xc.reshape(b, seqlen, nh, hd)
+    y = ssd_scan(xh, dt, A, Bc.view(b, seqlen, G, ds), Cc.view(b, seqlen, G, ds),
+                 chunk=s.chunk)
+    # D x is added in fp32 after the scan's rounding to x's dtype, as in
+    # the reference
+    y = y + xh.float() * p["D"][None, None, :, None]
+    y = y.reshape(b, seqlen, di).to(x.dtype)
+    y = _rms(y * F.silu(z), p["norm_scale"])
+    return res + (y @ p["out_proj"]).to(res.dtype)
+
+
+def init_mamba_cache(cfg: LMConfig, n_layers: int, batch: int, dtype: torch.dtype,
+                     device: torch.device) -> Dict[str, torch.Tensor]:
+    """Zeroed decode state in the reference's layout: the last K-1 inputs
+    of each convolution (conv_x [L, B, K-1, d_inner], conv_B and conv_C
+    [L, B, K-1, G ds]) in the model's dtype, and the SSM state h [L, B, nh,
+    hd, ds] in fp32."""
+    s, d, di, nh, hd, ds, G = _dims(cfg)
+    k = s.d_conv - 1
+    return {
+        "conv_x": torch.zeros((n_layers, batch, k, di), dtype=dtype, device=device),
+        "conv_B": torch.zeros((n_layers, batch, k, G * ds), dtype=dtype, device=device),
+        "conv_C": torch.zeros((n_layers, batch, k, G * ds), dtype=dtype, device=device),
+        "h": torch.zeros((n_layers, batch, nh, hd, ds), dtype=torch.float32, device=device),
+    }
+
+
+def _conv_step(state: torch.Tensor, new: torch.Tensor,
+               w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """state [B, K-1, C], new [B, C] -> (out [B, C], the next state)."""
+    full = torch.cat([state, new[:, None]], dim=1)  # [B, K, C]
+    out = (full.float() * w.float()).sum(1).to(new.dtype)
+    return out, full[:, 1:]
+
+
+def decode_mamba_block(p: Params, x: torch.Tensor, cache: Mapping[str, torch.Tensor],
+                       cfg: LMConfig) -> torch.Tensor:
+    """Single-token recurrent update, O(1) in the context length: x [B, 1,
+    d] and one layer's slices of ``init_mamba_cache``.  The convolution
+    windows and the state are written into ``cache`` in place (the
+    reference returns updated copies); returns the block's output."""
+    s, d, di, nh, hd, ds, G = _dims(cfg)
+    b = x.shape[0]
+    res = x
+    x = _rms(x, p["ln"])
+    z, xc, Bc, Cc, dt = _projections(p, x[:, 0])
+    xc, cx = _conv_step(cache["conv_x"], xc, p["conv_x"])
+    Bc, cB = _conv_step(cache["conv_B"], Bc, p["conv_B"])
+    Cc, cC = _conv_step(cache["conv_C"], Cc, p["conv_C"])
+    xc, Bc, Cc = F.silu(xc), F.silu(Bc), F.silu(Cc)
+    dt = _softplus(dt.float() + p["dt_bias"])  # [B, nh]
+    A = -torch.exp(p["A_log"])
+    xh = xc.reshape(b, nh, hd).float()
+    rep = nh // G
+    Bh = Bc.reshape(b, G, ds).repeat_interleave(rep, dim=1).float()
+    Ch = Cc.reshape(b, G, ds).repeat_interleave(rep, dim=1).float()
+    decay = torch.exp(A * dt)  # [B, nh]
+    h = cache["h"] * decay[:, :, None, None] + (xh * dt[..., None])[..., None] * Bh[:, :, None, :]
+    y = torch.einsum("bnc,bnhc->bnh", Ch, h) + xh * p["D"][None, :, None]
+    y = y.reshape(b, di).to(x.dtype)
+    y = _rms((y * F.silu(z))[:, None], p["norm_scale"])[:, 0]
+    cache["conv_x"].copy_(cx)
+    cache["conv_B"].copy_(cB)
+    cache["conv_C"].copy_(cC)
+    cache["h"].copy_(h)
+    return res + (y @ p["out_proj"])[:, None].to(res.dtype)

@@ -12,7 +12,8 @@
   * the wrapper's checks, and no route for a tensor on neither the CPU
     nor a card;
   * marked ``cuda``: the kernel against its plain version on a card, at
-    the sweep shapes, a decode against a strided cache, and rows with no
+    the sweep shapes and llama4-scout's grouping of 5 query heads a KV
+    head, a decode against a strided cache, and rows with no
     valid key.  They skip without a card; run them there with
     ``python -m pytest -m cuda tests/test_torch_flash.py``.
 
@@ -157,10 +158,15 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", sorted(CASES) + ["hd16", "hd96_g3", "ragged"])
+@pytest.mark.parametrize("case", sorted(CASES) + ["hd16", "hd96_g3", "ragged",
+                                                 "g5_decode", "g5_prefill"])
 def test_kernel_matches_plain(cuda, case, dtype):
+    # g5: llama4-scout's grouping (5 query heads a KV head), whose decode
+    # runs the 4-head group and a partial second group of 1
     shapes = dict(CASES, hd16=(2, 4, 2, 40, 40, 16, True, None, None, 0),
                   hd96_g3=(1, 6, 2, 1, 300, 96, True, 100, 20.0, 250),
+                  g5_decode=(2, 10, 2, 1, 300, 128, True, None, None, 250),
+                  g5_prefill=(1, 10, 2, 70, 70, 128, True, None, None, 0),
                   ragged=(1, 2, 1, 77, 93, 128, True, 50, None, 16))
     b, h, kv, sq, sk, d, causal, window, softcap, off = shapes[case]
     dt = getattr(torch, dtype)

@@ -9,7 +9,8 @@
   * an entry point called without ``device`` runs on CUDA, so with no
     card present it raises instead of falling back to the CPU (the
     planner, GraphSAGE and its example, the LM and
-    ``repro_torch.launch.serve``).
+    ``repro_torch.launch.serve`` on every pattern, the SSD scan and the
+    grouped GEMM).
 """
 import ast
 import os
@@ -63,6 +64,8 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import repro_torch.data, repro_torch.models\n"
         "import repro_torch.kernels.flash_attention, repro_torch.configs\n"
         "import repro_torch.serve, repro_torch.launch.serve\n"
+        "import repro_torch.kernels.ssd_scan, repro_torch.kernels.moe_gemm\n"
+        "import repro_torch.models.ssm, repro_torch.models.moe\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
@@ -174,3 +177,30 @@ def test_lm_serving_defaults_to_cuda(monkeypatch):
                         "--max-tokens", "2"])
     assert stats["tokens"] == 2 * 3
     assert flash_attention.launches == before
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "llama4-scout-17b-a16e"])
+def test_new_patterns_default_to_cuda(monkeypatch, arch):
+    """``launch.serve --arch mamba2-1.3b`` and ``--arch
+    llama4-scout-17b-a16e`` run on CUDA unless asked for the CPU, and
+    raise with no card (before allocating the full-width weights); their
+    kernels' wrappers route a tensor on neither the CPU nor a card to no
+    kernel."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.moe_gemm import moe_grouped_gemm
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import serve
+    from repro_torch.models import TransformerLM
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", arch, "--requests", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        TransformerLM(get_smoke_config(arch))
+    m = torch.zeros(1, 4, 2, 16, device="meta")
+    with pytest.raises(ValueError, match="no ssd_scan kernel"):
+        ssd_scan(m, m[..., 0], m[0, 0, :, 0], m[:, :, 0], m[:, :, 0])
+    with pytest.raises(ValueError, match="no moe_grouped_gemm kernel"):
+        moe_grouped_gemm(torch.zeros(4, 16, device="meta"),
+                         torch.zeros(2, 16, 8, device="meta"),
+                         torch.zeros(2, dtype=torch.int32, device="meta"))

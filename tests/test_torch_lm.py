@@ -1,21 +1,27 @@
-"""The port's dense TransformerLM against the JAX package's.
+"""The port's TransformerLM (dense, moe and mamba2) against the JAX package's.
 
   * the port's configs (``repro_torch.configs``) equal the reference's
-    dataclasses field by field, with the same parameter count; the archs
-    the port does not run raise ``NotImplementedError``;
+    dataclasses field by field (the MoE and SSM specs too), with the same
+    parameter counts, total and active; the archs the port does not run
+    raise ``NotImplementedError``;
   * norms, RoPE and the three MLP variants against ``repro.models.layers``;
   * ``forward``, ``prefill`` and 12 ``decode_step``s against the JAX
     model's on the same weights (carried across with
     ``convert.lm_from_reference``) in fp32: logits within 1e-4 and the
-    same argmax, for internlm2-smoke, phi3-smoke, starcoder2-smoke and an
+    same argmax, for internlm2-smoke, phi3-smoke, starcoder2-smoke, an
     internlm2-smoke with every dense knob set (sliding window, both
-    softcaps, q scale, embedding scale, tied embeddings); the decode
-    tracks the port's own forward as ``tests/test_models.py`` checks it;
+    softcaps, q scale, embedding scale, tied embeddings), mamba2-smoke,
+    llama4-smoke (top-1 MoE) and kimi-smoke (top-2 MoE); the decode tracks
+    the port's own forward as ``tests/test_models.py`` checks it, and the
+    decode cache (KV, or the convolution windows and SSM state) equals
+    JAX's;
   * the bf16 forward within 2e-2 of JAX's, relative to the output's
     largest magnitude, and as close to the exact forward as JAX's is.
 
-On the CPU the attention runs through the kernel's plain version; the
-kernel itself is held against it on the card (``test_torch_flash.py``).
+On the CPU the attention, the SSD scan and the grouped GEMM run through
+the kernels' plain versions; the kernels themselves are held against them
+on the card (``test_torch_flash.py``, ``test_torch_ssd.py``,
+``test_torch_moe.py``).
 """
 import dataclasses
 
@@ -36,6 +42,7 @@ from repro_torch.models import layers as ly
 
 CTX = single_device_ctx()
 SMOKE = ["internlm2-1.8b", "phi3-mini-3.8b", "starcoder2-3b"]
+PATTERNS = ["mamba2-1.3b", "llama4-scout-17b-a16e", "kimi-k2-1t-a32b"]  # mamba2, moe
 ATOL = 1e-4  # fp32 logits: XLA and torch sum the same products in other orders
 BF16_RTOL = 2e-2  # of the output's largest magnitude; see the bf16 test
 
@@ -68,15 +75,33 @@ def _tokens(cfg, b=2, s=12, seed=1):
 
 
 @pytest.mark.parametrize("smoke", [False, True])
-@pytest.mark.parametrize("arch", SMOKE)
+@pytest.mark.parametrize("arch", SMOKE + PATTERNS)
 def test_configs_equal_reference(arch, smoke):
     get = "get_smoke_config" if smoke else "get_config"
     ref, port = getattr(ref_configs, get)(arch), getattr(configs, get)(arch)
     for f in dataclasses.fields(port):
-        assert getattr(port, f.name) == getattr(ref, f.name), f.name
+        got, want = getattr(port, f.name), getattr(ref, f.name)
+        if dataclasses.is_dataclass(got):  # the moe and ssm specs
+            for g in dataclasses.fields(got):
+                assert getattr(got, g.name) == getattr(want, g.name), (f.name, g.name)
+        else:
+            assert got == want, f.name
     assert port.hd == ref.hd and port.q_scaling() == ref.q_scaling()
     assert port.param_count() == ref.param_count()
+    assert port.active_param_count() == ref.active_param_count()
+    if port.ssm is not None:
+        assert port.ssm.d_inner(port.d_model) == ref.ssm.d_inner(ref.d_model)
+        assert port.ssm.n_heads(port.d_model) == ref.ssm.n_heads(ref.d_model)
     assert lm_config_from_reference(ref) == port
+
+
+def test_full_param_counts():
+    """The counts of the new patterns' full configs, as the reference
+    gives them (mamba2-1.3b, llama4-scout total and active)."""
+    assert configs.get_config("mamba2-1.3b").param_count() == 1_446_402_048
+    scout = configs.get_config("llama4-scout-17b-a16e")
+    assert scout.param_count() == 101_729_566_720
+    assert scout.active_param_count() == 11_132_600_320
 
 
 def test_unported_archs_raise():
@@ -132,7 +157,7 @@ def test_mlp_matches_reference(mlp):
     assert np.abs(got.numpy() - want).max() < 1e-5
 
 
-@pytest.mark.parametrize("arch", SMOKE + ["knobs"])
+@pytest.mark.parametrize("arch", SMOKE + ["knobs"] + PATTERNS)
 def test_forward_prefill_decode_match_reference(arch):
     cfg, model, params, port = _models(arch)
     toks = _tokens(cfg)
@@ -154,7 +179,10 @@ def test_forward_prefill_decode_match_reference(arch):
     struct, _ = model.cache_struct(2, 16)
     cache = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype), struct)
     pcache = port.cache_struct(2, 16)
-    assert tuple(pcache["k"].shape) == struct["k"].shape
+    assert sorted(pcache) == sorted(struct)
+    for name, c in pcache.items():
+        assert tuple(c.shape) == struct[name].shape, name
+        assert str(c.dtype).split(".")[-1] == str(struct[name].dtype), name
     step = jax.jit(model.decode_step)
     for t in range(toks.shape[1]):
         cache, want_t = step(params, cache, jnp.asarray(toks[:, t]), jnp.int32(t))
@@ -163,10 +191,15 @@ def test_forward_prefill_decode_match_reference(arch):
         assert np.abs(got_t - want_t).max() < ATOL, t
         assert np.array_equal(got_t.argmax(-1), want_t.argmax(-1)), t
         assert np.abs(got_t - logits[:, t]).max() < ATOL, t
-    assert np.abs(pcache["k"].numpy() - np.asarray(cache["k"])).max() < ATOL
+    for name, c in pcache.items():
+        assert np.abs(c.numpy() - np.asarray(cache[name])).max() < ATOL, name
 
 
-@pytest.mark.parametrize("arch", SMOKE)
+# kimi-smoke is left out: with top-2 routing over 8 experts, one of its 32
+# positions has two router probabilities so close that bf16 rounding in
+# either framework picks another expert there (0.47 apart, the rest
+# within 0.06); its fp32 forward matches JAX's within 1e-4 above
+@pytest.mark.parametrize("arch", SMOKE + PATTERNS[:2])
 def test_bf16_forward_matches_reference(arch):
     """bf16 weights: the port's forward within 2e-2 of JAX's, relative to
     the output's largest magnitude, and no farther from the exact (fp32)

@@ -1,0 +1,241 @@
+"""The port's MoE FFN and grouped GEMM against the JAX package's, and the
+grouped GEMM's CUDA kernel.
+
+  * ``moe_grouped_gemm_plain`` (the kernel's plain version, which the
+    wrapper runs on CPU tensors) against the oracle
+    ``repro.kernels.ref.grouped_gemm_ref`` (``jax.lax.ragged_dot``) at the
+    sweep shapes of ``tests/test_kernels.py``, and against the Pallas
+    kernel behind ``repro.kernels.ops.moe_grouped_gemm`` in interpret mode
+    at one small shape: fp32 within 1e-5, bf16 within 1e-1 (the sweep's
+    bf16 tolerance), rows past the sum of the group sizes zero; experts
+    with no rows;
+  * the router (``_route``) and ``apply_moe`` against the reference's
+    ``_route`` and ``apply_moe`` on one device, for top-1 (llama4-smoke)
+    and top-2 (kimi-smoke), fp32 within 1e-5 (ids and weights equal);
+  * the wrapper's checks and no route for a tensor on neither the CPU nor
+    a card;
+  * marked ``cuda``: the kernel against its plain version on a card (fp32
+    within 1e-4 of the output's largest magnitude, bf16 within 2e-2) at
+    the sweep shapes, a decode-like tile of one row per expert, empty
+    experts and rows past the sum; and ``apply_moe`` through the kernel
+    against the plain path.  They skip without a card; run them there
+    with ``python -m pytest -m cuda tests/test_torch_moe.py``.
+
+JAX is imported only by the tests that compare with it.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.moe_gemm import moe_grouped_gemm, moe_grouped_gemm_plain
+
+TOL = {"float32": 1e-5, "bfloat16": 1e-1}
+SWEEP = [(256, 128, 128, 4), (512, 256, 256, 8)]  # t, d, f, e
+
+
+@pytest.fixture(scope="module")
+def jx():
+    jax = pytest.importorskip("jax")
+    from repro.kernels import ops, ref
+
+    return jax, ops.moe_grouped_gemm, ref.grouped_gemm_ref
+
+
+def _inputs(seed, t, d, f, e, empty=()):
+    """x [t, d], w [e, d, f] (scaled 0.1, as the sweep) and group sizes
+    summing to ~0.9 t (experts in ``empty`` get none)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((t, d)).astype(np.float32)
+    w = (rng.standard_normal((e, d, f)) * 0.1).astype(np.float32)
+    share = rng.dirichlet(np.ones(e))
+    share[list(empty)] = 0.0
+    gs = np.floor(share / share.sum() * t * 0.9).astype(np.int32)
+    return x, w, gs
+
+
+def _torch(x, w, gs, dtype, device="cpu"):
+    dt = getattr(torch, dtype)
+    return (torch.from_numpy(x).to(device, dt), torch.from_numpy(w).to(device, dt),
+            torch.from_numpy(gs).to(device))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SWEEP)
+def test_plain_matches_reference(jx, shape, dtype):
+    jax, _, ref = jx
+    x, w, gs = _inputs(1, *shape, empty=(1,))
+    jnp = jax.numpy
+    want = np.asarray(ref(jnp.asarray(x).astype(dtype), jnp.asarray(w).astype(dtype),
+                          jnp.asarray(gs)).astype(jnp.float32))
+    before = moe_grouped_gemm.launches
+    got = moe_grouped_gemm(*_torch(x, w, gs, dtype))
+    assert moe_grouped_gemm.launches == before  # the CPU takes the plain version
+    assert got.dtype == getattr(torch, dtype) and got.shape == (shape[0], shape[2])
+    tot = int(gs.sum())
+    assert gs[1] == 0 and tot < shape[0]
+    assert np.abs(got[:tot].float().numpy() - want[:tot]).max() < TOL[dtype]
+    assert not got[tot:].any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_pallas(jx, dtype):
+    jax, ops_gemm, _ = jx
+    jnp = jax.numpy
+    x, w, gs = _inputs(2, 128, 64, 64, 4, empty=(2,))
+    want = np.asarray(ops_gemm(jnp.asarray(x).astype(dtype), jnp.asarray(w).astype(dtype),
+                               jnp.asarray(gs), bt=32, bf=64, bk=64)
+                      .astype(jnp.float32))
+    got = moe_grouped_gemm(*_torch(x, w, gs, dtype)).float().numpy()
+    assert np.abs(got - want).max() < TOL[dtype]
+    assert not got[int(gs.sum()):].any() and not want[int(gs.sum()):].any()
+
+
+def _moe_cfgs(arch):
+    from repro import configs as ref_configs
+    from repro_torch.convert import lm_config_from_reference
+
+    cfg = dataclasses.replace(ref_configs.get_smoke_config(arch), dtype="float32")
+    return cfg, lm_config_from_reference(cfg)
+
+
+def _moe_params(jax, cfg, seed):
+    from repro.models import moe as ref_moe
+
+    p = ref_moe.init_moe(jax.random.key(seed), cfg, 1, jax.numpy.float32)
+    return ({k: v[0] for k, v in p.items()},
+            {k: torch.from_numpy(np.array(v[0])) for k, v in p.items()})
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "kimi-k2-1t-a32b"])
+def test_route_matches_reference(jx, arch):
+    from repro.models import moe as ref_moe
+    from repro_torch.models import moe
+
+    jax = jx[0]
+    cfg, port_cfg = _moe_cfgs(arch)
+    p_ref, p = _moe_params(jax, cfg, 3)
+    xt = np.random.default_rng(4).standard_normal((40, cfg.d_model)).astype(np.float32)
+    ids_r, w_r, probs_r = ref_moe._route(jax.numpy.asarray(xt), p_ref["router"], cfg)
+    ids, w, probs = moe._route(torch.from_numpy(xt), p["router"], port_cfg)
+    assert ids.shape == (40, cfg.moe.top_k)
+    assert np.array_equal(ids.numpy(), np.asarray(ids_r))
+    assert np.abs(w.numpy() - np.asarray(w_r)).max() < 1e-6
+    assert np.abs(probs.numpy() - np.asarray(probs_r)).max() < 1e-6
+
+
+def test_route_breaks_ties_to_the_lower_expert():
+    """Equal probabilities pick the lower ids first, as lax.top_k does."""
+    from repro_torch.models import moe
+
+    _, port_cfg = _moe_cfgs("kimi-k2-1t-a32b")
+    router = torch.zeros(port_cfg.d_model, port_cfg.moe.n_experts)
+    ids, w, _ = moe._route(torch.ones(3, port_cfg.d_model), router, port_cfg)
+    assert ids.tolist() == [[0, 1]] * 3 and torch.allclose(w, torch.full((3, 2), 0.5))
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "kimi-k2-1t-a32b"])
+def test_apply_moe_matches_reference(jx, arch):
+    from repro.models import moe as ref_moe
+    from repro.sharding import single_device_ctx
+    from repro_torch.models import moe
+
+    jax = jx[0]
+    cfg, port_cfg = _moe_cfgs(arch)
+    p_ref, p = _moe_params(jax, cfg, 5)
+    x = np.random.default_rng(6).standard_normal((2, 9, cfg.d_model)).astype(np.float32)
+    want, _ = ref_moe.apply_moe(p_ref, jax.numpy.asarray(x), cfg, single_device_ctx())
+    before = moe_grouped_gemm.launches
+    got = moe.apply_moe(p, torch.from_numpy(x), port_cfg)
+    assert moe_grouped_gemm.launches == before
+    assert got.shape == x.shape
+    assert np.abs(got.numpy() - np.asarray(want)).max() < 1e-5
+
+
+def test_empty_experts_and_zero_rows():
+    """Experts with no rows are skipped and rows past the sum are zero;
+    all rows in one expert, and no rows at all."""
+    x, w, _ = _inputs(7, 50, 16, 24, 5)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    for gs in ([0, 0, 50, 0, 0], [0, 0, 0, 0, 0], [3, 0, 0, 7, 0]):
+        g = torch.tensor(gs, dtype=torch.int32)
+        got = moe_grouped_gemm(xt, wt, g)
+        start = 0
+        for e, n in enumerate(gs):
+            assert torch.allclose(got[start:start + n], xt[start:start + n] @ wt[e])
+            start += n
+        assert not got[start:].any()
+
+
+def test_wrapper_validates_inputs():
+    x, w, gs = _torch(*_inputs(8, 32, 16, 24, 3), "float32")
+    with pytest.raises(TypeError, match="x must be"):
+        moe_grouped_gemm(x.double(), w.double(), gs)
+    with pytest.raises(TypeError, match="w is"):
+        moe_grouped_gemm(x, w.bfloat16(), gs)
+    with pytest.raises(TypeError, match="group_sizes"):
+        moe_grouped_gemm(x, w, gs.float())
+    with pytest.raises(ValueError, match="experts"):
+        moe_grouped_gemm(x, w, gs[:2])
+    with pytest.raises(ValueError, match=r"\[T, D\]"):
+        moe_grouped_gemm(x[:, :8], w, gs)
+    with pytest.raises(NotImplementedError, match="backward"):
+        moe_grouped_gemm(x.requires_grad_(True), w, gs)
+    with pytest.raises(ValueError, match="no moe_grouped_gemm kernel"):
+        moe_grouped_gemm(*(t.detach().to("meta") for t in (x, w, gs)))
+
+
+# ----------------------------------------------------------------- the card
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp(min=1e-30)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,gs", [
+    (SWEEP[0], None), (SWEEP[1], None),
+    ((8, 256, 512, 16), [1, 0, 1, 1, 0, 2, 0, 0, 1, 0, 0, 0, 1, 0, 1, 0]),  # decode
+    ((300, 72, 136, 6), [0, 130, 0, 0, 101, 0]),  # ragged D and F tiles, zero rows
+])
+def test_kernel_matches_plain(cuda, shape, gs, dtype):
+    x, w, g = _inputs(9, *shape, empty=(0,))
+    if gs is not None:
+        g = np.array(gs, np.int32)
+    args = _torch(x, w, g, dtype, cuda)
+    before = moe_grouped_gemm.launches
+    got = moe_grouped_gemm(*args)
+    torch.cuda.synchronize()
+    assert moe_grouped_gemm.launches == before + 1
+    want = moe_grouped_gemm_plain(*args)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert _rel_err(got, want) < (1e-4 if dtype == "float32" else 2e-2)
+    assert not got[int(g.sum()):].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "kimi-k2-1t-a32b"])
+def test_apply_moe_kernel_matches_plain(cuda, arch, monkeypatch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    gen = torch.Generator(cuda).manual_seed(0)
+    shapes, shapes32 = moe.moe_shapes(cfg)
+    p = {n: torch.randn(s, device=cuda, generator=gen) * moe.moe_scales(cfg)[n]
+         for n, s in {**shapes, **shapes32}.items()}
+    x = torch.randn(3, 7, cfg.d_model, device=cuda, generator=gen)
+    got = moe.apply_moe(p, x, cfg)
+    monkeypatch.setattr(moe, "moe_grouped_gemm", moe_grouped_gemm_plain)
+    want = moe.apply_moe(p, x, cfg)
+    # top-2 adds a token's two rows with atomics in either order
+    assert _rel_err(got, want) < 1e-4

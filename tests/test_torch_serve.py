@@ -5,8 +5,10 @@ the two engines, fed the same requests, emit the same tokens: identical
 ``out`` lists for every request and identical tick and token counts.
 Both make the reference's choices (admission order, token-by-token prompt
 feed, greedy argmax, one lock-step ``pos``, caches not reset on admit),
-so a request admitted into a used slot reads what its predecessor left;
-6 requests over 4 slots exercise that.
+so a request admitted into a used slot reads what its predecessor left
+(the KV entries, or mamba2's convolution windows and SSM state); 6
+requests over 4 slots exercise that, on the dense, mamba2 and moe
+patterns.
 """
 import dataclasses
 
@@ -32,7 +34,8 @@ def _requests(cls, n, max_tokens):
             for i in range(n)]
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "starcoder2-3b"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "starcoder2-3b", "mamba2-1.3b",
+                                  "llama4-scout-17b-a16e"])
 def test_engine_emits_reference_tokens(arch):
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     model = build_model(cfg, single_device_ctx())
@@ -79,3 +82,22 @@ def test_serve_driver_on_cpu(capsys):
     assert flash_attention.launches == before
     assert stats["tokens"] == 16 * (16 + 1) and stats["ticks"] > 0
     assert "internlm2-smoke" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch,name", [("mamba2-1.3b", "mamba2-smoke"),
+                                       ("llama4-scout-17b-a16e", "llama4-smoke")])
+def test_serve_driver_new_patterns_on_cpu(capsys, arch, name):
+    """``--arch mamba2-1.3b`` and ``--arch llama4-scout-17b-a16e`` with
+    ``--smoke --device cpu`` and the depth cut to 2 layers: every request
+    finishes, and no kernel launches (the CPU takes the plain versions)."""
+    from repro_torch.kernels.moe_gemm import moe_grouped_gemm
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    before = (ssd_scan.launches, moe_grouped_gemm.launches, flash_attention.launches)
+    stats = port_serve.main(["--smoke", "--device", "cpu", "--arch", arch,
+                             "--requests", "5", "--slots", "3", "--max-tokens", "4",
+                             "--layers", "2"])
+    assert (ssd_scan.launches, moe_grouped_gemm.launches,
+            flash_attention.launches) == before
+    assert stats["tokens"] == 5 * (4 + 1)
+    assert f"{name} (2 layers)" in capsys.readouterr().out

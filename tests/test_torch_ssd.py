@@ -1,0 +1,190 @@
+"""The port's SSD scan against the JAX package's, and its CUDA kernel.
+
+  * ``ssd_scan_plain`` (the kernel's plain version, which the wrapper runs
+    on CPU tensors) against the exact recurrence
+    ``repro.kernels.ref.ssd_ref`` at the sweep shapes of
+    ``tests/test_kernels.py`` (fp32 within 5e-4, bf16 within 5e-2, its
+    tolerances), and against the Pallas kernel
+    ``repro.kernels.ssd_scan.ssd_scan`` in interpret mode at one small
+    shape (fp32 within 1e-5 of the output's largest magnitude: the outputs
+    reach ~40, and torch and XLA sum the chunk's products in other
+    orders);
+  * ``ssd_scan_plain`` against the reference's ``models.ssm.ssd_chunked``
+    (the port's counterpart of it), final state included, from a zero
+    and from a given starting state (the same relative 1e-5);
+  * B and C in groups: [B, S, G, ds] views read by head h as group
+    h // (H / G) equal the same groups repeated over the heads;
+  * the wrapper's checks (S a multiple of the chunk, dtypes, shapes) and
+    no route for a tensor on neither the CPU nor a card;
+  * marked ``cuda``: the kernel against its plain version on a card, at
+    the sweep shapes, the smoke config's chunk of 32, grouped strided
+    views and mamba2-1.3b's chunk of 256.  They skip without a card; run
+    them there with ``python -m pytest -m cuda tests/test_torch_ssd.py``.
+
+JAX is imported only by the tests that compare with it.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+
+TOL = {"float32": 5e-4, "bfloat16": 5e-2}
+SWEEP = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 64, 64)]  # b, s, h, hd, ds, chunk
+
+
+@pytest.fixture(scope="module")
+def jx():
+    jax = pytest.importorskip("jax")
+    from repro.kernels import ref
+    from repro.kernels import ssd_scan as pallas
+    from repro.models import ssm
+
+    return jax.numpy, ref.ssd_ref, pallas.ssd_scan, ssm.ssd_chunked
+
+
+def _inputs(seed, b, s, h, hd, ds):
+    """x, dt (after softplus), A < 0 (as the sweep draws them), and B, C
+    [b, s, ds]."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, hd)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)
+    A = -np.exp(rng.standard_normal(h) * 0.5).astype(np.float32)
+    Bm = rng.standard_normal((b, s, ds)).astype(np.float32)
+    Cm = rng.standard_normal((b, s, ds)).astype(np.float32)
+    return x, dt, A, Bm, Cm
+
+
+def _torch(arrays, dtype, device="cpu"):
+    x, dt, A, Bm, Cm = (torch.from_numpy(a).to(device) for a in arrays)
+    dt_ = getattr(torch, dtype)
+    return x.to(dt_), dt, A, Bm.to(dt_), Cm.to(dt_)
+
+
+def _heads(m, h):
+    """B or C [b, s, ds] repeated to [b, s, h, ds]."""
+    return np.repeat(m[:, :, None, :], h, 2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SWEEP)
+def test_plain_matches_reference(jx, shape, dtype):
+    jnp, ref, _, _ = jx
+    b, s, h, hd, ds, chunk = shape
+    x, dt, A, Bm, Cm = _inputs(1, b, s, h, hd, ds)
+    want = np.asarray(ref(jnp.asarray(x).astype(dtype), jnp.asarray(dt),
+                          jnp.asarray(A), jnp.asarray(_heads(Bm, h)).astype(dtype),
+                          jnp.asarray(_heads(Cm, h)).astype(dtype))
+                      .astype(jnp.float32))
+    before = ssd_scan.launches
+    got = ssd_scan(*_torch((x, dt, A, Bm, Cm), dtype), chunk=chunk)
+    assert ssd_scan.launches == before  # the CPU takes the plain version
+    assert got.dtype == getattr(torch, dtype) and got.shape == (b, s, h, hd)
+    assert np.abs(got.float().numpy() - want).max() < TOL[dtype]
+
+
+def test_plain_matches_pallas(jx):
+    jnp, _, pallas, _ = jx
+    b, s, h, hd, ds, chunk = 2, 64, 2, 16, 16, 16
+    x, dt, A, Bm, Cm = _inputs(2, b, s, h, hd, ds)
+    want = np.asarray(pallas(*(jnp.asarray(a) for a in (x, dt, A, Bm, Cm)),
+                             chunk=chunk, interpret=True))
+    got = ssd_scan(*_torch((x, dt, A, Bm, Cm), "float32"), chunk=chunk)
+    assert np.abs(got.numpy() - want).max() < 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_chunked_matches_reference(jx, with_h0):
+    jnp, _, _, ref_chunked = jx
+    b, s, h, hd, ds, chunk = 2, 96, 3, 16, 8, 32
+    x, dt, A, Bm, Cm = _inputs(3, b, s, h, hd, ds)
+    Bh, Ch = _heads(Bm, h), _heads(Cm, h)
+    h0 = (np.random.default_rng(4).standard_normal((b, h, hd, ds)).astype(np.float32)
+          if with_h0 else None)
+    y_r, hf_r = ref_chunked(*(jnp.asarray(a) for a in (x, dt, A, Bh, Ch)), chunk,
+                            None if h0 is None else jnp.asarray(h0))
+    y, hf = ssd_scan_plain(*(torch.from_numpy(a) for a in (x, dt, A, Bh, Ch)),
+                           chunk=chunk, h0=None if h0 is None else torch.from_numpy(h0))
+    y_r, hf_r = np.asarray(y_r), np.asarray(hf_r)
+    assert np.abs(y.numpy() - y_r).max() < 1e-5 * np.abs(y_r).max()
+    assert hf.dtype == torch.float32 and hf.shape == (b, h, hd, ds)
+    assert np.abs(hf.numpy() - hf_r).max() < 1e-5 * np.abs(hf_r).max()
+
+
+def test_grouped_bc_equal_repeated_heads():
+    """G = 2 groups over 4 heads, as strided views of one wider tensor:
+    head h reads group h // 2."""
+    b, s, h, hd, ds = 2, 64, 4, 16, 8
+    x, dt, A, _, _ = _inputs(5, b, s, h, hd, ds)
+    wide = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (b, s, 3 * 2 * ds)).astype(np.float32))
+    Bg = wide[:, :, : 2 * ds].view(b, s, 2, ds)
+    Cg = wide[:, :, 2 * ds: 4 * ds].view(b, s, 2, ds)
+    xt, dtt, At = (torch.from_numpy(a) for a in (x, dt, A))
+    got = ssd_scan(xt, dtt, At, Bg, Cg, chunk=16)
+    want = ssd_scan(xt, dtt, At, Bg.repeat_interleave(2, 2), Cg.repeat_interleave(2, 2),
+                    chunk=16)
+    assert torch.equal(got, want)
+
+
+def test_wrapper_validates_inputs():
+    x, dt, A, Bm, Cm = (torch.from_numpy(a) for a in _inputs(7, 1, 48, 2, 16, 8))
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssd_scan(x, dt, A, Bm, Cm, chunk=32)  # 48 % 32 != 0
+    assert ssd_scan(x, dt, A, Bm, Cm, chunk=64).shape == x.shape  # q = min(64, 48)
+    with pytest.raises(TypeError, match="x must be"):
+        ssd_scan(x.double(), dt, A, Bm.double(), Cm.double())
+    with pytest.raises(TypeError, match="dt and A"):
+        ssd_scan(x, dt.double(), A, Bm, Cm)
+    with pytest.raises(TypeError, match="x's"):
+        ssd_scan(x, dt, A, Bm.bfloat16(), Cm)
+    with pytest.raises(ValueError, match="do not match"):
+        ssd_scan(x, dt[:, :, :1], A, Bm, Cm)
+    with pytest.raises(ValueError, match="group"):
+        ssd_scan(x, dt, A, Bm[:, :, None].expand(1, 48, 3, 8), Cm[:, :, None].expand(1, 48, 3, 8))
+    with pytest.raises(NotImplementedError, match="backward"):
+        ssd_scan(x.requires_grad_(True), dt, A, Bm, Cm)
+    with pytest.raises(ValueError, match="no ssd_scan kernel"):
+        ssd_scan(*(t.detach().to("meta") for t in (x, dt, A, Bm, Cm)))
+
+
+# ----------------------------------------------------------------- the card
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SWEEP + [(2, 96, 4, 16, 16, 32), (1, 512, 2, 64, 128, 256),
+                                           (1, 40, 2, 128, 24, 40)])
+def test_kernel_matches_plain(cuda, shape, dtype):
+    b, s, h, hd, ds, chunk = shape
+    args = _torch(_inputs(8, b, s, h, hd, ds), dtype, cuda)
+    before = ssd_scan.launches
+    got = ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    want = ssd_scan_plain(*args, chunk=chunk)[0]
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert _rel_err(got, want) < (1e-4 if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.cuda
+def test_kernel_reads_grouped_strided_views(cuda):
+    """B and C as [B, S, G, ds] views of one wider projection, G = 2."""
+    b, s, h, hd, ds = 2, 128, 4, 32, 16
+    x, dt, A, _, _ = _torch(_inputs(9, b, s, h, hd, ds), "float32", cuda)
+    wide = torch.randn(b, s, 5 * ds, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    Bg = wide[:, :, ds: 3 * ds].view(b, s, 2, ds)
+    Cg = wide[:, :, 3 * ds: 5 * ds].view(b, s, 2, ds)
+    got = ssd_scan(x, dt, A, Bg, Cg, chunk=32)
+    want = ssd_scan_plain(x, dt, A, Bg, Cg, chunk=32)[0]
+    assert _rel_err(got, want) < 1e-4
