@@ -43,11 +43,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
      shape q [8, 16, 1, 128] against a [8, 2048, 8, 128] cache at three
      positions (fp32 within 2e-5, bf16 within 2e-2), with times beside
      its bound and ``F.scaled_dot_product_attention``; ``prefill`` of
-     4 x 2048 tokens through the kernel against the same with the plain
-     attention; 2 layers at full width in fp32 on the card against the
-     CPU, and decode against forward; decode against forward at full
-     depth in bf16; then ``ServeEngine`` (16 requests, 8 slots, smax
-     2048, 128 new tokens each) and one profiled tick;
+     4 x 2048 tokens through the kernel (its 24 launches all on the wgmma
+     route; the wall of a first and of a second, warm call) against the
+     same with the plain attention; 2 layers at full width in fp32 on the
+     card against the CPU, and decode against forward; decode against
+     forward at full depth in bf16; then ``ServeEngine`` (16 requests, 8
+     slots, smax 2048, 128 new tokens each) and one profiled tick;
   8. mamba_serve (mamba2-1.3b, bf16, full width and depth, random
      weights): the SSD scan kernel against its plain version at the
      sweep shapes of ``tests/test_kernels.py``, the smoke config's chunk
@@ -57,16 +58,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
      prefill shape; 2 layers at full width in fp32 on the card against
      the CPU, and decode against forward; then the prefill of 4 x 2048
      tokens and ``ServeEngine`` at phase 7's traffic, the prefill against
-     the plain scan, and one profiled tick;
+     the plain scan and timed again warm, and one profiled tick;
   9. moe_serve (llama4-scout-17b-a16e, bf16, full width, 8 of its 48
      layers): the grouped GEMM kernel against its plain version at the
      sweep shapes (an empty expert, rows past the sum) and the decode
      (T = 8) and prefill (T = 8192) shapes, times beside the bound and
      ``torch._grouped_mm``; 2 layers in fp32, kernels against plain
      versions on the card, and decode against forward; then the prefill
-     and ``ServeEngine`` as in phase 8, and one profiled tick;
- 10. the kernel table's JSON line, the card's name and power limit, and
-     the closing status line.
+     (its 24 moe_gemm and 8 flash launches all on the wgmma routes) and
+     ``ServeEngine`` as in phase 8, and one profiled tick;
+ 10. the kernel table's JSON line (the flash and moe_gemm records also
+     carry their prefill shape's times: ``prefill_ms``,
+     ``prefill_bound_ms``, ``prefill_library_ms``), the card's name and
+     power limit, and the closing status line.
 
 Five main paths, each with the kernel launch counts set to 0 just
 before it and read just after: phases 3-4 (planning), the training
@@ -915,6 +919,7 @@ def phase_flash_kernel(fa):
         del q, k, v
     out = dict(rows[f"decode pos {DECODE_POSITIONS[-1]}"])
     out["max_abs_err"] = worst
+    out.update(_prefill_nums(rows["prefill"]))
     return out
 
 
@@ -948,12 +953,15 @@ def phase_lm(fa):
     gen = torch.Generator(device="cuda").manual_seed(1)
     toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
     before = fa.flash_attention.launches
+    routes = _routes(fa.flash_attention)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got = model.prefill(toks)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n_launch = fa.flash_attention.launches - before
+    _check_wgmma("lm prefill", routes, _routes(fa.flash_attention), [cfg.n_layers])
+    warm = _warm_prefill(model, toks)
     with _plain("flash"):
         want = model.prefill(toks)
     if not (torch.isfinite(got[:, : cfg.vocab]).all() and got.shape == (B, model.vp)):
@@ -963,7 +971,8 @@ def phase_lm(fa):
     d_pre = (got - want)[:, : cfg.vocab].abs().max().item()
     agree = int((got.argmax(-1) == want.argmax(-1)).sum().item())
     print(f"[lm] prefill {B} x {S} tokens, bf16: {wall:.3f} s (first call), "
-          f"{n_launch} kernel launches; against the plain attention: max abs "
+          f"{warm:.3f} s (second call), {n_launch} kernel launches, all on the "
+          f"wgmma route; against the plain attention: max abs "
           f"logit diff {d_pre:.4g} (logits in [{got[:, :cfg.vocab].min().item():.3f}, "
           f"{got[:, :cfg.vocab].max().item():.3f}]), argmax agrees on {agree} of "
           f"{B}", flush=True)
@@ -1014,8 +1023,35 @@ def phase_lm(fa):
                             {"flash": (launches, cfg.n_layers)})
     _teacher_forced("lm serve", model, reqs)
     _profile_tick("lm profile", model, ms_tick,
-                  {"flash_attention": ("flash_decode", "flash_tiled")})
+                  {"flash_attention": ("flash_decode", "flash_tiled", "flash_wgmma")})
     return launches
+
+
+def _warm_prefill(model, toks):
+    """Seconds of a second, warm call of ``model.prefill`` (the allocator's
+    blocks and the kernels' first-launch costs already in place)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.prefill(toks)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _routes(*counted):
+    """The launches per route of each kernel wrapper in ``counted``."""
+    return [dict(c.launches_by_route) for c in counted]
+
+
+def _check_wgmma(tag, before, after, want):
+    """Fail unless every launch between the two ``_routes`` readings went
+    through the wgmma route: ``want`` launches per wrapper."""
+    for b, a, n in zip(before, after, want):
+        moved = {r: a[r] - b[r] for r in a}
+        if moved["wgmma"] != n or sum(moved.values()) != n:
+            raise AssertionError(f"{tag}: the bf16 prefill's launches by route were "
+                                 f"{moved}, expected {n} on the wgmma route")
 
 
 def _gate_prefill(tag, d_pre, want):
@@ -1342,13 +1378,15 @@ def phase_mamba(ss, fa, mg):
     if n_pre != cfg.n_layers or others:
         raise AssertionError(f"mamba2 prefill launched ssd_scan {n_pre} times "
                              f"and the other kernels {others} times")
+    warm = _warm_prefill(model, toks)
     with _plain("ssd"):
         want = model.prefill(toks)
     d_pre = (got - want)[:, : cfg.vocab].abs().max().item()
     agree = int((got.argmax(-1) == want.argmax(-1)).sum().item())
     print(f"[mamba] prefill {B} x {S} tokens, bf16: {wall:.3f} s (first call), "
-          f"{n_pre} ssd_scan launches; against the plain scan: max abs logit "
-          f"diff {d_pre:.4g} (logits in [{got[:, :cfg.vocab].min().item():.3f}, "
+          f"{warm:.3f} s (second call), {n_pre} ssd_scan launches; against the "
+          f"plain scan: max abs logit diff {d_pre:.4g} (logits in "
+          f"[{got[:, :cfg.vocab].min().item():.3f}, "
           f"{got[:, :cfg.vocab].max().item():.3f}]), argmax agrees on {agree} "
           f"of {B}", flush=True)
     _gate_prefill("mamba", d_pre, want[:, : cfg.vocab])
@@ -1507,6 +1545,7 @@ def phase_moe_kernel(mg):
         _free()
     out = dict(rows["decode gate/up"])
     out["max_abs_err"] = worst
+    out.update(_prefill_nums(rows["prefill gate/up"]))
     return out
 
 
@@ -1574,14 +1613,18 @@ def phase_moe(mg, fa):
     torch.cuda.synchronize()
     fa.flash_attention.launches = 0
     mg.moe_grouped_gemm.launches = 0
+    routes = _routes(mg.moe_grouped_gemm, fa.flash_attention)
     t0 = time.perf_counter()
     got = model.prefill(toks)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     pre = (mg.moe_grouped_gemm.launches, fa.flash_attention.launches)
+    pre_routes = _routes(mg.moe_grouped_gemm, fa.flash_attention)
     stats = engine.run()
     launches = {"moe_gemm": mg.moe_grouped_gemm.launches,
                 "flash_attention": fa.flash_attention.launches}
+    _check_wgmma("moe prefill", routes, pre_routes, [3 * cfg.n_layers, cfg.n_layers])
+    warm = _warm_prefill(model, toks)
     if not (torch.isfinite(got[:, : cfg.vocab]).all() and got.shape == (B, model.vp)):
         raise AssertionError("llama4 prefill logits not finite or of the wrong shape")
     if pre != (3 * cfg.n_layers, cfg.n_layers):
@@ -1591,7 +1634,8 @@ def phase_moe(mg, fa):
     d_pre = (got - want)[:, : cfg.vocab].abs().max().item()
     agree = int((got.argmax(-1) == want.argmax(-1)).sum().item())
     print(f"[moe] prefill {B} x {S} tokens, bf16: {wall:.3f} s (first call), "
-          f"{pre[0]} moe_gemm and {pre[1]} flash launches; against the plain "
+          f"{warm:.3f} s (second call), {pre[0]} moe_gemm and {pre[1]} flash "
+          f"launches, all on the wgmma routes; against the plain "
           f"path: max abs logit diff {d_pre:.4g} (logits in "
           f"[{got[:, :cfg.vocab].min().item():.3f}, "
           f"{got[:, :cfg.vocab].max().item():.3f}]), argmax agrees on {agree} "
@@ -1602,15 +1646,22 @@ def phase_moe(mg, fa):
         "flash_attention": (launches["flash_attention"] - pre[1], cfg.n_layers)})
     _teacher_forced("moe serve", model, reqs)
     _profile_tick("moe profile", model, ms_tick,
-                  {"moe_gemm": ("moe_gemm",),
-                   "flash_attention": ("flash_decode", "flash_tiled")})
+                  {"moe_gemm": ("moe_gemm", "moe_wgmma"),
+                   "flash_attention": ("flash_decode", "flash_tiled", "flash_wgmma")})
     print(f"[moe] peak device memory {torch.cuda.max_memory_allocated()} bytes",
           flush=True)
     return launches
 
 
+def _prefill_nums(row):
+    """A timed prefill row as the record's prefill_* numbers."""
+    return {"prefill_ms": row["ms"], "prefill_bound_ms": row["bound_ms"],
+            "prefill_library_ms": row["library_ms"]}
+
+
 def _entry(name, stem, replaces, nums, launches):
-    """One kernel's record of the JSON line (source csrc/<stem>.cu)."""
+    """One kernel's record of the JSON line (source csrc/<stem>.cu); the
+    flash and moe_gemm records also carry their prefill row's times."""
     return {
         "name": name,
         "route": "cuda",
@@ -1623,6 +1674,7 @@ def _entry(name, stem, replaces, nums, launches):
         "bound_ms": nums["bound_ms"],
         "bound_by": nums["bound_by"],
         "library_ms": nums.get("library_ms"),
+        **{k: v for k, v in nums.items() if k.startswith("prefill_")},
     }
 
 

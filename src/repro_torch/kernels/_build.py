@@ -2,10 +2,12 @@
 
 Every ``csrc/*.cu`` of the port has a plain C interface and is compiled
 on its own for ``sm_90a`` into ``<repo>/build/`` (listed in .gitignore),
-then loaded with ``ctypes`` by its wrapper module.  A library's name
-carries a hash of its source, so an edited source is rebuilt and an
-unchanged one is reused.  ``build`` starts one nvcc for each source that
-needs building, all at once, and waits for all of them.
+with ``csrc/`` on the include path, then loaded with ``ctypes`` by its
+wrapper module.  A library's name carries a digest of its source, of
+every header beside it (``csrc/*.cuh``) and of the compiler flags, so an
+edited source or header is rebuilt and an unchanged one is reused.
+``build`` starts one nvcc for each source that needs building, all at
+once, and waits for all of them.
 """
 from __future__ import annotations
 
@@ -35,6 +37,17 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin)")
 
 
+def digest(source: Path) -> str:
+    """The digest in the name of ``source``'s library: its bytes, those
+    of every ``*.cuh`` in its directory (sorted by name) and the flags."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build(*sources: Path) -> List[Tuple[Path, float, str]]:
     """Compile every source whose library is missing, all in parallel;
     returns ``(library path, build seconds, compiler output)`` per source,
@@ -42,14 +55,14 @@ def build(*sources: Path) -> List[Tuple[Path, float, str]]:
     already there)."""
     jobs = []
     for source in sources:
-        digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-        lib = BUILD_DIR / f"{source.stem}_{digest}.so"
+        lib = BUILD_DIR / f"{source.stem}_{digest(source)}.so"
         if lib.exists():
             jobs.append((lib, None, None, None))
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(source.parent), "-o", str(tmp),
+               str(source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
         jobs.append((lib, tmp, cmd, (proc, time.perf_counter())))

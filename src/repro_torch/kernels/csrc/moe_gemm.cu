@@ -13,43 +13,57 @@
 // which every 128-row block holds one expert (ops.padded_group_layout),
 // with the expert id prefetched as a scalar.  Here the group sizes stay a
 // device array and each block finds its own work: the grid runs over an
-// upper bound of row tiles, ceil(T / 64) + E (each segment needs
-// ceil(g / 64) tiles), and warp 0 of each block scans the E group sizes
-// (a per-lane run, then a warp scan) to map its tile to (expert, first
-// row, rows), or to a tile of the zero rows past the sum, or to nothing,
-// when it exits at once.  No host sync per call, and no weight of an
-// expert without rows is read.
+// upper bound of row tiles of R rows, ceil(T / R) + E (each segment
+// needs ceil(g / R) tiles), and warp 0 of each block scans the E group
+// sizes (a per-lane run, then a warp scan; map_tile) to map its tile to
+// (expert, first row, rows), or to a tile of the zero rows past the sum,
+// or to nothing, when it exits at once.  No host sync per call, and no
+// weight of an expert without rows is read.
 //
-// Tiles.  A block computes 64 rows x 128 output columns, 256 threads, in
-// one of two ways, chosen per block from its tile's row count:
+// Two kernels; the host chooses one from the dtype, T and E before the
+// launch (moe_gemm.py's route()):
 //
-//   * more than 4 rows (prefill): each thread 8 rows (ty + 8 i) x 4
-//     columns (tx + 32 j), summing over D in slices of 32 staged in shared
-//     memory as fp32 (x transposed, w as is), the next slice loaded into
-//     registers while the current one is used;
-//   * at most 4 rows (a decode step: top-1 over 8 slots gives an expert
-//     one or two rows): the block streams the expert's [D, 128] weight
-//     slab.  Each thread owns one 16-byte column vector and a share of
-//     the D rows, keeps 4 loads in flight with no barrier, and the shares
-//     are summed through shared memory at the end.  So the FMAs follow
-//     the rows there are, and the weights are read at the memory's pace.
+//   * moe_wgmma (bf16 with T > 4 E: prefill): R = 128 rows x 128 output
+//     columns a block, two consumer warpgroups of 64 rows and one
+//     producer warp.  The producer's lane 0 loads slices of 64 along D
+//     through a ring of 4 stages with TMA: x as a 2-D map [T, D] (its
+//     row stride), w as a 3-D map [E, D, F], so a slice past D reads
+//     zeros and never expert e + 1's rows; each stage's arrival is
+//     counted on an mbarrier, its release on another.  The warpgroups
+//     multiply with wgmma m64n128k16 from shared memory, x K-major and w
+//     MN-major (the transposed descriptor), fp32 accumulators in
+//     registers, one slice's products in flight while the next is
+//     issued.  A tile's x slice may hold the next expert's rows: only the
+//     tile's own rows are stored.  Blocks walk 8 row tiles for each
+//     column tile, so those in flight share x rows and w columns in L2.
+//   * moe_gemm_kernel (fp32, and bf16 at T <= 4 E: decode): R = 64 rows x
+//     128 output columns a block, 256 threads, in one of two ways, chosen
+//     per block from its tile's row count:
+//       - more than 4 rows: each thread 8 rows (ty + 8 i) x 4 columns
+//         (tx + 32 j), summing over D in slices of 32 staged in shared
+//         memory as fp32 (x transposed, w as is), the next slice loaded
+//         into registers while the current one is used;
+//       - at most 4 rows (a decode step: top-1 over 8 slots gives an
+//         expert one or two rows): the block streams the expert's [D,
+//         128] weight slab.  Each thread owns one 16-byte column vector
+//         and a share of the D rows, keeps 4 loads in flight with no
+//         barrier, and the shares are summed through shared memory at the
+//         end.  So the FMAs follow the rows there are, and the weights are
+//         read at the memory's pace.
 //
 // Bound.  Decode (llama4-scout, T = 8, top-1): each gate or up call reads
 // the weights of the distinct experts hit, up to 8 x 5120 x 8192 x 2 B =
 // 671 MB, about 0.20 ms at 3.35 TB/s: bound by bytes; the grid has 64
 // column tiles per expert hit (40 for the down projection), 280-450
 // blocks over the 132 SMs, three resident on each (launch bound: 85
-// registers a thread), so one wave.  Prefill (T =
-// 8192): 687 GFLOP per gate or up call, 0.69 ms at the 989 TFLOP/s bf16
-// tensor-core rate: bound by operations, which plain fp32 FMAs from
-// shared memory cannot approach; wgmma on bf16 tiles is the later
-// speed-up.
+// registers a thread), so one wave.  Prefill (T = 8192): 687 GFLOP per
+// gate or up call, 0.69 ms at the 989 TFLOP/s bf16 tensor-core rate:
+// bound by operations, hence the tensor cores.
 //
 // Built with nvcc for sm_90a into a shared library with a plain C
 // interface (repro_torch/kernels/moe_gemm.py loads it with ctypes).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "sm90.cuh"
 
 namespace {
 
@@ -108,6 +122,59 @@ struct Args {
   long long x_rs;  // row stride of x (elements)
   int T, D, F, E;
 };
+
+// Warp 0 maps row tile `tile` (tiles of R rows) to its expert's rows from
+// the group sizes: info = (expert, first row, rows), or (-1, first row,
+// rows) for a tile of the zero rows past sum(group_sizes), or expert -2
+// for no work.  Each lane sums a run of experts, then a warp scan.
+template <int R>
+__device__ __forceinline__ void map_tile(const Args& a, int tile, int lane, int* info) {
+  if (lane == 0) info[0] = -2;
+  __syncwarp();
+  const int per = (a.E + 31) / 32;
+  const int lo = lane * per, hi = min(a.E, lo + per);
+  int rows = 0, tiles = 0;
+  for (int e = lo; e < hi; ++e) {
+    const int g = max(a.gs[e], 0);
+    rows += g;
+    tiles += (g + R - 1) / R;
+  }
+  int ri = rows, ti = tiles;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int vr = __shfl_up_sync(kFull, ri, off);
+    const int vt = __shfl_up_sync(kFull, ti, off);
+    if (lane >= off) {
+      ri += vr;
+      ti += vt;
+    }
+  }
+  const int tot_rows = __shfl_sync(kFull, ri, 31);
+  const int tot_tiles = __shfl_sync(kFull, ti, 31);
+  int r_base = ri - rows, t_base = ti - tiles;
+  if (tile >= t_base && tile < t_base + tiles) {
+    for (int e = lo; e < hi; ++e) {
+      const int g = max(a.gs[e], 0);
+      const int nt = (g + R - 1) / R;
+      if (tile < t_base + nt) {
+        const int k = tile - t_base;
+        info[0] = e;
+        info[1] = r_base + k * R;
+        info[2] = min(R, g - k * R);
+        break;
+      }
+      t_base += nt;
+      r_base += g;
+    }
+  }
+  if (lane == 0 && tile >= tot_tiles) {
+    const int start = tot_rows + (tile - tot_tiles) * R;
+    if (start < a.T) {
+      info[0] = -1;
+      info[1] = start;
+      info[2] = min(R, a.T - start);
+    }
+  }
+}
 
 // out[r] = x[r] . W for the nrows <= kStreamRows rows of a tile, columns
 // f0.. of the tile (X, W and O already offset to the tile's first row and
@@ -194,53 +261,7 @@ __global__ void __launch_bounds__(kThreads, 3) moe_gemm_kernel(const Args a) {
   const int f0 = blockIdx.x * kCols;
 
   // map this row tile to its expert's rows, from the group sizes
-  if (tid < 32) {
-    if (lane == 0) info[0] = -2;
-    __syncwarp();
-    const int per = (a.E + 31) / 32;
-    const int lo = lane * per, hi = min(a.E, lo + per);
-    int rows = 0, tiles = 0;
-    for (int e = lo; e < hi; ++e) {
-      const int g = max(a.gs[e], 0);
-      rows += g;
-      tiles += (g + kRows - 1) / kRows;
-    }
-    int ri = rows, ti = tiles;
-    for (int off = 1; off < 32; off <<= 1) {
-      const int vr = __shfl_up_sync(kFull, ri, off);
-      const int vt = __shfl_up_sync(kFull, ti, off);
-      if (lane >= off) {
-        ri += vr;
-        ti += vt;
-      }
-    }
-    const int tot_rows = __shfl_sync(kFull, ri, 31);
-    const int tot_tiles = __shfl_sync(kFull, ti, 31);
-    int r_base = ri - rows, t_base = ti - tiles;
-    if (tile >= t_base && tile < t_base + tiles) {
-      for (int e = lo; e < hi; ++e) {
-        const int g = max(a.gs[e], 0);
-        const int nt = (g + kRows - 1) / kRows;
-        if (tile < t_base + nt) {
-          const int k = tile - t_base;
-          info[0] = e;
-          info[1] = r_base + k * kRows;
-          info[2] = min(kRows, g - k * kRows);
-          break;
-        }
-        t_base += nt;
-        r_base += g;
-      }
-    }
-    if (lane == 0 && tile >= tot_tiles) {
-      const int start = tot_rows + (tile - tot_tiles) * kRows;
-      if (start < a.T) {
-        info[0] = -1;
-        info[1] = start;
-        info[2] = min(kRows, a.T - start);
-      }
-    }
-  }
+  if (tid < 32) map_tile<kRows>(a, tile, lane, info);
   __syncthreads();
   const int e = info[0], row0 = info[1];
   if (e == -2 || row0 >= a.T) return;
@@ -348,22 +369,180 @@ __global__ void __launch_bounds__(kThreads, 3) moe_gemm_kernel(const Args a) {
   }
 }
 
+// ---------------------------------------------------------------- wgmma
+// The bf16 prefill route (see the note at the top)
+constexpr int kGRows = 128;
+constexpr int kGCols = 128;
+constexpr int kGDepth = 64;
+constexpr int kGStages = 4;
+constexpr int kGThreads = 288;  // two warpgroups and the producer warp
+constexpr int kGGroup = 8;      // row tiles a group of blocks walks before the next columns
+constexpr int kGABytes = kGRows * kGDepth * 2;  // x slice [128][64]
+constexpr int kGBBytes = kGDepth * kGCols * 2;  // w slice: two [64][64] halves
+constexpr int kGStageBytes = kGABytes + kGBBytes;
+constexpr int kGBarOffset = kGStages * kGStageBytes;
+constexpr int kGSmem = 1024 + kGBarOffset + 2 * kGStages * 8;
+
+__global__ void __launch_bounds__(kGThreads, 1)
+    moe_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+              const Args a, int n_row_tiles, int n_col_tiles) {
+  using sm90::kAtomBytes;
+  using sm90::kRowBytes;
+  extern __shared__ uint8_t raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + kGBarOffset);
+  uint64_t* empty = full + kGStages;
+  __shared__ int info[3];
+
+  // blocks walk kGGroup row tiles for each column tile, so the blocks in
+  // flight share their x rows and w columns in L2
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int per_group = kGGroup * n_col_tiles;
+  const int first = (blockIdx.x / per_group) * kGGroup;
+  const int in_group = blockIdx.x % per_group;
+  const int group_rows = min(kGGroup, n_row_tiles - first);
+  const int tile = first + in_group % group_rows;
+  const int f0 = (in_group / group_rows) * kGCols;
+
+  if (tid < 32) map_tile<kGRows>(a, tile, lane, info);
+  __syncthreads();
+  const int e = info[0], row0 = info[1];
+  if (e == -2 || row0 >= a.T) return;
+  const int nrows = min(info[2], a.T - row0);
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+  if (e == -1) {  // rows past sum(group_sizes)
+    for (int i = tid; i < nrows * kGCols; i += kGThreads) {
+      const int r = i / kGCols, c = f0 + i % kGCols;
+      if (c < a.F) out[static_cast<long long>(row0 + r) * a.F + c] = __float2bfloat16_rn(0.f);
+    }
+    return;
+  }
+
+  if (tid == 0) {
+    for (int s = 0; s < kGStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 256);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  const int nk = (a.D + kGDepth - 1) / kGDepth;
+
+  if (tid >= 256) {  // the producer warp: its lane 0 issues every load
+    if (tid == 256) {
+      for (int k = 0; k < nk; ++k) {
+        const int s = k % kGStages;
+        if (k >= kGStages) sm90::mbar_wait(&empty[s], (k / kGStages + 1) & 1);
+        uint8_t* sa = base + s * kGStageBytes;
+        uint8_t* sb = sa + kGABytes;
+        sm90::mbar_expect_tx(&full[s], kGStageBytes);
+        // x rows past T, and columns past D, read zeros; so do w rows
+        // past D and columns past F (a 3-D map: expert e's slice never
+        // reads expert e + 1's rows)
+        sm90::tma_load_2d(sa, &xmap, &full[s], k * kGDepth, row0);
+        sm90::tma_load_3d(sb, &wmap, &full[s], f0, k * kGDepth, e);
+        sm90::tma_load_3d(sb + kGDepth * kRowBytes, &wmap, &full[s], f0 + 64, k * kGDepth, e);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup g: rows 64 g.. of the tile
+  const int g = tid / 128, warp = (tid % 128) / 32;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int k = 0; k < nk; ++k) {
+    const int s = k % kGStages;
+    const uint8_t* sa = base + s * kGStageBytes + g * 64 * kRowBytes;
+    const uint8_t* sb = base + s * kGStageBytes + kGABytes;
+    sm90::mbar_wait(&full[s], (k / kGStages) & 1);
+    sm90::fence_regs(acc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kGDepth / 16; ++kk) {
+      // x K-major; w MN-major, its two 64-column halves kGDepth rows apart
+      sm90::wgmma_ss_n128<1>(acc, sm90::desc(sa + kk * 32, 16, kAtomBytes),
+                             sm90::desc(sb + kk * 16 * kRowBytes, kGDepth * kRowBytes,
+                                        kAtomBytes),
+                             1);
+    }
+    sm90::wgmma_commit();
+    // the previous slice's products are done: release its stage
+    sm90::wgmma_wait<1>();
+    sm90::fence_regs(acc);
+    if (k > 0) sm90::mbar_arrive(&empty[(k - 1) % kGStages]);
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(acc);
+
+  // store the tile's own rows (the slices may hold the next expert's)
+  const int rb = 64 * g + 16 * warp + (tid % 32) / 4, c2 = 2 * (tid % 4);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = rb + 8 * r;
+    if (row >= nrows) continue;
+    __nv_bfloat16* o = out + static_cast<long long>(row0 + row) * a.F;
+#pragma unroll
+    for (int j = 0; j < kGCols / 8; ++j) {
+      const int c = f0 + 8 * j + c2;
+      if (c < a.F)
+        *reinterpret_cast<__nv_bfloat162*>(o + c) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// x [T, D] (row stride x_rs) as a 2-D map with [64 columns][128 rows]
+// boxes, w [E, D, F] as a 3-D map with [64 columns][64 rows] boxes; then
+// the launch over every (row tile, column tile) pair
+int launch_wgmma(const Args& a, cudaStream_t stream) {
+  CUtensorMap xm, wm;
+  const uint64_t xdims[2] = {static_cast<uint64_t>(a.D), static_cast<uint64_t>(a.T)};
+  const uint64_t xstrides[1] = {static_cast<uint64_t>(a.x_rs) * 2};
+  const uint32_t xbox[2] = {kGDepth, kGRows};
+  const uint64_t wdims[3] = {static_cast<uint64_t>(a.F), static_cast<uint64_t>(a.D),
+                             static_cast<uint64_t>(a.E)};
+  const uint64_t wstrides[2] = {static_cast<uint64_t>(a.F) * 2,
+                                static_cast<uint64_t>(a.D) * a.F * 2};
+  const uint32_t wbox[3] = {64, kGDepth, 1};
+  int err = sm90_host::make_map(&xm, a.x, 2, xdims, xstrides, xbox);
+  if (err == 0) err = sm90_host::make_map(&wm, a.w, 3, wdims, wstrides, wbox);
+  if (err != 0) return err;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(moe_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kGSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int n_row_tiles = (a.T + kGRows - 1) / kGRows + a.E;
+  const int n_col_tiles = (a.F + kGCols - 1) / kGCols;
+  moe_wgmma<<<n_row_tiles * n_col_tiles, kGThreads, kGSmem, stream>>>(xm, wm, a, n_row_tiles,
+                                                                        n_col_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches the grouped GEMM on `stream`; returns cudaGetLastError() (0 =
-// ok) or -1 for an unsupported dtype.  x [T, D] (row stride x_rs, last
-// dimension contiguous), w [E, D, F] contiguous, group_sizes [E] int32
-// and out [T, F] contiguous are device pointers; dtype 0 = float32, 1 =
-// bfloat16 (x, w and out).  F % 8 == 0.
+// Launches the grouped GEMM on `stream` by `route`; returns
+// cudaGetLastError() (0 = ok), -1 for a dtype the route does not take,
+// -3 or -4 when a TMA tensor map cannot be made (no driver entry point; an
+// address or stride not a multiple of 16 bytes) and -5 for an unknown
+// route.  x [T, D] (row stride x_rs, last dimension contiguous), w [E, D,
+// F] contiguous, group_sizes [E] int32 and out [T, F] contiguous are
+// device pointers; dtype 0 = float32, 1 = bfloat16 (x, w and out).
+// F % 8 == 0.  Routes: 0 = moe_gemm_kernel (64-row tiles; those of at
+// most 4 rows stream the weights), 1 = moe_wgmma (bfloat16, 128-row
+// tiles on the tensor cores).
 int repro_moe_gemm(const void* x, const void* w, const void* group_sizes,
                    void* out, long long x_rs, int T, int D, int F, int E,
-                   int dtype, void* stream) {
+                   int dtype, int route, void* stream) {
   if (T == 0 || F == 0) return 0;
   const Args a{x, w, static_cast<const int*>(group_sizes), out, x_rs, T, D, F, E};
-  const dim3 grid((F + kCols - 1) / kCols, (T + kRows - 1) / kRows + E);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 1) return dtype == 1 ? launch_wgmma(a, s) : -1;
+  if (route != 0) return -5;
+  const dim3 grid((F + kCols - 1) / kCols, (T + kRows - 1) / kRows + E);
   if (dtype == 0) {
     moe_gemm_kernel<float><<<grid, kThreads, 0, s>>>(a);
   } else if (dtype == 1) {

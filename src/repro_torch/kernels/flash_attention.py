@@ -10,19 +10,25 @@ head h reads KV head ``h // (H // KV)`` (the grouping of
 repeated to H heads; this function of grouped heads equals it applied to
 ``k.repeat_interleave(H // KV, 1)``.
 
-  * on CUDA tensors it launches ``csrc/flash_attention.cu`` (a tiled
-    kernel for prefill, a key-parallel one for Sq == 1), built with
-    ``nvcc`` for ``sm_90a`` into ``build/`` at first use and loaded with
-    ``ctypes``; the tensors are read through their strides, so views of
-    the model's [B, S, N, D] projections and of the [B, Smax, KV, D]
-    cache are neither copied nor transposed;
+  * on CUDA tensors it launches one of the three kernels of
+    ``csrc/flash_attention.cu``, built with ``nvcc`` for ``sm_90a`` into
+    ``build/`` at first use and loaded with ``ctypes``; ``route(dtype, Sq,
+    D)`` chooses it on the host before the launch: ``"wgmma"`` (bf16
+    prefill, D 64 or 128, on the tensor cores), ``"decode"`` (Sq == 1, a
+    key-parallel kernel) or ``"fma"`` (every other call: a tiled fp32 FMA
+    kernel).  The tensors are read through their strides, so views of the
+    model's [B, S, N, D] projections and of the [B, Smax, KV, D] cache are
+    neither copied nor transposed (the wgmma kernel loads them with TMA,
+    which needs 16-byte aligned addresses and strides);
   * on CPU tensors it runs ``flash_attention_plain``, the oracle
     ``repro.kernels.ref.flash_attention_ref`` written out in torch: fp32
     scores, masked entries set to -1e30, a softmax, and weights rounded
     to v's dtype before the product with v.
 
-There is no fallback between the two: a CUDA tensor launches the kernel
-or raises.  Each launch adds one to ``flash_attention.launches``.  There
+There is no fallback between the routes: a CUDA tensor launches the
+kernel of its route or raises.  Each launch adds one to
+``flash_attention.launches`` and to its route's count in
+``flash_attention.launches_by_route``.  There
 is no backward yet (ROADMAP Queue 2 item 3b): an input that requires a
 gradient is refused.
 """
@@ -40,6 +46,10 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 # dtype codes of the C interface
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 96, 128)
+# the kernels of the C interface, by route code
+ROUTES = {"fma": 0, "decode": 1, "wgmma": 2}
+DECODE_HEAD_DIMS = (64, 96, 128)
+WGMMA_HEAD_DIMS = (64, 128)
 NEG_INF = -1e30  # the masked score of the TPU kernel and of the oracle
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -51,18 +61,45 @@ def build() -> Tuple[Path, float, str]:
     return _build.build(SOURCE)[0]
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """A built library of the kernel with its C interface declared."""
+    lib = ctypes.CDLL(str(path))
+    vp, ci, ll, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.repro_flash_attention.argtypes = (
+        [vp] * 4 + [ll] * 12 + [ci] * 6 + [cf, cf] + [ci] * 5 + [vp]
+    )
+    lib.repro_flash_attention.restype = ci
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        path, _, _ = build()
-        lib = ctypes.CDLL(str(path))
-        vp, ci, ll, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        lib.repro_flash_attention.argtypes = (
-            [vp] * 4 + [ll] * 12 + [ci] * 6 + [cf, cf] + [ci] * 4 + [vp]
-        )
-        lib.repro_flash_attention.restype = ci
-        _LIB = lib
+        _LIB = load(build()[0])
     return _LIB
+
+
+def route(dtype: torch.dtype, sq: int, d: int) -> str:
+    """The kernel a CUDA call launches, from q's dtype, Sq and D alone:
+    ``"wgmma"`` for bf16 with Sq > 1 and D in ``WGMMA_HEAD_DIMS``,
+    ``"decode"`` for Sq == 1 and D in ``DECODE_HEAD_DIMS``, else
+    ``"fma"``."""
+    if sq > 1 and dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    if sq == 1 and d in DECODE_HEAD_DIMS:
+        return "decode"
+    return "fma"
+
+
+def _check_tma(**tensors: torch.Tensor) -> None:
+    """TMA reads a tensor whose address and outer strides (of dimensions
+    larger than 1) are multiples of 16 bytes."""
+    for name, t in tensors.items():
+        bad = [s for s, n in zip(t.stride()[:-1], t.shape[:-1])
+               if n > 1 and (s * t.element_size()) % 16]
+        if t.data_ptr() % 16 or bad:
+            raise ValueError(f"{name} is not 16-byte aligned for the wgmma route "
+                             f"(address {t.data_ptr()}, strides {t.stride()})")
 
 
 def causal_mask(sq: int, sk: int, window: Optional[int], offset: int = 0,
@@ -146,6 +183,9 @@ def _launch(q, k, v, causal, window, softcap, scale, q_offset) -> torch.Tensor:
         raise ValueError("the head dimension of q, k and v must be contiguous")
     if max(Sq, Sk) + q_offset >= 2**31:
         raise ValueError("positions too large for the kernel's int32 indices")
+    r = route(q.dtype, Sq, D)
+    if r == "wgmma":
+        _check_tma(q=q, k=k, v=v)
     # the output in q's memory layout (a [B, S, H, D] view stays one)
     o = torch.empty_like(q)
     if o.stride(3) != 1:
@@ -159,11 +199,12 @@ def _launch(q, k, v, causal, window, softcap, scale, q_offset) -> torch.Tensor:
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
             B, H, KV, Sq, Sk, D, float(scale), float(softcap or 0.0),
-            int(causal), int(win), int(q_offset), _DTYPES[q.dtype], stream,
+            int(causal), int(win), int(q_offset), _DTYPES[q.dtype], ROUTES[r], stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: error {err}")
+        raise RuntimeError(f"flash_attention kernel launch failed ({r} route): error {err}")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[r] += 1
     return o
 
 
@@ -179,7 +220,7 @@ def flash_attention(
     strides with the last dimension contiguous; query position i is
     ``i + q_offset``, key position j is j.  ``scale`` defaults to
     D**-0.5.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel (D in ``HEAD_DIMS``)."""
+    the kernel of ``route`` (D in ``HEAD_DIMS``)."""
     _check(q, k, v, window, softcap, q_offset)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":
@@ -192,3 +233,4 @@ def flash_attention(
 
 
 flash_attention.launches = 0  # type: ignore[attr-defined]
+flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)  # type: ignore[attr-defined]

@@ -13,19 +13,26 @@ multiplied by ``w[e]`` with fp32 sums, and the rows past
     for ``sm_90a`` into ``build/`` at first use and loaded with
     ``ctypes``.  The group sizes stay on the card: each block of the
     kernel finds its (expert, rows) from them itself, over a grid of
-    ``ceil(T / 64) + E`` row tiles (an upper bound on the tiles the
-    segments need), and tiles with no rows exit.  So a call never waits
-    for the host, and no weight of an expert without rows is read.  A
-    tile of up to 4 rows (a decode step) streams its expert's weights; a
-    larger one is tiled through shared memory;
+    ``ceil(T / R) + E`` row tiles of R rows (an upper bound on the tiles
+    the segments need; R = 128 on the wgmma route, else 64), and tiles
+    with no rows exit.  So a call never waits
+    for the host, and no weight of an expert without rows is read.
+    ``route(dtype, T, E)`` chooses the kernel on the host before the
+    launch: ``"wgmma"`` (bf16 with T > 4 E, a prefill: 128-row tiles on
+    the tensor cores, x and w loaded with TMA, which needs x's address
+    and row stride 16-byte aligned), or the 64-row kernel, whose tiles of
+    up to 4 rows (a decode step) stream their expert's weights and larger
+    ones are tiled through shared memory with fp32 FMAs: ``"stream"``
+    when T <= 4 E, ``"fma"`` for fp32 above;
   * on CPU tensors it runs ``moe_grouped_gemm_plain``: a loop over the
     experts of ``x[seg] @ w[e]`` in fp32, cast to x's dtype.
 
 The TPU kernel needs the rows padded so that each 128-row block holds one
 expert (``ops.padded_group_layout``); this kernel takes the segments as
 they are, so the layout has no counterpart here.  There is no fallback
-between the two routes: a CUDA tensor launches the kernel or raises.
-Each launch adds one to ``moe_grouped_gemm.launches``.  There is no
+between the routes: a CUDA tensor launches the kernel of its route or
+raises.  Each launch adds one to ``moe_grouped_gemm.launches`` and to
+its route's count in ``moe_grouped_gemm.launches_by_route``.  There is no
 backward (the reference has none): an input that requires a gradient is
 refused.
 """
@@ -43,6 +50,10 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gemm.cu"
 # dtype codes of the C interface (x, w and the output)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VEC = 8  # F must be a multiple of this: w rows are read 16 bytes at a time
+STREAM_ROWS = 4  # the most rows of a tile that streams its expert's weights
+# the route names, and the kernel of the C interface each launches
+ROUTES = ("wgmma", "fma", "stream")
+_ROUTE_CODES = {"wgmma": 1, "fma": 0, "stream": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -59,10 +70,19 @@ def _library() -> ctypes.CDLL:
         path, _, _ = build()
         lib = ctypes.CDLL(str(path))
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.repro_moe_gemm.argtypes = [vp] * 4 + [ll] + [ci] * 5 + [vp]
+        lib.repro_moe_gemm.argtypes = [vp] * 4 + [ll] + [ci] * 6 + [vp]
         lib.repro_moe_gemm.restype = ci
         _LIB = lib
     return _LIB
+
+
+def route(dtype: torch.dtype, t: int, e: int) -> str:
+    """The kernel a CUDA call launches, from x's dtype, T and E alone:
+    ``"stream"`` when T <= 4 E (a decode step: most experts' tiles hold at
+    most 4 rows), else ``"wgmma"`` for bf16 and ``"fma"`` for fp32."""
+    if t <= STREAM_ROWS * e:
+        return "stream"
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
 
 
 def moe_grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor,
@@ -110,6 +130,10 @@ def _launch(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torc
         raise ValueError("w must be contiguous and 16-byte aligned")
     if x.stride(1) != 1:
         raise ValueError("the last dimension of x must be contiguous")
+    r = route(x.dtype, T, E)
+    if r == "wgmma" and (x.data_ptr() % 16 or (x.stride(0) * x.element_size()) % 16):
+        raise ValueError(f"x is not 16-byte aligned for the wgmma route (address "
+                         f"{x.data_ptr()}, row stride {x.stride(0)})")
     gs = group_sizes.to(torch.int32).contiguous()
     out = torch.empty((T, F), dtype=x.dtype, device=x.device)
     lib = _library()
@@ -117,11 +141,12 @@ def _launch(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torc
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_moe_gemm(
             x.data_ptr(), w.data_ptr(), gs.data_ptr(), out.data_ptr(),
-            x.stride(0), T, D, F, E, _DTYPES[x.dtype], stream,
+            x.stride(0), T, D, F, E, _DTYPES[x.dtype], _ROUTE_CODES[r], stream,
         )
     if err != 0:
-        raise RuntimeError(f"moe_gemm kernel launch failed: error {err}")
+        raise RuntimeError(f"moe_gemm kernel launch failed ({r} route): error {err}")
     moe_grouped_gemm.launches += 1
+    moe_grouped_gemm.launches_by_route[r] += 1
     return out
 
 
@@ -130,9 +155,9 @@ def moe_grouped_gemm(x: torch.Tensor, w: torch.Tensor,
     """``ragged_dot(x, w, group_sizes)``: x [T, D] sorted by expert, w [E,
     D, F], group_sizes [E] (int32 or int64, ``sum <= T``) -> [T, F] in
     x's dtype, rows past the sum zero.  x and w float32 or bfloat16.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel (F a
-    multiple of 8, w contiguous), without reading the group sizes on the
-    host."""
+    tensors take the plain version; CUDA tensors launch the kernel of
+    ``route`` (F a multiple of 8, w contiguous), without reading the group
+    sizes on the host."""
     _check(x, w, group_sizes)
     if x.device.type == "cpu":
         return moe_grouped_gemm_plain(x, w, group_sizes)
@@ -142,3 +167,4 @@ def moe_grouped_gemm(x: torch.Tensor, w: torch.Tensor,
 
 
 moe_grouped_gemm.launches = 0  # type: ignore[attr-defined]
+moe_grouped_gemm.launches_by_route = dict.fromkeys(ROUTES, 0)  # type: ignore[attr-defined]

@@ -1,16 +1,22 @@
 """The port on a CUDA card against the same port on the CPU.
 
 The torch engine, the GraphSAGE aggregation kernel against its plain
-version, and GraphSAGE's forward and backward.  Marked ``cuda``: every
-test skips without a card (the engine's fifo and mrtf rates and the
-aggregation launch CUDA kernels, which have no CPU mode).  On a machine
-with one, run the card's tests (this file and the waterfill kernel's):
+version, GraphSAGE's forward and backward, and the wgmma probe
+(``csrc/wgmma_probe.cu``: one block of m64nNk16 products through the
+helpers of ``csrc/sm90.cuh`` against ``torch.matmul``).  Marked ``cuda``:
+those tests skip without a card (the engine's fifo and mrtf rates and
+the kernels have no CPU mode).  One CPU test: a library's digest covers
+the headers its source includes.  On a machine with a card, run the
+card's tests (this file and the waterfill kernel's):
 
     python -m pytest -m cuda tests/test_torch_cuda.py tests/test_torch_waterfill.py
 
 This file imports torch, numpy and the port only, so it runs where JAX
 is absent.
 """
+import ctypes
+import shutil
+
 import numpy as np
 import pytest
 
@@ -25,11 +31,26 @@ from repro_torch.core import (
     simulate_batch_torch,
 )
 from repro_torch.data.graph import sample_blocks, synthetic_graph
+from repro_torch.kernels import _build
 from repro_torch.kernels.sage_aggregate import sage_aggregate, sage_aggregate_plain
 from repro_torch.kernels.waterfill import waterfill_fill
 from repro_torch.models import GraphSAGE, SageConfig, batch_to, sage_loss
 
-pytestmark = pytest.mark.cuda
+
+def test_build_digest_covers_headers(tmp_path):
+    """Editing a header beside a source (csrc/*.cuh) changes the digest in
+    its library's name, so the source is rebuilt; other files do not."""
+    csrc = _build.BUILD_DIR.parent / "src" / "repro_torch" / "kernels" / "csrc"
+    for name in ("flash_attention.cu", "sm90.cuh"):
+        shutil.copy(csrc / name, tmp_path / name)
+    source = tmp_path / "flash_attention.cu"
+    before = _build.digest(source)
+    assert before == _build.digest(source)
+    (tmp_path / "notes.txt").write_text("not a header")
+    assert _build.digest(source) == before
+    with open(tmp_path / "sm90.cuh", "a") as f:
+        f.write("// edited\n")
+    assert _build.digest(source) != before
 
 
 @pytest.fixture
@@ -40,6 +61,7 @@ def cuda():
 
 
 @pytest.mark.parametrize("policy", ("oes", "oes_strict", "fifo", "mrtf", "omcoflow"))
+@pytest.mark.cuda
 def test_engine_matches_cpu(cuda, policy):
     wl = build_gnn_workload(
         n_stores=2, n_workers=2, samplers_per_worker=2, n_ps=1, n_iters=4,
@@ -73,6 +95,7 @@ def _sage_inputs(seed, n, f, m, k):
     return x, idx
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n,f,m,k,misalign", [
     (500, 64, 128, 8, False),
@@ -106,6 +129,7 @@ def test_sage_kernel_matches_plain(cuda, n, f, m, k, misalign, dtype):
     assert (got[1] == 0).all()
 
 
+@pytest.mark.cuda
 def test_graphsage_on_card_matches_cpu(cuda):
     """One forward and backward on the card (three kernel launches) against
     the same on the CPU (the plain version): loss and every gradient within
@@ -127,3 +151,39 @@ def test_graphsage_on_card_matches_cpu(cuda):
     assert abs(loss_g.item() - loss_c.item()) < 1e-4
     for pg, pc in zip(on_card.parameters(), on_cpu.parameters()):
         assert (pg.grad.cpu() - pc.grad).abs().max().item() < 1e-4
+
+
+# the MN-major B descriptor's offsets: the two 64-column halves of the
+# [128, 128] B tile are 128 rows of 128 bytes apart; 8-row groups 1024
+PROBE_LBO, PROBE_SBO = 128 * 128, 1024
+
+
+def _probe():
+    path, _, _ = _build.build(_build.BUILD_DIR.parent / "src" / "repro_torch" / "kernels"
+                              / "csrc" / "wgmma_probe.cu")[0]
+    lib = ctypes.CDLL(str(path))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.repro_wgmma_probe.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+    lib.repro_wgmma_probe.restype = ci
+    return lib.repro_wgmma_probe
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_wgmma_probe_matches_matmul(cuda, mode):
+    """One m64nNk16 chain over K = 128 (two 64-column halves of the
+    128-byte swizzle) on TMA-loaded bf16 tiles: mode 0 with a K-major B
+    (attention's scores), 1 with an MN-major B (the grouped GEMM), 2 with
+    A from registers and an MN-major B (attention's P V).  Products of
+    bf16 values are exact in fp32; only the order of the sums differs."""
+    rng = np.random.default_rng(mode)
+    a = torch.from_numpy(rng.standard_normal((64, 128))).to(cuda, torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal((64 if mode == 0 else 128, 128))).to(
+        cuda, torch.bfloat16)
+    want = a.float() @ (b.float().T if mode == 0 else b.float())
+    out = torch.full(want.shape, float("nan"), device=cuda)
+    err = _probe()(a.data_ptr(), b.data_ptr(), out.data_ptr(), mode, PROBE_LBO, PROBE_SBO,
+                   torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert (out - want).abs().max().item() < 1e-3

@@ -10,11 +10,15 @@
     tolerances of ``tests/test_kernels.py``);
   * ``causal_mask`` against ``repro.models.layers.causal_mask``;
   * the wrapper's checks, and no route for a tensor on neither the CPU
-    nor a card;
+    nor a card; the route a CUDA call takes, by dtype, Sq and D, and the
+    wgmma route's alignment check;
   * marked ``cuda``: the kernel against its plain version on a card, at
     the sweep shapes and llama4-scout's grouping of 5 query heads a KV
     head, a decode against a strided cache, and rows with no
-    valid key.  They skip without a card; run them there with
+    valid key; the bf16 wgmma route at ragged shapes (Sq and Sk not
+    multiples of the 64-row tiles, q_offset > 0, window, softcap, 5:1
+    grouping, D 64 and 128, rows with no valid key), on views of
+    [B, S, N, D] tensors.  They skip without a card; run them there with
     ``python -m pytest -m cuda tests/test_torch_flash.py``.
 
 JAX is imported only by the tests that compare with it, so the card's
@@ -26,9 +30,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import (
+    _check_tma,
     causal_mask,
     flash_attention,
     flash_attention_plain,
+    route,
 )
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -148,6 +154,33 @@ def test_masked_rows_average_every_key():
     assert torch.allclose(out, v.mean(2, keepdim=True).expand_as(out), atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype,sq,d,want", [
+    ("bfloat16", 2048, 128, "wgmma"), ("bfloat16", 2, 64, "wgmma"),
+    ("bfloat16", 200, 96, "fma"), ("bfloat16", 40, 16, "fma"),
+    ("float32", 2048, 128, "fma"), ("float32", 70, 64, "fma"),
+    ("bfloat16", 1, 128, "decode"), ("float32", 1, 96, "decode"),
+    ("bfloat16", 1, 32, "fma"),
+])
+def test_route_by_dtype_sq_and_head_dim(dtype, sq, d, want):
+    """bf16 prefill at D 64 or 128 takes the tensor cores, Sq == 1 the
+    decode kernel where its head dims allow, everything else the FMA
+    kernel; the choice reads nothing but the three arguments."""
+    assert route(getattr(torch, dtype), sq, d) == want
+
+
+def test_wgmma_route_needs_16_byte_alignment():
+    """TMA reads 16-byte aligned addresses and strides: a view one
+    element off, or a row stride of an odd number of elements, is refused
+    before any launch; the model's [B, S, N, D] views pass."""
+    base = torch.zeros(2 * 5 * 4 * 64 + 1, dtype=torch.bfloat16)
+    view = base[:-1].view(2, 5, 4, 64).transpose(1, 2)
+    _check_tma(q=view)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _check_tma(q=base[1:].view(2, 5, 4, 64))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _check_tma(k=torch.zeros(2, 4, 5, 65, dtype=torch.bfloat16)[..., :64])
+
+
 # ----------------------------------------------------------------- the card
 @pytest.fixture
 def cuda():
@@ -210,3 +243,38 @@ def test_kernel_masked_rows_average_every_key(cuda, sq, offset):
     got = flash_attention(q, k, v, window=4, q_offset=offset)
     want = flash_attention_plain(q, k, v, window=4, q_offset=offset)
     assert (got - want).abs().max().item() < TOL["float32"]
+
+
+# (b, h, kv, sq, sk, d, causal, window, softcap, q_offset)
+WGMMA_CASES = {
+    "ragged_offset_d128": (1, 2, 2, 200, 333, 128, True, None, None, 133),
+    "ragged_noncausal_d64": (2, 2, 1, 200, 333, 64, False, None, None, 0),
+    "window_softcap_d128": (1, 4, 2, 333, 333, 128, True, 100, 30.0, 0),
+    "group5_d128": (1, 10, 2, 200, 200, 128, True, None, None, 0),
+    "offset_window_d64": (1, 2, 2, 130, 200, 64, True, 50, None, 70),
+    "empty_rows_d64": (1, 2, 2, 70, 64, 64, True, 4, None, 0),
+    "empty_rows_d128": (1, 2, 1, 100, 64, 128, True, 8, None, 30),
+    "two_rows_d128": (2, 2, 2, 2, 77, 128, True, None, None, 75),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WGMMA_CASES))
+def test_wgmma_route_matches_plain(cuda, case):
+    """The bf16 prefill kernel on the tensor cores against the plain
+    version within 2e-2, q, k and v given as views of [B, S, N, D]
+    tensors (the model's layout), the output in q's layout."""
+    b, h, kv, sq, sk, d, causal, window, softcap, off = WGMMA_CASES[case]
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16).transpose(1, 2).contiguous()
+               .transpose(1, 2) for a in _inputs(11, b, h, kv, sq, sk, d))
+    assert route(q.dtype, sq, d) == "wgmma"
+    before = flash_attention.launches_by_route["wgmma"]
+    got = flash_attention(q, k, v, causal=causal, window=window,
+                          softcap=softcap, q_offset=off)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_route["wgmma"] == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 softcap=softcap, q_offset=off)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() < TOL["bfloat16"]

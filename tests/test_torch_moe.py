@@ -13,12 +13,15 @@ grouped GEMM's CUDA kernel.
     ``_route`` and ``apply_moe`` on one device, for top-1 (llama4-smoke)
     and top-2 (kimi-smoke), fp32 within 1e-5 (ids and weights equal);
   * the wrapper's checks and no route for a tensor on neither the CPU nor
-    a card;
+    a card; the route a CUDA call takes, by dtype, T and E;
   * marked ``cuda``: the kernel against its plain version on a card (fp32
     within 1e-4 of the output's largest magnitude, bf16 within 2e-2) at
     the sweep shapes, a decode-like tile of one row per expert, empty
-    experts and rows past the sum; and ``apply_moe`` through the kernel
-    against the plain path.  They skip without a card; run them there
+    experts and rows past the sum; the bf16 wgmma route at ragged shapes
+    (segments not aligned to its 128-row tiles, a one-row and an empty
+    expert, rows past the sum, D = 72 and F = 136, and a routed T = 8192
+    over 16 experts), rows past the sum exactly 0; and ``apply_moe``
+    through the kernel against the plain path.  They skip without a card; run them there
     with ``python -m pytest -m cuda tests/test_torch_moe.py``.
 
 JAX is imported only by the tests that compare with it.
@@ -30,7 +33,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels.moe_gemm import moe_grouped_gemm, moe_grouped_gemm_plain
+from repro_torch.kernels.moe_gemm import moe_grouped_gemm, moe_grouped_gemm_plain, route
 
 TOL = {"float32": 1e-5, "bfloat16": 1e-1}
 SWEEP = [(256, 128, 128, 4), (512, 256, 256, 8)]  # t, d, f, e
@@ -187,6 +190,18 @@ def test_wrapper_validates_inputs():
         moe_grouped_gemm(*(t.detach().to("meta") for t in (x, w, gs)))
 
 
+@pytest.mark.parametrize("dtype,t,e,want", [
+    ("bfloat16", 8192, 16, "wgmma"), ("bfloat16", 65, 16, "wgmma"),
+    ("bfloat16", 64, 16, "stream"), ("bfloat16", 8, 16, "stream"),
+    ("float32", 8192, 16, "fma"), ("float32", 8, 16, "stream"),
+])
+def test_route_by_dtype_and_rows(dtype, t, e, want):
+    """T <= 4 E (a decode step) streams the weights; above, bf16 takes the
+    tensor cores and fp32 the FMA tiles; nothing but the three arguments
+    is read."""
+    assert route(getattr(torch, dtype), t, e) == want
+
+
 # ----------------------------------------------------------------- the card
 @pytest.fixture
 def cuda():
@@ -239,3 +254,28 @@ def test_apply_moe_kernel_matches_plain(cuda, arch, monkeypatch):
     want = moe.apply_moe(p, x, cfg)
     # top-2 adds a token's two rows with atomics in either order
     assert _rel_err(got, want) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,gs", [
+    ((300, 72, 136, 6), [0, 130, 0, 0, 101, 0]),  # D and F not multiples of 64
+    ((1000, 200, 264, 5), [129, 0, 1, 383, 250]),  # unaligned segments, rows past the sum
+    ((8192, 128, 256, 16), "routed"),  # top-1 routing of 8192 tokens, sum = T
+])
+def test_wgmma_route_matches_plain(cuda, shape, gs):
+    """The bf16 grouped GEMM on the tensor cores against the plain version
+    within 2e-2 of the largest output; rows past the sum exactly 0."""
+    t, _, _, e = shape
+    x, w, g = _inputs(12, *shape)
+    if gs == "routed":
+        g = np.bincount(np.random.default_rng(13).integers(0, e, t), minlength=e)
+    g = np.asarray(g, np.int32)
+    args = _torch(x, w, g, "bfloat16", cuda)
+    assert route(torch.bfloat16, t, e) == "wgmma"
+    before = moe_grouped_gemm.launches_by_route["wgmma"]
+    got = moe_grouped_gemm(*args)
+    torch.cuda.synchronize()
+    assert moe_grouped_gemm.launches_by_route["wgmma"] == before + 1
+    want = moe_grouped_gemm_plain(*args)
+    assert _rel_err(got, want) < 2e-2
+    assert torch.equal(got[int(g.sum()):], torch.zeros_like(got[int(g.sum()):]))
