@@ -38,11 +38,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
      then one profiled step (the device's busy share);
   7. LM serving (internlm2-1.8b, bf16, random weights from a seeded
      generator on the card): the attention kernel against its plain
-     version at the five sweep shapes of ``tests/test_kernels.py``, the
-     prefill shape q [4, 16, 2048, 128] over 8 KV heads and the decode
-     shape q [8, 16, 1, 128] against a [8, 2048, 8, 128] cache at three
-     positions (fp32 within 2e-5, bf16 within 2e-2), with times beside
-     its bound and ``F.scaled_dot_product_attention``; ``prefill`` of
+     version at the five sweep shapes of ``tests/test_kernels.py``, at
+     head dims 80 and 112 on every route (prefill, decode over several
+     chunks, a window, a softcap, a row with no valid key), the prefill
+     shape q [4, 16, 2048, 128] over 8 KV heads and the decode shape q
+     [8, 16, 1, 128] against a [8, 2048, 8, 128] cache at three positions
+     (fp32 within 2e-5, bf16 within 2e-2), with times beside its bound and
+     ``F.scaled_dot_product_attention``, also at kimi-k2's decode shape q
+     [8, 64, 1, 112], each timed decode giving the same bits on two runs;
+     ``prefill`` of
      4 x 2048 tokens through the kernel (its 24 launches all on the wgmma
      route; the wall of a first and of a second, warm call) against the
      same with the plain attention; 2 layers at full width in fp32 on the
@@ -62,24 +66,37 @@ Phases, in order; any failure ends the run with a non-zero exit:
   9. moe_serve (llama4-scout-17b-a16e, bf16, full width, 8 of its 48
      layers): the grouped GEMM kernel against its plain version at the
      sweep shapes (an empty expert, rows past the sum) and the decode
-     (T = 8) and prefill (T = 8192) shapes, times beside the bound and
-     ``torch._grouped_mm``; 2 layers in fp32, kernels against plain
-     versions on the card, and decode against forward; then the prefill
-     (its 24 moe_gemm and 8 flash launches all on the wgmma routes) and
-     ``ServeEngine`` as in phase 8, and one profiled tick;
- 10. the kernel table's JSON line (the flash and moe_gemm records also
-     carry their prefill shape's times: ``prefill_ms``,
-     ``prefill_bound_ms``, ``prefill_library_ms``), the card's name and
-     power limit, and the closing status line.
+     (T = 8) and prefill (T = 8192) shapes, and kimi-k2's decode (T = 64
+     over 384 experts), times beside the bound and ``torch._grouped_mm``,
+     each timed decode giving the same bits on two runs; 2 layers in fp32,
+     kernels against plain versions on the card, and decode against
+     forward; then the prefill (its 24 moe_gemm and 8 flash launches all
+     on the wgmma routes) and ``ServeEngine`` as in phase 8, and one
+     profiled tick;
+ 10. kimi_serve (kimi-k2-1t-a32b, bf16, full width: d_model 7168, 64
+     heads of 112 over 8 KV heads, 384 experts top-8; 1 of its 61 layers,
+     as one layer's experts are 33.8 GB): the attention kernel at its
+     prefill and decode shapes; the prefill (on the wgmma routes) and
+     ``ServeEngine`` as in phase 8, the ticks on flash's decode and
+     moe_gemm's streaming routes; the prefill against the plain path;
+     decode against forward beside the same through the plain versions;
+     one profiled tick;
+ 11. the kernel table's JSON line (the flash and moe_gemm records also
+     carry their prefill shape's times, ``prefill_ms``,
+     ``prefill_bound_ms``, ``prefill_library_ms``, and kimi-k2's decode
+     shape's, ``kimi_decode_ms``, ``kimi_decode_plain_ms``,
+     ``kimi_decode_bound_ms``, ``kimi_decode_library_ms``), the card's
+     name and power limit, and the closing status line.
 
-Five main paths, each with the kernel launch counts set to 0 just
+Six main paths, each with the kernel launch counts set to 0 just
 before it and read just after: phases 3-4 (planning), the training
 steps, calibration and baseline plan of phase 6 (GraphSAGE), the
 ``ServeEngine`` run of phase 7 (LM serving), and the prefill followed by
-the ``ServeEngine`` run of phases 8 (mamba2) and 9 (MoE).  Each phase's
-seconds are printed on a ``[time]`` line.  ``--only lm_serve``,
-``mamba_serve`` or ``moe_serve`` builds the kernels and runs that phase
-alone (for work on that path; it prints no closing status line).
+the ``ServeEngine`` run of phases 8 (mamba2), 9 (MoE) and 10 (kimi-k2).
+Each phase's seconds are printed on a ``[time]`` line.  ``--only
+lm_serve``, ``mamba_serve``, ``moe_serve`` or ``kimi_serve`` builds the
+kernels and runs that phase alone (for work on that path; it prints no
+closing status line).
 Imports nothing of JAX or of the ``repro`` package.
 """
 from __future__ import annotations
@@ -144,6 +161,31 @@ SSD_SWEEP = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 64, 64)]
 MOE_ARCH = "llama4-scout-17b-a16e"
 MOE_LAYERS = 8
 MOE_SWEEP = [(256, 128, 128, 4), (512, 256, 256, 8)]
+# kimi_serve: kimi-k2-1t-a32b at full width and 1 of its 61 layers (its
+# 384 experts are 33.8 GB a layer in bf16: two layers do not fit one card)
+KIMI_ARCH = "kimi-k2-1t-a32b"
+KIMI_LAYERS = 1
+# decode logits against the forward's at the same positions, in bf16: at
+# each position within 1e-2, or within 1.5x the same comparison through
+# the plain versions there, whichever is larger.  bf16 products of other
+# shapes (the forward's 128 rows against a decode step's 8) round
+# differently, and at 7168 wide that alone moves a logit by 1-3e-2 (the
+# plain path: 0.013-0.026, and 0.76-0.84 where a top-8 near-tie routes a
+# token to another expert; the kernels: 0.014-0.030; NVIDIA H100 80GB HBM3
+# at 700 W): the kernels must add no more than the plain path's rounding
+KIMI_DECODE_ATOL = 1e-2
+KIMI_DECODE_NOISE = 1.5
+# the attention checks at head dims 80 and 112 on every route: (label, (B,
+# H, KV, Sq, Sk, D), kwargs); prefill (fma in fp32, wgmma in bf16) and
+# decode, a window, a softcap, an offset, rows with no valid key, chunks
+FLASH_HEAD_DIM_CHECKS = [
+    ("hd80 prefill", (2, 4, 2, 300, 300, 80), dict(causal=True, softcap=30.0)),
+    ("hd112 prefill", (1, 8, 1, 333, 400, 112), dict(causal=True, window=100, q_offset=67)),
+    ("hd80 decode", (3, 10, 2, 1, 900, 80), dict(causal=True, q_offset=850)),
+    ("hd112 decode", (2, 16, 2, 1, 1500, 112), dict(causal=True, window=700, q_offset=1400)),
+    ("hd112 decode, no valid key", (1, 8, 1, 1, 600, 112), dict(causal=True, window=4,
+                                                               q_offset=700)),
+]
 # the new kernels against their plain versions, relative to the output's
 # largest magnitude: fp32 differs only in the order of sums; bf16 rounds
 # the output once (the plain versions round the same fp32 sums)
@@ -880,17 +922,23 @@ def phase_flash_kernel(fa):
     for i, (b, h, sq, sk, d, causal, window, softcap) in enumerate(FLASH_SWEEP):
         checks.append((f"sweep {i}", (b, h, h, sq, sk, d), dict(
             causal=causal, window=window, softcap=softcap)))
-    worst = _flash_checks(fa, checks + _path_flash_checks(16, 8, 128), "flash kernel")
+    worst = _flash_checks(fa, checks + FLASH_HEAD_DIM_CHECKS + _path_flash_checks(16, 8, 128),
+                          "flash kernel")
 
-    # times in bf16 (the model's dtype), L2 flushed before each call
+    # times in bf16 (the model's dtype), L2 flushed before each call: the
+    # internlm2 prefill and decode, and kimi-k2's decode (64 heads over 8
+    # KV heads of 112)
     B, S = LM_PREFILL
     timed = [("prefill", (B, 16, 8, S, S, 128), dict(causal=True), None)]
     timed += [(f"decode pos {pos}", (LM_SLOTS, 16, 8, 1, LM_SMAX, 128),
+               dict(causal=True, q_offset=pos), pos) for pos in DECODE_POSITIONS]
+    timed += [(f"kimi decode pos {pos}", (LM_SLOTS, 64, 8, 1, LM_SMAX, 112),
                dict(causal=True, q_offset=pos), pos) for pos in DECODE_POSITIONS]
     rows = {}
     for label, (b, h, kv, sq, sk, d), kw, pos in timed:
         q, k, v = _flash_qkv(7, b, h, kv, sq, sk, d, torch.bfloat16)
         kernel = lambda: fa.flash_attention(q, k, v, **kw)
+        _bit_stable(f"flash {label}", kernel)
         plain = lambda: fa.flash_attention_plain(q, k, v, **kw)
         if pos is None:
             lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
@@ -920,7 +968,21 @@ def phase_flash_kernel(fa):
     out = dict(rows[f"decode pos {DECODE_POSITIONS[-1]}"])
     out["max_abs_err"] = worst
     out.update(_prefill_nums(rows["prefill"]))
+    out.update(_shape_nums("kimi_decode", rows[f"kimi decode pos {DECODE_POSITIONS[-1]}"]))
     return out
+
+
+def _bit_stable(tag, fn):
+    """Fail unless two calls of ``fn`` give the same bits (the kernels sum
+    in a fixed order: no atomics)."""
+    import torch
+
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"{tag}: two runs differ (max "
+                             f"{(a.float() - b.float()).abs().max().item()})")
+    print(f"[bits] {tag}: two runs give the same bits", flush=True)
 
 
 def phase_lm(fa):
@@ -1425,6 +1487,14 @@ def _routed(seed, t, e, empty=()):
     return np.floor(share / share.sum() * t * 0.9).astype(int).tolist()
 
 
+def _routed_topk(seed, tokens, k, e):
+    """Group sizes: top-k routing of ``tokens`` tokens, each to k distinct
+    experts of e (uniform): tokens * k rows."""
+    rng = np.random.default_rng(seed)
+    hits = np.concatenate([rng.choice(e, k, replace=False) for _ in range(tokens)])
+    return np.bincount(hits, minlength=e).tolist()
+
+
 def _moe_bound(t, d, f, e, gs, elt):
     """Least time of the grouped GEMM on the card: 2 flops per routed row
     and product at the bf16 tensor-core peak (fp32 peak for fp32), against
@@ -1495,11 +1565,17 @@ def phase_moe_kernel(mg):
 
     cfg = get_config(MOE_ARCH)
     D, Fe, E = cfg.d_model, cfg.moe.d_ff_expert, cfg.moe.n_experts
+    kimi = get_config(KIMI_ARCH)
+    KD, KF, KE, KK = kimi.d_model, kimi.moe.d_ff_expert, kimi.moe.n_experts, kimi.moe.top_k
     B, S = LM_PREFILL
     big = [("decode gate/up", (LM_SLOTS, D, Fe, E), _routed(1, LM_SLOTS, E)),
            ("decode down", (LM_SLOTS, Fe, D, E), _routed(1, LM_SLOTS, E)),
            ("prefill gate/up", (B * S, D, Fe, E), _routed(2, B * S, E)),
-           ("prefill down", (B * S, Fe, D, E), _routed(2, B * S, E))]
+           ("prefill down", (B * S, Fe, D, E), _routed(2, B * S, E)),
+           ("kimi decode gate/up", (LM_SLOTS * KK, KD, KF, KE),
+            _routed_topk(3, LM_SLOTS, KK, KE)),
+           ("kimi decode down", (LM_SLOTS * KK, KF, KD, KE),
+            _routed_topk(3, LM_SLOTS, KK, KE))]
     checks = [(f"sweep {i}", shape, _routed(10 + i, shape[0], shape[3], empty=(1,)))
               for i, shape in enumerate(MOE_SWEEP)] + big
     worst = 0.0
@@ -1527,10 +1603,13 @@ def phase_moe_kernel(mg):
         x, w, g = _moe_inputs(7, t, d, f, e, torch.bfloat16, gs)
         want = mg.moe_grouped_gemm_plain(x, w, g)
         kernel = lambda: mg.moe_grouped_gemm(x, w, g)
-        ms = _device_ms(kernel, 20 if t == LM_SLOTS else 5, flush=True)
+        decode = mg.route(x.dtype, t, e) == "stream"
+        if decode:
+            _bit_stable(f"moe {label}", kernel)
+        ms = _device_ms(kernel, 20 if decode else 5, flush=True)
         plain_ms = _event_ms(lambda: mg.moe_grouped_gemm_plain(x, w, g), 5)
         lib, note = _grouped_mm(x, w, g, want)
-        library_ms = _device_ms(lib, 20 if t == LM_SLOTS else 5, flush=True) if lib else None
+        library_ms = _device_ms(lib, 20 if decode else 5, flush=True) if lib else None
         bound, by, flops, n_bytes = _moe_bound(t, d, f, e, gs, 2)
         lib_txt = f"{library_ms:.4f} ms ({note})" if lib else f"none ({note})"
         print(f"[moe kernel] {label} bf16 ({sum(1 for v in gs if v)} experts hit): "
@@ -1546,6 +1625,7 @@ def phase_moe_kernel(mg):
     out = dict(rows["decode gate/up"])
     out["max_abs_err"] = worst
     out.update(_prefill_nums(rows["prefill gate/up"]))
+    out.update(_shape_nums("kimi_decode", rows["kimi decode gate/up"]))
     return out
 
 
@@ -1646,17 +1726,150 @@ def phase_moe(mg, fa):
         "flash_attention": (launches["flash_attention"] - pre[1], cfg.n_layers)})
     _teacher_forced("moe serve", model, reqs)
     _profile_tick("moe profile", model, ms_tick,
-                  {"moe_gemm": ("moe_gemm", "moe_wgmma"),
+                  {"moe_gemm": ("moe_gemm", "moe_wgmma", "moe_stream"),
                    "flash_attention": ("flash_decode", "flash_tiled", "flash_wgmma")})
     print(f"[moe] peak device memory {torch.cuda.max_memory_allocated()} bytes",
           flush=True)
     return launches
 
 
+def _check_route(tag, before, after, want):
+    """Fail unless the launches between the two ``_routes`` readings all
+    went through the route named in ``want`` for each wrapper, and some
+    did."""
+    for b, a, r in zip(before, after, want):
+        moved = {k: a[k] - b[k] for k in a}
+        if moved[r] == 0 or sum(moved.values()) != moved[r]:
+            raise AssertionError(f"{tag}: launches by route were {moved}, expected "
+                                 f"all on the {r} route")
+
+
+def phase_kimi(mg, fa):
+    """kimi-k2-1t-a32b at full width and KIMI_LAYERS of its 61 layers on the
+    card, bf16: the main path (the prefill of 4 x 2048 tokens, on the
+    wgmma routes, then the ServeEngine run, whose ticks go through flash's
+    decode route at head_dim 112 and moe_gemm's streaming route), with the
+    launch counts set to 0 just before and read just after; the prefill
+    against the plain path; decode against forward; one profiled tick.
+    Returns the path's launches per kernel."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import TransformerLM
+
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(KIMI_ARCH), n_layers=KIMI_LAYERS)
+    t0 = time.perf_counter()
+    model = TransformerLM(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    e = cfg.moe
+    print(f"[kimi] {cfg.name} at {cfg.n_layers} of 61 layers (the cut: one "
+          f"layer's {e.n_experts} experts are "
+          f"{3 * e.n_experts * cfg.d_model * e.d_ff_expert * 2} bytes in bf16, so "
+          f"two layers do not fit the card): d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads over {cfg.n_kv_heads} KV heads, head_dim {cfg.hd}, {e.n_experts} "
+          f"experts of d_ff {e.d_ff_expert}, top-{e.top_k}, vocab {cfg.vocab} padded "
+          f"to {model.vp}; {sum(p.numel() for p in model.parameters())} parameters "
+          f"in {cfg.dtype} (param_count {cfg.param_count()}), initialised on the card "
+          f"in {time.perf_counter() - t0:.1f} s; peak so far "
+          f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
+
+    # the main path: the prefill, then the ServeEngine run
+    B, S = LM_PREFILL
+    toks = torch.randint(0, cfg.vocab, (B, S), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    engine, reqs = _engine(model)
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = 0
+    mg.moe_grouped_gemm.launches = 0
+    routes = _routes(mg.moe_grouped_gemm, fa.flash_attention)
+    t0 = time.perf_counter()
+    got = model.prefill(toks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pre = (mg.moe_grouped_gemm.launches, fa.flash_attention.launches)
+    pre_routes = _routes(mg.moe_grouped_gemm, fa.flash_attention)
+    stats = engine.run()
+    launches = {"moe_gemm": mg.moe_grouped_gemm.launches,
+                "flash_attention": fa.flash_attention.launches}
+    tick_routes = _routes(mg.moe_grouped_gemm, fa.flash_attention)
+    _check_wgmma("kimi prefill", routes, pre_routes, [3 * cfg.n_layers, cfg.n_layers])
+    _check_route("kimi ticks", pre_routes, tick_routes, ["stream", "decode"])
+    print(f"[kimi] launches by route: prefill moe_gemm "
+          f"{ {k: pre_routes[0][k] - routes[0][k] for k in routes[0]} }, flash "
+          f"{ {k: pre_routes[1][k] - routes[1][k] for k in routes[1]} }; ticks "
+          f"moe_gemm { {k: tick_routes[0][k] - pre_routes[0][k] for k in routes[0]} }, "
+          f"flash { {k: tick_routes[1][k] - pre_routes[1][k] for k in routes[1]} }",
+          flush=True)
+    warm = _warm_prefill(model, toks)
+    if not (torch.isfinite(got[:, : cfg.vocab]).all() and got.shape == (B, model.vp)):
+        raise AssertionError("kimi prefill logits not finite or of the wrong shape")
+    if pre != (3 * cfg.n_layers, cfg.n_layers):
+        raise AssertionError(f"kimi prefill launched (moe_gemm, flash) {pre} times")
+    with _plain("flash", "moe"):
+        want = model.prefill(toks)
+    d_pre = (got - want)[:, : cfg.vocab].abs().max().item()
+    agree = int((got.argmax(-1) == want.argmax(-1)).sum().item())
+    print(f"[kimi] prefill {B} x {S} tokens, bf16: {wall:.3f} s (first call), "
+          f"{warm:.3f} s (second call), {pre[0]} moe_gemm and {pre[1]} flash "
+          f"launches, all on the wgmma routes; against the plain path: max abs "
+          f"logit diff {d_pre:.4g} (logits in [{got[:, :cfg.vocab].min().item():.3f}, "
+          f"{got[:, :cfg.vocab].max().item():.3f}]), argmax agrees on {agree} "
+          f"of {B}", flush=True)
+    _gate_prefill("kimi", d_pre, want[:, : cfg.vocab])
+    del got, want
+    ms_tick = _serve_checks("kimi serve", model, stats, reqs, {
+        "moe_gemm": (launches["moe_gemm"] - pre[0], 3 * cfg.n_layers),
+        "flash_attention": (launches["flash_attention"] - pre[1], cfg.n_layers)})
+    _teacher_forced("kimi serve", model, reqs)
+    errs, agree = _decode_vs_forward(model, 16, LM_SLOTS)
+    with _plain("flash", "moe"):
+        errs_p, agree_p = _decode_vs_forward(model, 16, LM_SLOTS)
+    tols = [max(KIMI_DECODE_ATOL, KIMI_DECODE_NOISE * e) for e in errs_p]
+    print(f"[kimi] decode vs forward, {cfg.n_layers} layer bf16, {LM_SLOTS} "
+          f"sequences, 16 positions: max err per position "
+          f"{' '.join(f'{e:.2g}' for e in errs)}; argmax agrees on all sequences "
+          f"at {agree} of 16 positions; the same through the plain versions: "
+          f"{' '.join(f'{e:.2g}' for e in errs_p)}, argmax at {agree_p} of 16 "
+          f"(tol per position: {KIMI_DECODE_ATOL}, or {KIMI_DECODE_NOISE}x the plain "
+          f"path's error there)", flush=True)
+    if not all(e <= t for e, t in zip(errs, tols)):
+        raise AssertionError("kimi decode disagrees with the forward")
+    _profile_tick("kimi profile", model, ms_tick,
+                  {"moe_gemm": ("moe_gemm", "moe_wgmma", "moe_stream"),
+                   "flash_attention": ("flash_decode", "flash_tiled", "flash_wgmma")})
+    print(f"[kimi] peak device memory {torch.cuda.max_memory_allocated()} bytes",
+          flush=True)
+    return launches
+
+
+def phase_kimi_serve(mg, fa, t):
+    """kimi_serve: the attention kernel at kimi-k2's shapes (64 query heads
+    over 8 KV heads of 112), then the model.  Returns the path's launches
+    and the largest fp32 attention error."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(KIMI_ARCH)
+    flash_err = _flash_checks(fa, _path_flash_checks(cfg.n_heads, cfg.n_kv_heads, cfg.hd),
+                              "kimi flash kernel")
+    t = _phase_done(f"flash_attention checks at {KIMI_ARCH}'s shapes", t)
+    launches = phase_kimi(mg, fa)
+    t = _phase_done(f"kimi serving (kimi-k2 at {KIMI_LAYERS} layer: prefill, "
+                    "ServeEngine, decode, profile)", t)
+    return launches, flash_err, t
+
+
 def _prefill_nums(row):
     """A timed prefill row as the record's prefill_* numbers."""
     return {"prefill_ms": row["ms"], "prefill_bound_ms": row["bound_ms"],
             "prefill_library_ms": row["library_ms"]}
+
+
+def _shape_nums(prefix, row):
+    """A timed row at a second shape as the record's <prefix>_* numbers."""
+    return {f"{prefix}_{k}": row[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
 
 
 def _entry(name, stem, replaces, nums, launches):
@@ -1674,7 +1887,7 @@ def _entry(name, stem, replaces, nums, launches):
         "bound_ms": nums["bound_ms"],
         "bound_by": nums["bound_by"],
         "library_ms": nums.get("library_ms"),
-        **{k: v for k, v in nums.items() if k.startswith("prefill_")},
+        **{k: v for k, v in nums.items() if k.startswith(("prefill_", "kimi_"))},
     }
 
 
@@ -1731,7 +1944,7 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("lm_serve", "mamba_serve", "moe_serve"),
+    ap.add_argument("--only", choices=("lm_serve", "mamba_serve", "moe_serve", "kimi_serve"),
                     default=None, help="build the kernels and run this phase alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1769,6 +1982,11 @@ def main(argv=None) -> int:
         elif args.only == "mamba_serve":
             entry, t = phase_mamba_serve(ss, fa, mg, t)
             entries = [entry]
+        elif args.only == "kimi_serve":
+            launches, _, t = phase_kimi_serve(mg, fa, t)
+            print(json.dumps({"kimi_launches": launches}))
+            print(f"[done] {time.perf_counter() - t_start:.1f} s ({args.only} only)")
+            return 0
         else:
             entry, _, _, t = phase_moe_serve(mg, fa, t)
             entries = [entry]
@@ -1802,7 +2020,9 @@ def main(argv=None) -> int:
     flash, flash_launches, t = phase_lm_serve(fa, t)
     ssd_entry, t = phase_mamba_serve(ss, fa, mg, t)
     moe_entry, moe_flash_launches, moe_flash_err, t = phase_moe_serve(mg, fa, t)
-    flash["max_abs_err"] = max(flash["max_abs_err"], moe_flash_err)
+    kimi_launches, kimi_flash_err, t = phase_kimi_serve(mg, fa, t)
+    flash["max_abs_err"] = max(flash["max_abs_err"], moe_flash_err, kimi_flash_err)
+    moe_entry["launches"] += kimi_launches["moe_gemm"]
 
     line = {
         "kernels": [
@@ -1811,7 +2031,8 @@ def main(argv=None) -> int:
             _entry("sage_aggregate", "sage_aggregate",
                    "src/repro/kernels/sage_aggregate.py:83", sage,
                    sage_launches["sage_aggregate"]),
-            _flash_entry(flash, flash_launches + moe_flash_launches),
+            _flash_entry(flash, flash_launches + moe_flash_launches
+                         + kimi_launches["flash_attention"]),
             ssd_entry,
             moe_entry,
         ]
@@ -1819,8 +2040,8 @@ def main(argv=None) -> int:
     print(f"[launches] planning path: waterfill_fill {launches}; GraphSAGE "
           f"path: {sage_launches}; LM serving path: flash_attention "
           f"{flash_launches}; mamba2 path: ssd_scan {ssd_entry['launches']}; "
-          f"MoE path: moe_gemm {moe_entry['launches']}, flash_attention "
-          f"{moe_flash_launches}", flush=True)
+          f"MoE path: moe_gemm {moe_entry['launches'] - kimi_launches['moe_gemm']}, "
+          f"flash_attention {moe_flash_launches}; kimi path: {kimi_launches}", flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(line))
     smi = subprocess.run(

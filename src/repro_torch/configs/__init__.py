@@ -5,9 +5,9 @@ archs without a frontend.
 hyphened ids (``repro.configs``) and return the port's ``LMConfig``.  The
 reference's other archs need block patterns the port does not run yet;
 asking for one raises ``NotImplementedError`` naming its ROADMAP item.
-kimi-k2-1t-a32b is registered, but at full width it does not run on one
-card: a layer's 384 experts are 33.8 GB in bf16, and its head_dim of 112
-is not among the attention kernel's ``HEAD_DIMS`` (its smoke config runs).
+kimi-k2-1t-a32b serves at full width on one card at 1 of its 61 layers
+(a layer's 384 experts are 33.8 GB in bf16; its head_dim of 112 runs on
+every attention route).
 """
 from __future__ import annotations
 
@@ -29,11 +29,11 @@ ARCH_IDS: List[str] = list(_MODULES)
 
 # the reference's archs that wait for another block pattern or a frontend
 UNPORTED: Dict[str, str] = {
-    "gemma2-27b": "the gemma2 block pattern (ROADMAP Queue 1 item 13b)",
+    "gemma2-27b": "the gemma2 block pattern (ROADMAP Queue 1 item 9)",
     "zamba2-7b": "the zamba2 hybrid pattern, a shared attention block over "
-                 "the ported mamba2 blocks (ROADMAP Queue 1 item 12b)",
-    "hubert-xlarge": "the encoder pattern and frames frontend (ROADMAP Queue 1 item 13c)",
-    "llava-next-mistral-7b": "the patches frontend (ROADMAP Queue 1 item 13c)",
+                 "the ported mamba2 blocks (ROADMAP Queue 1 item 10)",
+    "hubert-xlarge": "the encoder pattern and frames frontend (ROADMAP Queue 1 item 11)",
+    "llava-next-mistral-7b": "the patches frontend (ROADMAP Queue 1 item 11)",
 }
 
 

@@ -5,10 +5,11 @@
 expert d_ff=2048; the official MLA attention and shared expert are
 simplified to GQA / none, as in the reference.
 
-Registered for its configs and its smoke config (the CPU tests' case for
-top-k > 1).  At full width it does not run on one card: one layer's 384
-experts are 33.8 GB in bf16, and its head_dim of 112 is not among the
-attention kernel's ``HEAD_DIMS`` (ROADMAP Queue 1 item 9).
+Its smoke config is the CPU tests' case for top-k > 1.  At full width it
+serves on one card at 1 of its 61 layers: one layer's 384 experts are
+33.8 GB in bf16, so two do not fit (``launch/serve.py --layers 1``;
+``chip_smoke.py``'s kimi_serve phase).  Its head_dim of 112 runs on every
+attention route.
 """
 from ..models.config import LMConfig, MoESpec
 

@@ -20,7 +20,7 @@
 // or to nothing, when it exits at once.  No host sync per call, and no
 // weight of an expert without rows is read.
 //
-// Two kernels; the host chooses one from the dtype, T and E before the
+// Three kernels; the host chooses one from the dtype, T and E before the
 // launch (moe_gemm.py's route()):
 //
 //   * moe_wgmma (bf16 with T > 4 E: prefill): R = 128 rows x 128 output
@@ -36,29 +36,48 @@
 //     issued.  A tile's x slice may hold the next expert's rows: only the
 //     tile's own rows are stored.  Blocks walk 8 row tiles for each
 //     column tile, so those in flight share x rows and w columns in L2.
-//   * moe_gemm_kernel (fp32, and bf16 at T <= 4 E: decode): R = 64 rows x
-//     128 output columns a block, 256 threads, in one of two ways, chosen
-//     per block from its tile's row count:
-//       - more than 4 rows: each thread 8 rows (ty + 8 i) x 4 columns
-//         (tx + 32 j), summing over D in slices of 32 staged in shared
-//         memory as fp32 (x transposed, w as is), the next slice loaded
-//         into registers while the current one is used;
-//       - at most 4 rows (a decode step: top-1 over 8 slots gives an
-//         expert one or two rows): the block streams the expert's [D,
-//         128] weight slab.  Each thread owns one 16-byte column vector
-//         and a share of the D rows, keeps 4 loads in flight with no
-//         barrier, and the shares are summed through shared memory at the
-//         end.  So the FMAs follow the rows there are, and the weights are
-//         read at the memory's pace.
+//   * moe_stream (T <= 4 E, fp32 or bf16: a decode step, where an expert
+//     gets one or a few rows): split D and a persistent grid.  The work is
+//     every (row tile of at most 4 rows, 256-column tile, D slice of
+//     `slice` rows, 512 at most) of the experts hit, all about the same
+//     size.  The grid is as many blocks as fit on the card at once (the
+//     occupancy query times the SMs), and block i takes items i, i + grid,
+//     ...: whole waves, at most one item apart; consecutive blocks take
+//     consecutive column tiles of the same rows, so the card reads whole
+//     weight rows together.  Each block first scans the group sizes on
+//     the card into a per-expert table of tiles and rows in shared memory
+//     (no host sync), so an item finds its expert by a binary search.  It
+//     stages the item's x rows for its slice in shared memory once (fp32),
+//     then streams the [slice, 256] weight slab: each thread owns one
+//     16-byte column vector (a warp a 512-byte run of a row) and every
+//     (256 / V)-th row (V the vectors of a tile row), with 8 vector loads
+//     in flight (evict-first in L2: the weights are read once), all
+//     started before the first is used (no load is
+//     conditional: past the edges they read row or column 0 and are not
+//     used), and no barrier; the threads' shares are summed through
+//     shared memory in a fixed order and the item's fp32 partial sums are
+//     written to scratch [n_slices, T, F].  moe_stream_reduce then sums the
+//     slices in slice order into the output, in x's dtype, and writes the
+//     zero rows past sum(group_sizes): the same bits on every run, no
+//     atomics.  Experts without rows have no items, so their weights are
+//     never read.
+//   * moe_gemm_kernel (fp32 with T > 4 E): R = 64 rows x 128 output
+//     columns a block, 256 threads; each thread 8 rows (ty + 8 i) x 4
+//     columns (tx + 32 j), summing over D in slices of 32 staged in
+//     shared memory as fp32 (x transposed, w as is), the next slice
+//     loaded into registers while the current one is used.
 //
-// Bound.  Decode (llama4-scout, T = 8, top-1): each gate or up call reads
-// the weights of the distinct experts hit, up to 8 x 5120 x 8192 x 2 B =
-// 671 MB, about 0.20 ms at 3.35 TB/s: bound by bytes; the grid has 64
-// column tiles per expert hit (40 for the down projection), 280-450
-// blocks over the 132 SMs, three resident on each (launch bound: 85
-// registers a thread), so one wave.  Prefill (T = 8192): 687 GFLOP per
-// gate or up call, 0.69 ms at the 989 TFLOP/s bf16 tensor-core rate:
-// bound by operations, hence the tensor cores.
+// Bound.  Decode: each call reads the weights of the distinct experts
+// hit, 7 x 5120 x 8192 x 2 B = 587 MB for llama4-scout's gate or up at 8
+// slots (0.175 ms at 3.35 TB/s), ~59 x 7168 x 2048 x 2 B = 1.7 GB for
+// kimi-k2's at 8 slots x top-8 (~0.55 ms): bound by bytes, so the
+// streaming kernel is built to keep megabytes of weight loads in flight
+// over the whole card to the last wave.  Its scratch, n_slices x T x F
+// fp32 (2.6 MB for llama4's gate, 7.3 MB for kimi-k2's), is a small share
+// of those bytes.
+// Prefill (T = 8192): 687 GFLOP per gate or up call, 0.69 ms at the 989
+// TFLOP/s bf16 tensor-core rate: bound by operations, hence the tensor
+// cores.
 //
 // Built with nvcc for sm_90a into a shared library with a plain C
 // interface (repro_torch/kernels/moe_gemm.py loads it with ctypes).
@@ -91,11 +110,17 @@ template <> struct Vec<float> {
     const float4 v = *reinterpret_cast<const float4*>(p);
     out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
   }
+  __device__ static void convert(const uint4& v, float* out) {
+    out[0] = __uint_as_float(v.x); out[1] = __uint_as_float(v.y);
+    out[2] = __uint_as_float(v.z); out[3] = __uint_as_float(v.w);
+  }
 };
 template <> struct Vec<__nv_bfloat16> {
   static constexpr int N = 8;
   __device__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    convert(*reinterpret_cast<const uint4*>(p), out);
+  }
+  __device__ static void convert(const uint4& v, float* out) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -106,13 +131,7 @@ template <> struct Vec<__nv_bfloat16> {
   }
 };
 
-// a tile of at most kStreamRows rows streams its expert's weights
-constexpr int kStreamRows = 4;
-constexpr int kUnroll = 4;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTiledFloats = kDepth * kXPitch + kDepth * kCols;
-constexpr int kStreamFloats = kWarps * kStreamRows * kCols;
-constexpr int kSmemFloats = kTiledFloats > kStreamFloats ? kTiledFloats : kStreamFloats;
+constexpr int kSmemFloats = kDepth * kXPitch + kDepth * kCols;
 
 struct Args {
   const void* x;
@@ -176,83 +195,12 @@ __device__ __forceinline__ void map_tile(const Args& a, int tile, int lane, int*
   }
 }
 
-// out[r] = x[r] . W for the nrows <= kStreamRows rows of a tile, columns
-// f0.. of the tile (X, W and O already offset to the tile's first row and
-// expert).  Thread t owns the column vector t % V (V = kCols / N vectors
-// of N values) and the D rows k = t / V + (kThreads / V) i.
-template <typename T>
-__device__ void stream_rows(const Args& a, const T* X, const T* W, T* O, int nrows,
-                            int f0, float* red) {
-  constexpr int N = Vec<T>::N;
-  constexpr int V = kCols / N;             // column vectors of a tile: 16 or 32
-  constexpr int kStep = kThreads / V;      // D rows a block step covers
-  const int tid = threadIdx.x, v = tid % V;
-  const int c = f0 + v * N;
-  const bool col_ok = c < a.F;
-  float acc[kStreamRows][N];
-#pragma unroll
-  for (int r = 0; r < kStreamRows; ++r)
-#pragma unroll
-    for (int j = 0; j < N; ++j) acc[r][j] = 0.f;
-  for (int k0 = tid / V; k0 < a.D; k0 += kStep * kUnroll) {
-    float wv[kUnroll][N];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int k = k0 + u * kStep;
-      if (k < a.D && col_ok) {
-        Vec<T>::load(W + static_cast<long long>(k) * a.F + c, wv[u]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < N; ++j) wv[u][j] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int k = k0 + u * kStep;
-      if (k >= a.D) break;
-#pragma unroll
-      for (int r = 0; r < kStreamRows; ++r) {
-        if (r < nrows) {
-          const float xv = to_f32(X[r * a.x_rs + k]);
-#pragma unroll
-          for (int j = 0; j < N; ++j) acc[r][j] += xv * wv[u][j];
-        }
-      }
-    }
-  }
-  // lanes l and l + V of a warp hold the same columns when V < 32
-  if (V < 32) {
-#pragma unroll
-    for (int r = 0; r < kStreamRows; ++r)
-#pragma unroll
-      for (int j = 0; j < N; ++j) acc[r][j] += __shfl_down_sync(kFull, acc[r][j], V);
-  }
-  const int warp = tid / 32, lane = tid % 32;
-  if (lane < V) {
-#pragma unroll
-    for (int r = 0; r < kStreamRows; ++r) {
-      if (r < nrows) {
-#pragma unroll
-        for (int j = 0; j < N; ++j) red[(warp * kStreamRows + r) * kCols + v * N + j] = acc[r][j];
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < nrows * kCols; i += kThreads) {
-    const int r = i / kCols, col = i % kCols;
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) sum += red[(w * kStreamRows + r) * kCols + col];
-    if (f0 + col < a.F) store(sum, O + static_cast<long long>(r) * a.F + f0 + col);
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 3) moe_gemm_kernel(const Args a) {
   constexpr int N = Vec<T>::N;
   constexpr int kWVecs = kDepth * kCols / N / kThreads;  // w vectors a thread loads
   constexpr int kXVals = kDepth * kRows / kThreads;      // x values a thread loads
-  // the tiled path's x and w slices, or the streaming path's partial sums
+  // the x and w slices
   __shared__ __align__(16) float smem[kSmemFloats];
   __shared__ int info[3];  // expert (-1: zero rows, -2: nothing), first row, rows
 
@@ -278,10 +226,6 @@ __global__ void __launch_bounds__(kThreads, 3) moe_gemm_kernel(const Args a) {
   const T* X = static_cast<const T*>(a.x) + static_cast<long long>(row0) * a.x_rs;
   const T* W = static_cast<const T*>(a.w) + static_cast<long long>(e) * a.D * a.F;
   T* O = out + static_cast<long long>(row0) * a.F;
-  if (nrows <= kStreamRows) {
-    stream_rows<T>(a, X, W, O, nrows, f0, smem);
-    return;
-  }
   float* xs = smem;                   // [kDepth][kXPitch] x slice, transposed
   float* ws = smem + kDepth * kXPitch;  // [kDepth][kCols] w slice
   const int ty = tid / 32, tx = lane;
@@ -367,6 +311,222 @@ __global__ void __launch_bounds__(kThreads, 3) moe_gemm_kernel(const Args a) {
       if (c < a.F) store(acc[i][j], o + c);
     }
   }
+}
+
+// ------------------------------------------------------------ streaming
+// The decode route (see the note at the top)
+constexpr int kSRows = 4;  // rows of a streaming tile (moe_gemm.py's STREAM_ROWS)
+constexpr int kSCols = 256;          // output columns of a work item
+constexpr int kSThreads = 256;
+constexpr int kSUnroll = 8;          // weight vectors a thread has in flight
+
+// dynamic shared memory of moe_stream: the threads' shares (one group of
+// V threads per kSThreads / V rows of a block step), the x rows of an
+// item's slice, the per-expert tables (E + 1 tile and row prefixes)
+inline int stream_smem_bytes(int E, int slice) {
+  return static_cast<int>(sizeof(float)) * (kSThreads / 32 * kSRows * kSCols + kSRows * slice) +
+         static_cast<int>(sizeof(int)) * 2 * (E + 1);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSThreads, 2) moe_stream(const Args a, int slice, int n_slices,
+                                                        float* part) {
+  constexpr int N = Vec<T>::N;
+  constexpr int V = kSCols / N;          // column vectors of an item: 32 or 64
+  constexpr int kStep = kSThreads / V;   // D rows a block step covers: 8 or 4
+  static_assert(V % 32 == 0, "a warp's lanes own distinct columns");
+  extern __shared__ __align__(16) float sm[];
+  float* red = sm;                                 // [kStep][kSRows][kSCols]
+  float* xs = red + kStep * kSRows * kSCols;       // [kSRows][slice]
+  int* t_pre = reinterpret_cast<int*>(xs + kSRows * slice);  // [E + 1] tiles before expert e
+  int* r_pre = t_pre + a.E + 1;                    // [E + 1] rows before expert e
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  // the experts' tile and row prefixes: a run of experts per lane, a warp scan
+  if (warp == 0) {
+    const int per = (a.E + 31) / 32;
+    const int lo = lane * per, hi = min(a.E, lo + per);
+    int rows = 0, tiles = 0;
+    for (int e = lo; e < hi; ++e) {
+      const int g = max(a.gs[e], 0);
+      rows += g;
+      tiles += (g + kSRows - 1) / kSRows;
+    }
+    int ri = rows, ti = tiles;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int vr = __shfl_up_sync(kFull, ri, off);
+      const int vt = __shfl_up_sync(kFull, ti, off);
+      if (lane >= off) {
+        ri += vr;
+        ti += vt;
+      }
+    }
+    int r = ri - rows, t = ti - tiles;
+    for (int e = lo; e < hi; ++e) {
+      t_pre[e] = t;
+      r_pre[e] = r;
+      const int g = max(a.gs[e], 0);
+      r += g;
+      t += (g + kSRows - 1) / kSRows;
+    }
+    if (lane == 31) {
+      t_pre[a.E] = ti;
+      r_pre[a.E] = ri;
+    }
+  }
+  __syncthreads();
+
+  const int n_cols = (a.F + kSCols - 1) / kSCols;
+  const long long n_items = static_cast<long long>(t_pre[a.E]) * n_slices * n_cols;
+  const int v = tid % V, grp = tid / V;
+  for (long long item = blockIdx.x; item < n_items; item += gridDim.x) {
+    // consecutive blocks take consecutive column tiles of the same rows
+    const int col = static_cast<int>(item % n_cols);
+    const long long rest = item / n_cols;
+    const int sl = static_cast<int>(rest % n_slices);
+    const int tile = static_cast<int>(rest / n_slices);
+    // the expert e with t_pre[e] <= tile < t_pre[e + 1]
+    int lo = 0, hi = a.E - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) / 2;
+      if (t_pre[mid] <= tile) lo = mid; else hi = mid - 1;
+    }
+    const int e = lo;
+    const int k = tile - t_pre[e];
+    const int row0 = r_pre[e] + k * kSRows;
+    if (row0 >= a.T) continue;  // rows past T (the group sizes sum past it)
+    const int nrows = min(min(kSRows, max(a.gs[e], 0) - k * kSRows), a.T - row0);
+    const int k0 = sl * slice, kn = min(slice, a.D - k0);
+    const int f0 = col * kSCols;
+
+    // the item's x rows over its slice, once, as fp32
+    const T* X = static_cast<const T*>(a.x) + static_cast<long long>(row0) * a.x_rs + k0;
+    for (int i = tid; i < nrows * kn; i += kSThreads) {
+      const int r = i / kn, kk = i % kn;
+      xs[r * slice + kk] = to_f32(X[r * a.x_rs + kk]);
+    }
+    __syncthreads();
+
+    // a column vector past F loads column 0 (its sums are never stored),
+    // and rows past the slice load its last row (their x is not used), so
+    // every load is unconditional and all kSUnroll start before the first
+    // is used
+    const int c = f0 + v * N < a.F ? f0 + v * N : 0;
+    const T* W = static_cast<const T*>(a.w) + (static_cast<long long>(e) * a.D + k0) * a.F + c;
+    const uint64_t policy = sm90::evict_first_policy();  // the weights are read once
+    float acc[kSRows][N];
+#pragma unroll
+    for (int r = 0; r < kSRows; ++r)
+#pragma unroll
+      for (int j = 0; j < N; ++j) acc[r][j] = 0.f;
+    for (int kb = grp; kb < kn; kb += kStep * kSUnroll) {
+      uint4 raw[kSUnroll];
+#pragma unroll
+      for (int u = 0; u < kSUnroll; ++u) {
+        const long long kk = min(kb + u * kStep, kn - 1);
+        raw[u] = sm90::ld16_hint(W + kk * a.F, policy);
+      }
+#pragma unroll
+      for (int u = 0; u < kSUnroll; ++u) {
+        const int kk = kb + u * kStep;
+        if (kk >= kn) break;
+        float wv[N];
+        Vec<T>::convert(raw[u], wv);
+#pragma unroll
+        for (int r = 0; r < kSRows; ++r) {
+          if (r < nrows) {
+            const float xv = xs[r * slice + kk];
+#pragma unroll
+            for (int j = 0; j < N; ++j) acc[r][j] = fmaf(xv, wv[j], acc[r][j]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kSRows; ++r) {
+      if (r < nrows) {
+#pragma unroll
+        for (int j = 0; j < N; ++j) red[(grp * kSRows + r) * kSCols + v * N + j] = acc[r][j];
+      }
+    }
+    __syncthreads();
+    // the groups' shares summed in group order
+    float* P = part + (static_cast<long long>(sl) * a.T + row0) * a.F + f0;
+    for (int i = tid; i < nrows * kSCols; i += kSThreads) {
+      const int r = i / kSCols, cc = i % kSCols;
+      if (f0 + cc >= a.F) continue;
+      float sum = 0.f;
+#pragma unroll
+      for (int gi = 0; gi < kStep; ++gi) sum += red[(gi * kSRows + r) * kSCols + cc];
+      P[static_cast<long long>(r) * a.F + cc] = sum;
+    }
+    __syncthreads();  // red and xs are free for the next item
+  }
+}
+
+// out[r] = the sum of the slices' partials in slice order for the rows
+// below sum(group_sizes) (clamped to T), zero past it; 4 columns a thread.
+template <typename T>
+__global__ void __launch_bounds__(256) moe_stream_reduce(const Args a, int n_slices,
+                                                         const float* part) {
+  __shared__ int s_tot[8];
+  int tot = 0;
+  for (int e = threadIdx.x; e < a.E; e += blockDim.x) tot += max(a.gs[e], 0);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) tot += __shfl_xor_sync(kFull, tot, off);
+  if (threadIdx.x % 32 == 0) s_tot[threadIdx.x / 32] = tot;
+  __syncthreads();
+  tot = 0;
+  for (int w = 0; w < static_cast<int>(blockDim.x / 32); ++w) tot += s_tot[w];
+  const long long rows = min(static_cast<long long>(tot), static_cast<long long>(a.T));
+  const long long n4 = static_cast<long long>(a.T) * a.F / 4;
+  const long long stride = static_cast<long long>(a.T) * a.F;
+  T* out = static_cast<T*>(a.out);
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n4;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long r = 4 * i / a.F;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < rows) {
+      for (int sl = 0; sl < n_slices; ++sl) {
+        const float4 p = reinterpret_cast<const float4*>(part + sl * stride)[i];
+        sum.x += p.x;
+        sum.y += p.y;
+        sum.z += p.z;
+        sum.w += p.w;
+      }
+    }
+    store(sum.x, out + 4 * i);
+    store(sum.y, out + 4 * i + 1);
+    store(sum.z, out + 4 * i + 2);
+    store(sum.w, out + 4 * i + 3);
+  }
+}
+
+// the persistent grid: as many blocks as fit on the card at once
+template <typename T>
+int launch_stream(const Args& a, int slice, int n_slices, float* part, cudaStream_t stream) {
+  if (slice < 1 || n_slices < 1 || static_cast<long long>(slice) * n_slices < a.D ||
+      part == nullptr)
+    return -2;
+  const int bytes = stream_smem_bytes(a.E, slice);
+  cudaError_t err = cudaFuncSetAttribute(moe_stream<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, moe_stream<T>, kSThreads, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = sms * per_sm > 0 ? sms * per_sm : 1;
+  moe_stream<T><<<grid, kSThreads, bytes, stream>>>(a, slice, n_slices, part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n4 = static_cast<long long>(a.T) * a.F / 4;
+  const long long want = (n4 + 255) / 256;
+  const int blocks = static_cast<int>(want < 4 * sms ? want : 4 * sms);
+  moe_stream_reduce<T><<<blocks > 0 ? blocks : 1, 256, 0, stream>>>(a, n_slices, part);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------- wgmma
@@ -531,16 +691,26 @@ extern "C" {
 // route.  x [T, D] (row stride x_rs, last dimension contiguous), w [E, D,
 // F] contiguous, group_sizes [E] int32 and out [T, F] contiguous are
 // device pointers; dtype 0 = float32, 1 = bfloat16 (x, w and out).
-// F % 8 == 0.  Routes: 0 = moe_gemm_kernel (64-row tiles; those of at
-// most 4 rows stream the weights), 1 = moe_wgmma (bfloat16, 128-row
-// tiles on the tensor cores).
+// F % 8 == 0.  Routes: 0 = moe_gemm_kernel (64-row tiles of fp32 FMAs),
+// 1 = moe_wgmma (bfloat16, 128-row
+// tiles on the tensor cores), 2 = moe_stream (D in n_slices slices of
+// `slice` rows, partial sums in `scratch`, n_slices * T * F floats, then
+// moe_stream_reduce; -2 for a split that does not cover D); the other
+// routes ignore slice, n_slices and scratch.
 int repro_moe_gemm(const void* x, const void* w, const void* group_sizes,
                    void* out, long long x_rs, int T, int D, int F, int E,
-                   int dtype, int route, void* stream) {
+                   int dtype, int route, int slice, int n_slices, void* scratch,
+                   void* stream) {
   if (T == 0 || F == 0) return 0;
   const Args a{x, w, static_cast<const int*>(group_sizes), out, x_rs, T, D, F, E};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* part = static_cast<float*>(scratch);
   if (route == 1) return dtype == 1 ? launch_wgmma(a, s) : -1;
+  if (route == 2) {
+    if (dtype == 0) return launch_stream<float>(a, slice, n_slices, part, s);
+    if (dtype == 1) return launch_stream<__nv_bfloat16>(a, slice, n_slices, part, s);
+    return -1;
+  }
   if (route != 0) return -5;
   const dim3 grid((F + kCols - 1) / kCols, (T + kRows - 1) / kRows + E);
   if (dtype == 0) {

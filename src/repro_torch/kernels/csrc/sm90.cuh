@@ -1,7 +1,8 @@
 // Hopper (sm_90a) helpers shared by the port's tensor-core kernels
-// (flash_attention.cu's prefill and moe_gemm.cu's prefill path): shared
-// memory addresses, mbarriers, TMA tile loads, wgmma descriptors and
-// products, and the host-side TMA tensor maps.
+// (flash_attention.cu's prefill and decode and moe_gemm.cu's prefill
+// path): shared memory addresses, mbarriers, TMA tile loads, wgmma
+// descriptors and products, cp.async with L2 policies, ldmatrix and
+// mma.sync, and the host-side TMA tensor maps.
 //
 // Shared-memory tiles are bf16 with the 128-byte swizzle: a tile row is
 // 64 values (128 bytes), and 8 rows form a 1024-byte atom in which the
@@ -236,6 +237,77 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// ------------------------------------------------- cp.async, ldmatrix, mma
+// (warp-level: the bf16 decode kernel of flash_attention.cu)
+
+// 16 bytes from global to shared memory, asynchronously; src_bytes < 16
+// fills the rest with zeros (0: no read at all)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+// an L2 policy for data read once (a decode step's KV cache or expert
+// weights): its lines are evicted first, so streaming it does not push
+// other lines (dirty ones included) out of L2
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+// cp_async16 under an L2 policy
+__device__ __forceinline__ void cp_async16_hint(void* dst, const void* src, int src_bytes,
+                                                uint64_t policy) {
+  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes), "l"(policy)
+               : "memory");
+}
+// a 16-byte global load under an L2 policy
+__device__ __forceinline__ uint4 ld16_hint(const void* p, uint64_t policy) {
+  uint4 v;
+  asm volatile("ld.global.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p), "l"(policy));
+  return v;
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// waits until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 bf16 matrices from shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8; r[i] holds matrix i's (row lane / 4, columns
+// 2 (lane % 4) and + 1), or with .trans its (rows 2 (lane % 4) and + 1,
+// column lane / 4)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d[4] += A . B for mma m16n8k16 (bf16 in, fp32 sums): lane l (group
+// g = l / 4, t = l % 4) holds a = {A[g][2t..], A[g + 8][2t..], A[g][2t +
+// 8..], A[g + 8][2t + 8..]} (bf16 pairs), b = {B[2t..][g], B[2t + 8..][g]}
+// and d = {D[g][2t], D[g][2t + 1], D[g + 8][2t], D[g + 8][2t + 1]}
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 }  // namespace sm90

@@ -14,12 +14,13 @@ repeated to H heads; this function of grouped heads equals it applied to
     ``csrc/flash_attention.cu``, built with ``nvcc`` for ``sm_90a`` into
     ``build/`` at first use and loaded with ``ctypes``; ``route(dtype, Sq,
     D)`` chooses it on the host before the launch: ``"wgmma"`` (bf16
-    prefill, D 64 or 128, on the tensor cores), ``"decode"`` (Sq == 1, a
-    key-parallel kernel) or ``"fma"`` (every other call: a tiled fp32 FMA
-    kernel).  The tensors are read through their strides, so views of the
-    model's [B, S, N, D] projections and of the [B, Smax, KV, D] cache are
-    neither copied nor transposed (the wgmma kernel loads them with TMA,
-    which needs 16-byte aligned addresses and strides);
+    prefill, D 64 to 128, on the tensor cores), ``"decode"`` (Sq
+    == 1: the keys split over blocks, ``decode_plan``) or ``"fma"`` (every
+    other call: a tiled fp32 FMA kernel).  The tensors are read through
+    their strides, so views of the model's [B, S, N, D] projections and
+    of the [B, Smax, KV, D] cache are neither copied nor transposed (the
+    wgmma kernel loads them with TMA and the decode kernel in 16-byte
+    vectors, both of which need 16-byte aligned addresses and strides);
   * on CPU tensors it runs ``flash_attention_plain``, the oracle
     ``repro.kernels.ref.flash_attention_ref`` written out in torch: fp32
     scores, masked entries set to -1e30, a softmax, and weights rounded
@@ -28,9 +29,10 @@ repeated to H heads; this function of grouped heads equals it applied to
 There is no fallback between the routes: a CUDA tensor launches the
 kernel of its route or raises.  Each launch adds one to
 ``flash_attention.launches`` and to its route's count in
-``flash_attention.launches_by_route``.  There
-is no backward yet (ROADMAP Queue 2 item 3b): an input that requires a
-gradient is refused.
+``flash_attention.launches_by_route`` (a decode over several chunks is
+one launch of the wrapper: the kernel and its merge).  There is no
+backward yet (ROADMAP Queue 2 item 4): an input that requires a gradient
+is refused.
 """
 from __future__ import annotations
 
@@ -45,12 +47,21 @@ from . import _build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 # dtype codes of the C interface
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 96, 128)
+HEAD_DIMS = (16, 32, 64, 80, 96, 112, 128)
 # the kernels of the C interface, by route code
 ROUTES = {"fma": 0, "decode": 1, "wgmma": 2}
-DECODE_HEAD_DIMS = (64, 96, 128)
-WGMMA_HEAD_DIMS = (64, 128)
+DECODE_HEAD_DIMS = (64, 80, 96, 112, 128)
+WGMMA_HEAD_DIMS = (64, 80, 96, 112, 128)
 NEG_INF = -1e30  # the masked score of the TPU kernel and of the oracle
+# decode: a query over at most this many keys runs as one chunk (no merge
+# pass; the serving ticks' positions), longer ones are cut into chunks of
+# at least DECODE_MIN_CHUNK keys (a multiple of DECODE_CHUNK_STEP), as many
+# as keep the blocks within DECODE_TARGET_BLOCKS: one wave of the bf16
+# kernel on an H100 (2 blocks on each of its 132 SMs)
+DECODE_ONE_CHUNK = 256
+DECODE_MIN_CHUNK = 128
+DECODE_CHUNK_STEP = 64
+DECODE_TARGET_BLOCKS = 2 * 132
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -66,7 +77,7 @@ def load(path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     vp, ci, ll, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.repro_flash_attention.argtypes = (
-        [vp] * 4 + [ll] * 12 + [ci] * 6 + [cf, cf] + [ci] * 5 + [vp]
+        [vp] * 4 + [ll] * 12 + [ci] * 6 + [cf, cf] + [ci] * 9 + [vp, vp]
     )
     lib.repro_flash_attention.restype = ci
     return lib
@@ -83,7 +94,8 @@ def route(dtype: torch.dtype, sq: int, d: int) -> str:
     """The kernel a CUDA call launches, from q's dtype, Sq and D alone:
     ``"wgmma"`` for bf16 with Sq > 1 and D in ``WGMMA_HEAD_DIMS``,
     ``"decode"`` for Sq == 1 and D in ``DECODE_HEAD_DIMS``, else
-    ``"fma"``."""
+    ``"fma"``.  Every D of ``HEAD_DIMS`` that a route's kernel lacks goes to
+    the FMA kernel, which takes them all."""
     if sq > 1 and dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
         return "wgmma"
     if sq == 1 and d in DECODE_HEAD_DIMS:
@@ -91,15 +103,57 @@ def route(dtype: torch.dtype, sq: int, d: int) -> str:
     return "fma"
 
 
-def _check_tma(**tensors: torch.Tensor) -> None:
-    """TMA reads a tensor whose address and outer strides (of dimensions
-    larger than 1) are multiples of 16 bytes."""
+def _check_aligned(r: str, **tensors: torch.Tensor) -> None:
+    """TMA (the wgmma route) and 16-byte vector loads (the decode route)
+    read a tensor whose address and outer strides (of dimensions larger
+    than 1) are multiples of 16 bytes."""
     for name, t in tensors.items():
         bad = [s for s, n in zip(t.stride()[:-1], t.shape[:-1])
                if n > 1 and (s * t.element_size()) % 16]
         if t.data_ptr() % 16 or bad:
-            raise ValueError(f"{name} is not 16-byte aligned for the wgmma route "
+            raise ValueError(f"{name} is not 16-byte aligned for the {r} route "
                              f"(address {t.data_ptr()}, strides {t.stride()})")
+
+
+def key_range(sk: int, qa: int, qb: int, causal: bool, window: int) -> Tuple[int, int]:
+    """The keys [lo, hi] that query positions [qa, qb] can see, as the
+    kernels' ``key_range`` computes them (``window`` 0 = none): every key
+    when some row of [qa, qb] sees none, whose output is then the mean of
+    v over all keys."""
+    lo, hi = 0, sk - 1
+    if window > 0 and qb - window + 1 > sk - 1:
+        return lo, hi
+    if window > 0 and qa - window + 1 > 0:
+        lo = qa - window + 1
+    if causal and qb < hi:
+        hi = qb
+    return lo, hi
+
+
+def decode_plan(b: int, h: int, kv: int, sk: int, pos: int, causal: bool,
+                window: int) -> Tuple[int, int, int, int]:
+    """The decode kernel's split of the keys of a query at position
+    ``pos``: ``(lo, hi, chunk, n_chunks)``, from the shapes and the mask
+    alone (no sync).  One chunk when the range holds at most
+    ``DECODE_ONE_CHUNK`` keys; else at least 2 chunks, of at least
+    ``DECODE_MIN_CHUNK`` keys, and as many as keep the ``b * kv`` (batch
+    row, KV head) pairs' blocks within ``DECODE_TARGET_BLOCKS`` (``h`` is
+    not read: a block serves all the query heads of its KV head)."""
+    lo, hi = key_range(sk, pos, pos, causal, window)
+    n_keys = hi - lo + 1
+    if n_keys <= DECODE_ONE_CHUNK:
+        return lo, hi, n_keys, 1
+    n = min(DECODE_TARGET_BLOCKS // (b * kv), n_keys // DECODE_MIN_CHUNK)
+    n = max(2, n)
+    chunk = -(-n_keys // n)
+    chunk = -(-chunk // DECODE_CHUNK_STEP) * DECODE_CHUNK_STEP
+    return lo, hi, chunk, -(-n_keys // chunk)
+
+
+def decode_scratch_floats(b: int, h: int, d: int, n_chunks: int) -> int:
+    """fp32 values of the decode kernel's scratch: each (batch, head,
+    chunk)'s acc [D], m and l; none for one chunk."""
+    return 0 if n_chunks == 1 else b * h * n_chunks * (d + 2)
 
 
 def causal_mask(sq: int, sk: int, window: Optional[int], offset: int = 0,
@@ -154,7 +208,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} must be 4-D, got {tuple(t.shape)}")
         if t.requires_grad and torch.is_grad_enabled():
             raise NotImplementedError(
-                "flash_attention has no backward yet (ROADMAP Queue 2 item 3b)"
+                "flash_attention has no backward yet (ROADMAP Queue 2 item 4)"
             )
     if q.dtype not in _DTYPES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
@@ -184,14 +238,19 @@ def _launch(q, k, v, causal, window, softcap, scale, q_offset) -> torch.Tensor:
     if max(Sq, Sk) + q_offset >= 2**31:
         raise ValueError("positions too large for the kernel's int32 indices")
     r = route(q.dtype, Sq, D)
-    if r == "wgmma":
-        _check_tma(q=q, k=k, v=v)
+    if r in ("wgmma", "decode"):
+        _check_aligned(r, q=q, k=k, v=v)
     # the output in q's memory layout (a [B, S, H, D] view stays one)
     o = torch.empty_like(q)
     if o.stride(3) != 1:
         o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     # a window that reaches past key 0 from the last query masks nothing
     win = window if window is not None and window <= Sq + q_offset else 0
+    lo, hi, chunk, n_chunks = (decode_plan(B, H, KV, Sk, q_offset, causal, win)
+                               if r == "decode" else (0, 0, 0, 1))
+    n_scratch = decode_scratch_floats(B, H, D, n_chunks)
+    scratch = (torch.empty(n_scratch, dtype=torch.float32, device=q.device)
+               if n_scratch else None)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -199,7 +258,9 @@ def _launch(q, k, v, causal, window, softcap, scale, q_offset) -> torch.Tensor:
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
             B, H, KV, Sq, Sk, D, float(scale), float(softcap or 0.0),
-            int(causal), int(win), int(q_offset), _DTYPES[q.dtype], ROUTES[r], stream,
+            int(causal), int(win), int(q_offset), _DTYPES[q.dtype], ROUTES[r],
+            lo, hi, chunk, n_chunks, scratch.data_ptr() if scratch is not None else None,
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed ({r} route): error {err}")

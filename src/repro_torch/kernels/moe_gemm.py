@@ -20,10 +20,12 @@ multiplied by ``w[e]`` with fp32 sums, and the rows past
     ``route(dtype, T, E)`` chooses the kernel on the host before the
     launch: ``"wgmma"`` (bf16 with T > 4 E, a prefill: 128-row tiles on
     the tensor cores, x and w loaded with TMA, which needs x's address
-    and row stride 16-byte aligned), or the 64-row kernel, whose tiles of
-    up to 4 rows (a decode step) stream their expert's weights and larger
-    ones are tiled through shared memory with fp32 FMAs: ``"stream"``
-    when T <= 4 E, ``"fma"`` for fp32 above;
+    and row stride 16-byte aligned), ``"stream"`` when T <= 4 E (a decode
+    step: a persistent grid walks tiles of up to 4 rows x 256 columns x a
+    slice of D, ``stream_split``, streaming the experts' weights; the
+    slices' fp32 partial sums go to scratch and a second kernel adds them
+    in slice order), or ``"fma"`` for fp32 above (64-row tiles through
+    shared memory with fp32 FMAs);
   * on CPU tensors it runs ``moe_grouped_gemm_plain``: a loop over the
     experts of ``x[seg] @ w[e]`` in fp32, cast to x's dtype.
 
@@ -53,7 +55,11 @@ VEC = 8  # F must be a multiple of this: w rows are read 16 bytes at a time
 STREAM_ROWS = 4  # the most rows of a tile that streams its expert's weights
 # the route names, and the kernel of the C interface each launches
 ROUTES = ("wgmma", "fma", "stream")
-_ROUTE_CODES = {"wgmma": 1, "fma": 0, "stream": 0}
+_ROUTE_CODES = {"wgmma": 1, "fma": 0, "stream": 2}
+# the streaming route reads D in slices of at most STREAM_SLICE rows, each
+# a multiple of STREAM_SLICE_STEP (a block step of its unrolled loads)
+STREAM_SLICE = 512
+STREAM_SLICE_STEP = 128
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -70,7 +76,7 @@ def _library() -> ctypes.CDLL:
         path, _, _ = build()
         lib = ctypes.CDLL(str(path))
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.repro_moe_gemm.argtypes = [vp] * 4 + [ll] + [ci] * 6 + [vp]
+        lib.repro_moe_gemm.argtypes = [vp] * 4 + [ll] + [ci] * 8 + [vp, vp]
         lib.repro_moe_gemm.restype = ci
         _LIB = lib
     return _LIB
@@ -83,6 +89,22 @@ def route(dtype: torch.dtype, t: int, e: int) -> str:
     if t <= STREAM_ROWS * e:
         return "stream"
     return "wgmma" if dtype == torch.bfloat16 else "fma"
+
+
+def stream_split(d: int) -> Tuple[int, int]:
+    """The streaming route's split of D: ``(slice, n_slices)``, the fewest
+    slices of at most ``STREAM_SLICE`` rows, of equal length rounded up to
+    ``STREAM_SLICE_STEP`` (the last one shorter)."""
+    n = max(1, -(-d // STREAM_SLICE))
+    per = -(-d // n)
+    sl = -(-per // STREAM_SLICE_STEP) * STREAM_SLICE_STEP
+    return sl, -(-d // sl)
+
+
+def stream_scratch_floats(t: int, f: int, n_slices: int) -> int:
+    """fp32 values of the streaming route's scratch: each slice's partial
+    sums of the [T, F] output."""
+    return n_slices * t * f
 
 
 def moe_grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor,
@@ -136,12 +158,16 @@ def _launch(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torc
                          f"{x.data_ptr()}, row stride {x.stride(0)})")
     gs = group_sizes.to(torch.int32).contiguous()
     out = torch.empty((T, F), dtype=x.dtype, device=x.device)
+    sl, n_sl = stream_split(D) if r == "stream" else (0, 0)
+    scratch = (torch.empty(stream_scratch_floats(T, F, n_sl), dtype=torch.float32,
+                           device=x.device) if r == "stream" else None)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_moe_gemm(
             x.data_ptr(), w.data_ptr(), gs.data_ptr(), out.data_ptr(),
-            x.stride(0), T, D, F, E, _DTYPES[x.dtype], _ROUTE_CODES[r], stream,
+            x.stride(0), T, D, F, E, _DTYPES[x.dtype], _ROUTE_CODES[r], sl, n_sl,
+            scratch.data_ptr() if scratch is not None else None, stream,
         )
     if err != 0:
         raise RuntimeError(f"moe_gemm kernel launch failed ({r} route): error {err}")

@@ -6,20 +6,27 @@
     ``repro.kernels.flash_attention.flash_attention`` in interpret mode
     (bq = bk = 64): causal, window + softcap, non-causal, decode (Sq = 1
     at q_offset 77) and grouped KV heads (the JAX side gets K and V
-    repeated to H heads); fp32 within 2e-5, bf16 within 2e-2 (the
-    tolerances of ``tests/test_kernels.py``);
+    repeated to H heads), and head dims 80 and 112 (hubert-xlarge's, and
+    kimi-k2's and zamba2-7b's) in prefill and decode; fp32 within 2e-5,
+    bf16 within 2e-2 (the tolerances of ``tests/test_kernels.py``);
   * ``causal_mask`` against ``repro.models.layers.causal_mask``;
   * the wrapper's checks, and no route for a tensor on neither the CPU
     nor a card; the route a CUDA call takes, by dtype, Sq and D, and the
-    wgmma route's alignment check;
+    alignment check of the wgmma and decode routes; every registered
+    arch's head dim on every route; the host's key range and the decode
+    kernel's split of it into chunks;
   * marked ``cuda``: the kernel against its plain version on a card, at
     the sweep shapes and llama4-scout's grouping of 5 query heads a KV
     head, a decode against a strided cache, and rows with no
     valid key; the bf16 wgmma route at ragged shapes (Sq and Sk not
     multiples of the 64-row tiles, q_offset > 0, window, softcap, 5:1
-    grouping, D 64 and 128, rows with no valid key), on views of
-    [B, S, N, D] tensors.  They skip without a card; run them there with
-    ``python -m pytest -m cuda tests/test_torch_flash.py``.
+    grouping, D 64, 80, 96, 112 and 128, rows with no valid key), on views of
+    [B, S, N, D] tensors; the split-key decode kernel on a strided cache
+    at positions on both sides of a chunk edge, 1, 2, 5, 8 and 12 query
+    heads a KV head, a window inside one chunk and across chunks, softcap,
+    a row with no valid key over several chunks, D 64-128, each giving
+    the same bits on two runs.  They skip without a card; run them there
+    with ``python -m pytest -m cuda tests/test_torch_flash.py``.
 
 JAX is imported only by the tests that compare with it, so the card's
 tests run where JAX is absent.
@@ -30,10 +37,17 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import (
-    _check_tma,
+    DECODE_HEAD_DIMS,
+    DECODE_ONE_CHUNK,
+    HEAD_DIMS,
+    WGMMA_HEAD_DIMS,
+    _check_aligned,
     causal_mask,
+    decode_plan,
+    decode_scratch_floats,
     flash_attention,
     flash_attention_plain,
+    key_range,
     route,
 )
 
@@ -46,6 +60,11 @@ CASES = {
     "non_causal": (1, 1, 1, 128, 128, 64, False, None, None, 0),
     "decode": (2, 4, 4, 1, 128, 64, True, None, None, 77),
     "gqa": (2, 4, 2, 128, 128, 32, True, None, None, 0),
+    # head dims 80 (hubert-xlarge) and 112 (kimi-k2, zamba2-7b)
+    "hd80": (1, 2, 2, 128, 128, 80, True, None, 30.0, 0),
+    "hd80_decode": (2, 4, 2, 1, 128, 80, True, None, None, 100),
+    "hd112": (2, 4, 2, 128, 128, 112, True, 64, None, 0),
+    "hd112_decode": (2, 8, 1, 1, 128, 112, True, 50, None, 120),
 }
 
 
@@ -156,16 +175,78 @@ def test_masked_rows_average_every_key():
 
 @pytest.mark.parametrize("dtype,sq,d,want", [
     ("bfloat16", 2048, 128, "wgmma"), ("bfloat16", 2, 64, "wgmma"),
-    ("bfloat16", 200, 96, "fma"), ("bfloat16", 40, 16, "fma"),
+    ("bfloat16", 200, 96, "wgmma"), ("bfloat16", 40, 16, "fma"),
     ("float32", 2048, 128, "fma"), ("float32", 70, 64, "fma"),
     ("bfloat16", 1, 128, "decode"), ("float32", 1, 96, "decode"),
     ("bfloat16", 1, 32, "fma"),
+    ("bfloat16", 2048, 112, "wgmma"), ("bfloat16", 300, 80, "wgmma"),
+    ("float32", 2048, 112, "fma"), ("float32", 70, 80, "fma"),
+    ("bfloat16", 1, 112, "decode"), ("float32", 1, 112, "decode"),
+    ("bfloat16", 1, 80, "decode"), ("float32", 1, 80, "decode"),
 ])
 def test_route_by_dtype_sq_and_head_dim(dtype, sq, d, want):
-    """bf16 prefill at D 64 or 128 takes the tensor cores, Sq == 1 the
-    decode kernel where its head dims allow, everything else the FMA
+    """bf16 prefill at D 64, 80, 96, 112 or 128 takes the tensor cores, Sq == 1
+    the decode kernel where its head dims allow, everything else the FMA
     kernel; the choice reads nothing but the three arguments."""
     assert route(getattr(torch, dtype), sq, d) == want
+
+
+def test_every_arch_head_dim_runs_on_every_route():
+    """Each registered arch that attends has its head dim in the kernels'
+    lists at full width: the FMA, decode and wgmma routes all take it (no
+    registered config raises on the card for its head dim)."""
+    from repro_torch import configs
+
+    for arch in configs.ARCH_IDS:
+        cfg = configs.get_config(arch)
+        if cfg.block_pattern == "mamba2":
+            continue  # attention-free
+        assert cfg.hd in HEAD_DIMS, arch
+        assert cfg.hd in DECODE_HEAD_DIMS, arch
+        assert cfg.hd in WGMMA_HEAD_DIMS, arch
+    assert set(DECODE_HEAD_DIMS) <= set(HEAD_DIMS)
+    assert set(WGMMA_HEAD_DIMS) <= set(HEAD_DIMS)
+
+
+@pytest.mark.parametrize("sk,pos,causal,window", [
+    (16, 9, True, 0), (16, 9, True, 5), (16, 15, True, 16), (16, 30, True, 4),
+    (16, 3, False, 0), (16, 12, False, 4), (2048, 2047, True, 0), (600, 700, True, 4),
+    (600, 599, True, 600), (1, 0, True, 0),
+])
+def test_key_range_matches_mask(sk, pos, causal, window):
+    """The host's key range of one query is the span of the keys its mask
+    lets through (which are all of [lo, hi]), or every key when it lets
+    none through (the row whose output is the mean of v)."""
+    lo, hi = key_range(sk, pos, pos, causal, window)
+    seen = causal_mask(1, sk, window or None, pos, causal)[0].nonzero()[:, 0].tolist()
+    if seen:
+        assert (lo, hi) == (seen[0], seen[-1]) and seen == list(range(lo, hi + 1))
+    else:
+        assert (lo, hi) == (0, sk - 1)
+
+
+@pytest.mark.parametrize("b,h,kv,sk,pos,window", [
+    (8, 16, 8, 2048, 0, 0), (8, 16, 8, 2048, 255, 0), (8, 16, 8, 2048, 256, 0),
+    (8, 16, 8, 2048, 1023, 0), (8, 16, 8, 2048, 2047, 0), (8, 40, 8, 2048, 2047, 0),
+    (8, 64, 8, 2048, 2047, 0), (1, 2, 1, 4096, 4095, 0), (64, 32, 32, 2048, 2047, 0),
+    (2, 10, 2, 2048, 1500, 700), (1, 8, 1, 600, 700, 4),
+])
+def test_decode_plan_tiles_the_key_range(b, h, kv, sk, pos, window):
+    """The decode kernel's chunks cover the key range exactly, in chunks
+    of equal length but the last; one chunk (and no scratch) for at most
+    DECODE_ONE_CHUNK keys, several chunks of at least 128 keys above it,
+    and more chunks for fewer (batch, KV head) pairs."""
+    lo, hi, chunk, n = decode_plan(b, h, kv, sk, pos, True, window)
+    assert (lo, hi) == key_range(sk, pos, pos, True, window)
+    n_keys = hi - lo + 1
+    assert n >= 1 and (n - 1) * chunk < n_keys <= n * chunk
+    if n_keys <= DECODE_ONE_CHUNK:
+        assert n == 1 and decode_scratch_floats(b, h, 128, n) == 0
+    else:
+        assert n >= 2 and chunk >= 128 and chunk % 64 == 0
+        assert decode_scratch_floats(b, h, 112, n) == b * h * n * 114
+    if (b, kv, pos) == (8, 8, 2047):  # internlm2, llama4, kimi at the full cache
+        assert (chunk, n) == (512, 4)
 
 
 def test_wgmma_route_needs_16_byte_alignment():
@@ -174,11 +255,11 @@ def test_wgmma_route_needs_16_byte_alignment():
     before any launch; the model's [B, S, N, D] views pass."""
     base = torch.zeros(2 * 5 * 4 * 64 + 1, dtype=torch.bfloat16)
     view = base[:-1].view(2, 5, 4, 64).transpose(1, 2)
-    _check_tma(q=view)
+    _check_aligned("wgmma", q=view)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        _check_tma(q=base[1:].view(2, 5, 4, 64))
+        _check_aligned("wgmma", q=base[1:].view(2, 5, 4, 64))
     with pytest.raises(ValueError, match="16-byte aligned"):
-        _check_tma(k=torch.zeros(2, 4, 5, 65, dtype=torch.bfloat16)[..., :64])
+        _check_aligned("wgmma", k=torch.zeros(2, 4, 5, 65, dtype=torch.bfloat16)[..., :64])
 
 
 # ----------------------------------------------------------------- the card
@@ -192,7 +273,8 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", sorted(CASES) + ["hd16", "hd96_g3", "ragged",
-                                                 "g5_decode", "g5_prefill"])
+                                                 "g5_decode", "g5_prefill", "g8_hd112_decode",
+                                                 "g8_hd112_prefill"])
 def test_kernel_matches_plain(cuda, case, dtype):
     # g5: llama4-scout's grouping (5 query heads a KV head), whose decode
     # runs the 4-head group and a partial second group of 1
@@ -200,6 +282,8 @@ def test_kernel_matches_plain(cuda, case, dtype):
                   hd96_g3=(1, 6, 2, 1, 300, 96, True, 100, 20.0, 250),
                   g5_decode=(2, 10, 2, 1, 300, 128, True, None, None, 250),
                   g5_prefill=(1, 10, 2, 70, 70, 128, True, None, None, 0),
+                  g8_hd112_decode=(2, 16, 2, 1, 700, 112, True, None, None, 650),
+                  g8_hd112_prefill=(1, 16, 2, 200, 200, 112, True, None, None, 0),
                   ragged=(1, 2, 1, 77, 93, 128, True, 50, None, 16))
     b, h, kv, sq, sk, d, causal, window, softcap, off = shapes[case]
     dt = getattr(torch, dtype)
@@ -255,6 +339,11 @@ WGMMA_CASES = {
     "empty_rows_d64": (1, 2, 2, 70, 64, 64, True, 4, None, 0),
     "empty_rows_d128": (1, 2, 1, 100, 64, 128, True, 8, None, 30),
     "two_rows_d128": (2, 2, 2, 2, 77, 128, True, None, None, 75),
+    "ragged_offset_d80": (1, 2, 2, 200, 333, 80, True, None, None, 133),
+    "window_softcap_d112": (1, 4, 2, 333, 333, 112, True, 100, 30.0, 0),
+    "group8_d112": (1, 16, 2, 200, 200, 112, True, None, None, 0),
+    "empty_rows_d80": (1, 2, 2, 70, 64, 80, True, 4, None, 0),
+    "group3_d96": (1, 6, 2, 150, 150, 96, True, None, None, 0),
 }
 
 
@@ -278,3 +367,58 @@ def test_wgmma_route_matches_plain(cuda, case):
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     assert torch.isfinite(got.float()).all()
     assert (got.float() - want.float()).abs().max().item() < TOL["bfloat16"]
+
+
+# (b, h, kv, smax, d, pos, window, softcap): the split-key decode kernel
+DECODE_CASES = {
+    "one_chunk_pos255_g1": (2, 2, 2, 1024, 128, 255, None, None),
+    "two_chunks_pos256_g2": (2, 4, 2, 1024, 128, 256, None, None),
+    "chunk_edge_pos383_g2": (2, 4, 2, 1024, 64, 383, None, None),
+    "chunk_edge_pos384_g2": (2, 4, 2, 1024, 64, 384, None, None),
+    "g5_pos1023": (2, 10, 2, 2048, 128, 1023, None, None),
+    "g8_d112_pos2047": (2, 16, 2, 2048, 112, 2047, None, None),
+    "g8_d80_softcap": (1, 8, 1, 2048, 80, 1500, None, 30.0),
+    "g12_two_head_groups": (1, 24, 2, 512, 128, 400, None, None),
+    "window_in_one_chunk": (2, 4, 2, 2048, 64, 1800, 100, None),
+    "window_over_chunks": (1, 6, 2, 2048, 96, 1900, 700, 20.0),
+    "no_valid_key_over_chunks": (1, 4, 2, 600, 128, 700, 4, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_decode_kernel_matches_plain(cuda, case, dtype):
+    """The split-key decode kernel as the model calls it (q a view of [B,
+    1, H, D], k and v views of a [B, Smax, KV, D] cache) against the plain
+    version, and the same bits on a second run."""
+    b, h, kv, smax, d, pos, window, softcap = DECODE_CASES[case]
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(8)
+    qs = torch.from_numpy(rng.standard_normal((b, 1, h, d)).astype(np.float32)).to(cuda, dt)
+    ck, cv = (torch.from_numpy(rng.standard_normal((b, smax, kv, d)).astype(np.float32))
+              .to(cuda, dt) for _ in range(2))
+    args = (qs.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2))
+    kw = dict(window=window, softcap=softcap, q_offset=pos)
+    assert route(dt, 1, d) == "decode"
+    before = flash_attention.launches_by_route["decode"]
+    got = flash_attention(*args, **kw)
+    again = flash_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_route["decode"] == before + 2
+    want = flash_attention_plain(*args, **kw)
+    assert got.dtype == dt and got.shape == want.shape
+    assert (got.float() - want.float()).abs().max().item() < TOL[dtype]
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_decode_kernel_refuses_unaligned_cache(cuda):
+    """The decode kernel reads K and V rows in 16-byte vectors: a cache
+    view whose rows are not 16-byte aligned is refused before any launch."""
+    q = torch.zeros(1, 2, 1, 64, device=cuda)
+    k = torch.zeros(1, 2, 9, 65, device=cuda)[..., 1:]
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte aligned for the decode route"):
+        flash_attention(q, k, k, q_offset=8)
+    assert flash_attention.launches == before

@@ -11,7 +11,9 @@
     same argmax, for internlm2-smoke, phi3-smoke, starcoder2-smoke, an
     internlm2-smoke with every dense knob set (sliding window, both
     softcaps, q scale, embedding scale, tied embeddings), mamba2-smoke,
-    llama4-smoke (top-1 MoE) and kimi-smoke (top-2 MoE); the decode tracks
+    llama4-smoke (top-1 MoE), kimi-smoke (top-2 MoE), a kimi-shaped
+    config with kimi-k2's head_dim of 112 and an internlm2-shaped one with
+    hubert-xlarge's head_dim of 80; the decode tracks
     the port's own forward as ``tests/test_models.py`` checks it, and the
     decode cache (KV, or the convolution windows and SSM state) equals
     JAX's;
@@ -60,6 +62,15 @@ def _ref_cfg(arch, dtype="float32"):
     if arch == "knobs":
         return dataclasses.replace(_knobs(ref_configs.get_smoke_config("internlm2-1.8b")),
                                    dtype=dtype)
+    if arch == "kimi-hd112":  # kimi-k2's head_dim (7168 / 64) at a small width
+        ref = ref_configs.get_smoke_config("kimi-k2-1t-a32b")
+        return dataclasses.replace(ref, name="kimi-hd112", d_model=224, n_heads=2,
+                                   n_kv_heads=1, moe=dataclasses.replace(
+                                       ref.moe, n_experts=2, top_k=2), dtype=dtype)
+    if arch == "hd80":  # hubert-xlarge's head_dim (1280 / 16) in the dense pattern
+        return dataclasses.replace(ref_configs.get_smoke_config("internlm2-1.8b"),
+                                   name="internlm2-hd80", d_model=160, n_heads=2,
+                                   n_kv_heads=1, dtype=dtype)
     return dataclasses.replace(ref_configs.get_smoke_config(arch), dtype=dtype)
 
 
@@ -157,9 +168,11 @@ def test_mlp_matches_reference(mlp):
     assert np.abs(got.numpy() - want).max() < 1e-5
 
 
-@pytest.mark.parametrize("arch", SMOKE + ["knobs"] + PATTERNS)
+@pytest.mark.parametrize("arch", SMOKE + ["knobs"] + PATTERNS + ["kimi-hd112", "hd80"])
 def test_forward_prefill_decode_match_reference(arch):
     cfg, model, params, port = _models(arch)
+    if arch in ("kimi-hd112", "hd80"):
+        assert port.cfg.hd == {"kimi-hd112": 112, "hd80": 80}[arch]
     toks = _tokens(cfg)
     # forward: final-normed hidden states and all-position logits
     x, _ = model.forward(params, {"tokens": jnp.asarray(toks)})

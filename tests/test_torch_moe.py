@@ -13,15 +13,20 @@ grouped GEMM's CUDA kernel.
     ``_route`` and ``apply_moe`` on one device, for top-1 (llama4-smoke)
     and top-2 (kimi-smoke), fp32 within 1e-5 (ids and weights equal);
   * the wrapper's checks and no route for a tensor on neither the CPU nor
-    a card; the route a CUDA call takes, by dtype, T and E;
+    a card; the route a CUDA call takes, by dtype, T and E; the streaming
+    route's split of D into slices and its scratch;
   * marked ``cuda``: the kernel against its plain version on a card (fp32
     within 1e-4 of the output's largest magnitude, bf16 within 2e-2) at
     the sweep shapes, a decode-like tile of one row per expert, empty
     experts and rows past the sum; the bf16 wgmma route at ragged shapes
     (segments not aligned to its 128-row tiles, a one-row and an empty
     expert, rows past the sum, D = 72 and F = 136, and a routed T = 8192
-    over 16 experts), rows past the sum exactly 0; and ``apply_moe``
-    through the kernel against the plain path.  They skip without a card; run them there
+    over 16 experts), rows past the sum exactly 0; the streaming (decode)
+    route at llama4-scout's and kimi-k2's decode shapes and at ragged
+    ones (an empty expert, rows past the sum, an expert of more than 4
+    rows, D not a multiple of its slices, F not of its 128 columns), rows
+    past the sum exactly 0 and the same bits on two runs; and
+    ``apply_moe`` through the kernel against the plain path.  They skip without a card; run them there
     with ``python -m pytest -m cuda tests/test_torch_moe.py``.
 
 JAX is imported only by the tests that compare with it.
@@ -33,7 +38,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels.moe_gemm import moe_grouped_gemm, moe_grouped_gemm_plain, route
+from repro_torch.kernels.moe_gemm import (
+    STREAM_SLICE,
+    moe_grouped_gemm,
+    moe_grouped_gemm_plain,
+    route,
+    stream_scratch_floats,
+    stream_split,
+)
 
 TOL = {"float32": 1e-5, "bfloat16": 1e-1}
 SWEEP = [(256, 128, 128, 4), (512, 256, 256, 8)]  # t, d, f, e
@@ -194,12 +206,26 @@ def test_wrapper_validates_inputs():
     ("bfloat16", 8192, 16, "wgmma"), ("bfloat16", 65, 16, "wgmma"),
     ("bfloat16", 64, 16, "stream"), ("bfloat16", 8, 16, "stream"),
     ("float32", 8192, 16, "fma"), ("float32", 8, 16, "stream"),
+    ("bfloat16", 64, 384, "stream"), ("bfloat16", 1536, 384, "stream"),
+    ("bfloat16", 65536, 384, "wgmma"),
 ])
 def test_route_by_dtype_and_rows(dtype, t, e, want):
     """T <= 4 E (a decode step) streams the weights; above, bf16 takes the
     tensor cores and fp32 the FMA tiles; nothing but the three arguments
     is read."""
     assert route(getattr(torch, dtype), t, e) == want
+
+
+@pytest.mark.parametrize("d", [72, 128, 256, 1024, 1025, 1100, 2048, 5120, 7168, 8192])
+def test_stream_split_covers_d(d):
+    """The streaming route's slices of D: the fewest of at most
+    STREAM_SLICE rows, each a multiple of 128 rows but the last, covering D
+    exactly; the scratch holds every slice's [T, F] partial sums."""
+    sl, n = stream_split(d)
+    assert sl % 128 == 0 and sl <= max(STREAM_SLICE, 128)
+    assert (n - 1) * sl < d <= n * sl
+    assert n == -(-d // STREAM_SLICE)
+    assert stream_scratch_floats(8, 8192, n) == n * 8 * 8192
 
 
 # ----------------------------------------------------------------- the card
@@ -279,3 +305,59 @@ def test_wgmma_route_matches_plain(cuda, shape, gs):
     want = moe_grouped_gemm_plain(*args)
     assert _rel_err(got, want) < 2e-2
     assert torch.equal(got[int(g.sum()):], torch.zeros_like(got[int(g.sum()):]))
+
+
+def _card_inputs(cuda, seed, t, d, f, e, dtype):
+    """x [t, d] and w [e, d, f] (scaled 1/sqrt(d)) drawn on the card."""
+    gen = torch.Generator(cuda).manual_seed(seed)
+    x = torch.randn(t, d, device=cuda, generator=gen).to(dtype)
+    w = torch.randn(e, d, f, device=cuda, generator=gen).mul_(d ** -0.5).to(dtype)
+    return x, w
+
+
+def _topk_sizes(seed, tokens, k, e, empty=()):
+    """Group sizes of top-k routing of ``tokens`` tokens over e experts,
+    none to the experts in ``empty``."""
+    rng = np.random.default_rng(seed)
+    pool = np.setdiff1d(np.arange(e), empty)
+    hits = np.concatenate([rng.choice(pool, k, replace=False) for _ in range(tokens)])
+    return np.bincount(hits, minlength=e).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [
+    "llama4_gate_up", "llama4_down", "kimi_gate_up", "kimi_down",
+    "rows_past_sum", "expert_of_6_rows", "ragged_slices_and_columns",
+])
+def test_stream_route_matches_plain(cuda, case, dtype):
+    """The streaming (decode) route against the plain version: fp32 within
+    1e-4 and bf16 within 2e-2 of the largest output, rows past the sum
+    exactly 0, the same bits on a second run.  llama4-scout's decode: 8
+    rows top-1 over 16 experts (expert 0 empty), D 5120 / F 8192 and back;
+    kimi-k2's: 8 tokens x top-8 over 384 experts, D 7168 / F 2048 and back."""
+    shapes = {  # (t, d, f, e, group sizes)
+        "llama4_gate_up": (8, 5120, 8192, 16, _topk_sizes(1, 8, 1, 16, empty=(0,))),
+        "llama4_down": (8, 8192, 5120, 16, _topk_sizes(1, 8, 1, 16, empty=(0,))),
+        "kimi_gate_up": (64, 7168, 2048, 384, _topk_sizes(2, 8, 8, 384, empty=(0,))),
+        "kimi_down": (64, 2048, 7168, 384, _topk_sizes(2, 8, 8, 384, empty=(0,))),
+        "rows_past_sum": (16, 1024, 256, 8, np.array([0, 2, 0, 3, 1, 0, 0, 4], np.int32)),
+        "expert_of_6_rows": (12, 512, 384, 4, np.array([1, 6, 0, 3], np.int32)),
+        "ragged_slices_and_columns": (9, 1100, 136, 5, np.array([2, 0, 1, 4, 1], np.int32)),
+    }
+    t, d, f, e, gs = shapes[case]
+    dt = getattr(torch, dtype)
+    x, w = _card_inputs(cuda, 3, t, d, f, e, dt)
+    g = torch.from_numpy(gs).to(cuda)
+    assert route(dt, t, e) == "stream"
+    before = moe_grouped_gemm.launches_by_route["stream"]
+    got = moe_grouped_gemm(x, w, g)
+    again = moe_grouped_gemm(x, w, g)
+    torch.cuda.synchronize()
+    assert moe_grouped_gemm.launches_by_route["stream"] == before + 2
+    want = moe_grouped_gemm_plain(x, w, g)
+    assert got.dtype == dt and got.shape == (t, f)
+    assert _rel_err(got, want) < (1e-4 if dtype == "float32" else 2e-2)
+    rows = int(gs.sum())
+    assert torch.equal(got[rows:], torch.zeros_like(got[rows:]))
+    assert torch.equal(got, again)
