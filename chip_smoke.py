@@ -12,10 +12,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
      ssd_scan, moe_gemm) from ``src/repro_torch/kernels/csrc`` with nvcc
      for sm_90a, one nvcc per source, all started together; TF32 off for
      fp32 products and convolutions;
-  2. the kernel against its plain version on the card, at every shape
-     the main path gives it (B=1024 with EG=1400, M=16 and with EG=72,
-     M=4; B=1 with EG=72, M=4), on inputs with tied priority keys: exact
-     equality, and times;
+  2. the waterfill kernel against its plain version on the card, at
+     every shape the main path gives it (B=1024 with EG=1400, M=16 and
+     with EG=72, M=4; B=1 with EG=72, M=4), on inputs with tied priority
+     keys: exact equality, and device times; the chain probe at each
+     shape (the kernel's dependent chain alone: its chain bound) and, at
+     the papers shape, the plain shared-memory step and the
+     one-NIC-a-lane shuffle form beside it;
   3. ``simulate_batch_torch`` at width 1024 on the papers100M job (J=117,
      E=1400, M=16) and the products job (J=23, E=72, M=4), all five
      policies, on the card; the first 8 instances are held against the
@@ -58,11 +61,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
      sweep shapes of ``tests/test_kernels.py``, the smoke config's chunk
      of 32 and the prefill shape x [4, 2048, 64, 64] with d_state 128 and
      chunk 256, also as views of one projection (fp32 within 1e-4, bf16
-     within 2e-2 of the output's largest magnitude), times at the
-     prefill shape; 2 layers at full width in fp32 on the card against
-     the CPU, and decode against forward; then the prefill of 4 x 2048
-     tokens and ``ServeEngine`` at phase 7's traffic, the prefill against
-     the plain scan and timed again warm, and one profiled tick;
+     within 2e-2 of the output's largest magnitude; bf16 on the mma
+     route, fp32 on the FMA route), times at the prefill shape on both
+     routes and the mma route's share of its bound, the mma route giving
+     the same bits on two runs; 2 layers at full width in fp32 on the
+     card against the CPU, and decode against forward; then the prefill
+     of 4 x 2048 tokens (its 48 launches all on the mma route) and
+     ``ServeEngine`` at phase 7's traffic, the prefill against the plain
+     scan and timed again warm, and one profiled tick;
   9. moe_serve (llama4-scout-17b-a16e, bf16, full width, 8 of its 48
      layers): the grouped GEMM kernel against its plain version at the
      sweep shapes (an empty expert, rows past the sum) and the decode
@@ -85,8 +91,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
      carry their prefill shape's times, ``prefill_ms``,
      ``prefill_bound_ms``, ``prefill_library_ms``, and kimi-k2's decode
      shape's, ``kimi_decode_ms``, ``kimi_decode_plain_ms``,
-     ``kimi_decode_bound_ms``, ``kimi_decode_library_ms``), the card's
-     name and power limit, and the closing status line.
+     ``kimi_decode_bound_ms``, ``kimi_decode_library_ms``; waterfill's
+     its measured ``chain_bound_ms`` beside the bytes bound; ssd_scan's
+     its path's ``launches_by_route`` and the FMA route's
+     ``fma_ms``), the card's name and power limit, and the closing
+     status line.
 
 Six main paths, each with the kernel launch counts set to 0 just
 before it and read just after: phases 3-4 (planning), the training
@@ -347,7 +356,10 @@ def phase_kernel(wf):
             raise AssertionError(
                 f"waterfill kernel != plain version at {label} (max {err})"
             )
-        ms = _cuda_ms(lambda: wf.waterfill_fill(*args), 50)
+        # device time (the host's issue time left out: at the products
+        # shape it is longer than the kernel's), L2 not flushed: in the
+        # engine the inputs come straight from the argsort and the masks
+        ms = _device_ms(lambda: wf.waterfill_fill(*args), 50)
         # least time for the same work: each input read once, the output
         # written once; operations counted on this data (two compares per
         # eligible flow, two subtractions per grant) at the fp64 peak
@@ -363,10 +375,31 @@ def phase_kernel(wf):
             f"chain {EG} steps per instance)",
             flush=True,
         )
+        # the chain bound: the longest chain of these inputs (an
+        # instance's eligible flows, the steps the kernel walks) alone, on
+        # chip
+        n_chain = int(args[3].sum(1).max().item())
+        chain_ms, cycles = wf.chain_probe(n_chain, M)
+        print(
+            f"[kernel] waterfill chain probe EG={EG} M={M}: chain bound "
+            f"{chain_ms:.6f} ms for the longest chain ({n_chain} eligible "
+            f"steps; {cycles:.1f} cycles a step), {100 * chain_ms / ms:.1f}% "
+            f"of the kernel's time",
+            flush=True,
+        )
+        if not 0 < chain_ms < ms:
+            raise AssertionError(f"waterfill at {label}: chain bound {chain_ms} ms "
+                                 f"not in (0, kernel's {ms} ms)")
+        if not rows:  # the papers shape: the other forms of the step
+            for mode in ("kernel", "shared", "shuffle"):
+                m_ms, m_cycles = wf.chain_probe(EG, M, mode=mode)
+                print(f"[kernel] waterfill chain probe, {EG} steps, M={M}, {mode} "
+                      f"form: {m_ms:.6f} ms ({m_cycles:.1f} cycles a step)", flush=True)
         rows.append(dict(
             ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             max_abs_err=float((got - want).abs().max().item()),
+            chain_bound_ms=chain_ms,
         ))
     out = dict(rows[0])
     out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
@@ -1300,14 +1333,16 @@ def _ssd_inputs(seed, b, s, h, hd, ds, dtype, wide=False):
     return x, dt, A, Bm, Cm
 
 
-def _ssd_bound(b, s, h, hd, ds, q, elt):
-    """Least time of the scan on the card: per (batch row, head, chunk)
-    the causal C B^T and W x products (q (q + 1) / 2 pairs), the carried
-    state's C h and the state update (q hd ds each), 2 flops a product,
-    at the bf16 tensor-core peak (fp32 peak for fp32 data); against x, y
-    written or read once, dt, B and C read once, at the HBM rate."""
+def _ssd_bound(b, s, h, hd, ds, q, elt, g=1):
+    """Least time of the scan on the card: per (batch row, group, chunk)
+    the causal C B^T (q (q + 1) / 2 pairs; B and C are shared by the
+    group's heads, and the mma route forms it once for them), per (batch
+    row, head, chunk) the causal W x product, the carried state's C h and
+    the state update (q hd ds each), 2 flops a product, at the bf16
+    tensor-core peak (fp32 peak for fp32 data); against x, y written or
+    read once, dt, B and C read once, at the HBM rate."""
     pairs = q * (q + 1) // 2
-    flops = b * h * (s // q) * (2 * pairs * ds + 2 * pairs * hd + 4 * q * hd * ds)
+    flops = b * (s // q) * (g * 2 * pairs * ds + h * (2 * pairs * hd + 4 * q * hd * ds))
     n_bytes = elt * (2 * b * s * h * hd + 2 * b * s * ds) + 4 * (b * s * h + h)
     ops_ms = flops / (BF16_FLOP_PER_S if elt == 2 else FP32_FLOP_PER_S) * 1e3
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -1318,8 +1353,10 @@ def phase_ssd_kernel(ss):
     """The SSD kernel against its plain version at the sweep shapes of
     ``tests/test_kernels.py``, the smoke config's chunk of 32, and
     mamba2-1.3b's prefill shape (plain and as views of one projection),
-    fp32 and bf16; its times at the prefill shape in bf16.  Returns the
-    JSON numbers (the prefill shape: the path's launches)."""
+    bf16 on the mma route and fp32 on the FMA route; at the prefill shape
+    in bf16, the same bits on two runs and its times (the FMA route's in
+    fp32 beside them).  Returns the JSON numbers (the prefill shape: the
+    path's launches)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1337,7 +1374,10 @@ def phase_ssd_kernel(ss):
         errs = {}
         for dtype in ("float32", "bfloat16"):
             args = _ssd_inputs(seed, b, s, h, hd, ds, getattr(torch, dtype), wide)
+            before = _routes(ss.ssd_scan)
             got = ss.ssd_scan(*args, chunk=q)
+            _check_route(f"ssd {label} {dtype}", before, _routes(ss.ssd_scan),
+                         ["mma" if dtype == "bfloat16" else "fma"])
             want = ss.ssd_scan_plain(*args, chunk=q)[0]
             torch.cuda.synchronize()
             errs[dtype] = _rel_err(got, want)
@@ -1348,20 +1388,26 @@ def phase_ssd_kernel(ss):
                 worst = max(worst, (got - want).abs().max().item())
             del args, got, want
         print(f"[ssd kernel] {label}: x [{b}, {s}, {h}, {hd}], d_state {ds}, chunk "
-              f"{q}: max err relative to the largest output, fp32 "
-              f"{errs['float32']:.3g}, bf16 {errs['bfloat16']:.3g}", flush=True)
+              f"{q}: max err relative to the largest output, fp32 (fma route) "
+              f"{errs['float32']:.3g}, bf16 (mma route) {errs['bfloat16']:.3g}", flush=True)
     args = _ssd_inputs(99, *full[:5], torch.bfloat16)
     kernel = lambda: ss.ssd_scan(*args, chunk=full[5])
     plain = lambda: ss.ssd_scan_plain(*args, chunk=full[5])
+    _bit_stable("ssd_scan mma route, prefill bf16", kernel)
     ms = _device_ms(kernel, 10, flush=True)
     plain_ms = _device_ms(plain, 2, flush=True)
+    # the FMA route's time at the same shape (fp32), in the same run
+    args32 = _ssd_inputs(99, *full[:5], torch.float32)
+    fma_ms = _device_ms(lambda: ss.ssd_scan(*args32, chunk=full[5]), 3, flush=True)
+    del args32
     bound, by, flops, n_bytes = _ssd_bound(*full, 2)
     print(f"[ssd kernel] prefill bf16: device time per call, L2 flushed: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, no library call computes it; "
-          f"bound {bound:.6f} ms by {by} ({flops} flops, {n_bytes} bytes; "
-          f"{100 * bound / ms:.1f}% of the kernel's time)", flush=True)
+          f"(mma route) {ms:.4f} ms, plain {plain_ms:.4f} ms, no library call "
+          f"computes it; bound {bound:.6f} ms by {by} ({flops} flops, {n_bytes} "
+          f"bytes): the mma route at {100 * bound / ms:.1f}% of its bound; fp32 "
+          f"on the FMA route {fma_ms:.4f} ms", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
-                bound_by=by, max_abs_err=worst)
+                bound_by=by, max_abs_err=worst, fma_ms=fma_ms)
 
 
 def phase_mamba(ss, fa, mg):
@@ -1369,7 +1415,8 @@ def phase_mamba(ss, fa, mg):
     layers and decode against forward; then the main path, the prefill
     of 4 x 2048 tokens and the ServeEngine run, with the launch counts set
     to 0 just before and read just after; the prefill against the plain
-    scan; one profiled tick.  Returns the path's ssd_scan launches."""
+    scan; one profiled tick.  Returns the path's ssd_scan launches, in
+    all and by route."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1427,13 +1474,16 @@ def phase_mamba(ss, fa, mg):
     torch.cuda.synchronize()
     for counted in (ss.ssd_scan, fa.flash_attention, mg.moe_grouped_gemm):
         counted.launches = 0
+    routes0 = _routes(ss.ssd_scan)
     t0 = time.perf_counter()
     got = model.prefill(toks)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n_pre = ss.ssd_scan.launches
+    _check_route("mamba2 prefill", routes0, _routes(ss.ssd_scan), ["mma"])
     stats = engine.run()
     launches = ss.ssd_scan.launches
+    by_route = {r: n - routes0[0][r] for r, n in ss.ssd_scan.launches_by_route.items()}
     others = fa.flash_attention.launches + mg.moe_grouped_gemm.launches
     if not (torch.isfinite(got[:, : cfg.vocab]).all() and got.shape == (B, model.vp)):
         raise AssertionError("mamba2 prefill logits not finite or of the wrong shape")
@@ -1446,7 +1496,8 @@ def phase_mamba(ss, fa, mg):
     d_pre = (got - want)[:, : cfg.vocab].abs().max().item()
     agree = int((got.argmax(-1) == want.argmax(-1)).sum().item())
     print(f"[mamba] prefill {B} x {S} tokens, bf16: {wall:.3f} s (first call), "
-          f"{warm:.3f} s (second call), {n_pre} ssd_scan launches; against the "
+          f"{warm:.3f} s (second call), {n_pre} ssd_scan launches, all on the "
+          f"mma route; against the "
           f"plain scan: max abs logit diff {d_pre:.4g} (logits in "
           f"[{got[:, :cfg.vocab].min().item():.3f}, "
           f"{got[:, :cfg.vocab].max().item():.3f}]), argmax agrees on {agree} "
@@ -1461,7 +1512,7 @@ def phase_mamba(ss, fa, mg):
     _profile_tick("mamba profile", model, ms_tick, {"ssd_scan": ("ssd_scan",)})
     print(f"[mamba] peak device memory {torch.cuda.max_memory_allocated()} bytes",
           flush=True)
-    return launches
+    return launches, by_route
 
 
 def _moe_inputs(seed, t, d, f, e, dtype, gs):
@@ -1872,9 +1923,11 @@ def _shape_nums(prefix, row):
     return {f"{prefix}_{k}": row[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
 
 
-def _entry(name, stem, replaces, nums, launches):
+def _entry(name, stem, replaces, nums, launches, by_route=None):
     """One kernel's record of the JSON line (source csrc/<stem>.cu); the
-    flash and moe_gemm records also carry their prefill row's times."""
+    flash and moe_gemm records also carry their prefill row's times,
+    waterfill's its chain bound, ssd_scan's its FMA route's time and its
+    launches by route."""
     return {
         "name": name,
         "route": "cuda",
@@ -1887,18 +1940,20 @@ def _entry(name, stem, replaces, nums, launches):
         "bound_ms": nums["bound_ms"],
         "bound_by": nums["bound_by"],
         "library_ms": nums.get("library_ms"),
-        **{k: v for k, v in nums.items() if k.startswith(("prefill_", "kimi_"))},
+        **{k: v for k, v in nums.items()
+           if k.startswith(("prefill_", "kimi_", "chain_", "fma_"))},
+        **({"launches_by_route": by_route} if by_route is not None else {}),
     }
 
 
 def phase_mamba_serve(ss, fa, mg, t):
     ssd = phase_ssd_kernel(ss)
     t = _phase_done("ssd_scan kernel checks and times", t)
-    launches = phase_mamba(ss, fa, mg)
+    launches, by_route = phase_mamba(ss, fa, mg)
     t = _phase_done("mamba2 serving (mamba2-1.3b: parity, decode, prefill, "
                     "ServeEngine, profile)", t)
     return _entry("ssd_scan", "ssd_scan", "src/repro/kernels/ssd_scan.py:83", ssd,
-                  launches), t
+                  launches, by_route), t
 
 
 def phase_moe_serve(mg, fa, t):

@@ -16,16 +16,26 @@ which is the exact recurrence of the oracle ``repro.kernels.ref.ssd_ref``
 (h_t = exp(A dt_t) h_{t-1} + dt_t x_t^T B_t, y_t = C_t . h_t) in the
 order the TPU kernel sums it.
 
-  * on CUDA tensors it launches ``csrc/ssd_scan.cu`` (one block per
-    batch row and head, walking the chunks in order with the state in
-    shared memory), built with ``nvcc`` for ``sm_90a`` into ``build/`` at
-    first use and loaded with ``ctypes``; x, dt, B and C are read through
-    their strides, so views of the model's projections go in uncopied;
+  * on CUDA tensors it launches ``csrc/ssd_scan.cu``, built with ``nvcc``
+    for ``sm_90a`` into ``build/`` at first use and loaded with
+    ``ctypes``; ``route(dtype, hd, ds, q, aligned)`` chooses its kernels
+    on the host before the launch: ``"mma"`` (bf16 with hd in
+    ``HEAD_DIMS``, d_state a multiple of 16 up to ``MAX_STATE``, the chunk
+    a multiple of 16, 16-byte aligned rows, and tiles that fit a block:
+    four kernels, the chunk states, C B^T once per group of heads, the
+    pass over the chunks and the outputs, with the products on the tensor
+    cores and scratch the wrapper allocates, ``scratch_sizes``) or
+    ``"fma"`` (fp32, and every other shape: one block per batch row and
+    head walking the chunks in order with the state in shared memory,
+    fp32 FMA code).  x, dt, B and C are read through their strides, so
+    views of the model's projections go in uncopied;
   * on CPU tensors it runs ``ssd_scan_plain``, the same chunked form
     written out in torch over all batch rows and heads at once.
 
 There is no fallback between the two: a CUDA tensor launches the kernel
-or raises.  Each launch adds one to ``ssd_scan.launches``.  There is no
+or raises.  Each call on a card adds one to ``ssd_scan.launches`` and to
+its route's count in ``ssd_scan.launches_by_route`` (the mma route's
+four kernels are one launch of the wrapper).  There is no
 backward (the reference has none): an input that requires a gradient is
 refused.
 """
@@ -44,6 +54,11 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_STATE = 256  # d_state the kernel's shared memory takes
+# the kernels of the C interface, by route code
+ROUTES = {"fma": 0, "mma": 1}
+# query rows of an outputs block of the mma route, key rows of its tiles
+MMA_ROWS = 64
+_MAX_SMEM_BYTES = 232_448  # a block's shared memory on Hopper
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -60,10 +75,69 @@ def _library() -> ctypes.CDLL:
         path, _, _ = build()
         lib = ctypes.CDLL(str(path))
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.repro_ssd_scan.argtypes = [vp] * 6 + [ll] * 12 + [ci] * 8 + [vp]
+        lib.repro_ssd_scan.argtypes = [vp] * 6 + [ll] * 12 + [ci] * 9 + [vp] * 5
         lib.repro_ssd_scan.restype = ci
+        for name in ("repro_ssd_states_bytes", "repro_ssd_outputs_bytes"):
+            getattr(lib, name).argtypes = [ci] * 3
+            getattr(lib, name).restype = ll
+        lib.repro_ssd_cb_bytes.argtypes = [ci]
+        lib.repro_ssd_cb_bytes.restype = ll
+        got = (lib.repro_ssd_states_bytes(64, 128, 256), lib.repro_ssd_cb_bytes(128),
+               lib.repro_ssd_outputs_bytes(64, 128, 256))
+        if got != mma_smem_bytes(64, 128, 256):
+            raise RuntimeError(f"ssd_scan.cu's shared memory {got} differs from the "
+                               f"wrapper's {mma_smem_bytes(64, 128, 256)}")
         _LIB = lib
     return _LIB
+
+
+def mma_smem_bytes(hd: int, ds: int, q: int) -> Tuple[int, int, int]:
+    """Shared memory of the mma route's chunk-state, C B^T and output
+    blocks (``states_bytes``, ``cb_bytes`` and ``outputs_bytes`` of the
+    source): dt and seg (fp32), then bf16 tiles whose rows carry 8 values
+    of padding; the outputs block's C tile and state give their room to
+    the key loop's C B^T tile (fp32, rows of 64 + 8) and x tile."""
+    r = MMA_ROWS
+    states = 8 * q + 2 * q * (hd + 8) + 2 * q * (ds + 8)
+    cb = 4 * r * (ds + 8)
+    outputs = 8 * q + max(2 * (r + hd) * (ds + 8), 4 * r * (r + 8) + 2 * r * (hd + 8))
+    return states, cb, outputs
+
+
+def route(dtype: torch.dtype, hd: int, ds: int, q: int, aligned: bool = True) -> str:
+    """The kernels a CUDA call launches, from x's dtype, the head dim, the
+    state size, the chunk and whether x, B and C have 16-byte aligned
+    addresses and strides: ``"mma"`` for bf16 when the tensor-core tiles
+    take the shape, else ``"fma"``, which takes every shape the wrapper
+    accepts (fp32 always: its checks leave no room for bf16 operands)."""
+    if (dtype == torch.bfloat16 and aligned and hd in HEAD_DIMS and ds % 16 == 0
+            and ds <= MAX_STATE and q % 16 == 0
+            and max(mma_smem_bytes(hd, ds, q)) <= _MAX_SMEM_BYTES):
+        return "mma"
+    return "fma"
+
+
+def scratch_sizes(b: int, s: int, h: int, g: int, hd: int, ds: int,
+                  q: int) -> Tuple[int, int, int, int]:
+    """Elements of the mma route's scratch: each chunk's own state
+    contribution [b, h, S / q, hd, ds] in fp32, the state entering each
+    chunk (the same shape) in bf16, each chunk's seg [b, h, S / q, q] in
+    fp32, and each chunk's C B^T [b, G, S / q, q, q] in fp32 (once per
+    group of heads)."""
+    nc = s // q
+    return b * h * nc * hd * ds, b * h * nc * hd * ds, b * h * nc * q, b * g * nc * q * q
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    """Addresses and outer strides (of dimensions larger than 1) that are
+    multiples of 16 bytes: the mma route loads rows in 16-byte pieces."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            return False
+        if any(n > 1 and (st * t.element_size()) % 16
+               for st, n in zip(t.stride()[:-1], t.shape[:-1])):
+            return False
+    return True
 
 
 def _grouped(m: torch.Tensor) -> torch.Tensor:
@@ -160,6 +234,13 @@ def _launch(x, dt, A, Bm, Cm, q: int) -> torch.Tensor:
         raise ValueError("the last dimension of x, Bm and Cm must be contiguous")
     A = A.contiguous()
     y = torch.empty((b, s, h, hd), dtype=x.dtype, device=x.device)
+    r = route(x.dtype, hd, ds, q, _aligned(x, Bg, Cg))
+    n_st, n_h, n_seg, n_cb = (scratch_sizes(b, s, h, G, hd, ds, q) if r == "mma"
+                              else (0, 0, 0, 0))
+    states = torch.empty(n_st, dtype=torch.float32, device=x.device)
+    hstates = torch.empty(n_h, dtype=torch.bfloat16, device=x.device)
+    segs = torch.empty(n_seg, dtype=torch.float32, device=x.device)
+    cb = torch.empty(n_cb, dtype=torch.float32, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -167,11 +248,13 @@ def _launch(x, dt, A, Bm, Cm, q: int) -> torch.Tensor:
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bg.data_ptr(),
             Cg.data_ptr(), y.data_ptr(),
             *x.stride()[:3], *dt.stride(), *Bg.stride()[:3], *Cg.stride()[:3],
-            b, s, h, hd, G, ds, q, _DTYPES[x.dtype], stream,
+            b, s, h, hd, G, ds, q, _DTYPES[x.dtype], ROUTES[r],
+            states.data_ptr(), hstates.data_ptr(), segs.data_ptr(), cb.data_ptr(), stream,
         )
     if err != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed: error {err}")
+        raise RuntimeError(f"ssd_scan kernel launch failed ({r} route): error {err}")
     ssd_scan.launches += 1
+    ssd_scan.launches_by_route[r] += 1
     return y
 
 
@@ -195,3 +278,4 @@ def ssd_scan(
 
 
 ssd_scan.launches = 0  # type: ignore[attr-defined]
+ssd_scan.launches_by_route = dict.fromkeys(ROUTES, 0)  # type: ignore[attr-defined]

@@ -6,15 +6,20 @@ instance, independent across the batch (instances never share NICs).
 ``waterfill_fill`` is the port of the JAX package's Pallas kernel
 ``repro.kernels.waterfill.waterfill_fill``:
 
-  * on CUDA tensors it launches ``csrc/waterfill.cu`` (one thread per
-    instance, fp64 remainders in shared memory), built with ``nvcc`` for
-    ``sm_90a`` into ``build/`` at first use and loaded with ``ctypes``;
+  * on CUDA tensors it launches ``csrc/waterfill.cu`` (one warp per
+    instance: the lanes gather each tile of ``TILE`` steps' flow ids off
+    the chain, one lane walks the chain with the fp64 remainders in
+    shared memory; ``launch_plan`` picks the warps a block and where the
+    grants go), built with ``nvcc`` for ``sm_90a`` into ``build/`` at
+    first use and loaded with ``ctypes``;
   * on CPU tensors it runs ``waterfill_fill_plain``, a plain loop over
     each instance's priority order, equal bit for bit to the JAX engine's
     ``fori_loop`` path.
 
 There is no fallback between the two: a CUDA tensor launches the kernel
 or raises.  Each launch adds one to ``waterfill_fill.launches``.
+``chain_probe`` times the kernel's dependent chain alone on a card (its
+chain bound); it is not a launch of the kernel.
 """
 from __future__ import annotations
 
@@ -33,6 +38,15 @@ EPS = 1e-9
 SOURCE = Path(__file__).resolve().parent / "csrc" / "waterfill.cu"
 # a block may use up to 227 KB of shared memory on Hopper
 _MAX_SMEM_BYTES = 232_448
+# the kernel's constants (csrc/waterfill.cu; checked when it is loaded):
+# steps gathered per tile, instances (warps) per block at most
+TILE = 512
+MAX_WARPS = 4
+# machine ids are packed in 16 bits each
+_MAX_M = 32_767
+# the chain probe's modes: the kernel's chain, the plain shared-memory
+# read-min-write step, one NIC a lane read with __shfl_sync (M <= 32)
+PROBE_MODES = {"kernel": 0, "shared": 1, "shuffle": 2}
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -49,12 +63,54 @@ def _library() -> ctypes.CDLL:
         path, _, _ = build()
         lib = ctypes.CDLL(str(path))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.repro_waterfill_fill.argtypes = [vp] * 7 + [ci, ci, ci, vp]
+        lib.repro_waterfill_fill.argtypes = [vp] * 7 + [ci] * 5 + [vp]
         lib.repro_waterfill_fill.restype = ci
-        lib.repro_waterfill_threads.argtypes = []
-        lib.repro_waterfill_threads.restype = ci
+        lib.repro_waterfill_chain_probe.argtypes = [ci] * 4 + [vp, vp]
+        lib.repro_waterfill_chain_probe.restype = ci
+        lib.repro_waterfill_warp_bytes.argtypes = [ci, ci, ci]
+        lib.repro_waterfill_warp_bytes.restype = ctypes.c_longlong
+        for name in ("repro_waterfill_tile", "repro_waterfill_max_warps"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ci
+        consts = (lib.repro_waterfill_tile(), lib.repro_waterfill_max_warps(),
+                  lib.repro_waterfill_warp_bytes(1400, 16, 1))
+        if consts != (TILE, MAX_WARPS, warp_bytes(1400, 16, True)):
+            raise RuntimeError(f"waterfill.cu's constants {consts} differ from the "
+                               f"wrapper's {(TILE, MAX_WARPS, warp_bytes(1400, 16, True))}")
         _LIB = lib
     return _LIB
+
+
+def tile_count(eg: int) -> int:
+    """Tiles of ``TILE`` steps the kernel gathers for an instance of
+    ``eg`` flows."""
+    return -(-eg // TILE)
+
+
+def warp_bytes(eg: int, m: int, row: bool) -> int:
+    """Shared memory of one instance (warp): its tile of packed steps
+    (8 bytes each), its 2 M fp64 remainders and, with ``row``, its EG fp64
+    grants; rounded up to 16 bytes (``warp_bytes`` of the source)."""
+    b = TILE * 8 + 16 * m + (8 * eg if row else 0)
+    return -(-b // 16) * 16
+
+
+def launch_plan(eg: int, m: int) -> Tuple[int, bool]:
+    """``(warps a block, grants in a shared row)`` for EG flows over M
+    machines: the most warps (up to ``MAX_WARPS``) whose shared memory
+    fits a block with the grant row, else the most without it (the
+    grants then go straight to device memory).  Raises when one warp's
+    remainders and tile do not fit."""
+    if m > _MAX_M:
+        raise ValueError(f"M={m} machines: the kernel packs machine ids in 16 bits")
+    for row in (True, False):
+        for warps in range(MAX_WARPS, 0, -1):
+            if warps * warp_bytes(eg, m, row) <= _MAX_SMEM_BYTES:
+                return warps, row
+    raise ValueError(
+        f"M={m} machines need {warp_bytes(eg, m, False)} bytes of shared memory "
+        f"per instance, more than the {_MAX_SMEM_BYTES} a Hopper block can use"
+    )
 
 
 def waterfill_fill_plain(
@@ -157,19 +213,14 @@ def waterfill_fill(
     out = torch.empty((B, EG), dtype=torch.float64, device=order.device)
     if B == 0 or EG == 0:
         return out
+    warps, row = launch_plan(EG, M)
     lib = _library()
-    smem = 2 * M * lib.repro_waterfill_threads() * 8
-    if smem > _MAX_SMEM_BYTES:
-        raise ValueError(
-            f"M={M} machines need {smem} bytes of shared memory per block, "
-            f"more than the {_MAX_SMEM_BYTES} a Hopper block can use"
-        )
     with torch.cuda.device(order.device):
         stream = torch.cuda.current_stream(order.device).cuda_stream
         err = lib.repro_waterfill_fill(
             order.data_ptr(), src.data_ptr(), dst.data_ptr(), elig.data_ptr(),
             cap_in.data_ptr(), cap_out.data_ptr(), out.data_ptr(),
-            B, EG, M, stream,
+            B, EG, M, warps, int(row), stream,
         )
     if err != 0:
         raise RuntimeError(f"waterfill kernel launch failed: CUDA error {err}")
@@ -178,3 +229,36 @@ def waterfill_fill(
 
 
 waterfill_fill.launches = 0  # type: ignore[attr-defined]
+
+
+def chain_probe(steps: int, m: int, mode: str = "kernel", reps: int = 200,
+                device: str = "cuda") -> Tuple[float, float]:
+    """The dependent chain of ``steps`` waterfill steps over ``m`` NICs,
+    timed alone on the card (one warp, ids already in shared memory, no
+    gather, no output; ``PROBE_MODES`` names the forms): ``(ms for one
+    chain of steps, clock cycles per step)``, from CUDA events around one
+    launch that runs the chain ``reps`` times, and from the SM's clock.
+    With mode ``"kernel"`` it is the kernel's chain bound."""
+    if mode not in PROBE_MODES:
+        raise ValueError(f"no probe mode {mode!r} (modes {sorted(PROBE_MODES)})")
+    if torch.device(device).type != "cuda":
+        raise ValueError("the chain probe runs on a CUDA card only")
+    lib = _library()
+    out = torch.zeros(2, dtype=torch.float64, device=device)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+
+        def launch():
+            err = lib.repro_waterfill_chain_probe(steps, m, reps, PROBE_MODES[mode],
+                                                  out.data_ptr(), stream)
+            if err != 0:
+                raise RuntimeError(f"waterfill chain probe failed: CUDA error {err}")
+
+        launch()  # warm-up
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        launch()
+        t1.record()
+        torch.cuda.synchronize(out.device)
+    return t0.elapsed_time(t1) / reps, out[1].item() / (reps * steps)

@@ -16,10 +16,16 @@
     h // (H / G) equal the same groups repeated over the heads;
   * the wrapper's checks (S a multiple of the chunk, dtypes, shapes) and
     no route for a tensor on neither the CPU nor a card;
+  * the host's route choice (``"mma"``: bf16 on the tensor cores;
+    ``"fma"``: fp32 and the shapes the tiles do not take), the tiled
+    kernels' shared memory and the mma route's scratch sizes;
   * marked ``cuda``: the kernel against its plain version on a card, at
     the sweep shapes, the smoke config's chunk of 32, grouped strided
-    views and mamba2-1.3b's chunk of 256.  They skip without a card; run
-    them there with ``python -m pytest -m cuda tests/test_torch_ssd.py``.
+    views and mamba2-1.3b's chunk of 256; the mma route at every head dim
+    and chunks of 32, 64 and 256, d_state 16 to 256, S of one chunk and
+    grouped strided views, giving the same bits on two runs; fp32 on the
+    FMA route.  They skip without a card; run them there with
+    ``python -m pytest -m cuda tests/test_torch_ssd.py``.
 
 JAX is imported only by the tests that compare with it.
 """
@@ -28,7 +34,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+from repro_torch.kernels.ssd_scan import (
+    HEAD_DIMS, MAX_STATE, mma_smem_bytes, route, scratch_sizes, ssd_scan, ssd_scan_plain)
 
 TOL = {"float32": 5e-4, "bfloat16": 5e-2}
 SWEEP = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 64, 64)]  # b, s, h, hd, ds, chunk
@@ -149,6 +156,40 @@ def test_wrapper_validates_inputs():
         ssd_scan(*(t.detach().to("meta") for t in (x, dt, A, Bm, Cm)))
 
 
+@pytest.mark.parametrize("dtype,hd,ds,q,aligned,want", [
+    ("bfloat16", 64, 128, 256, True, "mma"),  # mamba2-1.3b's prefill
+    ("bfloat16", 16, 16, 32, True, "mma"),
+    ("bfloat16", 128, 256, 256, True, "mma"),  # the largest tiles
+    ("float32", 64, 128, 256, True, "fma"),  # fp32 keeps its 1e-4 checks
+    ("bfloat16", 128, 24, 40, True, "fma"),  # d_state and chunk off the k16 steps
+    ("bfloat16", 64, 128, 40, True, "fma"),
+    ("bfloat16", 64, 24, 64, True, "fma"),
+    ("bfloat16", 128, 256, 512, True, "fma"),  # chunk states past a block's memory
+    ("bfloat16", 64, 128, 256, False, "fma"),  # rows not 16-byte aligned
+])
+def test_route_by_dtype_and_shape(dtype, hd, ds, q, aligned, want):
+    assert route(getattr(torch, dtype), hd, ds, q, aligned) == want
+
+
+def test_mma_smem_and_scratch_sizes():
+    # every head dim and d_state up to MAX_STATE at chunk 256 fits a block
+    for hd in HEAD_DIMS:
+        assert max(mma_smem_bytes(hd, MAX_STATE, 256)) <= 232_448
+    # mamba2-1.3b's prefill: the chunk states' x and B rows; the C and B
+    # tiles of C B^T; the outputs' C tile and state (which the C B^T and x
+    # tiles reuse)
+    assert mma_smem_bytes(64, 128, 256) == (
+        8 * 256 + 2 * 256 * 72 + 2 * 256 * 136, 4 * 64 * 136, 8 * 256 + 2 * 128 * 136)
+    # [4, 64, 8, 64, 128] chunk states in fp32 (~67 MB) and in bf16,
+    # [4, 64, 8, 256] segs and [4, 1, 8, 256, 256] C B^T in fp32
+    states, hstates, segs, cb = scratch_sizes(4, 2048, 64, 1, 64, 128, 256)
+    assert (states, hstates) == (4 * 64 * 8 * 64 * 128,) * 2
+    assert (segs, cb) == (4 * 64 * 8 * 256, 4 * 8 * 256 * 256)
+    assert 4 * states == 67_108_864
+    # C B^T once per group, not per head
+    assert scratch_sizes(2, 128, 6, 3, 32, 16, 64)[3] == 2 * 3 * 2 * 64 * 64
+
+
 # ----------------------------------------------------------------- the card
 @pytest.fixture
 def cuda():
@@ -188,3 +229,62 @@ def test_kernel_reads_grouped_strided_views(cuda):
     got = ssd_scan(x, dt, A, Bg, Cg, chunk=32)
     want = ssd_scan_plain(x, dt, A, Bg, Cg, chunk=32)[0]
     assert _rel_err(got, want) < 1e-4
+
+
+def _routed(args, chunk, want_route):
+    """The wrapper's output, checked to launch once on ``want_route``."""
+    before = dict(ssd_scan.launches_by_route)
+    got = ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    moved = {r: ssd_scan.launches_by_route[r] - before[r] for r in before}
+    assert moved == {r: int(r == want_route) for r in before}
+    return got
+
+
+# (b, s, h, hd, ds, chunk): every head dim at chunks of 32, 64 and 256
+# (several chunks each), d_state 16 to 256, and S of one chunk
+MMA_SHAPES = (
+    [(2, 2 * q, 3, hd, 64, q) for hd in HEAD_DIMS for q in (32, 64, 256)]
+    + [(1, 512, 2, 64, ds, 256) for ds in (16, 64, 128, 256)]
+    + [(2, 256, 2, 128, 256, 256), (3, 64, 2, 32, 32, 64)]
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MMA_SHAPES)
+def test_mma_route_matches_plain(cuda, shape):
+    """The bf16 tensor-core route against the plain version, within 2e-2
+    of the largest output, and the same bits on two runs."""
+    b, s, h, hd, ds, chunk = shape
+    args = _torch(_inputs(10, b, s, h, hd, ds), "bfloat16", cuda)
+    got = _routed(args, chunk, "mma")
+    want = ssd_scan_plain(*args, chunk=chunk)[0]
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _rel_err(got, want) < 2e-2
+    assert torch.equal(got, ssd_scan(*args, chunk=chunk))
+
+
+@pytest.mark.cuda
+def test_mma_route_reads_grouped_strided_views(cuda):
+    """B and C as [B, S, G, ds] views of one wider bf16 projection, G = 2
+    over 4 heads, and x a view of it too."""
+    b, s, h, hd, ds = 2, 256, 4, 32, 64
+    _, dt, A, _, _ = _torch(_inputs(11, b, s, h, hd, ds), "bfloat16", cuda)
+    wide = torch.randn(b, s, h * hd + 4 * ds, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(1)).bfloat16()
+    x = wide[..., : h * hd].view(b, s, h, hd)
+    Bg = wide[..., h * hd: h * hd + 2 * ds].view(b, s, 2, ds)
+    Cg = wide[..., h * hd + 2 * ds:].view(b, s, 2, ds)
+    got = _routed((x, dt, A, Bg, Cg), 64, "mma")
+    want = ssd_scan_plain(x, dt, A, Bg, Cg, chunk=64)[0]
+    assert _rel_err(got, want) < 2e-2
+    assert torch.equal(got, ssd_scan(x, dt, A, Bg.repeat_interleave(2, 2),
+                                     Cg.repeat_interleave(2, 2), chunk=64))
+
+
+@pytest.mark.cuda
+def test_fp32_stays_on_the_fma_route(cuda):
+    b, s, h, hd, ds, chunk = 1, 512, 2, 64, 128, 256
+    args = _torch(_inputs(12, b, s, h, hd, ds), "float32", cuda)
+    got = _routed(args, chunk, "fma")
+    assert _rel_err(got, ssd_scan_plain(*args, chunk=chunk)[0]) < 1e-4
