@@ -33,12 +33,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
      classes, 3 layers, fan-outs 5/10/15, 2000 seeds per batch) on a
      240,000-node synthetic graph: the aggregation kernel against its
      plain version at the three shapes one batch gives it (exact in
-     fp32, 3e-2 in bf16, plus all-padding rows and an odd M), with
-     times beside its bound and ``F.embedding_bag``; one forward and
-     backward on the card against the same on the CPU; then five SGD
-     steps, the measured-traffic calibration and
+     fp32, 3e-2 in bf16, plus all-padding rows and an odd M), and its
+     backward kernels against the plain backward on the CPU (exact in
+     fp32), both giving the same bits on two runs; the forward's times
+     beside its bound, the gather probe (its loads alone) and
+     ``F.embedding_bag``, the backward's beside its bound and
+     ``index_add_``, also on ids with three hubs named thousands of
+     times; one forward and backward on the card against the same on
+     the CPU; then five SGD steps, the measured-traffic calibration and
      ``plan_baseline("distdgl")`` (its fifo commit launches waterfill);
-     then one profiled step (the device's busy share);
+     then one profiled step, checked to hold every aggregation launch
+     (the device's busy share; no ``index_add_`` left);
   7. LM serving (internlm2-1.8b, bf16, random weights from a seeded
      generator on the card): the attention kernel against its plain
      version at the five sweep shapes of ``tests/test_kernels.py``, at
@@ -94,8 +99,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
      ``kimi_decode_bound_ms``, ``kimi_decode_library_ms``; waterfill's
      its measured ``chain_bound_ms`` beside the bytes bound; ssd_scan's
      its path's ``launches_by_route`` and the FMA route's
-     ``fma_ms``), the card's name and power limit, and the closing
-     status line.
+     ``fma_ms``; sage_aggregate's the gather probe's ``probe_ms`` and
+     its backward's ``bwd_ms``,
+     ``bwd_bound_ms`` and ``bwd_library_ms``), the card's name and power
+     limit, and the closing status line.
 
 Six main paths, each with the kernel launch counts set to 0 just
 before it and read just after: phases 3-4 (planning), the training
@@ -103,8 +110,8 @@ steps, calibration and baseline plan of phase 6 (GraphSAGE), the
 ``ServeEngine`` run of phase 7 (LM serving), and the prefill followed by
 the ``ServeEngine`` run of phases 8 (mamba2), 9 (MoE) and 10 (kimi-k2).
 Each phase's seconds are printed on a ``[time]`` line.  ``--only
-lm_serve``, ``mamba_serve``, ``moe_serve`` or ``kimi_serve`` builds the
-kernels and runs that phase alone (for work on that path; it prints no
+sage``, ``lm_serve``, ``mamba_serve``, ``moe_serve`` or ``kimi_serve``
+builds the kernels and runs that phase alone (for work on that path; it prints no
 closing status line).
 Imports nothing of JAX or of the ``repro`` package.
 """
@@ -114,6 +121,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -636,16 +644,58 @@ def _device_ms(fn, reps, flush=False):
     raise AssertionError("the host could not enqueue the calls ahead of the card")
 
 
+SAGE_HUBS = 3  # ids each named by a third of layer 1's output rows
+
+
+def _sage_hubs(sa, batch, hidden, gen):
+    """The backward on layer 1's ids with the first id of every row
+    replaced by one of SAGE_HUBS hubs (each named ~2239 times, as a
+    power-law graph's hubs are): exact against the plain backward on the
+    CPU, timed beside ``index_add_`` with the L2 flushed."""
+    import torch
+
+    _, x, idx = _sage_x(batch["feats"], batch["blocks"], hidden, 0)[1]
+    N, Fdim = x.shape
+    M, K = idx.shape
+    idx = idx.clone()
+    idx[:, 0] = torch.arange(M, device="cuda", dtype=torch.int32) % SAGE_HUBS
+    go = torch.randn(M, Fdim, device="cuda", generator=gen)
+    backward = lambda: sa.sage_aggregate_backward(go, idx, N)
+    if not torch.equal(backward().cpu(),
+                       sa.sage_aggregate_backward_plain(go.cpu(), idx.cpu(), N)):
+        raise AssertionError("sage backward != plain on the cpu with hubs")
+    flat = idx.reshape(-1).long()
+    pos = torch.nonzero(flat >= 0).squeeze(1)
+    cnt = (idx >= 0).sum(1).clamp(min=1)[:, None].float()
+    add_ids, add_rows = flat[pos], (go / cnt)[pos // K]
+    add_buf = torch.zeros(N, Fdim, device="cuda")
+    ms = _device_ms(backward, 20, flush=True)
+    lib_ms = _device_ms(lambda: add_buf.index_add_(0, add_ids, add_rows), 20, flush=True)
+    longest = int((idx == 0).sum().item())
+    print(f"[sage backward] layer 1 with {SAGE_HUBS} hubs (the longest segment "
+          f"{longest} positions): exact match with the plain backward on the cpu; "
+          f"device time per call, L2 flushed: kernels {ms:.4f} ms, index_add_ "
+          f"{lib_ms:.4f} ms", flush=True)
+    return {"bwd_hub_ms": ms, "bwd_hub_library_ms": lib_ms}
+
+
 def phase_sage_kernel(sa, batch, hidden):
-    """The aggregation kernel against its plain version at the three
-    shapes one batch gives it: exact in fp32, BF16_ATOL in bf16; all-
-    padding rows and an M that is not a multiple of 128; times beside the
-    bound and beside ``F.embedding_bag``.  Returns the JSON numbers summed
-    over the three shapes (one forward's aggregations)."""
+    """The aggregation kernels against their plain versions at the three
+    shapes one batch gives them: the forward exact in fp32 and within
+    BF16_ATOL in bf16, the backward exact in fp32
+    against the plain backward on the CPU, each giving the same bits on
+    two runs; all-padding rows and an M that is not a multiple of 128;
+    the forward's times beside its bound, the gather probe (its loads
+    alone) and ``F.embedding_bag``; the backward's beside its bound and
+    ``index_add_``, at each shape and on layer 1's ids with three hubs
+    named thousands of times.  Returns the JSON numbers: the forward's summed over
+    the three shapes (one forward's aggregations), the backward's over
+    layers 1 and 2 (one backward's: layer 0's input needs no gradient)."""
     import torch
     import torch.nn.functional as F
 
     rows = []
+    gen = torch.Generator(device="cuda").manual_seed(1)
     for label, x, idx in _sage_x(batch["feats"], batch["blocks"], hidden, 0):
         N, Fdim = x.shape
         M, K = idx.shape
@@ -655,16 +705,33 @@ def phase_sage_kernel(sa, batch, hidden):
         if not torch.equal(got, want):
             err = (got - want).abs().max().item()
             raise AssertionError(f"sage kernel != plain at {label} (max {err})")
+        _bit_stable(f"sage forward {label}", lambda: sa.sage_aggregate(x, idx))
         xb = x.to(torch.bfloat16)
         err_bf16 = (sa.sage_aggregate(xb, idx).float()
                     - sa.sage_aggregate_plain(xb, idx).float()).abs().max().item()
         if not err_bf16 <= BF16_ATOL:
             raise AssertionError(f"sage kernel bf16 at {label}: max err {err_bf16}")
-        # the yardstick: one PyTorch call with the same semantics
+        bf16_vec = sa.forward_plan(Fdim, 2, xb.data_ptr()).vec_bytes
+        # the backward: kernels against the plain backward on the CPU
+        go = torch.randn(M, Fdim, device="cuda", generator=gen)
+        backward = lambda: sa.sage_aggregate_backward(go, idx, N)
+        g_got = backward()
+        g_want = sa.sage_aggregate_backward_plain(go.cpu(), idx.cpu(), N)
+        if not torch.equal(g_got.cpu(), g_want):
+            err = (g_got.cpu() - g_want).abs().max().item()
+            raise AssertionError(f"sage backward != plain on the cpu at {label} (max {err})")
+        _bit_stable(f"sage backward {label}", backward)
+        # the yardsticks: one PyTorch call with the same semantics each
         bag_idx = torch.where(idx < 0, N, idx).long()
         bag_x = torch.cat([x, x.new_zeros(1, Fdim)])
         lib = lambda: F.embedding_bag(bag_idx, bag_x, mode="mean", padding_idx=N)
         err_lib = (lib() - want).abs().max().item()
+        flat = idx.reshape(-1).long()
+        pos = torch.nonzero(flat >= 0).squeeze(1)
+        cnt = (idx >= 0).sum(1).clamp(min=1)[:, None].float()
+        add_ids, add_rows = flat[pos], (go / cnt)[pos // K]
+        add_buf = torch.zeros(N, Fdim, device="cuda")
+        bwd_lib = lambda: add_buf.index_add_(0, add_ids, add_rows)
         kernel = lambda: sa.sage_aggregate(x, idx)
         plain = lambda: sa.sage_aggregate_plain(x, idx)
         # device time per call with the 50 MB L2 flushed before each call
@@ -672,8 +739,12 @@ def phase_sage_kernel(sa, batch, hidden):
         # memory bound); the hot kernel time is printed beside it
         ms = _device_ms(kernel, 20, flush=True)
         hot_ms = _device_ms(kernel, 50)
+        probe_ms = _device_ms(lambda: sa.gather_probe(x, idx), 20, flush=True)
+        probe_hot_ms = _device_ms(lambda: sa.gather_probe(x, idx), 50)
         plain_ms = _device_ms(plain, 4, flush=True)
         library_ms = _device_ms(lib, 20, flush=True)
+        bwd_ms = _device_ms(backward, 20, flush=True)
+        bwd_library_ms = _device_ms(bwd_lib, 20, flush=True)
         call_ms = _cuda_ms(kernel, 50)
         lib_call_ms = _cuda_ms(lib, 50)
         # least time: idx read once, each distinct row of x that a valid
@@ -686,19 +757,37 @@ def phase_sage_kernel(sa, batch, hidden):
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
         ops_ms = (n_valid * Fdim + M * Fdim) / FP32_FLOP_PER_S * 1e3
         bound = max(bytes_ms, ops_ms)
+        # the backward's: grad_out, idx, the CSR (N row ends, a position per
+        # valid id) and grad_x once each; a divide per grad_out value and
+        # an add per gathered value
+        bwd_bytes = M * Fdim * 4 + M * K * 4 + (N + n_valid) * 4 + N * Fdim * 4
+        bwd_bound = max(bwd_bytes / HBM_BYTES_PER_S,
+                        (M * Fdim + n_valid * Fdim) / FP32_FLOP_PER_S) * 1e3
         print(
             f"[sage kernel] {label}: x {tuple(x.shape)} fp32, idx {tuple(idx.shape)} "
-            f"({n_valid} valid ids, {n_rows} distinct rows): exact match, bf16 "
-            f"max err {err_bf16:.3g}; device time per call, L2 flushed: kernel "
-            f"{ms:.4f} ms (hot {hot_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-            f"embedding_bag {library_ms:.4f} ms (max diff {err_lib:.3g}); bound "
-            f"{bound:.6f} ms ({n_bytes} bytes, {100 * bound / ms:.1f}% of the "
-            f"kernel's time); back-to-back calls, host included: kernel "
-            f"{call_ms:.4f} ms, embedding_bag {lib_call_ms:.4f} ms",
+            f"({n_valid} valid ids, {n_rows} distinct rows): exact match, bf16 max err "
+            f"{err_bf16:.3g} ({bf16_vec}-byte accesses); device time per call, "
+            f"L2 flushed: kernel {ms:.4f} ms (hot {hot_ms:.4f} ms), gather probe "
+            f"{probe_ms:.4f} ms (hot {probe_hot_ms:.4f} ms), plain {plain_ms:.4f} ms, embedding_bag "
+            f"{library_ms:.4f} ms (max diff {err_lib:.3g}); bound {bound:.6f} ms "
+            f"({n_bytes} bytes, {100 * bound / ms:.1f}% of the kernel's time); "
+            f"back-to-back calls, host included: kernel {call_ms:.4f} ms, "
+            f"embedding_bag {lib_call_ms:.4f} ms",
+            flush=True,
+        )
+        print(
+            f"[sage backward] {label}: grad_out {tuple(go.shape)} fp32 -> grad_x "
+            f"{tuple(g_got.shape)}: exact match with the plain backward on the cpu; "
+            f"device time per call, L2 flushed: kernels {bwd_ms:.4f} ms, index_add_ "
+            f"{bwd_library_ms:.4f} ms; bound {bwd_bound:.6f} ms ({bwd_bytes} bytes, "
+            f"{100 * bwd_bound / bwd_ms:.1f}% of the kernels' time)",
             flush=True,
         )
         rows.append(dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                          bound_ms=bound, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                         probe_ms=probe_ms,
+                         bwd_ms=bwd_ms, bwd_bound_ms=bwd_bound,
+                         bwd_library_ms=bwd_library_ms,
                          max_abs_err=(got - want).abs().max().item()))
     # all-padding rows and an M that is not a multiple of 128
     x, idx = batch["feats"], batch["blocks"][-1][:1037].clone()
@@ -710,9 +799,19 @@ def phase_sage_kernel(sa, batch, hidden):
     print("[sage kernel] M=1037 with 64 all-padding rows: exact match, "
           "padding rows 0", flush=True)
     out = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms",
-                                                  "bound_ms", "bytes_ms", "ops_ms")}
+                                                  "bound_ms", "bytes_ms", "ops_ms",
+                                                  "probe_ms")}
+    out.update({k: sum(r[k] for r in rows[1:])
+                for k in ("bwd_ms", "bwd_bound_ms", "bwd_library_ms")})
     out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     out["bound_by"] = "bytes" if out["bytes_ms"] >= out["ops_ms"] else "operations"
+    out.update(_sage_hubs(sa, batch, hidden, gen))
+    print(f"[sage kernel] one forward (three calls), L2 flushed: kernel {out['ms']:.4f} "
+          f"ms against a bound of {out['bound_ms']:.6f} ms and a gather probe of "
+          f"{out['probe_ms']:.4f} ms (embedding_bag {out['library_ms']:.4f} ms); one "
+          f"backward (layers 1 and 2): kernels {out['bwd_ms']:.4f} ms against a bound of "
+          f"{out['bwd_bound_ms']:.6f} ms, index_add_ {out['bwd_library_ms']:.4f} ms",
+          flush=True)
     return out
 
 
@@ -724,7 +823,7 @@ def phase_sage(sa, wf):
     launches per kernel."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch.core import plan_baseline, testbed_cluster
     from repro_torch.core.units import BYTES_PER_GB, BYTES_PER_MIB
@@ -777,6 +876,7 @@ def phase_sage(sa, wf):
 
     # the main path: SGD steps, calibration, the DistDGL baseline plan
     sa.sage_aggregate.launches = 0
+    sa.sage_aggregate.backward_launches = 0
     wf.waterfill_fill.launches = 0
     losses, store_bytes, split = [], [], []
     for _ in range(SAGE_STEPS):
@@ -806,6 +906,7 @@ def phase_sage(sa, wf):
                        realization=wl.realize(seed=0), device="cuda")
     torch.cuda.synchronize()
     launches = {"sage_aggregate": sa.sage_aggregate.launches,
+                "sage_aggregate_backward": sa.sage_aggregate.backward_launches,
                 "waterfill_fill": wf.waterfill_fill.launches}
     print(f"[sage] losses over {SAGE_STEPS} SGD steps: "
           f"{' '.join(f'{v:.4f}' for v in losses)}", flush=True)
@@ -833,21 +934,53 @@ def phase_sage(sa, wf):
         sgd_step(model, lr=0.1)
         torch.cuda.synchronize()
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        wall = time.perf_counter() - t0
-    rows = sorted(
-        (a for a in prof.key_averages() if a.device_type == DeviceType.CUDA),
-        key=_device_us, reverse=True,
-    )
+    # the profiler can lose the first device events it traces, so a step
+    # runs as its warm-up and the next one is kept; the kept step must
+    # hold every launch of the aggregation and the batch's copies to the
+    # card, or it is traced again
+    expect = {"sage_fwd": 3, "sage_bwd_prep": 2, "sage_bwd_fill": 2, "sage_bwd_long": 2,
+              "sage_bwd_sum": 2}
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1), acc_events=True) as prof:
+            for _ in range(2):
+                t0 = time.perf_counter()
+                step()
+                wall = time.perf_counter() - t0
+                prof.step()
+        # the schedule's step annotation carries its kernels' time again
+        rows = sorted(
+            (a for a in prof.key_averages() if a.device_type == DeviceType.CUDA
+             and not a.key.startswith("ProfilerStep")),
+            key=_device_us, reverse=True,
+        )
+        seen = {k: sum(a.count for a in rows if re.search(rf"::{k}[<(]", a.key))
+                for k in expect}
+        copies = sum(a.count for a in rows if a.key.startswith("Memcpy HtoD"))
+        if seen == expect and copies > 0:
+            break
+        print(f"[sage profile] trace {attempt + 1} incomplete: aggregation launches "
+              f"{seen} of {expect}, {copies} host-to-device copies", flush=True)
+    else:
+        raise AssertionError("the profiled GraphSAGE step lost device events")
     dev_ms = sum(_device_us(a) for a in rows) / 1e3
+    kernel_ms = sum(_device_us(a) for a in rows if not a.key.startswith("Memcpy")) / 1e3
     print(f"[sage profile] one step: wall {wall:.3f} s profiled, device busy "
-          f"{dev_ms:.2f} ms ({100 * dev_ms / 1e3 / wall:.2f}% of the wall)",
-          flush=True)
+          f"{dev_ms:.3f} ms ({100 * dev_ms / 1e3 / wall:.2f}% of the wall), of which "
+          f"kernels (no host-to-device copies) {kernel_ms:.3f} ms; every aggregation "
+          f"launch traced {seen}, {copies} host-to-device copies", flush=True)
     for a in rows[:8]:
         print(f"[sage profile]   {_device_us(a) / 1e3:9.3f} ms {a.count:5d}x "
               f"{a.key[:70]}", flush=True)
+    ours = [a for a in rows if "sage_" in a.key]
+    print(f"[sage profile] the aggregation's kernels: "
+          f"{sum(_device_us(a) for a in ours) / 1e3:.3f} ms ("
+          + ", ".join(f"{re.search(r'sage_\w+(<[^>]*>)?', a.key).group(0)} "
+                      f"{_device_us(a) / 1e3:.3f} ms {a.count}x" for a in ours) + ")",
+          flush=True)
+    scatter = [a.key for a in rows if "indexFunc" in a.key]
+    if scatter:
+        raise AssertionError(f"the GraphSAGE step still runs index_add_: {scatter}")
     return kern, launches
 
 
@@ -1927,7 +2060,8 @@ def _entry(name, stem, replaces, nums, launches, by_route=None):
     """One kernel's record of the JSON line (source csrc/<stem>.cu); the
     flash and moe_gemm records also carry their prefill row's times,
     waterfill's its chain bound, ssd_scan's its FMA route's time and its
-    launches by route."""
+    launches by route, sage_aggregate's its gather probe's time and its
+    backward's times (``bwd_ms``, ``bwd_bound_ms``, ``bwd_library_ms``)."""
     return {
         "name": name,
         "route": "cuda",
@@ -1941,7 +2075,7 @@ def _entry(name, stem, replaces, nums, launches, by_route=None):
         "bound_by": nums["bound_by"],
         "library_ms": nums.get("library_ms"),
         **{k: v for k, v in nums.items()
-           if k.startswith(("prefill_", "kimi_", "chain_", "fma_"))},
+           if k.startswith(("prefill_", "kimi_", "chain_", "fma_", "bwd_", "probe_"))},
         **({"launches_by_route": by_route} if by_route is not None else {}),
     }
 
@@ -1990,6 +2124,19 @@ def phase_lm_serve(fa, t):
     return flash, launches, t
 
 
+def phase_sage_all(sa, wf, t):
+    """Phase 6: the aggregation kernels' checks and times, then GraphSAGE."""
+    sage, launches = phase_sage(sa, wf)
+    t = _phase_done("GraphSAGE (graph, kernel checks, parity, training, "
+                    "calibration, profile)", t)
+    return sage, launches, t
+
+
+def _sage_entry(sage, launches):
+    return _entry("sage_aggregate", "sage_aggregate", "src/repro/kernels/sage_aggregate.py:83",
+                  sage, launches["sage_aggregate"])
+
+
 def _flash_entry(flash, launches):
     return _entry("flash_attention", "flash_attention",
                   "src/repro/kernels/flash_attention.py:102", flash, launches)
@@ -1999,7 +2146,8 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("lm_serve", "mamba_serve", "moe_serve", "kimi_serve"),
+    ap.add_argument("--only", choices=("sage", "lm_serve", "mamba_serve", "moe_serve",
+                                       "kimi_serve"),
                     default=None, help="build the kernels and run this phase alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -2031,7 +2179,10 @@ def main(argv=None) -> int:
           f"{torch.backends.cuda.matmul.allow_tf32}, torch.backends.cudnn."
           f"allow_tf32 = {torch.backends.cudnn.allow_tf32}", flush=True)
     if args.only is not None:
-        if args.only == "lm_serve":
+        if args.only == "sage":
+            sage, sage_launches, t = phase_sage_all(sa, wf, t)
+            entries = [_sage_entry(sage, sage_launches)]
+        elif args.only == "lm_serve":
             flash, flash_launches, t = phase_lm_serve(fa, t)
             entries = [_flash_entry(flash, flash_launches)]
         elif args.only == "mamba_serve":
@@ -2068,9 +2219,7 @@ def main(argv=None) -> int:
     phase_profile(cands)
     t = _phase_done("engine profile", t)
 
-    sage, sage_launches = phase_sage(sa, wf)
-    t = _phase_done("GraphSAGE (graph, kernel checks, parity, training, "
-                    "calibration, profile)", t)
+    sage, sage_launches, t = phase_sage_all(sa, wf, t)
 
     flash, flash_launches, t = phase_lm_serve(fa, t)
     ssd_entry, t = phase_mamba_serve(ss, fa, mg, t)
@@ -2083,9 +2232,7 @@ def main(argv=None) -> int:
         "kernels": [
             _entry("waterfill_fill", "waterfill", "src/repro/kernels/waterfill.py:64",
                    kern, launches + sage_launches["waterfill_fill"]),
-            _entry("sage_aggregate", "sage_aggregate",
-                   "src/repro/kernels/sage_aggregate.py:83", sage,
-                   sage_launches["sage_aggregate"]),
+            _sage_entry(sage, sage_launches),
             _flash_entry(flash, flash_launches + moe_flash_launches
                          + kimi_launches["flash_attention"]),
             ssd_entry,

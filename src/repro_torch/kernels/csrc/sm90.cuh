@@ -1,8 +1,9 @@
-// Hopper (sm_90a) helpers shared by the port's tensor-core kernels
-// (flash_attention.cu's prefill and decode and moe_gemm.cu's prefill
-// path): shared memory addresses, mbarriers, TMA tile loads, wgmma
-// descriptors and products, cp.async with L2 policies, ldmatrix and
-// mma.sync, and the host-side TMA tensor maps.
+// Hopper (sm_90a) helpers shared by the port's kernels (flash_attention.cu's
+// prefill and decode, moe_gemm.cu's prefill path) and the row-gather
+// ablations of sage_gather_probes.cu: shared memory addresses, mbarriers,
+// TMA tile loads and 1-D bulk copies, wgmma descriptors and products,
+// cp.async with L2 policies, ldmatrix and mma.sync, and the host-side TMA
+// tensor maps.
 //
 // Shared-memory tiles are bf16 with the 128-byte swizzle: a tile row is
 // 64 values (128 bytes), and 8 rows form a 1024-byte atom in which the
@@ -59,6 +60,13 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
                : "memory");
 }
 
+// expects `bytes` more of TMA traffic on the barrier, without arriving
+__device__ __forceinline__ void mbar_expect_tx_only(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
@@ -103,6 +111,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// the non-tensor form: `bytes` contiguous bytes (a multiple of 16, both
+// addresses 16-byte aligned) from global to shared memory; completion is
+// counted in bytes on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

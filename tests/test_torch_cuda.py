@@ -1,15 +1,17 @@
 """The port on a CUDA card against the same port on the CPU.
 
-The torch engine, the GraphSAGE aggregation kernel against its plain
-version, GraphSAGE's forward and backward, and the wgmma probe
+The torch engine, the GraphSAGE aggregation kernels (the forward at
+each access width, and the backward) against their plain versions, GraphSAGE's
+forward and backward, and the wgmma probe
 (``csrc/wgmma_probe.cu``: one block of m64nNk16 products through the
 helpers of ``csrc/sm90.cuh`` against ``torch.matmul``).  Marked ``cuda``:
 those tests skip without a card (the engine's fifo and mrtf rates and
 the kernels have no CPU mode).  One CPU test: a library's digest covers
 the headers its source includes.  On a machine with a card, run the
-card's tests (this file and the waterfill kernel's):
+card's tests (this file, the aggregation's and the waterfill kernel's):
 
-    python -m pytest -m cuda tests/test_torch_cuda.py tests/test_torch_waterfill.py
+    python -m pytest -m cuda tests/test_torch_cuda.py tests/test_torch_sage.py \
+        tests/test_torch_waterfill.py
 
 This file imports torch, numpy and the port only, so it runs where JAX
 is absent.
@@ -32,7 +34,15 @@ from repro_torch.core import (
 )
 from repro_torch.data.graph import sample_blocks, synthetic_graph
 from repro_torch.kernels import _build
-from repro_torch.kernels.sage_aggregate import sage_aggregate, sage_aggregate_plain
+from repro_torch.kernels.sage_aggregate import (
+    forward_plan,
+    gather_probe,
+    long_plan,
+    sage_aggregate,
+    sage_aggregate_backward,
+    sage_aggregate_backward_plain,
+    sage_aggregate_plain,
+)
 from repro_torch.kernels.waterfill import waterfill_fill
 from repro_torch.models import GraphSAGE, SageConfig, batch_to, sage_loss
 
@@ -103,6 +113,11 @@ def _sage_inputs(seed, n, f, m, k):
     (1000, 100, 1037, 15, False),  # F = 100 (wide fp32, narrow bf16); odd M
     (400, 30, 77, 40, False),  # F not a multiple of 4; K > 32
     (600, 256, 300, 5, True),  # x not 16-byte aligned: narrow path
+    (700, 256, 250, 10, False),  # F = 256: 16-byte accesses in both dtypes
+    (90, 7, 500, 6, False),  # F = 7: 4-byte (fp32) and 2-byte (bf16) accesses
+    (1000, 100, 333, 15, True),  # F = 100 misaligned: 4-byte / 2-byte accesses
+    (50, 100, 40, 200, False),  # K = 200: 13 rounds of 16 ids a tile
+    (300, 1100, 70, 4, False),  # F = 1100: column chunks and a short last
 ])
 def test_sage_kernel_matches_plain(cuda, n, f, m, k, misalign, dtype):
     """The aggregation kernel equals its plain version bit for bit in
@@ -130,10 +145,166 @@ def test_sage_kernel_matches_plain(cuda, n, f, m, k, misalign, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,f,k,misalign,vec", [
+    ("float32", 100, 15, False, 16),
+    ("float32", 256, 10, False, 16),
+    ("float32", 256, 40, False, 16),  # three rounds of 16 ids a tile
+    ("bfloat16", 256, 5, False, 16),
+    ("bfloat16", 100, 15, False, 8),  # 200-byte rows: 8 bytes a lane
+    ("float32", 7, 15, False, 4),
+    ("float32", 256, 15, True, 4),
+])
+def test_sage_kernel_access(cuda, dtype, f, k, misalign, vec):
+    """The forward at the access width its plan names equals the plain
+    version (bit for bit in fp32, within 3e-2 in bf16) and itself on a
+    second run; the gather probe (its loads alone) launches at the same
+    plan and is not counted."""
+    dt = getattr(torch, dtype)
+    x, idx = _sage_inputs(21, 800, f, 600, k)
+    xt = torch.from_numpy(x).to(cuda, dt)
+    if misalign:
+        xt = torch.empty(xt.numel() + 1, dtype=dt, device=cuda)[1:].copy_(
+            xt.reshape(-1)).reshape(xt.shape)
+    it = torch.from_numpy(idx).to(cuda)
+    assert forward_plan(f, xt.element_size(), xt.data_ptr()).vec_bytes == vec
+    before = sage_aggregate.launches
+    got = sage_aggregate(xt, it)
+    again = sage_aggregate(xt, it)
+    gather_probe(xt, it)
+    torch.cuda.synchronize()
+    assert sage_aggregate.launches == before + 2
+    want = sage_aggregate_plain(xt, it)
+    assert torch.equal(got, again)
+    if dtype == "float32":
+        assert torch.equal(got, want)
+    else:
+        assert (got.float() - want.float()).abs().max().item() <= 3e-2
+
+
+def _backward_inputs(seed, n, f, m, k):
+    x, idx = _sage_inputs(seed, n, f, m, k)
+    rng = np.random.default_rng(seed + 1)
+    idx[2] = 3  # one id repeated across a whole row
+    idx[5:60:3, 0] = 7  # and one id named by 19 rows
+    idx[idx >= n - 50] = -1  # the last 50 rows are named by no id
+    go = rng.standard_normal((m, f)).astype(np.float32)
+    return idx, go
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f,m,k", [
+    (500, 64, 128, 8),
+    (25071 // 8, 256, 6716 // 8, 10),  # layer 1's widths, an eighth of its rows
+    (900, 256, 300, 5),  # layer 2's fan-out
+    (400, 30, 77, 40),  # F not a multiple of 4; K > 32
+    (300, 100, 1037, 15),  # F = 100; odd M
+])
+def test_sage_backward_matches_cpu(cuda, n, f, m, k):
+    """The backward kernels equal the plain backward on the CPU bit for bit
+    in fp32 (the segment sum adds in ascending flat position, as the CPU's
+    index_add_ does), give the same bits on a second run, and sync nothing
+    with the host."""
+    idx, go = _backward_inputs(31, n, f, m, k)
+    want = sage_aggregate_backward_plain(torch.from_numpy(go), torch.from_numpy(idx), n)
+    go_t, idx_t = torch.from_numpy(go).to(cuda), torch.from_numpy(idx).to(cuda)
+    torch.cuda.synchronize()
+    before = sage_aggregate.backward_launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sage_aggregate_backward(go_t, idx_t, n)
+        again = sage_aggregate_backward(go_t, idx_t, n)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert sage_aggregate.backward_launches == before + 2
+    assert got.dtype == torch.float32 and got.shape == (n, f)
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), want)
+    assert (got[n - 50:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_sage_backward_long_segment(cuda):
+    """A row named by 1000 ids (a segment that a block sorts and sums)
+    equals the CPU bit for bit."""
+    n, f, m, k = 64, 256, 400, 5
+    idx, go = _backward_inputs(41, n, f, m, k)
+    idx[:200, :] = 9
+    want = sage_aggregate_backward_plain(torch.from_numpy(go), torch.from_numpy(idx), n)
+    got = sage_aggregate_backward(torch.from_numpy(go).to(cuda),
+                                  torch.from_numpy(idx).to(cuda), n)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_sage_backward_hubs(cuda):
+    """Three hubs each named by a third of 12000 output rows (segments of
+    4000 positions, as a power-law graph's hubs give) beside short
+    segments: equal to the CPU bit for bit, and the same bits again."""
+    n, f, m, k = 3000, 256, 12000, 5
+    idx, go = _backward_inputs(43, n, f, m, k)
+    idx[:, 0] = np.arange(m) % 3
+    want = sage_aggregate_backward_plain(torch.from_numpy(go), torch.from_numpy(idx), n)
+    go_t, idx_t = torch.from_numpy(go).to(cuda), torch.from_numpy(idx).to(cuda)
+    got = sage_aggregate_backward(go_t, idx_t, n)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(sage_aggregate_backward(go_t, idx_t, n), got)
+
+
+@pytest.mark.cuda
+def test_sage_backward_giant_segment(cuda):
+    """A row named 24000 times (sorted by a bitmap in shared memory and
+    streamed through the ring 48 rows a stage) equals the CPU bit for
+    bit."""
+    n, f, m, k = 500, 64, 12000, 3
+    idx, go = _backward_inputs(47, n, f, m, k)
+    idx[:, :2] = 5
+    want = sage_aggregate_backward_plain(torch.from_numpy(go), torch.from_numpy(idx), n)
+    got = sage_aggregate_backward(torch.from_numpy(go).to(cuda),
+                                  torch.from_numpy(idx).to(cuda), n)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_sage_backward_without_bitmap(cuda):
+    """840000 flat positions, too many for the sort's bitmap in shared
+    memory (long_plan): long segments are sorted in device memory, and
+    still equal the CPU bit for bit, with F = 7 (4-byte copies)."""
+    n, f, m, k = 100000, 7, 280000, 3
+    idx, go = _backward_inputs(53, n, f, m, k)
+    idx[::2800, 2] = 11  # a row named 100 times
+    assert not long_plan(f, m * k)[1]
+    want = sage_aggregate_backward_plain(torch.from_numpy(go), torch.from_numpy(idx), n)
+    got = sage_aggregate_backward(torch.from_numpy(go).to(cuda),
+                                  torch.from_numpy(idx).to(cuda), n)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_sage_autograd_on_card(cuda):
+    """Autograd through the forward kernel runs the backward kernels: the
+    gradient in x equals the CPU's bit for bit, both counters advance."""
+    x, idx = _sage_inputs(51, 600, 256, 200, 10)
+    w = np.random.default_rng(52).standard_normal((200, 256)).astype(np.float32)
+    grads = []
+    for dev in ("cpu", cuda):
+        xt = torch.from_numpy(x).to(dev).requires_grad_(True)
+        before = (sage_aggregate.launches, sage_aggregate.backward_launches)
+        (sage_aggregate(xt, torch.from_numpy(idx).to(dev))
+         * torch.from_numpy(w).to(dev)).sum().backward()
+        moved = (sage_aggregate.launches - before[0],
+                 sage_aggregate.backward_launches - before[1])
+        assert moved == ((0, 0) if dev == "cpu" else (1, 1))
+        grads.append(xt.grad.cpu())
+    assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.cuda
 def test_graphsage_on_card_matches_cpu(cuda):
-    """One forward and backward on the card (three kernel launches) against
-    the same on the CPU (the plain version): loss and every gradient within
-    1e-4 (the backward's index_add_ sums in atomic order on the card)."""
+    """One forward and backward on the card (three forward and two backward
+    launches: layer 0's input needs no gradient) against the same on the
+    CPU (the plain versions): loss and every gradient within 1e-4 (cuBLAS
+    and the CPU's BLAS sum the products in other orders)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = synthetic_graph(n_nodes=3000, n_parts=4, seed=0)
     rng = np.random.default_rng(0)
@@ -143,9 +314,11 @@ def test_graphsage_on_card_matches_cpu(cuda):
     on_card = GraphSAGE(cfg, device=cuda, seed=0)
     on_cpu = GraphSAGE(cfg, device="cpu", seed=0)
     before = sage_aggregate.launches
+    before_bwd = sage_aggregate.backward_launches
     loss_g, _ = sage_loss(on_card, batch_to(feats, blocks, labels, device=cuda))
     loss_g.backward()
     assert sage_aggregate.launches == before + 3
+    assert sage_aggregate.backward_launches == before_bwd + 2
     loss_c, _ = sage_loss(on_cpu, batch_to(feats, blocks, labels, device="cpu"))
     loss_c.backward()
     assert abs(loss_g.item() - loss_c.item()) < 1e-4

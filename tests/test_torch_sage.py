@@ -7,7 +7,13 @@
     of ``tests/test_kernels.py``: fp32 within 1e-5 (XLA may sum the K
     rows in another order than the j-ordered walk), bf16 within 3e-2
     (one bf16 rounding of the output);
-  * the autograd backward against ``jax.grad`` of the oracle;
+  * the autograd backward and ``sage_aggregate_backward_plain`` against
+    ``jax.grad`` of the oracle (1e-5), and the plain backward against a
+    serial loop in ascending flat position (bit for bit: the order in
+    which the backward kernels add on a card);
+  * ``forward_plan``: the access width and tile the forward takes at the
+    main path's shapes, odd widths and misaligned pointers, and the C
+    signatures the wrapper declares to ctypes;
   * ``GraphSAGE`` logits, loss and every gradient against
     ``repro.models.gnn.sage_loss`` on the same weights (carried across
     with ``sage_from_reference``) within 1e-5, and five SGD steps whose
@@ -33,7 +39,15 @@ from repro.kernels.ref import sage_aggregate_ref
 from repro.models import gnn as ref_gnn
 from repro_torch.convert import sage_from_reference
 from repro_torch.data import graph as port_graph
-from repro_torch.kernels.sage_aggregate import sage_aggregate, sage_aggregate_plain
+from repro_torch.kernels.sage_aggregate import (
+    THREADS,
+    forward_plan,
+    long_plan,
+    sage_aggregate,
+    sage_aggregate_backward,
+    sage_aggregate_backward_plain,
+    sage_aggregate_plain,
+)
 from repro_torch.models import GraphSAGE, SageConfig, batch_to, sage_loss, sgd_step
 
 SWEEP = [(500, 64, 128, 8), (300, 128, 64, 16)]
@@ -116,6 +130,127 @@ def test_backward_matches_jax_grad(n, f, m, k):
     (sage_aggregate(xt, torch.from_numpy(idx)) * torch.from_numpy(w)).sum().backward()
     assert xt.grad.dtype == torch.float32
     assert np.abs(xt.grad.numpy() - want).max() < 1e-5
+
+
+def _backward_case(seed, n, f, m, k):
+    """grad_out and idx with a repeated id, all-padding rows and rows that
+    no id names."""
+    x, idx = _inputs(seed, n, f, m, k)
+    idx[2] = 3  # one id repeated across a whole row
+    idx[4:m:5, 1] = 0  # and one id named by many rows
+    idx[idx >= n - 5] = -1  # the last 5 rows are named by no id
+    go = np.random.default_rng(seed + 1).standard_normal((m, f)).astype(np.float32)
+    return idx, go
+
+
+@pytest.mark.parametrize("n,f,m,k", SWEEP + [(40, 8, 30, 6)])
+def test_backward_plain_matches_jax_grad(n, f, m, k):
+    idx, go = _backward_case(17, n, f, m, k)
+    x = np.zeros((n, f), np.float32)
+    want = np.asarray(jax.grad(
+        lambda xx: (sage_aggregate_ref(xx, jnp.asarray(idx)) * jnp.asarray(go)).sum()
+    )(jnp.asarray(x)))
+    got = sage_aggregate_backward_plain(torch.from_numpy(go), torch.from_numpy(idx), n)
+    assert got.dtype == torch.float32 and got.shape == (n, f)
+    assert np.abs(got.numpy() - want).max() < 1e-5
+    assert (got[n - 5:] == 0).all()
+
+
+@pytest.mark.parametrize("n,f,m,k", SWEEP + [(40, 8, 30, 6)])
+def test_backward_plain_is_serial_ascending(n, f, m, k):
+    """The plain backward adds in ascending flat position m * K + j, one
+    term at a time from 0: a serial loop gives the same bits."""
+    idx, go = _backward_case(18, n, f, m, k)
+    got = sage_aggregate_backward_plain(torch.from_numpy(go), torch.from_numpy(idx), n)
+    cnt = np.maximum((idx >= 0).sum(1), 1).astype(np.float32)
+    want = np.zeros((n, f), np.float32)
+    for p, r in enumerate(idx.reshape(-1)):
+        if r >= 0:
+            want[r] = want[r] + go[p // k] / cnt[p // k]
+    assert np.array_equal(got.numpy(), want)
+    # the CPU wrapper takes the plain version and launches nothing
+    before = sage_aggregate.backward_launches
+    same = sage_aggregate_backward(torch.from_numpy(go), torch.from_numpy(idx), n)
+    assert sage_aggregate.backward_launches == before
+    assert torch.equal(same, got)
+
+
+def test_backward_wrapper_validates_inputs():
+    idx, go = (torch.from_numpy(a) for a in _backward_case(19, 20, 8, 12, 3))
+    with pytest.raises(ValueError, match="does not match"):
+        sage_aggregate_backward(go[:5], idx, 20)
+    with pytest.raises(ValueError, match="no sage_aggregate kernel"):
+        sage_aggregate_backward(go.to("meta"), idx.to("meta"), 20)
+
+
+@pytest.mark.parametrize("bad,err,match", [
+    (lambda i: i.long(), TypeError, "int32"),
+    (lambda i: i.t().contiguous().t(), ValueError, "contiguous"),
+    (lambda i: i.reshape(-1), ValueError, "2-D"),
+])
+def test_backward_wrapper_validates_idx(bad, err, match):
+    """An idx the kernels would misread (int64, strided, 1-D) raises on
+    every device, before any launch."""
+    idx, go = (torch.from_numpy(a) for a in _backward_case(20, 20, 8, 12, 3))
+    before = sage_aggregate.backward_launches
+    for dev in ("cpu", "meta"):
+        with pytest.raises(err, match=match):
+            sage_aggregate_backward(go.to(dev), bad(idx).to(dev), 20)
+    assert sage_aggregate.backward_launches == before
+
+
+@pytest.mark.parametrize("f,elt,vec,w,r", [
+    (100, 4, 16, 100, 10),  # layer 0 in fp32: 250 of 256 threads gather
+    (256, 4, 16, 256, 4),  # layers 1 and 2
+    (100, 2, 8, 100, 10),  # bf16 F = 100: 200-byte rows, 8 bytes a lane
+    (256, 2, 16, 256, 8),
+    (7, 4, 4, 7, 36),
+    (30, 4, 8, 30, 17),
+    (3, 2, 2, 3, 85),
+    (1100, 4, 16, 1024, 1),  # chunks of 256 accesses and a short last
+])
+def test_forward_plan(f, elt, vec, w, r):
+    plan = forward_plan(f, elt)
+    assert (plan.vec_bytes, plan.W, plan.R) == (vec, w, r)
+    assert plan.R * (plan.W * elt // plan.vec_bytes) <= THREADS
+
+
+def test_ctypes_signatures_match_the_source():
+    """Every exported function of csrc/sage_aggregate.cu is declared to
+    ctypes with its C parameters (a pointer as void*, an int as int): a
+    missing or extra argument shifts every later one on the card."""
+    import ctypes
+    import re
+
+    from repro_torch.kernels import sage_aggregate as sa
+
+    text = sa.SOURCE.read_text()
+    kinds = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+             "int": ctypes.c_int, "long long": ctypes.c_longlong}
+    found = {}
+    for name, params in re.findall(r"^int (repro_\w+)\(([^)]*)\)", text, re.M):
+        found[name] = [kinds[" ".join(p.split()[:-1])] for p in params.split(",")]
+    assert found == sa.SIGNATURES
+
+
+@pytest.mark.parametrize("f,mk,depth,bitmap", [
+    (256, 67160, 48, True),  # layer 1: 48 rows of 1 KB a stage
+    (100, 376065, 122, True),  # layer 0
+    (7, 840000, 128, False),  # too many positions for the bitmap
+    (2048, 1000, 12, True),  # columns staged 1024 at a time
+])
+def test_long_plan(f, mk, depth, bitmap):
+    """bwd_long's ring depth and whether its bitmap fits in shared memory."""
+    assert long_plan(f, mk) == (depth, bitmap)
+
+
+def test_forward_plan_alignment():
+    """A pointer off 16 bytes takes the widest access both pointers and
+    the row allow."""
+    assert forward_plan(256, 4, x_ptr=4).vec_bytes == 4
+    assert forward_plan(256, 4, x_ptr=8).vec_bytes == 8
+    assert forward_plan(256, 2, out_ptr=2).vec_bytes == 2
+    assert forward_plan(256, 4, x_ptr=4, out_ptr=8).vec_bytes == 4
 
 
 def _params(cfg, seed=0):
