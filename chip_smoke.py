@@ -20,15 +20,36 @@ Phases, in order; any failure ends the run with a non-zero exit:
      the papers shape, the plain shared-memory step and the
      one-NIC-a-lane shuffle form beside it;
   3. ``simulate_batch_torch`` at width 1024 on the papers100M job (J=117,
-     E=1400, M=16) and the products job (J=23, E=72, M=4), all five
+     E=1400, M=16, its first 2 of 10 iterations; the regimes phase runs
+     5) and the products job (J=23, E=72, M=4, N=40), all five
      policies, on the card; the first 8 instances are held against the
      same 8 on the CPU (run in worker processes meanwhile, compared once
      phase 4 is done) at the engine's parity tolerance;
-  4. ``plan()`` on the quickstart job and cluster (budget 600, 15
+  4. ``plan()`` on the quickstart job and cluster (budget 240, 15
      simulated iterations, seed 0) and ``plan_baseline("distdgl")``, each
-     committed schedule held against the CPU engine;
+     committed schedule held against the CPU engine, and each Theorem-1
+     certificate against the one built from the CPU engine's recorded
+     schedule (and it holds);
   5. a profiled short run per job (the device's busy share, the kernel
      launches per iteration, the top device rows);
+  5a. regimes: the 12 golden cells (static, dynamic, migration and
+     priority on three jobs), built with the port's own builders, for all
+     five policies on the card against ``tests/golden/golden_schedules.json``;
+     then the papers job at full width (J=117, E=1400, M=16) and its
+     first 5 of 10 iterations under a 6-segment drift trace with
+     stragglers, each instance with its own migration flows (a store's
+     restore and the moves from its base placement; none for the three
+     bases), deadline shaping with deadlines from ``annotate_deadlines`` on
+     a clean recorded run, and ``utilization=True``: fifo and oes at width
+     1024, oes_strict, mrtf and omcoflow at 16; per policy evals/s,
+     lock-step iterations, host syncs and waterfill launches (per
+     iteration), ``class_gb`` summing to the delivered GB; the first 8
+     instances against the CPU engine, and against the CPU engine under
+     strict shaping (fifo, oes: some makespan must differ);
+  5b. replan: ``run_scenario(strategy="replan")`` on the products job and
+     drift trace of ``examples/dynamic_replan_torch.py`` (budget 8), and
+     ``Replanner.on_leave(3)`` under deadline shaping, on the card; each
+     committed interval and the leave record against the CPU engine;
   6. GraphSAGE at the ogbn-products widths (in 100, hidden 256, 47
      classes, 3 layers, fan-outs 5/10/15, 2000 seeds per batch) on a
      240,000-node synthetic graph: the aggregation kernel against its
@@ -104,13 +125,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
      ``bwd_bound_ms`` and ``bwd_library_ms``), the card's name and power
      limit, and the closing status line.
 
-Six main paths, each with the kernel launch counts set to 0 just
-before it and read just after: phases 3-4 (planning), the training
+Seven main paths, each with the kernel launch counts set to 0 just
+before it and read just after: phases 3-4 (planning), phases 5a-5b (the
+engine's regimes and re-planning), the training
 steps, calibration and baseline plan of phase 6 (GraphSAGE), the
 ``ServeEngine`` run of phase 7 (LM serving), and the prefill followed by
 the ``ServeEngine`` run of phases 8 (mamba2), 9 (MoE) and 10 (kimi-k2).
 Each phase's seconds are printed on a ``[time]`` line.  ``--only
-sage``, ``lm_serve``, ``mamba_serve``, ``moe_serve`` or ``kimi_serve``
+regimes`` (phases 5a-5b), ``sage``, ``lm_serve``, ``mamba_serve``, ``moe_serve`` or ``kimi_serve``
 builds the kernels and runs that phase alone (for work on that path; it prints no
 closing status line).
 Imports nothing of JAX or of the ``repro`` package.
@@ -137,8 +159,19 @@ sys.path.insert(0, str(ROOT / "src"))
 POLICIES = ("oes", "oes_strict", "fifo", "mrtf", "omcoflow")
 WIDTH = 1024
 N_CHECK = 8  # instances held against the CPU engine
-# worker processes for the CPU references; they run while the card works
+# worker processes for the CPU references; they run while the card works,
+# at a lower priority than the process that drives it
 CPU_WORKERS = 6
+# The smoke's depth cuts (the whole smoke took 1000.1 s of its 1200 in
+# one run and past 1200 in another; with the engine and plan() cut as
+# below, 1016.4 s on a host ~1.3-1.8x slower, the regimes phase 592.5 s
+# of it; NVIDIA H100 80GB HBM3, 700 W; the engine is bound by the host,
+# so batch width buys no time back): the engine phase simulates the
+# papers job's first 2 of its 10 iterations, the regimes phase its first
+# 5, and plan() searches with a budget of 240 evaluations (600 before).
+ENGINE_PAPERS_ITERS = 2
+REGIME_PAPERS_ITERS = 5
+PLAN_BUDGET = 240
 # H100 SXM data sheet: HBM3 bandwidth and the fp64 and fp32 (non-tensor) peaks
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOP_PER_S = 34e12
@@ -268,6 +301,21 @@ def _candidates(wl, cluster, width, seed):
     placements = [Placement(y) for y in ys]
     reals = [wl.realize(seed=b) for b in range(width)]
     return placements, reals
+
+
+def _first_iters(reals, n):
+    """The realizations cut to their first ``n`` iterations."""
+    from repro_torch.core import Realization
+
+    return [Realization(r.volumes[:, :n], r.exec_times[:, :n]) for r in reals]
+
+
+def _low_priority():
+    """Worker initializer: the CPU references yield the host's cores to
+    the process that drives the card."""
+    import os
+
+    os.nice(10)
 
 
 def _cpu_reference(job, policy, ys, vols, exs):
@@ -423,10 +471,12 @@ def phase_engine(wf, pool):
 
     from repro_torch.core import simulate_batch_torch
 
-    cands = {
-        job: (wl, cluster, *_candidates(wl, cluster, WIDTH, seed=0))
-        for job, wl, cluster in _jobs()
-    }
+    cands = {}
+    for job, wl, cluster in _jobs():
+        placements, reals = _candidates(wl, cluster, WIDTH, seed=0)
+        if job == "papers":
+            reals = _first_iters(reals, ENGINE_PAPERS_ITERS)
+        cands[job] = (wl, cluster, placements, reals)
     pending = []
     for job, (wl, cluster, placements, reals) in cands.items():
         ys = [p.y for p in placements[:N_CHECK]]
@@ -443,11 +493,12 @@ def phase_engine(wf, pool):
             before = wf.waterfill_fill.launches
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            res = simulate_batch_torch(
-                wl, cluster, placements, reals, policy=policy, record=True,
-                device="cuda",
-            )
-            torch.cuda.synchronize()
+            with _sync_count() as syncs:
+                res = simulate_batch_torch(
+                    wl, cluster, placements, reals, policy=policy, record=True,
+                    device="cuda",
+                )
+                torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = wf.waterfill_fill.launches - before
             iters = max(r.n_events for r in res)
@@ -465,7 +516,9 @@ def phase_engine(wf, pool):
                 f"[engine] {job} {policy:10s} {WIDTH / wall:10.1f} evals/s "
                 f"wall {wall:.2f} s, {iters} lock-step iterations "
                 f"({iters / wall:.0f} it/s), mean makespan {ms.mean():.3f} s, "
-                f"waterfill launches {launches}",
+                f"waterfill launches {launches} ({launches / iters:.2f} an "
+                f"iteration), host syncs {syncs[0]} ({syncs[0] / iters:.2f} an "
+                f"iteration)",
                 flush=True,
             )
     return cands, pending, gpu
@@ -486,7 +539,10 @@ def phase_plan(wf):
 
     from repro_torch.core import (
         OGBN_PRODUCTS,
+        PARITY_ATOL,
+        PARITY_RTOL,
         build_workload_from_profile,
+        chain_lower_bound,
         plan,
         plan_baseline,
         simulate_torch,
@@ -502,7 +558,7 @@ def phase_plan(wf):
     before = wf.waterfill_fill.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    p = plan(wl, cluster, realization=r, budget=600, sim_iters=15, seed=0,
+    p = plan(wl, cluster, realization=r, budget=PLAN_BUDGET, sim_iters=15, seed=0,
              device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -518,6 +574,19 @@ def phase_plan(wf):
             pl.schedule.task_start_matrix(wl.J, r.n_iters)[None],
             [ref.makespan], ref.task_start_matrix(wl.J, r.n_iters)[None],
         )
+        # the Theorem-1 certificate from the card's recorded schedule, and
+        # from the cpu engine's recorded schedule of the same placement
+        cert = pl.certificate
+        want = chain_lower_bound(wl, cluster, pl.placement, r, ref)
+        if not (cert.holds and (cert.delta, cert.chain_len) == (want.delta, want.chain_len)
+                and np.isclose(cert.lower_bound, want.lower_bound,
+                               rtol=PARITY_RTOL, atol=PARITY_ATOL)):
+            raise AssertionError(f"plan/{name}: certificate {cert} != {want} or "
+                                 "does not hold")
+        print(f"[plan] {name} certificate: lower bound {cert.lower_bound:.4f} s, "
+              f"Delta {cert.delta}, chain of {cert.chain_len}, ratio "
+              f"{cert.ratio:.3f}, holds; equal to the cpu engine's "
+              f"({len(pl.schedule.flow_log)} flow-log entries)", flush=True)
     sp = 100 * (1 - p.schedule.makespan / dd.schedule.makespan)
     print(
         f"[plan] quickstart job: DGTP makespan {p.schedule.makespan:.3f} s, "
@@ -537,23 +606,21 @@ def _device_us(avg):
 
 def phase_profile(cands):
     """Where the engine's time goes: one short run per cell unprofiled,
-    then the same run under torch.profiler.  Device time is summed over
-    the profiler's device rows only (kernels and copies; an operator's
-    row repeats the time of the kernels it launched), and set against
-    both runs' wall times.  Not part of the main path (its launches are
-    not counted)."""
+    then the same run under torch.profiler, tracing the device only (the
+    host's operator events are not read: with them the phase took 116.6
+    s for ~8 s of runs; NVIDIA H100 80GB HBM3, 700 W).  Device time is
+    summed over the profiler's device rows (kernels and copies), and set
+    against both runs' wall times.  Not part of the main path (its
+    launches are not counted)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import Realization, simulate_batch_torch
+    from repro_torch.core import simulate_batch_torch
 
-    for job, policy, n_iters in (("papers", "fifo", 1), ("products", "oes", 4)):
+    for job, policy, n_iters in (("papers", "fifo", 1), ("products", "oes", 2)):
         wl, cluster, placements, reals = cands[job]
-        short = [
-            Realization(r.volumes[:, :n_iters], r.exec_times[:, :n_iters])
-            for r in reals
-        ]
+        short = _first_iters(reals, n_iters)
 
         def run():
             torch.cuda.synchronize()
@@ -564,12 +631,14 @@ def phase_profile(cands):
             return time.perf_counter() - t0, max(r.n_events for r in res)
 
         wall, iters = run()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             wall_p, _ = run()
         rows = sorted(
             (a for a in prof.key_averages() if a.device_type == DeviceType.CUDA),
             key=_device_us, reverse=True,
         )
+        if not rows:
+            raise AssertionError(f"profile {job}: the profiler traced no device time")
         kernels = [a for a in rows if not a.key.startswith(("Memcpy", "Memset"))]
         dev_ms = sum(_device_us(a) for a in rows) / 1e3
         kern_ms = sum(_device_us(a) for a in kernels) / 1e3
@@ -587,6 +656,349 @@ def phase_profile(cands):
         for a in rows[:6]:
             print(f"[profile]   {_device_us(a) / 1e3:9.1f} ms {a.count:7d}x "
                   f"{a.key[:70]}", flush=True)
+
+
+GOLDEN = ROOT / "tests" / "golden" / "golden_schedules.json"
+# the regimes phase: the papers job under a drift trace, migration flows
+# and deadline shaping, at these widths (the three slower policies cut to
+# 16; the engine is bound by the host's launches per lock-step iteration,
+# so a narrower batch saves little: 47-68 s at 64 against fifo's 62 at
+# 1024, NVIDIA H100 80GB HBM3, 700 W)
+REGIME_WIDTH = {"fifo": WIDTH, "oes": WIDTH, "oes_strict": 16, "mrtf": 16,
+                "omcoflow": 16}
+# the trace's horizon: ~1.2x the first candidate's static makespan over
+# REGIME_PAPERS_ITERS iterations (oes: 12.27 s over 5, 24.2 s over 10)
+REGIME_HORIZON_S = 14.7
+# policies whose first instances also run under strict shaping, on the CPU
+STRICT_POLICIES = ("fifo", "oes")
+# the replan phase: the example's job and trace (examples/dynamic_replan_torch.py)
+# at a fifteenth of its search budget (120): an evaluation is ~1-2.6 s of
+# host launches on the card (budget 120: 301 s for the scenario, 218 s for
+# the leave; NVIDIA H100 80GB HBM3, 700 W)
+REPLAN_INTERVALS, REPLAN_ITERS, REPLAN_BUDGET = 4, 8, 8
+
+
+def _golden_cells():
+    """The 12 cells of the golden suite (tests/test_golden_schedules.py),
+    built with the port's own builders: (job, regime, workload, cluster,
+    placement, realization, trace, flows, shaping)."""
+    from repro_torch.core import (
+        MigrationFlow,
+        build_gnn_workload,
+        heterogeneous_cluster,
+        ifs_placement,
+    )
+    from repro_torch.dynamics import DynamicsEvent, trace_from_events
+
+    common = dict(n_iters=4)
+    jobs = [
+        ("fanin", 0, build_gnn_workload(
+            n_stores=2, n_workers=2, samplers_per_worker=2, n_ps=1, **common,
+            store_to_sampler_gb=1.0, sampler_to_worker_gb=0.5, grad_gb=0.2,
+            store_exec_s=0.3, sampler_exec_s=0.4, worker_exec_s=0.8,
+            ps_exec_s=0.2, pmr=1.3)),
+        ("chain", 1, build_gnn_workload(
+            n_stores=3, n_workers=1, samplers_per_worker=1, n_ps=2, n_iters=5,
+            store_to_sampler_gb=2.0, sampler_to_worker_gb=1.0, grad_gb=0.1,
+            store_exec_s=0.2, sampler_exec_s=0.3, worker_exec_s=1.0,
+            ps_exec_s=0.15, pmr=1.0)),
+        ("ring", 2, build_gnn_workload(
+            n_stores=2, n_workers=3, samplers_per_worker=1, n_ps=1, **common,
+            store_to_sampler_gb=0.8, sampler_to_worker_gb=0.6, grad_gb=0.3,
+            store_exec_s=0.25, sampler_exec_s=0.35, worker_exec_s=0.7,
+            ps_exec_s=0.2, pmr=1.16, sync="allreduce")),
+    ]
+    for name, seed, wl in jobs:
+        cluster = heterogeneous_cluster(3, seed=seed)
+        placement = ifs_placement(wl, cluster, seed=0)
+        realization = wl.realize(seed=seed)
+        dyn = trace_from_events(cluster, [
+            DynamicsEvent(t0=1.5, t1=6.0, machine=0, bw_scale=0.4),
+            DynamicsEvent(t0=3.0, machine=None, bw_scale=0.75, slowdown=1.2),
+        ])
+        y, M, J = placement.y, cluster.M, wl.J
+        src0, src1 = int((y[0] + 1) % M), int((y[J - 1] + 2) % M)
+        migs = [
+            MigrationFlow(src=src0, dst=int(y[0]), gb=1.2, task=0),
+            MigrationFlow(src=src1, dst=int(y[J - 1]), gb=0.8, task=J - 1),
+            MigrationFlow(src=0, dst=1, gb=0.5),
+        ]
+        migs_pri = [
+            MigrationFlow(src=src0, dst=int(y[0]), gb=1.2, task=0, deadline=0.5),
+            MigrationFlow(src=src1, dst=int(y[J - 1]), gb=0.8, task=J - 1,
+                          deadline=3.0),
+            MigrationFlow(src=0, dst=1, gb=0.5),
+        ]
+        for regime, trace, flows, shaping in (
+            ("static", None, None, None),
+            ("dynamic", dyn, None, None),
+            ("migration", dyn, migs, None),
+            ("priority", dyn, migs_pri, "deadline"),
+        ):
+            yield name, regime, wl, cluster, placement, realization, trace, flows, shaping
+
+
+def _regime_inputs():
+    """The papers job's 1024 candidates (as in phase 3, over its first
+    ``REGIME_PAPERS_ITERS`` iterations) and each instance's migration
+    flows: the state moves from its base placement to it
+    (``build_migration_flows``), and the restore of one store's partition
+    from its ring successor, as after that machine left (none for the
+    three bases themselves)."""
+    from repro_torch.core import MigrationFlow, distdgl_placement, ifs_placement
+    from repro_torch.dynamics import build_migration_flows, default_task_state_gb
+
+    _, wl, cluster = _jobs()[0]
+    placements, reals = _candidates(wl, cluster, WIDTH, seed=0)
+    reals = _first_iters(reals, REGIME_PAPERS_ITERS)
+    bases = [distdgl_placement(wl, cluster)] + [
+        ifs_placement(wl, cluster, seed=s) for s in (0, 1)
+    ]
+    state = default_task_state_gb(wl, cluster)
+    migs = [None] * 3
+    for b, p in enumerate(placements[3:], start=3):
+        g = wl.store_tasks[b % len(wl.store_tasks)]
+        restore = MigrationFlow(src=int((p.y[g] + 1) % cluster.M), dst=int(p.y[g]),
+                                gb=float(state[g]), task=int(g))
+        migs.append([restore] + build_migration_flows(bases[b % 3].y, p.y, state))
+    return wl, cluster, placements, reals, migs
+
+
+def _cpu_regime(policy, ys, vols, exs, migs, trace, shaping="deadline"):
+    """Worker process: the first regime instances on the CPU engine."""
+    import torch
+
+    from repro_torch.core import Placement, Realization, simulate_batch_torch
+
+    torch.set_num_threads(1)
+    _, wl, cluster = _jobs()[0]
+    res = simulate_batch_torch(
+        wl, cluster, [Placement(y) for y in ys],
+        [Realization(v, e) for v, e in zip(vols, exs)], policy=policy,
+        record=True, trace=trace, migrations=migs, shaping=shaping,
+        device="cpu",
+    )
+    N = vols[0].shape[1]
+    return (
+        [r.makespan for r in res],
+        np.stack([r.task_start_matrix(wl.J, N) for r in res]),
+    )
+
+
+@contextlib.contextmanager
+def _sync_count():
+    """Counts the host syncs of the block (torch's sync debug mode warns
+    once per synchronizing call; the warnings are recorded, not shown)."""
+    import warnings
+
+    import torch
+
+    got = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield got
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    got.append(sum("synchroniz" in str(w.message) for w in caught))
+
+
+def phase_regimes(wf, pool):
+    """The engine's regimes on the card: the 12 golden cells from the
+    port's own builders against the pinned JSON, then the papers job under
+    a drift trace, per-instance migration flows, deadline shaping and
+    utilization; the first instances against the CPU engine (submitted to
+    ``pool`` first).  Returns the pending comparisons."""
+    import torch
+
+    from repro_torch.core import (
+        PARITY_ATOL,
+        PARITY_RTOL,
+        simulate_batch_torch,
+        simulate_torch,
+    )
+    from repro_torch.dynamics import annotate_deadlines, drift_trace
+
+    golden = json.loads(GOLDEN.read_text())
+    t0 = time.perf_counter()
+    n = 0
+    for name, regime, wl, cl, p, r, trace, flows, shaping in _golden_cells():
+        for policy in POLICIES:
+            res = simulate_torch(wl, cl, p, r, policy=policy, record=True,
+                                 trace=trace, migrations=flows, shaping=shaping,
+                                 device="cuda")
+            pin = golden[name][regime][policy]
+            _assert_parity(f"golden {name}/{regime}/{policy}", [res.makespan],
+                           res.task_start_matrix(wl.J, r.n_iters)[None],
+                           [pin["makespan"]], np.array(pin["task_start"])[None])
+            n += 1
+    print(f"[regimes] {n} golden cells (12 job/regime cells x 5 policies, built "
+          f"with the port's builders) match tests/golden/golden_schedules.json "
+          f"on the card ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    wl, cluster, placements, reals, migs = _regime_inputs()
+    trace = drift_trace(cluster, horizon_s=REGIME_HORIZON_S, n_segments=6, seed=0)
+    if not (trace.slow > 1.0).any():
+        raise AssertionError("the drift trace carries no slowdown")
+    # deadlines: each gated task's first start in a clean recorded run
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clean = simulate_batch_torch(wl, cluster, placements, reals, policy="fifo",
+                                 record=True, trace=trace, device="cuda")
+    clean_wall = time.perf_counter() - t0
+    migs = [None if m is None else annotate_deadlines(m, [c])
+            for m, c in zip(migs, clean)]
+    n_flows = [0 if m is None else len(m) for m in migs]
+    print(f"[regimes] papers: J={wl.J} E={wl.E} M={cluster.M} N={reals[0].n_iters}; "
+          f"trace of {trace.S} segments over {REGIME_HORIZON_S} s "
+          f"({int((trace.slow > 1).sum())} straggler entries); migration flows per "
+          f"instance {min(n_flows)}-{max(n_flows)} ({sum(n_flows)} in all, "
+          f"{sum(m is None for m in migs)} instances without); the clean recorded "
+          f"fifo run for the deadlines took {clean_wall:.2f} s at width {WIDTH} "
+          f"({sum(len(c.flow_log) for c in clean)} flow-log entries)", flush=True)
+    first = ([p.y for p in placements[:N_CHECK]], [r.volumes for r in reals[:N_CHECK]],
+             [r.exec_times for r in reals[:N_CHECK]], migs[:N_CHECK], trace)
+    pending = [("regimes papers", policy, pool.submit(_cpu_regime, policy, *first))
+               for policy in POLICIES]
+    strict = {policy: pool.submit(_cpu_regime, policy, *first, shaping="strict")
+              for policy in STRICT_POLICIES}
+    gpu = {}
+    for policy in POLICIES:
+        W = REGIME_WIDTH[policy]
+        before = wf.waterfill_fill.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _sync_count() as syncs:
+            res = simulate_batch_torch(
+                wl, cluster, placements[:W], reals[:W], policy=policy,
+                record=True, trace=trace, migrations=migs[:W],
+                shaping="deadline", utilization=True, device="cuda",
+            )
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = wf.waterfill_fill.launches - before
+        iters = max(r.n_events for r in res)
+        if policy in ("fifo", "mrtf") and launches == 0:
+            raise AssertionError(f"regimes {policy}: waterfill never launched")
+        # every delivered GB lands in one class: the remote training
+        # instances (edge e sends iterations 1..N - lag[e]) plus the
+        # migration flows that ship anything
+        N = reals[0].n_iters
+        sent = np.arange(N)[None, :] < (N - wl.edge_lag)[:, None]
+        worst = 0.0
+        for b, rb in enumerate(res):
+            y = placements[b].y
+            remote = (y[wl.edge_src] != y[wl.edge_dst])[:, None] & sent
+            want = float(reals[b].volumes[remote].sum()) + sum(
+                f.gb for f in (migs[b] or []) if f.src != f.dst and f.gb > 1e-9
+            )
+            agg = rb.aggregates
+            for got in (sum(agg["class_gb"].values()), agg["nic_in_gb"].sum(),
+                        agg["nic_out_gb"].sum()):
+                worst = max(worst, abs(got - want) / want)
+        if worst > PARITY_RTOL:
+            raise AssertionError(f"regimes {policy}: class_gb off the delivered "
+                                 f"volume by {worst:.3g} (relative)")
+        gpu[("regimes papers", policy)] = (
+            [r.makespan for r in res[:N_CHECK]],
+            np.stack([r.task_start_matrix(wl.J, N) for r in res[:N_CHECK]]),
+        )
+        cls = {k: round(v, 3) for k, v in res[3].aggregates["class_gb"].items()}
+        print(
+            f"[regimes] papers {policy:10s} width {W}: {W / wall:9.1f} evals/s, "
+            f"wall {wall:.2f} s, {iters} lock-step iterations, host syncs "
+            f"{syncs[0]} ({syncs[0] / iters:.2f} an iteration), waterfill "
+            f"launches {launches} ({launches / iters:.2f} an iteration); class_gb "
+            f"sums to the delivered GB within {worst:.2g} (instance 3: {cls})",
+            flush=True,
+        )
+    return pending, gpu, strict
+
+
+def check_escalation(strict, gpu):
+    """Deadline shaping against strict on the first instances: at least
+    one makespan differs, so that a flow really escalated."""
+    from repro_torch.core import PARITY_ATOL, PARITY_RTOL
+
+    escalated = 0
+    for policy, fut in strict.items():
+        ms_strict, _ = fut.result()
+        ms_deadline = gpu[("regimes papers", policy)][0]
+        diff = int((~np.isclose(ms_deadline, ms_strict, rtol=PARITY_RTOL,
+                                atol=PARITY_ATOL)).sum())
+        escalated += diff
+        print(f"[regimes] papers {policy:10s} deadline != strict on {diff} of the "
+              f"first {N_CHECK} (strict on the cpu engine)", flush=True)
+    if escalated == 0:
+        raise AssertionError("regimes: no instance escalated (deadline == strict)")
+
+
+def phase_replan():
+    """``run_scenario(strategy="replan")`` on the example's job and trace,
+    and ``Replanner.on_leave(3)`` under deadline shaping, on the card;
+    each committed interval and the leave record against the CPU engine."""
+    from repro_torch.core import (
+        OGBN_PRODUCTS,
+        build_workload_from_profile,
+        ifs_placement,
+        monte_carlo_draws,
+        simulate_batch_torch,
+        simulate_torch,
+        testbed_cluster,
+    )
+    from repro_torch.dynamics import ReplanConfig, Replanner, drift_trace, run_scenario
+
+    wl = build_workload_from_profile(
+        OGBN_PRODUCTS, n_stores=4, n_workers=4, samplers_per_worker=2, n_ps=1,
+        n_iters=REPLAN_INTERVALS * REPLAN_ITERS,
+    )
+    cluster = testbed_cluster()
+    p0 = ifs_placement(wl, cluster, seed=0)
+    full = wl.realize(seed=0, n_iters=REPLAN_INTERVALS * REPLAN_ITERS)
+    undisturbed = simulate_torch(wl, cluster, p0, full, device="cuda").makespan
+    trace = drift_trace(cluster, horizon_s=undisturbed * 1.2,
+                        n_segments=3 * REPLAN_INTERVALS, seed=0,
+                        bw_scale_range=(0.25, 1.0))
+    cfg = ReplanConfig(budget=REPLAN_BUDGET, sim_iters=REPLAN_ITERS,
+                       drift_threshold=0.2, device="cuda")
+    t0 = time.perf_counter()
+    out = run_scenario(wl, cluster, trace, strategy="replan",
+                       n_intervals=REPLAN_INTERVALS, iters_per_interval=REPLAN_ITERS,
+                       seed=0, replan_config=cfg)
+    wall = time.perf_counter() - t0
+    for i, iv in enumerate(out.intervals):
+        r_iv = full.window(i * REPLAN_ITERS, (i + 1) * REPLAN_ITERS)
+        ref = simulate_torch(wl, cluster, out.placements[i], r_iv,
+                             trace=trace.window(iv.start_s),
+                             migrations=iv.flows or None, device="cpu")
+        _assert_parity(f"replan interval {i}", [iv.makespan_s], np.zeros((1, 1)),
+                       [ref.makespan], np.zeros((1, 1)))
+    print(f"[replan] run_scenario(replan), products job, {REPLAN_INTERVALS} x "
+          f"{REPLAN_ITERS} iterations, budget {REPLAN_BUDGET}: total "
+          f"{out.total_s:.3f} s (compute {out.compute_s:.3f} + overlap "
+          f"{out.overlap_total_s:.3f}), {out.n_replans} re-plans, "
+          f"{sum(len(iv.flows) for iv in out.intervals)} committed flows; wall "
+          f"{wall:.1f} s; each interval matches the cpu engine", flush=True)
+    t0 = time.perf_counter()
+    rp = Replanner(wl, cluster, p0.copy(), config=ReplanConfig(
+        budget=REPLAN_BUDGET, sim_iters=REPLAN_ITERS, shaping="deadline",
+        device="cuda"))
+    rec = rp.on_leave(3)
+    wall_leave = time.perf_counter() - t0
+    reals = monte_carlo_draws(wl, seed=0, n_iters=REPLAN_ITERS, n_draws=1)
+    clean = simulate_batch_torch(wl, rp.cluster, [rp.placement], reals,
+                                 device="cpu")[0].makespan
+    loaded = simulate_batch_torch(wl, rp.cluster, [rp.placement], reals,
+                                  shaping="deadline", migrations=[rec.flows],
+                                  device="cpu")[0].makespan
+    _assert_parity("replan on_leave(3)", [rec.makespan, rec.makespan + rec.overlap_s],
+                   np.zeros((1, 1)), [clean, loaded], np.zeros((1, 1)))
+    print(f"[replan] on_leave(3), shaping=deadline: {rp.cluster.M} machines, "
+          f"{len(rec.flows)} flows ({rec.forced_gb:.2f} GB forced, "
+          f"{rec.moved_tasks} moved), makespan {rec.makespan:.3f} s, overlap "
+          f"{rec.overlap_s:.3f} s, {rec.etp.evaluations} evaluations; wall "
+          f"{wall_leave:.1f} s; matches the cpu engine", flush=True)
 
 
 def _sage_x(batch_feats, blocks, hidden, seed):
@@ -2109,6 +2521,27 @@ def phase_moe_serve(mg, fa, t):
     return entry, launches["flash_attention"], flash_err, t
 
 
+def phase_regimes_all(wf, t):
+    """The regimes and re-planning path: counts set to 0 here, read after
+    the replan phase; the CPU references run in worker processes
+    meanwhile."""
+    wf.waterfill_fill.launches = 0
+    with ProcessPoolExecutor(CPU_WORKERS, mp_context=get_context("spawn"),
+                             initializer=_low_priority) as pool:
+        pending, gpu, strict = phase_regimes(wf, pool)
+        t = _phase_done("regimes (golden cells, papers under drift, migrations, "
+                        "deadline shaping, utilization)", t)
+        phase_replan()
+        launches = wf.waterfill_fill.launches
+        t = _phase_done("replan (run_scenario, on_leave under deadline shaping)", t)
+        check_engine(pending, gpu)
+        check_escalation(strict, gpu)
+        t = _phase_done("waiting for the regimes' CPU references", t)
+    if launches == 0:
+        raise AssertionError("the regimes path never launched the waterfill kernel")
+    return launches, t
+
+
 def _phase_done(name, t0):
     print(f"[time] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
     return time.perf_counter()
@@ -2146,8 +2579,8 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("sage", "lm_serve", "mamba_serve", "moe_serve",
-                                       "kimi_serve"),
+    ap.add_argument("--only", choices=("regimes", "sage", "lm_serve", "mamba_serve",
+                                       "moe_serve", "kimi_serve"),
                     default=None, help="build the kernels and run this phase alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -2179,6 +2612,11 @@ def main(argv=None) -> int:
           f"{torch.backends.cuda.matmul.allow_tf32}, torch.backends.cudnn."
           f"allow_tf32 = {torch.backends.cudnn.allow_tf32}", flush=True)
     if args.only is not None:
+        if args.only == "regimes":
+            launches, t = phase_regimes_all(wf, t)
+            print(json.dumps({"waterfill_launches": launches}))
+            print(f"[done] {time.perf_counter() - t_start:.1f} s ({args.only} only)")
+            return 0
         if args.only == "sage":
             sage, sage_launches, t = phase_sage_all(sa, wf, t)
             entries = [_sage_entry(sage, sage_launches)]
@@ -2206,7 +2644,8 @@ def main(argv=None) -> int:
     # the planning path: counts set to 0 here, read after the plan phase
     wf.waterfill_fill.launches = 0
     sa.sage_aggregate.launches = 0
-    with ProcessPoolExecutor(CPU_WORKERS, mp_context=get_context("spawn")) as pool:
+    with ProcessPoolExecutor(CPU_WORKERS, mp_context=get_context("spawn"),
+                             initializer=_low_priority) as pool:
         cands, pending, gpu = phase_engine(wf, pool)
         t = _phase_done("engine at width 1024", t)
         phase_plan(wf)
@@ -2218,6 +2657,7 @@ def main(argv=None) -> int:
         raise AssertionError("the main path never launched the waterfill kernel")
     phase_profile(cands)
     t = _phase_done("engine profile", t)
+    regime_launches, t = phase_regimes_all(wf, t)
 
     sage, sage_launches, t = phase_sage_all(sa, wf, t)
 
@@ -2231,7 +2671,7 @@ def main(argv=None) -> int:
     line = {
         "kernels": [
             _entry("waterfill_fill", "waterfill", "src/repro/kernels/waterfill.py:64",
-                   kern, launches + sage_launches["waterfill_fill"]),
+                   kern, launches + regime_launches + sage_launches["waterfill_fill"]),
             _sage_entry(sage, sage_launches),
             _flash_entry(flash, flash_launches + moe_flash_launches
                          + kimi_launches["flash_attention"]),
@@ -2239,7 +2679,8 @@ def main(argv=None) -> int:
             moe_entry,
         ]
     }
-    print(f"[launches] planning path: waterfill_fill {launches}; GraphSAGE "
+    print(f"[launches] planning path: waterfill_fill {launches}; regimes and "
+          f"re-planning path: waterfill_fill {regime_launches}; GraphSAGE "
           f"path: {sage_launches}; LM serving path: flash_attention "
           f"{flash_launches}; mamba2 path: ssd_scan {ssd_entry['launches']}; "
           f"MoE path: moe_gemm {moe_entry['launches'] - kimi_launches['moe_gemm']}, "

@@ -18,7 +18,11 @@ each, one iteration of papers and ten of products):
      shortcut for workloads that cannot cascade (oes_strict, ``--steps``
      iterations);
   4. ``check_every``: the outer loop's termination test every 1, 8, 32
-     or 128 iterations (oes_strict, whole products run).
+     or 128 iterations (oes_strict, whole products run);
+  5. ``flow_log``: a whole recorded fifo run (``record=True``) with the
+     flow log, and with its two scatters and its extraction patched out
+     (task events only, as ``record`` was before the engine kept a flow
+     log).
 
 Each comparison runs its variants in the order a, b, c, c, b, a and
 reports both times of each; every variant must reach the same clocks as
@@ -116,6 +120,8 @@ def main() -> int:
     ap.add_argument("--width", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--only", choices=("flow_log",), default=None,
+                    help="run this comparison alone")
     args = ap.parse_args()
     dev = resolve_device(args.device)
     out: Dict[str, object] = {"device": str(dev), "width": args.width,
@@ -131,6 +137,31 @@ def main() -> int:
             res: Dict[str, object] = {}
             out[job] = res
 
+            # 5. a whole recorded run with and without the flow log
+            def recorded_run(flow_log: bool):
+                def run():
+                    no_log = dict(
+                        record_flows=lambda self, *a: None,
+                        flow_logs=lambda self: [[] for _ in range(self.B)],
+                    )
+                    _sync(dev)
+                    t0 = time.perf_counter()
+                    with _patched(et._Program, **({} if flow_log else no_log)):
+                        rs = simulate_batch_torch(
+                            wl, cluster, placements, reals, policy="fifo",
+                            record=True, device=dev,
+                        )
+                    _sync(dev)
+                    return (time.perf_counter() - t0,
+                            np.array([r.makespan for r in rs]))
+                return run
+
+            res["flow_log"] = _compare(f"flow_log {job}", {
+                "with": recorded_run(True), "without": recorded_run(False),
+            })
+            if args.only == "flow_log":
+                continue
+
             # 1. oes filling rounds per advance, over a whole run
             prog = _program(wl, cluster, placements, reals, "oes", dev)
             rates, round_fn = prog.rates, prog.oes_round
@@ -141,9 +172,9 @@ def main() -> int:
                 calls[0] += 1
                 return _f(*state)
 
-            def counted_rates(mask, _f=rates):
+            def counted_rates(mask, caps, _f=rates):
                 calls[0] = 0
-                r = _f(mask)
+                r = _f(mask, caps)
                 per_adv.append(calls[0])
                 return r
 

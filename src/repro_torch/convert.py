@@ -1,8 +1,10 @@
 """Carry the JAX package's planning inputs across to the port.
 
 ``from_reference(obj)`` turns a ``repro`` ``Workload``, ``ClusterSpec``,
-``Placement`` or ``Realization`` into the port's own class of the same
-name.  It reads the object's plain fields and numpy arrays by attribute
+``Placement``, ``Realization``, ``MigrationFlow``, ``BandwidthTrace``,
+``DynamicsEvent`` or ``ReplanConfig`` into the port's own class of the
+same name (a ``ReplanConfig``'s ``backend`` becomes ``device=``).  It
+reads the object's plain fields and numpy arrays by attribute
 (duck-typed), so nothing of ``repro`` is imported; arrays are copied.
 ``sage_from_reference(params, cfg)`` builds the port's ``GraphSAGE`` with
 the weights of the JAX package's ``init_sage`` parameter dict, and
@@ -18,8 +20,10 @@ import numpy as np
 import torch
 
 from .core.cluster import ClusterSpec, Machine, Placement, TaskSpec
-from .core.engine import DeviceLike
+from .core.engine import DeviceLike, MigrationFlow
 from .core.workload import Edge, Realization, TrafficModel, Workload
+from .dynamics.replan import ReplanConfig
+from .dynamics.traces import BandwidthTrace, DynamicsEvent
 from .models.config import BLOCK_PATTERNS, LMConfig, MoESpec, SSMSpec
 from .models.gnn import GraphSAGE, SageConfig
 from .models.model import TransformerLM
@@ -51,8 +55,31 @@ def _machine(m: Any) -> Machine:
     )
 
 
-def from_reference(obj: Any) -> Any:
-    """The port's counterpart of a reference planning object."""
+def _copy_fields(cls: Any, obj: Any, **override: Any) -> Any:
+    """An instance of dataclass ``cls`` from ``obj``'s fields of the same
+    names (``override`` replaces some)."""
+    kw = {f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)
+          if f.name not in override}
+    return cls(**kw, **override)
+
+
+def from_reference(obj: Any, *, device: DeviceLike = None) -> Any:
+    """The port's counterpart of a reference planning object; ``device``
+    is the converted ``ReplanConfig``'s (the reference's ``backend`` names
+    an engine, not a device, so it is not carried)."""
+    if hasattr(obj, "drift_threshold") and hasattr(obj, "migration_weight"):
+        return _copy_fields(ReplanConfig, obj, device=device)
+    if hasattr(obj, "times") and hasattr(obj, "slow"):
+        return BandwidthTrace(
+            times=np.array(obj.times, dtype=np.float64),
+            bw_in=np.array(obj.bw_in, dtype=np.float64),
+            bw_out=np.array(obj.bw_out, dtype=np.float64),
+            slow=np.array(obj.slow, dtype=np.float64),
+        )
+    if hasattr(obj, "bw_scale") and hasattr(obj, "slowdown"):
+        return _copy_fields(DynamicsEvent, obj)
+    if hasattr(obj, "gb") and hasattr(obj, "deadline"):
+        return _copy_fields(MigrationFlow, obj)
     if hasattr(obj, "tasks") and hasattr(obj, "edges") and hasattr(obj, "traffic"):
         return Workload(
             tasks=[_task(t) for t in obj.tasks],

@@ -2,10 +2,17 @@
 
 Task placement (IFS/ETP), online execution & flow scheduling (OES + the
 baseline policies) as one batched event program on a CUDA card (or the
-CPU, when asked), the audit quantities (Delta, traffic summary) and the
-dataset traffic profiles.
+CPU, when asked), with bandwidth traces, migration flows and traffic-class
+shaping; the audit quantities (Delta, the Theorem-1 chain certificate,
+traffic summary) and the dataset traffic profiles.
 """
-from .analysis import max_degree, one_iteration_degrees, traffic_summary
+from .analysis import (
+    ChainCertificate,
+    chain_lower_bound,
+    max_degree,
+    one_iteration_degrees,
+    traffic_summary,
+)
 from .cluster import (
     ClusterSpec,
     Machine,
@@ -18,11 +25,16 @@ from .cluster import (
 )
 from .dgtp import DEFAULT_N_CHAINS, Plan, plan, plan_baseline
 from .engine import (
+    CLASS_MIGRATION,
     CLASS_TRAINING,
     EPS,
     POLICY_NAMES,
+    FlowLog,
+    SHAPING_MODES,
+    MigrationFlow,
     ScheduleResult,
     TaskEvent,
+    check_migration_flows,
     expected_makespan,
     expected_makespan_many,
     mean_batch_makespans,
@@ -42,6 +54,8 @@ from .placement import (
     etp_search,
     group_move_candidates,
     ifs_placement,
+    remap_after_leave,
+    replan_after_failure,
 )
 from .profiles import (
     OGBN_PAPERS100M,

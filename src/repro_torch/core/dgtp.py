@@ -3,19 +3,15 @@
 The port of the JAX package's ``repro.core.dgtp``.  ``plan()`` searches a
 placement with the multi-chain ETP on the torch engine and commits the
 schedule for one realization on the same engine, on ``device`` (default:
-the CUDA card).
-
-The reference commits its schedule with one numpy simulation because its
-Theorem-1 chain certificate follows the recorded per-flow log.  The torch
-engine records task events but no flow log, so here ``Plan.certificate``
-is ``None`` until a flow-recording engine comes to the port.
+the CUDA card), recorded: its task events and flow log give the
+Theorem-1 chain certificate (``Plan.certificate``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional
 
-from .analysis import max_degree, traffic_summary
+from .analysis import ChainCertificate, chain_lower_bound, max_degree, traffic_summary
 from .cluster import ClusterSpec, Placement
 from .engine import DeviceLike, ScheduleResult, resolve_device
 from .engine_torch import simulate_torch
@@ -33,8 +29,7 @@ DEFAULT_N_CHAINS = {"cpu": 8, "cuda": 16}
 class Plan:
     placement: Placement
     schedule: ScheduleResult
-    # the Theorem-1 chain certificate needs a recorded flow log; None here
-    certificate: Optional[object]
+    certificate: ChainCertificate
     etp: Optional[ETPResult]
     delta: int
     traffic: dict
@@ -93,7 +88,9 @@ def plan(
     return Plan(
         placement=placement,
         schedule=schedule,
-        certificate=None,
+        certificate=chain_lower_bound(
+            workload, cluster, placement, realization, schedule
+        ),
         etp=etp,
         delta=max_degree(workload, placement, cluster),
         traffic=traffic_summary(workload, placement, realization),
@@ -125,7 +122,9 @@ def plan_baseline(
     return Plan(
         placement=placement,
         schedule=schedule,
-        certificate=None,
+        certificate=chain_lower_bound(
+            workload, cluster, placement, realization, schedule
+        ),
         etp=None,
         delta=max_degree(workload, placement, cluster),
         traffic=traffic_summary(workload, placement, realization),

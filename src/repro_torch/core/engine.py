@@ -3,7 +3,8 @@ and the Monte-Carlo drivers every planner calls.
 
 The event program itself lives in ``engine_torch`` (the counterpart of
 the JAX package's ``engine_jax``).  What is here mirrors the parts of the
-JAX package's ``repro.core.engine`` that the planner needs, with
+JAX package's ``repro.core.engine`` that the planner and the dynamics
+tier need (traffic classes, shaping modes, migration flows), with
 ``device=`` in place of ``backend=``: there is one engine, and the
 argument says where it runs.  ``device=None`` means the CUDA card; when
 no card is present that raises, it never falls back to the CPU.  Tests
@@ -12,20 +13,31 @@ and CPU runs pass ``device="cpu"`` explicitly.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import TYPE_CHECKING, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from .cluster import ClusterSpec, Placement
-from .units import Seconds
+from .units import GB, Seconds
 from .workload import Realization, Workload
+
+if TYPE_CHECKING:
+    from numpy.typing import ArrayLike
 
 EPS = 1e-9
 
-# Traffic-class ids: LOWER id = HIGHER priority.  Training flows are
-# class 0; shaping by class comes to the port with ShapedPolicy.
+# Traffic-class ids: LOWER id = HIGHER priority.  Training flows default
+# to class 0 and migration flows to class 1; ``edge_classes`` may give a
+# workload's own edges any integer class.
 CLASS_TRAINING = 0
+CLASS_MIGRATION = 1
+
+# Class shaping (``shaping=``): classes are rated in ascending id order,
+# each by the base policy against the capacity the classes above it left
+# over.  ``deadline`` also escalates a background flow once its deadline
+# slack is consumed (``escalated_level``).
+SHAPING_MODES = ("strict", "deadline")
 
 # The five built-in rate policies (the JAX package's engine.POLICIES):
 # work-conserving OES, the paper's strict OES rule, FIFO (DistDGL), MRTF
@@ -60,9 +72,103 @@ def policy_name(policy: str) -> str:
     if policy not in POLICY_NAMES:
         raise ValueError(
             f"the torch engine supports the built-in rate policies "
-            f"{POLICY_NAMES}, got {policy!r}"
+            f"{POLICY_NAMES}, got {policy!r} (class shaping is shaping=)"
         )
     return policy
+
+
+def shaping_mode(shaping: Optional[str]) -> Optional[str]:
+    """Checks that ``shaping`` is ``None`` or one of ``SHAPING_MODES``."""
+    if shaping is not None and shaping not in SHAPING_MODES:
+        raise ValueError(
+            f"unknown shaping mode {shaping!r}; known: {SHAPING_MODES}"
+        )
+    return shaping
+
+
+def escalated_level(levels: Sequence[int]) -> int:
+    """The class a deadline-escalated flow is rated in: strictly above
+    every class present and above training, ``min(classes,
+    CLASS_TRAINING) - 1``.
+
+    Under ``shaping="deadline"`` a background flow (class above
+    ``CLASS_TRAINING``) escalates once the time left to its deadline no
+    longer covers its remaining volume at the best rate its two NICs
+    give it, ``deadline - now <= remaining / min(cap_in[dst],
+    cap_out[src])``: earliest-deadline-first means the urgent transfer
+    must outrank the very traffic that starves it.  A flow with no
+    deadline (inf) never escalates, so deadline mode with no finite
+    deadline is strict mode."""
+    return min(min(levels), CLASS_TRAINING) - 1
+
+
+def check_edge_classes(
+    edge_classes: Optional["ArrayLike"], E: int
+) -> Optional[np.ndarray]:
+    """[E] int64 class ids of the workload's own edges, or ``None``."""
+    if edge_classes is None:
+        return None
+    ec = np.asarray(edge_classes, dtype=np.int64)
+    if ec.shape != (E,):
+        raise ValueError(
+            f"edge_classes must give one class id per logical edge "
+            f"(expected shape ({E},), got {ec.shape})"
+        )
+    return ec
+
+
+# ---------------------------------------------------------------------------
+# Migration flows: one-shot state moves scheduled with the training traffic
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class MigrationFlow:
+    """A one-shot state-relocation flow, released at t=0.
+
+    ``src`` / ``dst`` are machine indices of the simulated cluster;
+    ``gb`` is the state volume.  ``task`` optionally names the relocated
+    task: that task may not start its first simulated iteration until
+    this flow completes; ``-1`` leaves the flow ungated.  A flow whose
+    ``src`` equals ``dst`` (or whose volume is ~0) ships nothing: it
+    completes at once and never gates.
+
+    ``cls`` is the flow's traffic class, read only under ``shaping=``;
+    ``deadline`` is the absolute simulation time by which the flow should
+    have landed so that it delays nothing (``inf``: never escalates)."""
+
+    src: int
+    dst: int
+    gb: GB
+    task: int = -1
+    cls: int = CLASS_MIGRATION
+    deadline: Seconds = float("inf")
+
+
+def check_migration_flows(
+    migrations: Optional[Sequence[MigrationFlow]], M: int, J: int
+) -> List[MigrationFlow]:
+    """Validates machine and task indices; returns the flows as a list.
+    After a machine leaves, pre-leave machine indices must never meet the
+    post-leave cluster, so an index outside it raises."""
+    if not migrations:
+        return []
+    migs = list(migrations)
+    for f in migs:
+        if not (0 <= f.src < M and 0 <= f.dst < M):
+            raise ValueError(
+                f"migration flow {f} references a machine outside the "
+                f"{M}-machine cluster — remap placements after membership "
+                "changes before billing (stale pre-leave indices?)"
+            )
+        if f.task >= J:
+            raise ValueError(
+                f"migration flow {f} gates task {f.task} but the workload "
+                f"has only {J} tasks"
+            )
+        if f.gb < 0:
+            raise ValueError(f"migration flow {f} has negative volume")
+        if np.isnan(f.deadline):
+            raise ValueError(f"migration flow {f} has a NaN deadline")
+    return migs
 
 
 # ---------------------------------------------------------------------------
@@ -76,20 +182,75 @@ class TaskEvent:
     end: Seconds
 
 
+class FlowLog(Sequence[Tuple[int, int, float, float]]):
+    """One instance's recorded flows: ``(edge, iter, start, end)`` tuples
+    ordered by delivery time, then column, then iteration, as the numpy
+    engine appends them.
+
+    The engine hands over the arm and delivery times its run recorded
+    (``[EG, N]`` each, NaN where nothing was delivered); the tuples are
+    built at the first read.  A papers-sized batch records ~14M flow
+    instances a run, and building every instance's tuples cost more host
+    time than the run itself, while most callers read one log or none."""
+
+    def __init__(self, arm: np.ndarray, fin: np.ndarray) -> None:
+        self._times: Optional[Tuple[np.ndarray, np.ndarray]] = (arm, fin)
+        self._rows: Optional[List[Tuple[int, int, float, float]]] = None
+        self._len = int(np.count_nonzero(~np.isnan(fin)))
+
+    def _built(self) -> List[Tuple[int, int, float, float]]:
+        if self._rows is None:
+            arm, fin = self._times
+            es, ns = np.nonzero(~np.isnan(fin))
+            end = fin[es, ns]
+            o = np.argsort(end, kind="stable")
+            es, ns, end = es[o], ns[o], end[o]
+            self._rows = list(zip(
+                es.tolist(), (ns + 1).tolist(), arm[es, ns].tolist(), end.tolist()
+            ))
+            self._times = None
+        return self._rows
+
+    def __len__(self) -> int:
+        return self._len
+
+    def __getitem__(self, i):  # type: ignore[override]
+        return self._built()[i]
+
+    def __iter__(self) -> Iterator[Tuple[int, int, float, float]]:
+        return iter(self._built())
+
+    def __eq__(self, other: object) -> bool:
+        if isinstance(other, (FlowLog, list, tuple)):
+            return self._built() == list(other)
+        return NotImplemented
+
+    def __repr__(self) -> str:
+        return repr(self._built())
+
+
 @dataclass
 class ScheduleResult:
     """One simulated schedule.
 
-    ``flow_log`` is always ``None``: the torch engine, like the JAX one,
-    never materialises per-flow spans.  ``n_events`` counts lock-step
+    ``task_events`` and ``flow_log`` are filled when the run was recorded
+    (``record=True``): ``flow_log`` (a ``FlowLog``) holds one ``(edge,
+    iter, start, end)`` tuple per delivered flow instance, ``start`` its
+    arm time, as the numpy reference engine records them (migration flows
+    appear as columns ``E..E+G-1`` with iteration 1 and start 0.0).  It
+    is ``None`` when the run was not recorded.  ``n_events`` counts lock-step
     iterations of the batched program (one iteration may retire several
-    simultaneous events), so compare makespans and task-start matrices
-    across engines, never ``n_events``.  ``task_events`` is filled when
-    the run was recorded (``record=True``)."""
+    simultaneous events), so compare makespans, task-start matrices and
+    flow logs across engines, never ``n_events``.  ``aggregates`` holds
+    the ``utilization=True`` integrals: GB delivered into and out of each
+    machine (``nic_in_gb``, ``nic_out_gb``), seconds each machine ran a
+    task (``busy_s``) and GB delivered per traffic class (``class_gb``);
+    ``None`` unless asked for."""
 
     makespan: Seconds
     task_events: List[TaskEvent]
-    flow_log: Optional[List[Tuple[int, int, float, float]]]
+    # (edge, iter, start, end) per delivered flow; None when unrecorded
+    flow_log: Optional[Sequence[Tuple[int, int, float, float]]]
     n_events: int
     policy: str
     aggregates: Optional[dict] = None

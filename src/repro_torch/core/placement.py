@@ -17,7 +17,7 @@ import itertools
 import math
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -309,6 +309,7 @@ class _Chain:
         seed: int,
         init: Optional[Placement],
         policy: str,
+        cost_fn: Optional[Callable[[Placement], float]],
         group_moves: float,
         anneal: bool,
         device: DeviceLike = None,
@@ -323,6 +324,7 @@ class _Chain:
         self.seed = seed
         self.init_arg = init
         self.policy = policy
+        self.cost_fn = cost_fn
         self.group_moves = group_moves
         self.anneal = anneal
         self.device = device
@@ -346,8 +348,12 @@ class _Chain:
         # The chain's Monte-Carlo draws are a pure function of (seed,
         # sim_iters): realize once, reuse every evaluation (bit-identical to
         # re-realizing inside expected_makespan each time).
-        self.reals: List[Realization] = monte_carlo_draws(
-            workload, seed=seed, n_iters=sim_iters, n_draws=sim_draws
+        self.reals: List[Realization] = (
+            monte_carlo_draws(
+                workload, seed=seed, n_iters=sim_iters, n_draws=sim_draws
+            )
+            if cost_fn is None
+            else []
         )
 
     # -- memoised cost ----------------------------------------------------
@@ -368,11 +374,14 @@ class _Chain:
         got = self.lookup(p)
         if got is not None:
             return got
-        t = expected_makespan(
-            self.workload, self.cluster, p, policy=self.policy,
-            n_iters=self.sim_iters, n_draws=self.sim_draws, seed=self.seed,
-            device=self.device,
-        )
+        if self.cost_fn is not None:
+            t = self.cost_fn(p)
+        else:
+            t = expected_makespan(
+                self.workload, self.cluster, p, policy=self.policy,
+                n_iters=self.sim_iters, n_draws=self.sim_draws, seed=self.seed,
+                device=self.device,
+            )
         return self.store(p, t)
 
     def feasible(self, p: Placement) -> bool:
@@ -441,9 +450,10 @@ class _Chain:
         fallback = best is None
         if fallback:
             # fall back to the feasible IFS start (always feasible, Thm. 2).
-            # A warm-start init (DistDGL) carries no feasibility guarantee,
-            # so it is only used if it happens to be feasible — or as the
-            # very last resort when IFS itself cannot place the job.
+            # A warm-start init (DistDGL, replan) carries no feasibility
+            # guarantee, so it is only used if it happens to be feasible —
+            # or as the very last resort when IFS itself cannot place the
+            # job (re-planning on an overloaded shrunken cluster).
             best = self.init_arg
             if best is None or not self.feasible(best):
                 try:
@@ -494,6 +504,7 @@ def etp_search(
     seed: int = 0,
     init: Optional[Placement] = None,
     policy: str = "oes",
+    cost_fn: Optional[Callable[[Placement], float]] = None,
     time_budget_s: Optional[float] = None,
     group_moves: float = 0.35,
     anneal: bool = True,
@@ -510,7 +521,9 @@ def etp_search(
     The cost is the paper's eq. (21): ``T'_Y * (1 + violation%)`` with
     T'_Y from simulating the workload's traffic profile under ``policy``.
     With ``sim_draws > 1`` the draws run in one ``simulate_batch_torch``
-    call.
+    call.  ``cost_fn`` (placement -> seconds) replaces the simulated
+    T'_Y: the re-planner's objective, which prices migration flows, comes
+    in here.
 
     Beyond-paper extensions, both ablatable back to Alg. 3 semantics
     (``group_moves=0, anneal=False, beta=0.1``):
@@ -527,7 +540,8 @@ def etp_search(
     chain = _Chain(
         workload, cluster, budget=budget, mu=mu, beta=beta, sim_iters=sim_iters,
         sim_draws=sim_draws, seed=seed, init=init, policy=policy,
-        group_moves=group_moves, anneal=anneal, device=device,
+        cost_fn=cost_fn, group_moves=group_moves, anneal=anneal,
+        device=device,
     )
     chain.begin(chain.measure_scalar(chain.cur))
     for z in range(budget):
@@ -559,8 +573,8 @@ def _chain_defaults() -> Dict[str, object]:
     return {
         k: sig.parameters[k].default
         for k in (
-            "mu", "beta", "sim_iters", "sim_draws", "policy", "group_moves",
-            "anneal", "device",
+            "mu", "beta", "sim_iters", "sim_draws", "policy", "cost_fn",
+            "group_moves", "anneal", "device",
         )
     }
 
@@ -623,12 +637,15 @@ def etp_multichain(
             else:
                 need.append(i)
         if need:
-            ts = mean_batch_makespans(
-                workload, cluster,
-                [(pairs[i][1], pairs[i][0].reals) for i in need],
-                policy=params["policy"],
-                device=params["device"],
-            )
+            if params["cost_fn"] is not None:
+                ts = [params["cost_fn"](pairs[i][1]) for i in need]
+            else:
+                ts = mean_batch_makespans(
+                    workload, cluster,
+                    [(pairs[i][1], pairs[i][0].reals) for i in need],
+                    policy=params["policy"],
+                    device=params["device"],
+                )
             for i, t in zip(need, ts):
                 ch, p = pairs[i]
                 out[i] = ch.store(p, t)
@@ -652,3 +669,62 @@ def etp_multichain(
     assert best_r is not None
     best_r.chain_stats = [ch.stats() for ch in chains]
     return best_r
+
+
+def remap_after_leave(
+    workload: Workload,
+    cluster: ClusterSpec,
+    placement: Placement,
+    leaving_machine: int,
+) -> Tuple[ClusterSpec, Placement]:
+    """Incumbent-preserving remap when a machine leaves (fails or is
+    decommissioned): surviving tasks keep their machines (indices shifted
+    onto the reduced cluster) and the orphaned tasks greedily land on the
+    least-loaded survivors.  This is the warm start every leave-path
+    re-plan begins from.
+
+    Note graph stores are re-pinned: the failed machine's partition is
+    re-hosted on the machine with the most free memory (in practice it is
+    restored from replicated storage); its tasks join the movable set."""
+    survivors = [m for m in range(cluster.M) if m != leaving_machine]
+    remap = {m: i for i, m in enumerate(survivors)}
+    new_cluster = cluster.without_machine(leaving_machine)
+    demands = new_cluster.demand_matrix(workload.tasks)
+    y = np.array([remap.get(int(m), -1) for m in placement.y], dtype=np.int64)
+    usage = np.zeros((new_cluster.M, new_cluster.R))
+    for j, m in enumerate(y):
+        if m >= 0:
+            usage[m] += demands[j]
+    for j in np.where(y < 0)[0]:
+        head = np.argsort((usage / np.maximum(new_cluster.cap, 1e-9)).max(axis=1))
+        placed = False
+        for m in head:
+            if np.all(usage[m] + demands[j] <= new_cluster.cap[m] * 2.0):
+                usage[m] += demands[j]
+                y[j] = int(m)
+                placed = True
+                break
+        if not placed:  # pragma: no cover - extreme overload
+            y[j] = int(head[0])
+            usage[int(head[0])] += demands[j]
+    return new_cluster, Placement(y)
+
+
+def replan_after_failure(
+    workload: Workload,
+    cluster: ClusterSpec,
+    placement: Placement,
+    failed_machine: int,
+    *,
+    budget: int = 300,
+    seed: int = 0,
+    **kw: Any,
+) -> ETPResult:
+    """Fault-tolerance path: machine fails -> ``remap_after_leave`` -> ETP
+    warm-started from the remapped incumbent on the reduced cluster."""
+    new_cluster, warm = remap_after_leave(
+        workload, cluster, placement, failed_machine
+    )
+    return etp_search(
+        workload, new_cluster, budget=budget, seed=seed, init=warm, **kw
+    )

@@ -1,7 +1,7 @@
 """Physical-unit annotations and conversion constants used by the port.
 
 The subset of the JAX package's ``repro.core.units`` that the port's
-copies of the cluster, workload and profile modules need: ``Annotated``
+copies of the cluster, workload, profile and dynamics modules need: ``Annotated``
 aliases that tag plain ``float`` / ``np.ndarray`` annotations with a
 :class:`Unit` marker (erased at runtime), and the named byte-scale
 constants.  The static checker reads its alias registry from the JAX
@@ -30,8 +30,10 @@ class Unit:
 GB = Annotated[float, Unit("GB")]
 GBArray = Annotated["np.ndarray", Unit("GB")]
 GBps = Annotated[float, Unit("GB/s")]
+GBpsArray = Annotated["np.ndarray", Unit("GB/s")]
 Seconds = Annotated[float, Unit("s")]
 SecondsArray = Annotated["np.ndarray", Unit("s")]
+Ratio = Annotated[float, Unit("1")]
 
 #: GiB convention, as in the JAX package's units module
 BYTES_PER_GB = float(2**30)

@@ -1,6 +1,7 @@
 """The port on a CUDA card against the same port on the CPU.
 
-The torch engine, the GraphSAGE aggregation kernels (the forward at
+The torch engine (static, and under a trace, flows and deadline
+shaping), the GraphSAGE aggregation kernels (the forward at
 each access width, and the backward) against their plain versions, GraphSAGE's
 forward and backward, and the wgmma probe
 (``csrc/wgmma_probe.cu``: one block of m64nNk16 products through the
@@ -95,6 +96,54 @@ def test_engine_matches_cpu(cuda, policy):
         assert np.allclose(g.task_start_matrix(wl.J, 4),
                            r.task_start_matrix(wl.J, 4),
                            rtol=PARITY_RTOL, atol=PARITY_ATOL, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_engine_regimes_match_cpu(cuda):
+    """fifo under a trace with slowdowns, different migration flows per
+    instance (one none) and deadline shaping, recorded, with the
+    utilization integrals: the card equals the CPU, flow log included,
+    and the shaped passes launch the waterfill kernel."""
+    from repro_torch.core import MigrationFlow
+    from repro_torch.dynamics import DynamicsEvent, trace_from_events
+
+    wl = build_gnn_workload(
+        n_stores=2, n_workers=2, samplers_per_worker=2, n_ps=1, n_iters=4,
+        store_to_sampler_gb=1.0, sampler_to_worker_gb=0.5, grad_gb=0.2,
+        store_exec_s=0.3, sampler_exec_s=0.4, worker_exec_s=0.8,
+        ps_exec_s=0.2, pmr=1.3,
+    )
+    cluster = heterogeneous_cluster(3, seed=0)
+    trace = trace_from_events(cluster, [
+        DynamicsEvent(t0=1.5, t1=6.0, machine=0, bw_scale=0.4),
+        DynamicsEvent(t0=3.0, machine=None, bw_scale=0.75, slowdown=1.2),
+    ])
+    placements = [ifs_placement(wl, cluster, seed=s) for s in range(3)]
+    reals = [wl.realize(seed=s) for s in range(3)]
+    migs = [
+        [MigrationFlow(src=1, dst=0, gb=1.2, task=0, deadline=0.5),
+         MigrationFlow(src=0, dst=1, gb=0.5)],
+        None,
+        [MigrationFlow(src=2, dst=1, gb=0.8, task=wl.J - 1, deadline=3.0)],
+    ]
+    kw = dict(policy="fifo", record=True, trace=trace, migrations=migs,
+              shaping="deadline", utilization=True)
+    before = waterfill_fill.launches
+    got = simulate_batch_torch(wl, cluster, placements, reals, device=cuda, **kw)
+    assert waterfill_fill.launches > before
+    ref = simulate_batch_torch(wl, cluster, placements, reals, device="cpu", **kw)
+    for g, r in zip(got, ref):
+        assert np.isclose(g.makespan, r.makespan, rtol=PARITY_RTOL,
+                          atol=PARITY_ATOL)
+        assert np.allclose(g.task_start_matrix(wl.J, 4),
+                           r.task_start_matrix(wl.J, 4),
+                           rtol=PARITY_RTOL, atol=PARITY_ATOL, equal_nan=True)
+        assert [f[:2] for f in g.flow_log] == [f[:2] for f in r.flow_log]
+        assert np.allclose([f[2:] for f in g.flow_log], [f[2:] for f in r.flow_log],
+                           rtol=PARITY_RTOL, atol=PARITY_ATOL)
+        for key in ("nic_in_gb", "nic_out_gb", "busy_s"):
+            assert np.allclose(g.aggregates[key], r.aggregates[key],
+                               rtol=PARITY_RTOL, atol=PARITY_ATOL)
 
 
 def _sage_inputs(seed, n, f, m, k):

@@ -9,8 +9,10 @@ Inputs are built with the reference's builders and carried across with
 (lock-step iterations by design).
 
 Covered: the five policies at width 3 with ``record=True`` against both
-reference engines, the zero-volume / zero-exec cascade that forces the
-multi-round settle fixpoint, and the 15 static cells of the golden suite.
+reference engines (the flow log against numpy's), the zero-volume /
+zero-exec cascade that forces the multi-round settle fixpoint, and the 15
+static cells of the golden suite.  The other regimes are in
+``test_torch_engine_regimes.py``.
 """
 import json
 
@@ -82,7 +84,11 @@ def test_parity_with_numpy_and_jax(matrix_case, policy):
     for b in range(3):
         _assert_parity(wl, ref[b], got[b], reals[0].n_iters)
         _assert_parity(wl, ref_jax[b], got[b], reals[0].n_iters)
-        assert got[b].flow_log is None
+        want = {(e, n): (s, t) for e, n, s, t in ref[b].flow_log}
+        have = {(e, n): (s, t) for e, n, s, t in got[b].flow_log}
+        assert set(have) == set(want)
+        for k, v in want.items():
+            assert np.allclose(have[k], v, rtol=PARITY_RTOL, atol=PARITY_ATOL)
         assert got[b].policy == policy
 
 

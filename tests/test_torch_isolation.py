@@ -1,14 +1,16 @@
 """The port stands alone: no JAX, nothing of ``repro``, CUDA by default.
 
   * an AST scan of every module under ``src/repro_torch/`` and of the
-    scripts ``chip_smoke.py``, ``engine_probe.py`` and
-    ``examples/train_graphsage_torch.py`` finds no import of ``jax`` or of
+    scripts ``chip_smoke.py``, ``engine_probe.py``, ``flash_ablate.py``,
+    ``sage_ablate.py``, ``examples/train_graphsage_torch.py`` and
+    ``examples/dynamic_replan_torch.py`` finds no import of ``jax`` or of
     ``repro``;
   * importing the port in a fresh interpreter leaves both out of
     ``sys.modules``;
   * an entry point called without ``device`` runs on CUDA, so with no
     card present it raises instead of falling back to the CPU (the
-    planner, GraphSAGE and its example, the LM and
+    planner, the engine's regimes and the re-planner with its scenario
+    and example, GraphSAGE and its example, the LM and
     ``repro_torch.launch.serve`` on every pattern, the SSD scan and the
     grouped GEMM).
 """
@@ -44,7 +46,9 @@ def _imports(path):
 def test_no_jax_or_reference_imports_in_source():
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "engine_probe.py",
+        ROOT / "flash_ablate.py", ROOT / "sage_ablate.py",
         ROOT / "examples" / "train_graphsage_torch.py",
+        ROOT / "examples" / "dynamic_replan_torch.py",
     ]
     assert len(files) > 10
     bad = [
@@ -66,6 +70,7 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import repro_torch.serve, repro_torch.launch.serve\n"
         "import repro_torch.kernels.ssd_scan, repro_torch.kernels.moe_gemm\n"
         "import repro_torch.models.ssm, repro_torch.models.moe\n"
+        "import repro_torch.dynamics, repro_torch.obs\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
@@ -109,6 +114,58 @@ def test_default_device_is_cuda(monkeypatch):
         plan(wl, cluster, realization=r, budget=2, sim_iters=2)
     # explicitly asking for the CPU works
     assert simulate_torch(wl, cluster, p, r, device="cpu").makespan > 0
+
+
+def test_regimes_and_replanning_default_to_cuda(monkeypatch):
+    """The engine under a trace, flows and shaping, the re-planner, the
+    scenario driver and ``examples/dynamic_replan_torch.py`` run on CUDA
+    unless asked for the CPU, and raise with no card."""
+    import importlib.util
+
+    from repro_torch.core import (
+        MigrationFlow,
+        build_gnn_workload,
+        heterogeneous_cluster,
+        ifs_placement,
+        simulate_torch,
+    )
+    from repro_torch.dynamics import (
+        ReplanConfig,
+        Replanner,
+        constant_trace,
+        run_scenario,
+    )
+
+    spec = importlib.util.spec_from_file_location(
+        "dynamic_replan_torch", ROOT / "examples" / "dynamic_replan_torch.py"
+    )
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    wl = build_gnn_workload(
+        n_stores=2, n_workers=1, samplers_per_worker=1, n_ps=1, n_iters=2,
+        store_to_sampler_gb=0.5, sampler_to_worker_gb=0.3, grad_gb=0.2,
+        store_exec_s=0.3, sampler_exec_s=0.4, worker_exec_s=0.8,
+        ps_exec_s=0.2,
+    )
+    cluster = heterogeneous_cluster(3, seed=0)
+    p = ifs_placement(wl, cluster, seed=0)
+    r = wl.realize(seed=0)
+    regimes = dict(trace=constant_trace(cluster), shaping="deadline",
+                   migrations=[MigrationFlow(src=0, dst=1, gb=0.5, task=0,
+                                             deadline=0.1)],
+                   utilization=True)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        simulate_torch(wl, cluster, p, r, **regimes)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Replanner(wl, cluster, p, config=ReplanConfig(budget=2, sim_iters=2)).replan()
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_scenario(wl, cluster, constant_trace(cluster), strategy="static",
+                     n_intervals=1, iters_per_interval=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        example.main([])
+    # explicitly asking for the CPU works
+    assert simulate_torch(wl, cluster, p, r, device="cpu", **regimes).makespan > 0
 
 
 def test_graphsage_defaults_to_cuda(monkeypatch):

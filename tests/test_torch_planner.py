@@ -9,7 +9,9 @@ package's numpy reference:
   * ``from_reference`` carries every planning object across unchanged;
   * ``etp_multichain(device="cpu")`` finds the same best placement and
     best makespan as ``etp_multichain(backend="numpy")`` at equal seeds;
-  * ``plan()`` picks the same placement as the reference's.
+  * ``plan()`` picks the same placement as the reference's, and its
+    Theorem-1 certificate, built from the torch engine's recorded
+    schedule (task events and flow log), equals the reference's.
 """
 import numpy as np
 import pytest
@@ -165,7 +167,16 @@ def test_plan_matches_reference(search_case):
     )
     assert got.delta == want.delta
     assert got.traffic == want.traffic
-    assert got.certificate is None
+    _same_certificate(got.certificate, want.certificate)
+
+
+def _same_certificate(got, want):
+    """The Theorem-1 certificate built from the torch schedule equals the
+    one built from numpy's."""
+    assert (got.delta, got.chain_len, got.holds) == (want.delta, want.chain_len, want.holds)
+    for k in ("lower_bound", "makespan", "p_sum", "flow_term"):
+        assert np.isclose(getattr(got, k), getattr(want, k),
+                          rtol=PARITY_RTOL, atol=PARITY_ATOL), k
 
 
 def test_plan_baseline_matches_reference(search_case):
@@ -180,3 +191,29 @@ def test_plan_baseline_matches_reference(search_case):
     assert got.schedule.policy == "fifo"
     assert np.isclose(got.schedule.makespan, want.schedule.makespan,
                       rtol=PARITY_RTOL, atol=PARITY_ATOL)
+
+
+@pytest.mark.parametrize("baseline", (None, "distdgl", "mrtf"))
+def test_certificate_matches_reference_on_quickstart_job(baseline):
+    """The quickstart job (examples/quickstart.py: ogbn-products, 4
+    stores, 6 workers x 2 samplers, 1 PS, 40 iterations, the testbed
+    cluster): ``plan()`` at a small budget and ``plan_baseline``; each
+    certificate equals the reference's and holds."""
+    wl = ref.build_workload_from_profile(
+        REF_PRODUCTS, n_stores=4, n_workers=6, samplers_per_worker=2, n_ps=1,
+        n_iters=40,
+    )
+    cluster = ref.testbed_cluster()
+    r = wl.realize(seed=0)
+    args = (from_reference(wl), from_reference(cluster))
+    if baseline is None:
+        kw = dict(budget=16, sim_iters=4, seed=0, n_chains=4)
+        want = ref.plan(wl, cluster, realization=r, backend="numpy", **kw)
+        got = port.plan(*args, realization=from_reference(r), device="cpu", **kw)
+    else:
+        want = ref.plan_baseline(wl, cluster, baseline=baseline, realization=r)
+        got = port.plan_baseline(*args, baseline=baseline,
+                                 realization=from_reference(r), device="cpu")
+    assert np.array_equal(got.placement.y, want.placement.y)
+    _same_certificate(got.certificate, want.certificate)
+    assert got.certificate.holds
