@@ -50,6 +50,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
      drift trace of ``examples/dynamic_replan_torch.py`` (budget 8), and
      ``Replanner.on_leave(3)`` under deadline shaping, on the card; each
      committed interval and the leave record against the CPU engine;
+  5c. tenants: ``joint_search`` on ``tests/test_multijob.py``'s pair
+     (ogbn-products 4/3x2/1 for 12 iterations, reddit 4/2x2/1 for 8) on a
+     4-machine cluster, ``merged_batch_cost`` of the winner and of each
+     chain's start under oes and fifo, ``per_job_makespans`` of the
+     winner; ``run_service`` with warm re-planning on
+     ``examples/arrivals.py``'s four tenants, and without on the tests'
+     three-tenant mixed stream, with the EDF, SJF and RR orderings of it
+     under oes and fifo (deadlines met printed for each);
+  5d. cache: ``examples/cache_sweep.py``'s sections 2-4 (the replay
+     sweep, the cache-adjusted makespans, cache-aware against
+     cache-oblivious ETP), then the ogbn-products profile's hit model
+     (its proxy trace) on the replan phase's products job:
+     ``cache_aware_etp``, the winner judged by ``cache_cost_fns`` under
+     oes and fifo, and a cache-aware ``Replanner`` through
+     ``on_leave(3)`` (its per-machine budgets shrink).  Each unit of 5c
+     and 5d runs on the card and, meanwhile, on the CPU in a worker
+     process: decisions and placements equal exactly, times at the
+     engine's parity tolerance;
   6. GraphSAGE at the ogbn-products widths (in 100, hidden 256, 47
      classes, 3 layers, fan-outs 5/10/15, 2000 seeds per batch) on a
      240,000-node synthetic graph: the aggregation kernel against its
@@ -125,14 +143,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
      ``bwd_bound_ms`` and ``bwd_library_ms``), the card's name and power
      limit, and the closing status line.
 
-Seven main paths, each with the kernel launch counts set to 0 just
+Nine main paths, each with the kernel launch counts set to 0 just
 before it and read just after: phases 3-4 (planning), phases 5a-5b (the
-engine's regimes and re-planning), the training
+engine's regimes and re-planning), phase 5c (multi-job planning and the
+arrival service), phase 5d (the feature-cache tier), the training
 steps, calibration and baseline plan of phase 6 (GraphSAGE), the
 ``ServeEngine`` run of phase 7 (LM serving), and the prefill followed by
 the ``ServeEngine`` run of phases 8 (mamba2), 9 (MoE) and 10 (kimi-k2).
 Each phase's seconds are printed on a ``[time]`` line.  ``--only
-regimes`` (phases 5a-5b), ``sage``, ``lm_serve``, ``mamba_serve``, ``moe_serve`` or ``kimi_serve``
+regimes`` (phases 5a-5b), ``tenants`` (5c), ``cache`` (5d), ``sage``,
+``lm_serve``, ``mamba_serve``, ``moe_serve`` or ``kimi_serve``
 builds the kernels and runs that phase alone (for work on that path; it prints no
 closing status line).
 Imports nothing of JAX or of the ``repro`` package.
@@ -2542,6 +2562,399 @@ def phase_regimes_all(wf, t):
     return launches, t
 
 
+# the tenants and cache phases (multi-job planning, the arrival service,
+# the feature-cache tier): every simulation of a unit runs on the card in
+# this process and on the CPU in a worker process meanwhile, and the two
+# are compared once both are done.  Their depth: the search budgets and
+# chain counts below; the jobs keep their widths and iterations.
+TENANT_CHAINS, TENANT_BUDGET = 2, 4  # joint_search over the two-job pair
+SERVICE_REPLAN_BUDGET, SERVICE_REPLAN_ITERS = 4, 2  # the service's warm re-plans
+CACHE_CHAINS, CACHE_BUDGET, CACHE_SIM_ITERS = 8, 16, 8  # cache_sweep's section 4
+PRODUCTS_CACHE_CHAINS, PRODUCTS_CACHE_BUDGET = 4, 8  # the products job's search
+PRODUCTS_CACHE_ITERS, PRODUCTS_LEAVE_BUDGET = 4, 4
+PRODUCTS_CACHE_GB = 0.25  # each sampler-hosting machine's cache, GB (~27% of the graph)
+
+
+def _two_jobs():
+    """``tests/test_multijob.py::two_jobs()``'s pair at the profiles' full
+    widths, and its 4-machine cluster."""
+    from repro_torch.core import (
+        OGBN_PRODUCTS,
+        REDDIT,
+        build_workload_from_profile,
+        heterogeneous_cluster,
+    )
+
+    j1 = build_workload_from_profile(OGBN_PRODUCTS, n_stores=4, n_workers=3,
+                                     samplers_per_worker=2, n_ps=1, n_iters=12)
+    j2 = build_workload_from_profile(REDDIT, n_stores=4, n_workers=2,
+                                     samplers_per_worker=2, n_ps=1, n_iters=8)
+    return [j1, j2], heterogeneous_cluster(4, seed=3, gpu_range=(2, 4))
+
+
+def _unit_joint(device):
+    """``joint_search`` on the pair; ``merged_batch_cost`` of the winner and
+    of each chain's IFS start under oes and fifo (DistDGL's scheduler:
+    waterfill's rates); ``per_job_makespans`` and
+    ``per_job_iteration_ends`` of the winner's recorded merged run."""
+    from repro_torch.core import ifs_placement, simulate_torch
+    from repro_torch.core.multijob import (
+        SEED_NS_CHAIN,
+        derive_seed,
+        joint_search,
+        merged_batch_cost,
+        per_job_iteration_ends,
+        per_job_makespans,
+        realize_merged,
+    )
+
+    jobs, cluster = _two_jobs()
+    mj, res = joint_search(jobs, cluster, n_chains=TENANT_CHAINS, budget=TENANT_BUDGET,
+                           seed=0, device=device)
+    ps = [res.placement] + [
+        ifs_placement(mj.workload, cluster, seed=derive_seed(0, SEED_NS_CHAIN, c))
+        for c in range(TENANT_CHAINS)
+    ]
+    oes = merged_batch_cost(mj, None, cluster, seed=0, device=device)(ps)
+    fifo = merged_batch_cost(mj, None, cluster, seed=0, policy="fifo", device=device)(ps)
+    run = simulate_torch(mj.workload, cluster, res.placement, realize_merged(mj, seed=0),
+                         record=True, device=device)
+    spans = per_job_makespans(mj, run)
+    ends = per_job_iteration_ends(mj, run)
+    return {
+        "exact": {"winner": res.placement.y.tolist(), "evaluations": res.evaluations,
+                  "iterations": [len(e) for e in ends]},
+        "close": {"best": [res.best_makespan],
+                  "chain_best": [s["best_makespan"] for s in res.chain_stats],
+                  "oes": oes, "fifo": fifo, "spans": spans,
+                  "ends": np.concatenate(ends).tolist()},
+        "line": (f"joint_search (ogbn-products 4/3x2/1 x 12 + reddit 4/2x2/1 x 8, "
+                 f"J={mj.workload.J}, E={mj.workload.E}; {TENANT_CHAINS} chains, budget "
+                 f"{TENANT_BUDGET}): best {res.best_makespan:.4f} s over "
+                 f"{res.evaluations} evaluations; merged_batch_cost of the winner "
+                 f"and {TENANT_CHAINS} chain starts oes {[round(x, 4) for x in oes]}, "
+                 f"fifo {[round(x, 4) for x in fifo]}; per-job makespans "
+                 f"{[round(x, 4) for x in spans]}"),
+    }
+
+
+def _arrival_jobs():
+    """``examples/arrivals.py``'s two job shapes."""
+    from repro_torch.core import build_gnn_workload
+
+    def net_job():
+        return build_gnn_workload(
+            n_stores=2, n_workers=2, samplers_per_worker=2, n_ps=1, n_iters=4,
+            store_to_sampler_gb=2.0, sampler_to_worker_gb=1.0, grad_gb=0.5,
+            store_exec_s=0.2, sampler_exec_s=0.3, worker_exec_s=0.6,
+            ps_exec_s=0.2, pmr=1.3,
+        )
+
+    def compute_job():
+        return build_gnn_workload(
+            n_stores=2, n_workers=1, samplers_per_worker=1, n_ps=1, n_iters=4,
+            store_to_sampler_gb=0.2, sampler_to_worker_gb=0.1, grad_gb=0.05,
+            store_exec_s=0.1, sampler_exec_s=0.2, worker_exec_s=2.0,
+            ps_exec_s=0.1, pmr=1.2,
+        )
+
+    return net_job, compute_job
+
+
+def _service_outcome(out):
+    """An outcome's decisions (compared exactly) and times (at the
+    engine's parity tolerance)."""
+    rep = out.report
+    done = [t for t in rep.tenants if t.admitted]
+    return {
+        "exact": {
+            "events": [(e.kind, e.job, re.sub(r"-?\d+(\.\d+)?", "#", e.detail))
+                       for e in out.events],
+            "epochs": [(e.reason, e.jobs, sorted(e.served.items()), e.replanned)
+                       for e in out.epochs],
+            "tenants": [(t.name, t.admitted, t.n_defers, t.met) for t in rep.tenants],
+        },
+        "close": {
+            "event_t": [e.t for e in out.events],
+            "epoch_t": [x for e in out.epochs for x in (e.start_s, e.end_s, e.migration_gb)],
+            "complete": [t.t_complete for t in done],
+            "solo": [t.solo_makespan_s for t in rep.tenants],
+        },
+    }
+
+
+def _unit_service_example(device):
+    """``run_service`` with warm re-planning on ``examples/arrivals.py``'s
+    four tenants (deadlines from solo runs on the CPU, so that the card
+    and the CPU serve the same stream)."""
+    from repro_torch.core import heterogeneous_cluster
+    from repro_torch.dynamics import (
+        JobArrival,
+        ReplanConfig,
+        ServiceConfig,
+        run_service,
+        solo_makespan,
+    )
+
+    net_job, compute_job = _arrival_jobs()
+    cluster = heterogeneous_cluster(4, seed=3, gpu_range=(2, 4))
+    hopeless = compute_job()
+    solo = solo_makespan(hopeless, cluster, seed=0, index=3, device="cpu")
+    stream = [
+        JobArrival("fg", 0.0, net_job(), deadline_s=1e9, qos=0),
+        JobArrival("bg", 0.5, net_job(), deadline_s=42.7, qos=1),
+        JobArrival("doomed", 2.0, hopeless, deadline_s=2.0 + 0.5 * solo, qos=0),
+        JobArrival("ride", 4.0, compute_job(), deadline_s=1e9, qos=1),
+    ]
+    rc = ReplanConfig(budget=SERVICE_REPLAN_BUDGET, sim_iters=SERVICE_REPLAN_ITERS,
+                      shaping="strict", seed=0, device=device)
+    out = run_service(stream, cluster, ServiceConfig(replan=True, replan_config=rc,
+                                                     device=device))
+    got = _service_outcome(out)
+    rep = out.report
+    got["line"] = (f"run_service, examples/arrivals.py's stream, replan=True (budget "
+                   f"{SERVICE_REPLAN_BUDGET}, {SERVICE_REPLAN_ITERS} simulated "
+                   f"iterations): {len(out.events)} events "
+                   f"{[(e.kind, e.job) for e in out.events]}, {len(out.epochs)} epochs "
+                   f"({sum(e.replanned for e in out.epochs)} re-planned), deadlines met "
+                   f"{rep.deadlines_met}/{rep.n_jobs}, {rep.n_admitted} admitted, "
+                   f"fairness {rep.fairness:.3f}")
+    return got
+
+
+def _unit_service_mixed(device):
+    """``run_service`` on the tests' three-tenant mixed stream, and the
+    EDF, SJF and RR exclusive orderings of it under oes and fifo."""
+    from repro_torch.core import heterogeneous_cluster
+    from repro_torch.dynamics import (
+        ORDERINGS,
+        JobArrival,
+        ServiceConfig,
+        run_ordering_baseline,
+        run_service,
+        solo_makespan,
+    )
+
+    _, compute_job = _arrival_jobs()
+    cluster = heterogeneous_cluster(4, seed=3, gpu_range=(2, 4))
+    stream = []
+    for i, (t0, qos) in enumerate([(0.0, 0), (0.5, 1), (1.0, 1)]):
+        job = compute_job()
+        solo = solo_makespan(job, cluster, seed=0, index=i, device="cpu")
+        stream.append(JobArrival(f"t{i}", t0, job, deadline_s=t0 + 1.6 * solo, qos=qos))
+    out = run_service(stream, cluster, ServiceConfig(replan=False, device=device))
+    got = _service_outcome(out)
+    met = {"service": out.report.deadlines_met}
+    for policy in ("oes", "fifo"):
+        for order in ORDERINGS:
+            rep = run_ordering_baseline(stream, cluster, order, policy=policy, device=device)
+            met[f"{order}/{policy}"] = rep.deadlines_met
+            got["close"][f"{order}/{policy}"] = [t.t_complete for t in rep.tenants]
+    got["exact"]["met"] = sorted(met.items())
+    got["line"] = (f"the mixed stream (three tenants): deadlines met of 3, service "
+                   f"{met['service']}, " + ", ".join(
+                       f"{k} {v}" for k, v in met.items() if k != "service"))
+    return got
+
+
+def _cache_sweep_inputs():
+    from repro_torch.cache import collect_trace
+    from repro_torch.core import build_gnn_workload, testbed_cluster
+    from repro_torch.data.graph import synthetic_graph
+
+    g = synthetic_graph(n_nodes=2000, avg_degree=12, n_feats=16, n_parts=4, seed=0)
+    trace = collect_trace(g, n_samplers=8, seeds_per_iter=16, fanouts=(4, 4),
+                          n_iters=12, seed=0)
+    wl = build_gnn_workload(
+        n_stores=4, n_workers=4, samplers_per_worker=2, n_ps=1, n_iters=10,
+        store_to_sampler_gb=0.8, sampler_to_worker_gb=0.05, grad_gb=0.01,
+        store_exec_s=0.02, sampler_exec_s=0.04, worker_exec_s=0.06, ps_exec_s=0.01,
+        store_skew=[0.1, 0.1, 0.7, 0.1],
+    )
+    return trace, wl, testbed_cluster()
+
+
+def _unit_cache_sweep(device):
+    """``examples/cache_sweep.py``'s sections 2-4: the replay sweep, the
+    cache-adjusted makespans, and cache-aware against cache-oblivious
+    ETP judged under cache-adjusted traffic."""
+    from repro_torch.cache import (
+        CacheConfig,
+        build_hit_model,
+        cache_adjusted_realization,
+        cache_aware_etp,
+        cache_cost_fns,
+        replay,
+        samplers_per_machine,
+        static_hit_rate_estimate,
+    )
+    from repro_torch.core import etp_multichain, ifs_placement, simulate_torch
+
+    trace, wl, cluster = _cache_sweep_inputs()
+    sweep = [[float(replay(trace, pol, cap, k=2).mean())
+              for pol in ("static", "lru", "prefetch")] for cap in (100, 300, 600, 1200)]
+    est = static_hit_rate_estimate(trace, 600)
+    p0 = ifs_placement(wl, cluster, seed=0)
+    r = wl.realize(seed=0)
+    mks = [simulate_torch(wl, cluster, p0, r, device=device).makespan]
+    for cap in (150, 600):
+        adj = cache_adjusted_realization(
+            wl, cluster, p0, r, build_hit_model(trace, policy="lru", capacity_nodes=cap))
+        mks.append(simulate_torch(wl, cluster, p0, adj, device=device).makespan)
+    model = build_hit_model(trace, policy="prefetch", capacity_nodes=150)
+    cfg = CacheConfig(policy="prefetch", cache_gb=1.0)
+    kw = dict(n_chains=CACHE_CHAINS, budget=CACHE_BUDGET, sim_iters=CACHE_SIM_ITERS,
+              seed=0, device=device)
+    oblivious = etp_multichain(wl, cluster, **kw)
+    aware = cache_aware_etp(wl, cluster, model, cfg, sim_draws=1, **kw)
+    _, judge, _ = cache_cost_fns(wl, cluster, model, sim_iters=CACHE_SIM_ITERS,
+                                 sim_draws=3, seed=123, device=device)
+    judged = judge([oblivious.placement, aware.placement])
+    spm = [samplers_per_machine(wl, cluster, p).tolist()
+           for p in (oblivious.placement, aware.placement)]
+    return {
+        "exact": {"sweep": sweep, "estimate": est, "oblivious": oblivious.placement.y.tolist(),
+                  "aware": aware.placement.y.tolist()},
+        "close": {"makespans": mks, "judged": judged,
+                  "best": [oblivious.best_makespan, aware.best_makespan]},
+        "line": (f"cache_sweep: mean hit rate (2 samplers a cache; static, lru, "
+                 f"prefetch) at 100/300/600/1200 nodes "
+                 f"{[[round(x, 3) for x in row] for row in sweep]}; makespan uncached "
+                 f"{mks[0]:.3f} s, lru 150 nodes {mks[1]:.3f} s, lru 600 {mks[2]:.3f} s; "
+                 f"ETP ({CACHE_CHAINS} chains, budget {CACHE_BUDGET}, {CACHE_SIM_ITERS} "
+                 f"iterations) judged under cache-adjusted traffic: oblivious "
+                 f"{judged[0]:.3f} s (samplers/machine {spm[0]}), aware {judged[1]:.3f} s "
+                 f"({spm[1]})"),
+    }
+
+
+def _unit_cache_products(device):
+    """The feature-cache tier on the ogbn-products testbed job of the
+    replan phase (4 stores, 4 workers x 2 samplers, 1 PS): the profile's
+    hit model from its proxy trace, ``cache_aware_etp``, the winner
+    judged by ``cache_cost_fns`` under oes and fifo, and a cache-aware
+    ``Replanner`` through ``on_leave(3)`` (its per-machine budgets
+    shrink with the cluster)."""
+    from repro_torch.cache import (
+        CacheConfig,
+        cache_aware_etp,
+        cache_cost_fns,
+        hit_model_for_profile,
+        samplers_per_machine,
+    )
+    from repro_torch.core import (
+        OGBN_PRODUCTS,
+        build_workload_from_profile,
+        ifs_placement,
+        testbed_cluster,
+    )
+    from repro_torch.dynamics import ReplanConfig, Replanner
+
+    wl = build_workload_from_profile(
+        OGBN_PRODUCTS, n_stores=4, n_workers=4, samplers_per_worker=2, n_ps=1,
+        n_iters=REPLAN_INTERVALS * REPLAN_ITERS,
+    )
+    cluster = testbed_cluster()
+    model = hit_model_for_profile(OGBN_PRODUCTS, cache_gb=PRODUCTS_CACHE_GB,
+                                  policy="lru", n_samplers=8)
+    cfg = CacheConfig(policy="lru", cache_gb=[PRODUCTS_CACHE_GB] * cluster.M)
+    aware = cache_aware_etp(wl, cluster, model, cfg, n_chains=PRODUCTS_CACHE_CHAINS,
+                            budget=PRODUCTS_CACHE_BUDGET, sim_iters=PRODUCTS_CACHE_ITERS,
+                            seed=0, device=device)
+    p0 = ifs_placement(wl, cluster, seed=0)
+    judged = {}
+    for policy in ("oes", "fifo"):
+        _, judge, _ = cache_cost_fns(wl, cluster, model, sim_iters=PRODUCTS_CACHE_ITERS,
+                                     seed=123, policy=policy, device=device)
+        judged[policy] = judge([p0, aware.placement])
+    rp = Replanner(wl, cluster, aware.placement.copy(), config=ReplanConfig(
+        budget=PRODUCTS_LEAVE_BUDGET, sim_iters=PRODUCTS_CACHE_ITERS,
+        shaping="deadline", device=device), hit_model=model, cache_config=cfg)
+    rec = rp.on_leave(3)
+    budgets = np.asarray(rp.cache_config.cache_gb).tolist()
+    if len(budgets) != cluster.M - 1:
+        raise AssertionError(f"cache budgets did not shrink with the cluster: {budgets}")
+    return {
+        "exact": {"capacity": model.capacity_nodes, "aware": aware.placement.y.tolist(),
+                  "leave_y": rp.placement.y.tolist(), "budgets": budgets,
+                  "moved": rec.moved_tasks,
+                  "flows": [(f.src, f.dst, f.task, f.cls) for f in rec.flows]},
+        "close": {"best": [aware.best_makespan], "oes": judged["oes"],
+                  "fifo": judged["fifo"],
+                  "leave": [rec.makespan, rec.overlap_s, rec.objective, rec.forced_gb]},
+        "line": (f"ogbn-products testbed job (J={wl.J}, E={wl.E}), {PRODUCTS_CACHE_GB} GB "
+                 f"lru caches ({model.capacity_nodes} proxy nodes of "
+                 f"{model.trace.n_nodes}): cache_aware_etp ({PRODUCTS_CACHE_CHAINS} "
+                 f"chains, budget {PRODUCTS_CACHE_BUDGET}, {PRODUCTS_CACHE_ITERS} "
+                 f"iterations) best {aware.best_makespan:.4f} s, samplers/machine "
+                 f"{samplers_per_machine(wl, cluster, aware.placement).tolist()}; judged "
+                 f"(IFS, aware) oes {[round(x, 4) for x in judged['oes']]}, fifo "
+                 f"{[round(x, 4) for x in judged['fifo']]}; on_leave(3) under deadline "
+                 f"shaping (budget {PRODUCTS_LEAVE_BUDGET}): makespan {rec.makespan:.4f} s, "
+                 f"overlap {rec.overlap_s:.4f} s, {len(rec.flows)} flows, cache budgets "
+                 f"{budgets} GB"),
+    }
+
+
+TENANT_UNITS = {"joint": _unit_joint, "service_example": _unit_service_example,
+                "service_mixed": _unit_service_mixed}
+CACHE_UNITS = {"cache_sweep": _unit_cache_sweep, "cache_products": _unit_cache_products}
+
+
+def _cpu_unit(name):
+    """Worker process: one unit on the CPU."""
+    import torch
+
+    torch.set_num_threads(1)
+    return {**TENANT_UNITS, **CACHE_UNITS}[name]("cpu")
+
+
+def _check_unit(name, gpu, cpu):
+    """Decisions and placements exactly, times at the engine's parity
+    tolerance."""
+    from repro_torch.core import PARITY_ATOL, PARITY_RTOL
+
+    if gpu["exact"] != cpu["exact"]:
+        diff = [k for k in gpu["exact"] if gpu["exact"][k] != cpu["exact"].get(k)]
+        raise AssertionError(f"{name}: the card and the CPU decide differently: {diff}")
+    worst = 0.0
+    for k, v in gpu["close"].items():
+        a, b = np.asarray(v, dtype=np.float64), np.asarray(cpu["close"][k], dtype=np.float64)
+        if a.shape != b.shape or not np.allclose(a, b, rtol=PARITY_RTOL, atol=PARITY_ATOL):
+            raise AssertionError(f"{name}: {k} differs: {v} (cuda) vs {cpu['close'][k]} (cpu)")
+        fin = np.isfinite(a)
+        if fin.any():
+            worst = max(worst, float(np.max(np.abs(a[fin] - b[fin]))))
+    return worst
+
+
+def phase_tenants_cache(wf, t, units, tag):
+    """One path: the given units on the card (waterfill's count set to 0
+    just before, read just after), their CPU runs in worker processes
+    meanwhile, then the comparison."""
+    with ProcessPoolExecutor(min(len(units), CPU_WORKERS), mp_context=get_context("spawn"),
+                             initializer=_low_priority) as pool:
+        pending = {name: pool.submit(_cpu_unit, name) for name in units}
+        wf.waterfill_fill.launches = 0
+        gpu = {}
+        for name, fn in units.items():
+            t0 = time.perf_counter()
+            gpu[name] = fn("cuda")
+            print(f"[{tag}] {gpu[name]['line']}; wall {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        launches = wf.waterfill_fill.launches
+        t = _phase_done(f"{tag} on the card ({', '.join(units)})", t)
+        for name in units:
+            err = _check_unit(name, gpu[name], pending[name].result())
+            print(f"[{tag}] {name}: the card equals the CPU (decisions and placements "
+                  f"exactly; largest time gap {err:.3g} s)", flush=True)
+        t = _phase_done(f"waiting for the {tag} phase's CPU runs", t)
+    if launches == 0:
+        raise AssertionError(f"the {tag} path never launched the waterfill kernel")
+    print(f"[{tag}] waterfill launches on the {tag} path: {launches}", flush=True)
+    return launches, t
+
+
 def _phase_done(name, t0):
     print(f"[time] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
     return time.perf_counter()
@@ -2579,8 +2992,8 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("regimes", "sage", "lm_serve", "mamba_serve",
-                                       "moe_serve", "kimi_serve"),
+    ap.add_argument("--only", choices=("regimes", "tenants", "cache", "sage", "lm_serve",
+                                       "mamba_serve", "moe_serve", "kimi_serve"),
                     default=None, help="build the kernels and run this phase alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -2612,8 +3025,12 @@ def main(argv=None) -> int:
           f"{torch.backends.cuda.matmul.allow_tf32}, torch.backends.cudnn."
           f"allow_tf32 = {torch.backends.cudnn.allow_tf32}", flush=True)
     if args.only is not None:
-        if args.only == "regimes":
-            launches, t = phase_regimes_all(wf, t)
+        if args.only in ("regimes", "tenants", "cache"):
+            if args.only == "regimes":
+                launches, t = phase_regimes_all(wf, t)
+            else:
+                units = TENANT_UNITS if args.only == "tenants" else CACHE_UNITS
+                launches, t = phase_tenants_cache(wf, t, units, args.only)
             print(json.dumps({"waterfill_launches": launches}))
             print(f"[done] {time.perf_counter() - t_start:.1f} s ({args.only} only)")
             return 0
@@ -2658,6 +3075,8 @@ def main(argv=None) -> int:
     phase_profile(cands)
     t = _phase_done("engine profile", t)
     regime_launches, t = phase_regimes_all(wf, t)
+    tenant_launches, t = phase_tenants_cache(wf, t, TENANT_UNITS, "tenants")
+    cache_launches, t = phase_tenants_cache(wf, t, CACHE_UNITS, "cache")
 
     sage, sage_launches, t = phase_sage_all(sa, wf, t)
 
@@ -2671,7 +3090,8 @@ def main(argv=None) -> int:
     line = {
         "kernels": [
             _entry("waterfill_fill", "waterfill", "src/repro/kernels/waterfill.py:64",
-                   kern, launches + regime_launches + sage_launches["waterfill_fill"]),
+                   kern, launches + regime_launches + tenant_launches + cache_launches
+                   + sage_launches["waterfill_fill"]),
             _sage_entry(sage, sage_launches),
             _flash_entry(flash, flash_launches + moe_flash_launches
                          + kimi_launches["flash_attention"]),
@@ -2680,7 +3100,9 @@ def main(argv=None) -> int:
         ]
     }
     print(f"[launches] planning path: waterfill_fill {launches}; regimes and "
-          f"re-planning path: waterfill_fill {regime_launches}; GraphSAGE "
+          f"re-planning path: waterfill_fill {regime_launches}; tenants path: "
+          f"waterfill_fill {tenant_launches}; cache path: waterfill_fill "
+          f"{cache_launches}; GraphSAGE "
           f"path: {sage_launches}; LM serving path: flash_attention "
           f"{flash_launches}; mamba2 path: ssd_scan {ssd_entry['launches']}; "
           f"MoE path: moe_gemm {moe_entry['launches'] - kimi_launches['moe_gemm']}, "

@@ -1,9 +1,12 @@
 """DGTP on PyTorch and CUDA: the port of the ``repro`` package.
 
-Three slices so far: DGTP planning (``core``), GraphSAGE training
-(``data``, ``models.gnn``) and LM serving for the dense block pattern
-(``configs``, ``models``, ``serve``, ``launch.serve``), each with its TPU
-kernel rewritten by hand in CUDA (``kernels``).
+DGTP planning (``core``) with its regimes, re-planning and the
+arrival-driven multi-tenant service (``dynamics``), multi-job planning
+(``core.multijob``) and the feature-cache tier (``cache``); GraphSAGE
+training (``data``, ``models.gnn``); LM serving for the dense, mamba2 and
+MoE block patterns (``configs``, ``models``, ``serve``,
+``launch.serve``); each TPU kernel rewritten by hand in CUDA
+(``kernels``).
 
 ``repro_torch`` imports torch and numpy and nothing of ``repro`` or JAX.
 Its entry points take ``device=``; with none they run on the CUDA card

@@ -2,8 +2,10 @@
 
 ``from_reference(obj)`` turns a ``repro`` ``Workload``, ``ClusterSpec``,
 ``Placement``, ``Realization``, ``MigrationFlow``, ``BandwidthTrace``,
-``DynamicsEvent`` or ``ReplanConfig`` into the port's own class of the
-same name (a ``ReplanConfig``'s ``backend`` becomes ``device=``).  It
+``DynamicsEvent``, ``ReplanConfig``, ``MergedJob``, ``JobArrival``,
+``ServiceConfig``, ``AccessTrace``, ``HitModel`` or ``CacheConfig`` into
+the port's own class of the same name (a ``ReplanConfig``'s or
+``ServiceConfig``'s ``backend`` becomes ``device=``).  It
 reads the object's plain fields and numpy arrays by attribute
 (duck-typed), so nothing of ``repro`` is imported; arrays are copied.
 ``sage_from_reference(params, cfg)`` builds the port's ``GraphSAGE`` with
@@ -19,9 +21,14 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from .cache.adjust import CacheConfig
+from .cache.hitmodel import HitModel
+from .cache.trace import AccessTrace
 from .core.cluster import ClusterSpec, Machine, Placement, TaskSpec
 from .core.engine import DeviceLike, MigrationFlow
+from .core.multijob import MergedJob
 from .core.workload import Edge, Realization, TrafficModel, Workload
+from .dynamics.arrivals import JobArrival, ServiceConfig
 from .dynamics.replan import ReplanConfig
 from .dynamics.traces import BandwidthTrace, DynamicsEvent
 from .models.config import BLOCK_PATTERNS, LMConfig, MoESpec, SSMSpec
@@ -65,8 +72,50 @@ def _copy_fields(cls: Any, obj: Any, **override: Any) -> Any:
 
 def from_reference(obj: Any, *, device: DeviceLike = None) -> Any:
     """The port's counterpart of a reference planning object; ``device``
-    is the converted ``ReplanConfig``'s (the reference's ``backend`` names
-    an engine, not a device, so it is not carried)."""
+    is the converted ``ReplanConfig``'s or ``ServiceConfig``'s (the
+    reference's ``backend`` names an engine, not a device, so it is not
+    carried; a ``ServiceConfig``'s ``replan_config`` gets the same
+    ``device``)."""
+    if hasattr(obj, "admit_margin") and hasattr(obj, "max_defer"):
+        rc = obj.replan_config
+        return _copy_fields(
+            ServiceConfig, obj, device=device,
+            replan_config=None if rc is None else from_reference(rc, device=device),
+        )
+    if hasattr(obj, "t_arrive") and hasattr(obj, "deadline_s"):
+        return _copy_fields(JobArrival, obj, workload=from_reference(obj.workload))
+    if hasattr(obj, "task_offsets") and hasattr(obj, "job_seeds"):
+        return MergedJob(
+            workload=from_reference(obj.workload),
+            task_offsets=[int(o) for o in obj.task_offsets],
+            n_iters=[int(n) for n in obj.n_iters],
+            jobs=None if obj.jobs is None else [from_reference(j) for j in obj.jobs],
+            job_seeds=None if obj.job_seeds is None else [int(t) for t in obj.job_seeds],
+            names=None if obj.names is None else list(obj.names),
+        )
+    if hasattr(obj, "accesses") and hasattr(obj, "bytes_per_node"):
+        return AccessTrace(
+            accesses=[[np.array(a, dtype=np.int64) for a in s] for s in obj.accesses],
+            n_nodes=int(obj.n_nodes),
+            bytes_per_node=int(obj.bytes_per_node),
+        )
+    if hasattr(obj, "capacity_nodes") and hasattr(obj, "warm_iters"):
+        # the memoised replay table travels too: it is what the replay gives
+        return HitModel(
+            trace=from_reference(obj.trace),
+            policy=obj.policy,
+            capacity_nodes=int(obj.capacity_nodes),
+            warm_iters=int(obj.warm_iters),
+            _table={int(k): np.array(v, dtype=np.float64)
+                    for k, v in obj._table.items()},
+        )
+    if hasattr(obj, "reserve_mem") and hasattr(obj, "cache_gb"):
+        gb = obj.cache_gb
+        return CacheConfig(
+            policy=obj.policy,
+            cache_gb=float(gb) if np.ndim(gb) == 0 else np.array(gb, dtype=np.float64),
+            reserve_mem=bool(obj.reserve_mem),
+        )
     if hasattr(obj, "drift_threshold") and hasattr(obj, "migration_weight"):
         return _copy_fields(ReplanConfig, obj, device=device)
     if hasattr(obj, "times") and hasattr(obj, "slow"):

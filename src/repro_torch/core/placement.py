@@ -312,6 +312,7 @@ class _Chain:
         cost_fn: Optional[Callable[[Placement], float]],
         group_moves: float,
         anneal: bool,
+        extra_violation: Optional[Callable[[Placement], float]] = None,
         device: DeviceLike = None,
     ) -> None:
         self.workload = workload
@@ -327,6 +328,7 @@ class _Chain:
         self.cost_fn = cost_fn
         self.group_moves = group_moves
         self.anneal = anneal
+        self.extra_violation = extra_violation
         self.device = device
 
         self.rng = np.random.default_rng(seed)
@@ -366,6 +368,8 @@ class _Chain:
     def store(self, p: Placement, t: float) -> Tuple[float, float]:
         self.evals += 1
         v = violation_fraction(self.cluster, self.demands, p)
+        if self.extra_violation is not None:
+            v += self.extra_violation(p)
         c = t * (1.0 + v)
         self.cache[p.key()] = (t, c)
         return t, c
@@ -385,8 +389,13 @@ class _Chain:
         return self.store(p, t)
 
     def feasible(self, p: Placement) -> bool:
-        """Capacity feasibility for best-placement gating."""
-        return is_feasible(self.cluster, self.demands, p)
+        """Capacity feasibility for best-placement gating: base demands
+        and, when the hook is set, a clean extra-violation bill (a
+        candidate whose cache reservation overflows memory must not win
+        best-of even if its raw makespan is lowest)."""
+        if not is_feasible(self.cluster, self.demands, p):
+            return False
+        return self.extra_violation is None or self.extra_violation(p) <= 1e-12
 
     # -- MCMC steps -------------------------------------------------------
     def begin(self, cur_tc: Tuple[float, float]) -> None:
@@ -508,6 +517,7 @@ def etp_search(
     time_budget_s: Optional[float] = None,
     group_moves: float = 0.35,
     anneal: bool = True,
+    extra_violation: Optional[Callable[[Placement], float]] = None,
     device: DeviceLike = None,
 ) -> ETPResult:
     """MCMC search (Alg. 3). ``budget`` = I transitions; ``mu`` = relaxed
@@ -534,6 +544,12 @@ def etp_search(
       * ``anneal``: geometric beta ramp from beta/4 to 4*beta over the
         budget (explore -> exploit).
 
+    ``extra_violation`` (placement -> fraction) extends eq. 21's capacity
+    penalty with costs the demand matrix cannot express: the feature
+    cache's per-machine memory reservation (``repro_torch.cache.planner``)
+    depends on where samplers land, not just on how many there are.  A
+    candidate with a non-zero bill is not feasible for best-of.
+
     ``device`` is where the simulations run (``engine.resolve_device``:
     ``None`` means the CUDA card)."""
     t0 = time.perf_counter()
@@ -541,7 +557,7 @@ def etp_search(
         workload, cluster, budget=budget, mu=mu, beta=beta, sim_iters=sim_iters,
         sim_draws=sim_draws, seed=seed, init=init, policy=policy,
         cost_fn=cost_fn, group_moves=group_moves, anneal=anneal,
-        device=device,
+        extra_violation=extra_violation, device=device,
     )
     chain.begin(chain.measure_scalar(chain.cur))
     for z in range(budget):
@@ -574,7 +590,7 @@ def _chain_defaults() -> Dict[str, object]:
         k: sig.parameters[k].default
         for k in (
             "mu", "beta", "sim_iters", "sim_draws", "policy", "cost_fn",
-            "group_moves", "anneal", "device",
+            "group_moves", "anneal", "extra_violation", "device",
         )
     }
 
@@ -588,6 +604,7 @@ def etp_multichain(
     seed: int = 0,
     include_baseline_inits: bool = True,
     time_budget_s: Optional[float] = None,
+    batch_cost_fn: Optional[Callable[[Sequence[Placement]], List[float]]] = None,
     **kw: Any,
 ) -> ETPResult:
     """Beyond-paper: independent MCMC chains from diverse starts (random IFS
@@ -598,6 +615,12 @@ def etp_multichain(
     count while per-chain semantics — rng streams, caches, accept rules —
     stay those of a chain searched alone.  Each chain gets
     ``budget // n_chains`` transitions.
+
+    ``batch_cost_fn`` (many placements -> makespans) replaces the
+    simulated cost with an objective batched elsewhere: the multi-job
+    merged workloads (``core.multijob``) and the cache-adjusted traffic
+    (``cache.planner``).  Precedence: an explicit scalar ``cost_fn``, then
+    ``batch_cost_fn``, then simulation.
 
     ``**kw`` takes ``etp_search``'s search options; ``device=`` is where
     the pooled evaluations run."""
@@ -614,6 +637,10 @@ def etp_multichain(
     t0 = time.perf_counter()
     params = _chain_defaults()
     params.update(kw)
+    explicit_cost_fn = params["cost_fn"]
+    if batch_cost_fn is not None and explicit_cost_fn is None:
+        # the chains then draw no Monte-Carlo realizations of their own
+        params["cost_fn"] = lambda p: batch_cost_fn([p])[0]
     chains = [
         _Chain(
             workload, cluster, budget=per,
@@ -627,7 +654,8 @@ def etp_multichain(
         pairs: List[Tuple[_Chain, Placement]]
     ) -> List[Tuple[float, float]]:
         """Memoised cost for many (chain, placement) pairs; all cache
-        misses share one ``simulate_batch_torch`` call."""
+        misses share one ``simulate_batch_torch`` call (or one
+        ``batch_cost_fn`` call)."""
         out: Dict[int, Tuple[float, float]] = {}
         need: List[int] = []
         for i, (ch, p) in enumerate(pairs):
@@ -637,8 +665,10 @@ def etp_multichain(
             else:
                 need.append(i)
         if need:
-            if params["cost_fn"] is not None:
-                ts = [params["cost_fn"](pairs[i][1]) for i in need]
+            if explicit_cost_fn is not None:
+                ts = [explicit_cost_fn(pairs[i][1]) for i in need]
+            elif batch_cost_fn is not None:
+                ts = batch_cost_fn([pairs[i][1] for i in need])
             else:
                 ts = mean_batch_makespans(
                     workload, cluster,

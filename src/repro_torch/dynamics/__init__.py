@@ -6,11 +6,26 @@
 ``replan``    — ``Replanner``: warm-started, migration-aware incremental
                 ETP on drift / epoch / join / leave;
 ``scenario``  — strategy evaluation (static vs replan vs oracle) against
-                ground-truth drift traces.
-
-The reference's arrival-driven service (``dynamics.arrivals``) is not
-ported yet (ROADMAP Queue 1 item 5).
+                ground-truth drift traces;
+``arrivals``  — scheduler-as-a-service: arrival-driven multi-tenant
+                streams with admission control, per-tenant QoS classes,
+                epoch-based co-scheduling, and SLO accounting, plus the
+                EDF/SJF/round-robin exclusive-ordering baselines.
 """
+from .arrivals import (
+    ORDERINGS,
+    EpochRecord,
+    JobArrival,
+    ServiceConfig,
+    ServiceEvent,
+    ServiceOutcome,
+    SLOReport,
+    TenantOutcome,
+    jain_index,
+    run_ordering_baseline,
+    run_service,
+    solo_makespan,
+)
 from .replan import (
     ReplanConfig,
     ReplannerConfig,

@@ -17,20 +17,24 @@ time.  ``Replanner`` closes both gaps:
     with the moves competing against training traffic.  The closed-form
     per-NIC drain bill survives as ``migration_drain_bound``, a lower
     bound reported in every record but never the model;
+  * **warm cache state** — when a feature-cache tier exists
+    (``hit_model``), the objective prices each candidate's cache-adjusted
+    traffic, with hit curves continuing from the previous interval's end
+    (``HitModel.warm_started``) instead of pretending every re-plan
+    starts cold, and ``cache_config`` reserves the cache's memory on each
+    sampler-hosting machine;
   * **elastic membership** — machine leave (= failure) and join are the
     same re-plan path with the cluster edited first; forced restores off
     a dead machine are flows over the SURVIVING machines' NICs, in
-    post-leave machine indices throughout.
-
-The reference's feature-cache tier (``hit_model``, ``cache_config``) is
-not ported yet: passing either raises ``NotImplementedError`` (ROADMAP
-Queue 1 item 5, its cache bullet).
+    post-leave machine indices throughout, and per-machine cache budgets
+    (``CacheConfig.cache_gb`` as a vector) shrink and grow with
+    membership.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -47,11 +51,6 @@ from ..core.units import GB, Ratio, Seconds
 from ..core.workload import Workload
 from ..obs import metrics as obs_metrics
 from .traces import relative_bw_drift
-
-CACHE_TIER = (
-    "the feature-cache tier (hit_model, cache_config) is not ported yet: "
-    "ROADMAP Queue 1 item 5, its cache bullet"
-)
 
 
 RESTART_GB = 0.05  # process image / warm buffers any relocated task re-ships
@@ -272,8 +271,8 @@ class Replanner:
     placement: Placement
     config: ReplannerConfig = field(default_factory=ReplannerConfig)
     state_gb: Optional[np.ndarray] = None
-    hit_model: Optional[object] = None  # the cache tier: not ported
-    cache_config: Optional[object] = None  # the cache tier: not ported
+    hit_model: Optional[object] = None  # repro_torch.cache.HitModel
+    cache_config: Optional[object] = None  # repro_torch.cache.CacheConfig
     records: List[ReplanRecord] = field(default_factory=list)
     #: optional override for candidate-scoring realizations, called as
     #: ``draws_fn(seed, n_iters, n_draws) -> List[Realization]`` (merged
@@ -281,8 +280,6 @@ class Replanner:
     draws_fn: Optional[Callable[[int, int, int], List]] = None
 
     def __post_init__(self) -> None:
-        if self.hit_model is not None or self.cache_config is not None:
-            raise NotImplementedError(CACHE_TIER)
         if self.state_gb is None:
             self.state_gb = default_task_state_gb(self.workload, self.cluster)
         self.state_gb = np.asarray(self.state_gb, dtype=np.float64)
@@ -297,6 +294,37 @@ class Replanner:
 
     def should_replan(self, bw_in: np.ndarray, bw_out: np.ndarray) -> bool:
         return self.drift(bw_in, bw_out) > self.config.drift_threshold
+
+    # -- cache state ------------------------------------------------------
+    def advance_cache(self, served_iters: int) -> None:
+        """The previous interval served ``served_iters`` iterations: the
+        deployed caches kept their contents, so the NEXT plan's hit curves
+        continue from there."""
+        if self.hit_model is not None and served_iters > 0:
+            self.hit_model = self.hit_model.warm_started(served_iters)
+
+    def _cost_fn(
+        self, cluster: ClusterSpec
+    ) -> Tuple[Optional[Callable[..., Any]], Optional[Callable[..., Any]]]:
+        """(cost_fn, extra_violation) for ETP on ``cluster``: cache-aware
+        (warm model + per-machine reservations) when a cache tier exists,
+        engine defaults otherwise."""
+        if self.hit_model is None:
+            return None, None
+        from ..cache.planner import cache_cost_fns, make_reservation_fn
+
+        scalar_cost, _, _ = cache_cost_fns(
+            self.workload, cluster, self.hit_model,
+            sim_iters=self.config.sim_iters, sim_draws=self.config.sim_draws,
+            seed=self.config.seed, policy=self.config.policy,
+            device=self.config.device,
+        )
+        extra = (
+            make_reservation_fn(self.workload, cluster, self.cache_config)
+            if self.cache_config is not None
+            else None
+        )
+        return scalar_cost, extra
 
     # -- the re-plan core -------------------------------------------------
     def replan(
@@ -352,6 +380,12 @@ class Replanner:
                 n_draws=cfg.sim_draws,
             )
         n_d = len(reals)
+        cache_cost, extra = self._cost_fn(cluster_now)
+        rewriter = None
+        if self.hit_model is not None:
+            from ..cache.adjust import CacheRewriter
+
+            rewriter = CacheRewriter(self.workload, cluster_now, self.hit_model)
         # per-placement (base, overlap, flows) for the committed record,
         # filled by the objective as the chain measures candidates (memoised
         # upstream by placement key, so each unique candidate is simulated
@@ -367,24 +401,27 @@ class Replanner:
             shaping needs the clean variant first: it is recorded, the
             gated flows' deadlines are filled from its task starts
             (``annotate_deadlines``), and the loaded variant runs second;
-            the returned ``flows`` carry those deadlines."""
+            the returned ``flows`` carry those deadlines.  With a cache
+            tier the draws are rewritten to ``p``'s cache-adjusted traffic
+            first, so the overlap is priced against the contention the
+            flows will see in the scenario's interval simulation."""
+            rs = [rewriter.adjust(p, r) for r in reals] if rewriter else list(reals)
             if migs and cfg.shaping == "deadline":
                 clean_res = simulate_batch_torch(
-                    self.workload, cluster_now, [p] * n_d, reals,
+                    self.workload, cluster_now, [p] * n_d, rs,
                     policy=cfg.policy, record=True, device=cfg.device,
                 )
                 clean = sum(r.makespan for r in clean_res) / n_d
                 migs = annotate_deadlines(migs, clean_res)
                 loaded_res = simulate_batch_torch(
-                    self.workload, cluster_now, [p] * n_d, reals,
+                    self.workload, cluster_now, [p] * n_d, rs,
                     policy=cfg.policy, shaping="deadline",
                     migrations=[migs] * n_d, device=cfg.device,
                 )
                 loaded = sum(r.makespan for r in loaded_res) / n_d
             elif migs:
                 res = simulate_batch_torch(
-                    self.workload, cluster_now, [p] * (2 * n_d),
-                    list(reals) + list(reals),
+                    self.workload, cluster_now, [p] * (2 * n_d), rs + rs,
                     policy=cfg.policy, shaping=cfg.shaping,
                     migrations=[None] * n_d + [migs] * n_d,
                     device=cfg.device,
@@ -393,7 +430,7 @@ class Replanner:
                 loaded = sum(r.makespan for r in res[n_d:]) / n_d
             else:
                 res = simulate_batch_torch(
-                    self.workload, cluster_now, [p] * n_d, reals,
+                    self.workload, cluster_now, [p] * n_d, rs,
                     policy=cfg.policy, device=cfg.device,
                 )
                 clean = sum(r.makespan for r in res) / n_d
@@ -414,7 +451,13 @@ class Replanner:
 
         def objective(p: Placement) -> float:
             migs = flows_for(p)
-            if migs and weight > 0:
+            if cache_cost is not None:
+                base = cache_cost(p)
+                overlap = 0.0
+                if migs and weight > 0:
+                    clean, loaded, migs = sim_pair(p, migs)
+                    overlap = loaded - clean
+            elif migs and weight > 0:
                 base, loaded, migs = sim_pair(p, migs)
                 overlap = loaded - base
             else:
@@ -437,6 +480,7 @@ class Replanner:
             sim_iters=cfg.sim_iters,
             sim_draws=cfg.sim_draws,
             cost_fn=objective,
+            extra_violation=extra,
             device=cfg.device,
         )
         committed = res.placement
@@ -488,13 +532,16 @@ class Replanner:
         bw_out: np.ndarray,
         *,
         trigger: str = "epoch",
+        served_iters: int = 0,
         remaining_intervals: int = 1,
     ) -> ReplanRecord:
-        """Epoch-boundary hook: threshold the observed bandwidth drift,
-        re-plan against the current snapshot if it exceeds the tolerance
-        — otherwise keep the incumbent (recorded as a declined decision).
-        ``remaining_intervals`` amortises the migration overlap over the
-        plan's expected lifetime (see ``replan``)."""
+        """Epoch-boundary hook: advance warm cache state, threshold the
+        observed bandwidth drift, re-plan against the current snapshot if
+        it exceeds the tolerance — otherwise keep the incumbent (recorded
+        as a declined decision).  ``remaining_intervals`` amortises the
+        migration overlap over the plan's expected lifetime (see
+        ``replan``)."""
+        self.advance_cache(served_iters)
         d = self.drift(bw_in, bw_out)
         if d > self.config.drift_threshold:
             return self.replan(
@@ -512,8 +559,8 @@ class Replanner:
     # -- elastic membership ----------------------------------------------
     def on_leave(self, machine: int) -> ReplanRecord:
         """Machine leave/failure: remap the orphaned tasks onto the
-        survivors (``remap_after_leave``), then run the standard warm
-        re-plan.
+        survivors (``remap_after_leave``), shrink per-machine cache
+        budgets, then run the standard warm re-plan.
 
         The forced moves off the dead machine are already inside the warm
         start, so the discretionary migration term only charges moves
@@ -532,12 +579,34 @@ class Replanner:
             int(j): replica for j in np.nonzero(old_y == machine)[0]
         }
         self.placement = warm
+        self._drop_cache_budget(machine)
         return self.replan(
             new_cluster, trigger="leave", forced_restores=forced
         )
 
-    def on_join(self, machine: Machine) -> ReplanRecord:
+    def on_join(self, machine: Machine, *, cache_gb: float = 0.0) -> ReplanRecord:
         """Machine join: the incumbent stays valid (indices unchanged),
-        the new machine arrives empty, and the warm re-plan decides what
+        the new machine arrives empty with its own cache budget
+        (heterogeneous by construction), and the warm re-plan decides what
         is worth moving onto it given the simulated migration overlap."""
-        return self.replan(self.cluster.with_machine(machine), trigger="join")
+        new_cluster = self.cluster.with_machine(machine)
+        self._grow_cache_budget(new_cluster.M, cache_gb)
+        return self.replan(new_cluster, trigger="join")
+
+    def _drop_cache_budget(self, machine: int) -> None:
+        if self.cache_config is None:
+            return
+        gb = np.asarray(self.cache_config.cache_gb, dtype=np.float64)
+        if gb.ndim == 0:
+            return  # scalar broadcasts to any M
+        self.cache_config = dataclasses.replace(
+            self.cache_config, cache_gb=np.delete(gb, machine)
+        )
+
+    def _grow_cache_budget(self, new_m: int, cache_gb: float) -> None:
+        if self.cache_config is None:
+            return
+        gb = self.cache_config.cache_gb_per_machine(new_m - 1)
+        self.cache_config = dataclasses.replace(
+            self.cache_config, cache_gb=np.append(gb, float(cache_gb))
+        )

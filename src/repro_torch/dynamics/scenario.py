@@ -24,6 +24,9 @@ Strategies:
 Every simulation, the committed intervals' included, runs on
 ``ReplanConfig.device`` (``None``: the CUDA card).  The planner only
 ever sees ``trace.bw_at(now)`` — the future of the trace stays hidden.
+With a feature-cache tier (``hit_model``, ``cache_config``) each
+interval's traffic is rewritten by its placement's hit rates, the caches
+staying warm across intervals.
 Per-interval schedule traces and their blame (``collect_traces``,
 ``ScenarioOutcome.blame``) need the observability tier, which is not
 ported yet: both raise ``NotImplementedError``.
@@ -38,7 +41,7 @@ from ..core.engine import MigrationFlow
 from ..core.engine_torch import simulate_torch
 from ..core.placement import etp_multichain, ifs_placement
 from ..core.workload import Workload
-from .replan import CACHE_TIER, ReplannerConfig, Replanner
+from .replan import ReplannerConfig, Replanner
 from .traces import BandwidthTrace
 
 STRATEGIES = ("static", "replan", "oracle")
@@ -120,8 +123,8 @@ def run_scenario(
     seed: int = 0,
     init_placement: Optional[Placement] = None,
     replan_config: Optional[ReplannerConfig] = None,
-    hit_model: Optional[object] = None,
-    cache_config: Optional[object] = None,
+    hit_model: Optional[object] = None,  # repro_torch.cache.HitModel
+    cache_config: Optional[object] = None,  # repro_torch.cache.CacheConfig
     oracle_budget: int = 600,
     oracle_chains: int = 4,
     policy: str = "oes",
@@ -129,13 +132,13 @@ def run_scenario(
 ) -> ScenarioOutcome:
     """Run ``n_intervals`` plan intervals of ``iters_per_interval``
     iterations each under ``strategy`` on the true dynamic cluster, on
-    ``replan_config.device``.  ``hit_model`` / ``cache_config`` (the cache
-    tier) and ``collect_traces`` raise ``NotImplementedError``: their
-    tiers are not ported yet."""
+    ``replan_config.device``.  ``hit_model`` / ``cache_config`` add the
+    feature-cache tier: every interval's traffic is cache-adjusted for its
+    placement, and ``replan`` searches against it.  ``collect_traces``
+    raises ``NotImplementedError``: the observability tier is not ported
+    yet."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; known: {STRATEGIES}")
-    if hit_model is not None or cache_config is not None:
-        raise NotImplementedError(CACHE_TIER)
     if collect_traces:
         raise NotImplementedError(OBS_TIER)
     cfg = replan_config or ReplannerConfig()
@@ -143,12 +146,16 @@ def run_scenario(
     full = workload.realize(
         seed=seed, n_iters=n_intervals * iters_per_interval
     )
-    replanner = Replanner(workload, cluster, placement.copy(), config=cfg)
+    replanner = Replanner(
+        workload, cluster, placement.copy(), config=cfg,
+        hit_model=hit_model, cache_config=cache_config,
+    )
     # only the replan strategy commits migration flows, so only it can
     # ride them under a traffic-class shaping mode (cfg.shaping)
     shaping = cfg.shaping if strategy == "replan" else None
     out = ScenarioOutcome(strategy=strategy, shaping=shaping)
     now = 0.0
+    model = hit_model
     for i in range(n_intervals):
         bw_in, bw_out = trace.bw_at(now)
         migration_s = 0.0
@@ -157,13 +164,18 @@ def run_scenario(
         replanned = False
         if strategy == "replan":
             rec = replanner.observe(
-                bw_in, bw_out, remaining_intervals=n_intervals - i,
+                bw_in, bw_out,
+                served_iters=iters_per_interval if i > 0 else 0,
+                remaining_intervals=n_intervals - i,
             )
+            model = replanner.hit_model
             replanned = rec.replanned
             migration_s = rec.migration_s
             flows = rec.flows if rec.replanned else []
             placement = replanner.placement
         elif strategy == "oracle":
+            if model is not None and i > 0:
+                model = model.warm_started(iters_per_interval)
             snap = trace.snapshot_cluster(cluster, now)
             res = etp_multichain(
                 workload, snap, n_chains=oracle_chains,
@@ -173,7 +185,14 @@ def run_scenario(
             )
             placement = res.placement
             replanned = True  # migration deliberately free: upper bound
+        elif model is not None and i > 0:
+            # static strategy: caches still warm across intervals
+            model = model.warm_started(iters_per_interval)
         r_iv = full.window(i * iters_per_interval, (i + 1) * iters_per_interval)
+        if model is not None:
+            from ..cache.adjust import CacheRewriter
+
+            r_iv = CacheRewriter(workload, cluster, model).adjust(placement, r_iv)
         tw = trace.window(now)
         # committed flows ride the TRUE interval simulation under the
         # replanner's shaping mode (their deadline annotations travel with

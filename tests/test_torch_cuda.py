@@ -1,7 +1,8 @@
 """The port on a CUDA card against the same port on the CPU.
 
 The torch engine (static, and under a trace, flows and deadline
-shaping), the GraphSAGE aggregation kernels (the forward at
+shaping), the arrival service, multi-job search and cache-aware search
+(each under fifo, so that waterfill runs), the GraphSAGE aggregation kernels (the forward at
 each access width, and the backward) against their plain versions, GraphSAGE's
 forward and backward, and the wgmma probe
 (``csrc/wgmma_probe.cu``: one block of m64nNk16 products through the
@@ -144,6 +145,123 @@ def test_engine_regimes_match_cpu(cuda):
         for key in ("nic_in_gb", "nic_out_gb", "busy_s"):
             assert np.allclose(g.aggregates[key], r.aggregates[key],
                                rtol=PARITY_RTOL, atol=PARITY_ATOL)
+
+
+def _compute_job(n_iters=4, heavy=1.0):
+    return build_gnn_workload(
+        n_stores=2, n_workers=1, samplers_per_worker=1, n_ps=1,
+        n_iters=n_iters, store_to_sampler_gb=0.2, sampler_to_worker_gb=0.1,
+        grad_gb=0.05, store_exec_s=0.1, sampler_exec_s=0.2,
+        worker_exec_s=2.0 * heavy, ps_exec_s=0.1, pmr=1.2,
+    )
+
+
+@pytest.mark.cuda
+def test_service_matches_cpu(cuda):
+    """``run_service`` under fifo with warm re-planning, and an ordering
+    baseline, on the card: the same decisions as on the CPU, the times at
+    the engine's parity tolerance, and waterfill launched."""
+    from repro_torch.dynamics import (
+        JobArrival,
+        ReplanConfig,
+        ServiceConfig,
+        run_ordering_baseline,
+        run_service,
+        solo_makespan,
+    )
+
+    cluster = heterogeneous_cluster(4, seed=3, gpu_range=(2, 4))
+    stream = []
+    for i, (t0, qos) in enumerate([(0.0, 0), (0.5, 1), (1.0, 1)]):
+        job = _compute_job()
+        solo = solo_makespan(job, cluster, seed=0, index=i, device="cpu")
+        stream.append(JobArrival(f"t{i}", t0, job, deadline_s=t0 + 1.6 * solo, qos=qos))
+    stream.append(JobArrival("doomed", 0.75, _compute_job(), deadline_s=1.0))
+
+    def service(dev):
+        rc = ReplanConfig(budget=4, sim_iters=2, shaping="strict", policy="fifo",
+                          device=dev)
+        return run_service(stream, cluster, ServiceConfig(policy="fifo",
+                                                          replan_config=rc,
+                                                          device=dev))
+
+    before = waterfill_fill.launches
+    got = service(cuda)
+    assert waterfill_fill.launches > before
+    want = service("cpu")
+    assert [(e.kind, e.job) for e in got.events] == [(e.kind, e.job) for e in want.events]
+    assert np.allclose([e.t for e in got.events], [e.t for e in want.events],
+                       rtol=PARITY_RTOL, atol=PARITY_ATOL)
+    assert [(e.jobs, e.served, e.reason, e.replanned) for e in got.epochs] == [
+        (e.jobs, e.served, e.reason, e.replanned) for e in want.epochs]
+    assert [(t.admitted, t.met) for t in got.report.tenants] == [
+        (t.admitted, t.met) for t in want.report.tenants]
+    done = [t for t in got.report.tenants if t.admitted]
+    assert np.allclose([t.t_complete for t in done],
+                       [t.t_complete for t in want.report.tenants if t.admitted],
+                       rtol=PARITY_RTOL, atol=PARITY_ATOL)
+    g = run_ordering_baseline(stream, cluster, "rr", policy="fifo", device=cuda)
+    w = run_ordering_baseline(stream, cluster, "rr", policy="fifo", device="cpu")
+    assert np.allclose([t.t_complete for t in g.tenants], [t.t_complete for t in w.tenants],
+                       rtol=PARITY_RTOL, atol=PARITY_ATOL)
+    assert g.deadlines_met == w.deadlines_met
+
+
+@pytest.mark.cuda
+def test_joint_search_matches_cpu(cuda):
+    """Multi-job ETP under fifo (waterfill's rates) on the card: the same
+    winner and best cost as on the CPU, and per-job makespans."""
+    from repro_torch.core import simulate_torch
+    from repro_torch.core.multijob import joint_search, per_job_makespans, realize_merged
+
+    jobs = [_compute_job(4), build_gnn_workload(
+        n_stores=2, n_workers=2, samplers_per_worker=2, n_ps=1, n_iters=3,
+        store_to_sampler_gb=1.0, sampler_to_worker_gb=0.5, grad_gb=0.2,
+        store_exec_s=0.3, sampler_exec_s=0.4, worker_exec_s=0.8,
+        ps_exec_s=0.2, pmr=1.3)]
+    cluster = heterogeneous_cluster(4, seed=3, gpu_range=(2, 4))
+    kw = dict(n_chains=2, budget=8, seed=0, policy="fifo", sim_iters=3)
+    before = waterfill_fill.launches
+    mj, got = joint_search(jobs, cluster, device=cuda, **kw)
+    assert waterfill_fill.launches > before
+    _, want = joint_search(jobs, cluster, device="cpu", **kw)
+    assert np.array_equal(got.placement.y, want.placement.y)
+    assert np.isclose(got.best_makespan, want.best_makespan, rtol=PARITY_RTOL,
+                      atol=PARITY_ATOL)
+    r = realize_merged(mj, seed=0)
+    spans = [per_job_makespans(mj, simulate_torch(mj.workload, cluster, got.placement, r,
+                                                  policy="fifo", record=True, device=d))
+             for d in (cuda, "cpu")]
+    assert np.allclose(spans[0], spans[1], rtol=PARITY_RTOL, atol=PARITY_ATOL)
+
+
+@pytest.mark.cuda
+def test_cache_aware_etp_matches_cpu(cuda):
+    """Cache-aware ETP (prefetch buffers, a binding reservation) under oes
+    and fifo on the card: the same winner and best cost as on the CPU."""
+    from repro_torch.cache import CacheConfig, build_hit_model, cache_aware_etp, collect_trace
+
+    trace = collect_trace(synthetic_graph(n_nodes=2000, avg_degree=12, n_feats=16,
+                                          n_parts=4, seed=0),
+                          n_samplers=8, seeds_per_iter=16, fanouts=(4, 4), n_iters=12)
+    wl = build_gnn_workload(
+        n_stores=4, n_workers=4, samplers_per_worker=2, n_ps=1, n_iters=10,
+        store_to_sampler_gb=0.8, sampler_to_worker_gb=0.05, grad_gb=0.01,
+        store_exec_s=0.02, sampler_exec_s=0.04, worker_exec_s=0.06,
+        ps_exec_s=0.01, store_skew=[0.1, 0.1, 0.7, 0.1],
+    )
+    from repro_torch.core import testbed_cluster
+
+    cluster = testbed_cluster()
+    model = build_hit_model(trace, policy="prefetch", capacity_nodes=150)
+    for policy in ("oes", "fifo"):
+        kw = dict(n_chains=4, budget=16, sim_iters=6, seed=0, policy=policy)
+        cfg = CacheConfig(policy="prefetch", cache_gb=1.0)
+        got = cache_aware_etp(wl, cluster, model, cfg, device=cuda, **kw)
+        want = cache_aware_etp(wl, cluster, model, cfg, device="cpu", **kw)
+        assert np.array_equal(got.placement.y, want.placement.y), policy
+        assert np.isclose(got.best_makespan, want.best_makespan, rtol=PARITY_RTOL,
+                          atol=PARITY_ATOL)
 
 
 def _sage_inputs(seed, n, f, m, k):

@@ -10,8 +10,8 @@
     strategy (budget 24, 2 intervals), give the reference's records and
     placements at ``PARITY_RTOL``; the re-planner counts into the port's
     metrics registry as the reference's does;
-  * the cache tier and ``collect_traces`` raise, naming their ROADMAP
-    items; ``from_reference`` carries flows, traces, events and configs.
+  * ``collect_traces`` and ``blame()`` raise, naming their ROADMAP item;
+    ``from_reference`` carries flows, traces, events and configs.
 """
 import dataclasses
 
@@ -212,17 +212,19 @@ def test_replanner_counts_into_the_metrics_registry(case):
 
 
 def test_unported_tiers_raise_naming_their_items(case):
+    """Only the observability tier (schedule traces, blame) still raises;
+    the cache tier is ported (``tests/test_torch_cache.py`` holds
+    ``Replanner`` and ``run_scenario`` with it to the reference)."""
+    from repro_torch.cache import CacheConfig
+
     wl, cluster, p0 = case
     pwl, pc, pp = from_reference(wl), from_reference(cluster), from_reference(p0)
     cfg = port.ReplanConfig(device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5, its cache bullet"):
-        port.Replanner(pwl, pc, pp, config=cfg, hit_model=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5, its cache bullet"):
-        port.Replanner(pwl, pc, pp, config=cfg, cache_config=object())
+    budgets = CacheConfig(cache_gb=[1.0, 2.0, 3.0, 4.0])
+    rp = port.Replanner(pwl, pc, pp, config=cfg, cache_config=budgets)
+    assert rp.cache_config is budgets and rp.hit_model is None
     trace = port.constant_trace(pc)
     kw = dict(strategy="static", n_intervals=1, iters_per_interval=2, replan_config=cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5, its cache bullet"):
-        port.run_scenario(pwl, pc, trace, hit_model=object(), **kw)
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         port.run_scenario(pwl, pc, trace, collect_traces=True, **kw)
     out = port.run_scenario(pwl, pc, trace, **kw)

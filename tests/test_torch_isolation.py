@@ -2,15 +2,17 @@
 
   * an AST scan of every module under ``src/repro_torch/`` and of the
     scripts ``chip_smoke.py``, ``engine_probe.py``, ``flash_ablate.py``,
-    ``sage_ablate.py``, ``examples/train_graphsage_torch.py`` and
-    ``examples/dynamic_replan_torch.py`` finds no import of ``jax`` or of
+    ``sage_ablate.py``, ``examples/train_graphsage_torch.py``,
+    ``examples/dynamic_replan_torch.py``, ``examples/arrivals_torch.py``
+    and ``examples/cache_sweep_torch.py`` finds no import of ``jax`` or of
     ``repro``;
   * importing the port in a fresh interpreter leaves both out of
     ``sys.modules``;
   * an entry point called without ``device`` runs on CUDA, so with no
     card present it raises instead of falling back to the CPU (the
     planner, the engine's regimes and the re-planner with its scenario
-    and example, GraphSAGE and its example, the LM and
+    and example, multi-job search, the arrival service and the
+    cache-aware search with their examples, GraphSAGE and its example, the LM and
     ``repro_torch.launch.serve`` on every pattern, the SSD scan and the
     grouped GEMM).
 """
@@ -49,6 +51,8 @@ def test_no_jax_or_reference_imports_in_source():
         ROOT / "flash_ablate.py", ROOT / "sage_ablate.py",
         ROOT / "examples" / "train_graphsage_torch.py",
         ROOT / "examples" / "dynamic_replan_torch.py",
+        ROOT / "examples" / "arrivals_torch.py",
+        ROOT / "examples" / "cache_sweep_torch.py",
     ]
     assert len(files) > 10
     bad = [
@@ -70,7 +74,8 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import repro_torch.serve, repro_torch.launch.serve\n"
         "import repro_torch.kernels.ssd_scan, repro_torch.kernels.moe_gemm\n"
         "import repro_torch.models.ssm, repro_torch.models.moe\n"
-        "import repro_torch.dynamics, repro_torch.obs\n"
+        "import repro_torch.dynamics, repro_torch.obs, repro_torch.cache\n"
+        "import repro_torch.core.multijob, repro_torch.dynamics.arrivals\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
@@ -166,6 +171,67 @@ def test_regimes_and_replanning_default_to_cuda(monkeypatch):
         example.main([])
     # explicitly asking for the CPU works
     assert simulate_torch(wl, cluster, p, r, device="cpu", **regimes).makespan > 0
+
+
+def test_tenants_and_cache_default_to_cuda(monkeypatch):
+    """``joint_search``, ``run_service``, the ordering baselines,
+    ``cache_aware_etp`` and the two walkthroughs
+    (``examples/arrivals_torch.py``, ``examples/cache_sweep_torch.py``)
+    run on CUDA unless asked for the CPU, and raise with no card."""
+    import importlib.util
+
+    from repro_torch.cache import (
+        CacheConfig,
+        build_hit_model,
+        cache_aware_etp,
+        collect_trace,
+    )
+    from repro_torch.core import build_gnn_workload, heterogeneous_cluster
+    from repro_torch.core.multijob import joint_search
+    from repro_torch.data import synthetic_graph
+    from repro_torch.dynamics import (
+        JobArrival,
+        ServiceConfig,
+        run_ordering_baseline,
+        run_service,
+    )
+
+    examples = []
+    for name in ("arrivals_torch", "cache_sweep_torch"):
+        spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        examples.append(mod)
+    wl = build_gnn_workload(
+        n_stores=2, n_workers=1, samplers_per_worker=2, n_ps=1, n_iters=2,
+        store_to_sampler_gb=0.5, sampler_to_worker_gb=0.3, grad_gb=0.2,
+        store_exec_s=0.3, sampler_exec_s=0.4, worker_exec_s=0.8,
+        ps_exec_s=0.2,
+    )
+    cluster = heterogeneous_cluster(3, seed=0)
+    trace = collect_trace(synthetic_graph(n_nodes=200, avg_degree=4, n_feats=4,
+                                          n_parts=2, seed=0),
+                          n_samplers=2, seeds_per_iter=4, fanouts=(2,), n_iters=2)
+    model = build_hit_model(trace, capacity_nodes=20)
+    stream = [JobArrival("a", 0.0, wl, deadline_s=1e9)]
+    kw = dict(n_chains=1, budget=1, sim_iters=2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        joint_search([wl, wl], cluster, **kw)
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_service(stream, cluster, ServiceConfig(replan=False))
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_ordering_baseline(stream, cluster, "edf")
+    with pytest.raises(RuntimeError, match="cuda"):
+        cache_aware_etp(wl, cluster, model, CacheConfig(), **kw)
+    for mod in examples:
+        with pytest.raises(RuntimeError, match="cuda"):
+            mod.main([])
+    # explicitly asking for the CPU works
+    out = run_service(stream, cluster, ServiceConfig(replan=False, device="cpu"))
+    assert out.report.deadlines_met == 1
+    assert cache_aware_etp(wl, cluster, model, CacheConfig(), device="cpu",
+                           **kw).best_makespan > 0
 
 
 def test_graphsage_defaults_to_cuda(monkeypatch):
