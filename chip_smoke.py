@@ -46,16 +46,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
      iteration), ``class_gb`` summing to the delivered GB; the first 8
      instances against the CPU engine, and against the CPU engine under
      strict shaping (fifo, oes: some makespan must differ);
-  5b. replan: ``run_scenario(strategy="replan")`` on the products job and
-     drift trace of ``examples/dynamic_replan_torch.py`` (budget 8), and
-     ``Replanner.on_leave(3)`` under deadline shaping, on the card; each
-     committed interval and the leave record against the CPU engine;
+  5b. replan: ``run_scenario(strategy="replan", collect_traces=True)`` on
+     the products job and drift trace of ``examples/dynamic_replan_torch.py``
+     (budget 8), and ``Replanner.on_leave(3)`` under deadline shaping, on
+     the card; each committed interval, its trace's blame (chain and
+     components) and ``ScenarioOutcome.blame()`` against the CPU engine's
+     recorded runs, and the leave record against the CPU engine;
   5c. tenants: ``joint_search`` on ``tests/test_multijob.py``'s pair
      (ogbn-products 4/3x2/1 for 12 iterations, reddit 4/2x2/1 for 8) on a
      4-machine cluster, ``merged_batch_cost`` of the winner and of each
      chain's start under oes and fifo, ``per_job_makespans`` of the
-     winner; ``run_service`` with warm re-planning on
-     ``examples/arrivals.py``'s four tenants, and without on the tests'
+     winner; ``run_service`` with warm re-planning and traces on
+     ``examples/arrivals.py``'s four tenants (``tenant_blame()`` conserves
+     the epochs' makespans), and without on the tests'
      three-tenant mixed stream, with the EDF, SJF and RR orderings of it
      under oes and fifo (deadlines met printed for each);
   5d. cache: ``examples/cache_sweep.py``'s sections 2-4 (the replay
@@ -64,10 +67,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
      (its proxy trace) on the replan phase's products job:
      ``cache_aware_etp``, the winner judged by ``cache_cost_fns`` under
      oes and fifo, and a cache-aware ``Replanner`` through
-     ``on_leave(3)`` (its per-machine budgets shrink).  Each unit of 5c
-     and 5d runs on the card and, meanwhile, on the CPU in a worker
-     process: decisions and placements equal exactly, times at the
-     engine's parity tolerance;
+     ``on_leave(3)`` (its per-machine budgets shrink);
+  5e. obs: the products testbed job (its first 20 of 40 iterations)
+     recorded under oes and fifo with
+     ``utilization=True`` (``ScheduleTrace``, ``blame``, ``write_trace``
+     and the file validated as read back; blame conserves the makespan,
+     NIC integrals equal delivered GB and the engine's aggregates; both
+     blame tables printed); ``examples/replan_failure.py``'s job through
+     ``FailureController`` (a GraphSAGE state checkpointed from the card
+     and restored bit for bit, then ``on_failure(2)`` at budget 2 and 4
+     simulated iterations); ``plan_infeed`` on internlm2-1.8b (budget 4,
+     8 chains); the slotted Alg. 1 oracle against the engine's
+     ``oes_strict`` on ``tests/test_oes.py``'s tiny job.  Each unit of
+     5c, 5d and 5e runs on the card and, meanwhile, on the CPU in a
+     worker process: decisions, placements and critical-path chains equal
+     exactly, times at the engine's parity tolerance;
   6. GraphSAGE at the ogbn-products widths (in 100, hidden 256, 47
      classes, 3 layers, fan-outs 5/10/15, 2000 seeds per batch) on a
      240,000-node synthetic graph: the aggregation kernel against its
@@ -143,15 +157,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
      ``bwd_bound_ms`` and ``bwd_library_ms``), the card's name and power
      limit, and the closing status line.
 
-Nine main paths, each with the kernel launch counts set to 0 just
+Ten main paths, each with the kernel launch counts set to 0 just
 before it and read just after: phases 3-4 (planning), phases 5a-5b (the
 engine's regimes and re-planning), phase 5c (multi-job planning and the
-arrival service), phase 5d (the feature-cache tier), the training
+arrival service), phase 5d (the feature-cache tier), phase 5e (traces
+and blame, failure handling, the infeed planner), the training
 steps, calibration and baseline plan of phase 6 (GraphSAGE), the
 ``ServeEngine`` run of phase 7 (LM serving), and the prefill followed by
 the ``ServeEngine`` run of phases 8 (mamba2), 9 (MoE) and 10 (kimi-k2).
 Each phase's seconds are printed on a ``[time]`` line.  ``--only
-regimes`` (phases 5a-5b), ``tenants`` (5c), ``cache`` (5d), ``sage``,
+regimes`` (phases 5a-5b), ``tenants`` (5c), ``cache`` (5d), ``obs`` (5e), ``sage``,
 ``lm_serve``, ``mamba_serve``, ``moe_serve`` or ``kimi_serve``
 builds the kernels and runs that phase alone (for work on that path; it prints no
 closing status line).
@@ -954,6 +969,22 @@ def check_escalation(strict, gpu):
         raise AssertionError("regimes: no instance escalated (deadline == strict)")
 
 
+def _check_blames(tag, gpu, cpu):
+    """Blame reports of the card's runs against the CPU's: the same
+    critical-path chains, the numbers at the engine's parity tolerance."""
+    from repro_torch.core import PARITY_ATOL, PARITY_RTOL
+
+    if len(gpu) != len(cpu):
+        raise AssertionError(f"{tag}: {len(gpu)} blame reports on the card, {len(cpu)} cpu")
+    for i, (a, b) in enumerate(zip(gpu, cpu)):
+        (ea, na), (eb, nb) = _blame_numbers(a), _blame_numbers(b)
+        if ea != eb:
+            raise AssertionError(f"{tag} [{i}]: the card's critical path differs from the "
+                                 f"cpu's: {ea} vs {eb}")
+        if not np.allclose(na, nb, rtol=PARITY_RTOL, atol=PARITY_ATOL):
+            raise AssertionError(f"{tag} [{i}]: blame {na} (cuda) vs {nb} (cpu)")
+
+
 def phase_replan():
     """``run_scenario(strategy="replan")`` on the example's job and trace,
     and ``Replanner.on_leave(3)`` under deadline shaping, on the card;
@@ -968,6 +999,8 @@ def phase_replan():
         testbed_cluster,
     )
     from repro_torch.dynamics import ReplanConfig, Replanner, drift_trace, run_scenario
+    from repro_torch.obs.blame import blame, combine
+    from repro_torch.obs.trace import ScheduleTrace
 
     wl = build_workload_from_profile(
         OGBN_PRODUCTS, n_stores=4, n_workers=4, samplers_per_worker=2, n_ps=1,
@@ -985,21 +1018,32 @@ def phase_replan():
     t0 = time.perf_counter()
     out = run_scenario(wl, cluster, trace, strategy="replan",
                        n_intervals=REPLAN_INTERVALS, iters_per_interval=REPLAN_ITERS,
-                       seed=0, replan_config=cfg)
+                       seed=0, replan_config=cfg, collect_traces=True)
     wall = time.perf_counter() - t0
+    cpu_blames = []
     for i, iv in enumerate(out.intervals):
         r_iv = full.window(i * REPLAN_ITERS, (i + 1) * REPLAN_ITERS)
-        ref = simulate_torch(wl, cluster, out.placements[i], r_iv,
-                             trace=trace.window(iv.start_s),
-                             migrations=iv.flows or None, device="cpu")
+        tw = trace.window(iv.start_s)
+        ref = simulate_torch(wl, cluster, out.placements[i], r_iv, trace=tw,
+                             migrations=iv.flows or None, record=True, device="cpu")
         _assert_parity(f"replan interval {i}", [iv.makespan_s], np.zeros((1, 1)),
                        [ref.makespan], np.zeros((1, 1)))
+        cpu_blames.append(blame(ScheduleTrace.from_result(
+            ref, wl, cluster, out.placements[i], r_iv, trace=tw,
+            migrations=iv.flows or None)))
+    _check_blames("replan run_scenario", [blame(tr) for tr in out.traces], cpu_blames)
+    rep = out.blame()
+    _check_blames("replan run_scenario, combined", [rep], [combine(cpu_blames)])
+    if abs(rep.makespan - out.total_s) > 1e-9 * max(1.0, out.total_s):
+        raise AssertionError(f"scenario blame {rep.makespan} != total {out.total_s}")
     print(f"[replan] run_scenario(replan), products job, {REPLAN_INTERVALS} x "
-          f"{REPLAN_ITERS} iterations, budget {REPLAN_BUDGET}: total "
+          f"{REPLAN_ITERS} iterations, budget {REPLAN_BUDGET}, traces recorded: total "
           f"{out.total_s:.3f} s (compute {out.compute_s:.3f} + overlap "
           f"{out.overlap_total_s:.3f}), {out.n_replans} re-plans, "
           f"{sum(len(iv.flows) for iv in out.intervals)} committed flows; wall "
-          f"{wall:.1f} s; each interval matches the cpu engine", flush=True)
+          f"{wall:.1f} s; each interval and its blame match the cpu engine", flush=True)
+    print("[replan] " + rep.table("run_scenario(replan) blame, combined over the "
+                                  "intervals").replace("\n", "\n[replan] "), flush=True)
     t0 = time.perf_counter()
     rp = Replanner(wl, cluster, p0.copy(), config=ReplanConfig(
         budget=REPLAN_BUDGET, sim_iters=REPLAN_ITERS, shaping="deadline",
@@ -2709,8 +2753,15 @@ def _unit_service_example(device):
     rc = ReplanConfig(budget=SERVICE_REPLAN_BUDGET, sim_iters=SERVICE_REPLAN_ITERS,
                       shaping="strict", seed=0, device=device)
     out = run_service(stream, cluster, ServiceConfig(replan=True, replan_config=rc,
-                                                     device=device))
+                                                     device=device), collect_traces=True)
     got = _service_outcome(out)
+    shares = out.tenant_blame()
+    total = sum(tr.makespan for tr, _, _ in out.traces)
+    if len(out.traces) != len(out.epochs) or abs(sum(shares.values()) - total) > 1e-9 * total:
+        raise AssertionError(f"tenant blame {shares} does not conserve the epochs' {total} s")
+    got["exact"]["blame_tenants"] = sorted(shares)
+    got["exact"]["trace_spans"] = [(len(tr.tasks), len(tr.flows)) for tr, _, _ in out.traces]
+    got["close"]["tenant_blame"] = [shares[k] for k in sorted(shares)]
     rep = out.report
     got["line"] = (f"run_service, examples/arrivals.py's stream, replan=True (budget "
                    f"{SERVICE_REPLAN_BUDGET}, {SERVICE_REPLAN_ITERS} simulated "
@@ -2718,7 +2769,8 @@ def _unit_service_example(device):
                    f"{[(e.kind, e.job) for e in out.events]}, {len(out.epochs)} epochs "
                    f"({sum(e.replanned for e in out.epochs)} re-planned), deadlines met "
                    f"{rep.deadlines_met}/{rep.n_jobs}, {rep.n_admitted} admitted, "
-                   f"fairness {rep.fairness:.3f}")
+                   f"fairness {rep.fairness:.3f}; tenant blame over {len(out.traces)} "
+                   f"traced epochs {({k: round(v, 3) for k, v in sorted(shares.items())})}")
     return got
 
 
@@ -2896,6 +2948,213 @@ def _unit_cache_products(device):
     }
 
 
+# the obs phase (schedule traces and blame, failure handling with a
+# checkpoint, the infeed planner, the slotted oracle): each unit runs on
+# the card and on the CPU in a worker process meanwhile, as the tenants
+# phase does.  Its depth: the search budgets and simulated iterations
+# below, cut from the reference's defaults (the failure re-plan's 300
+# and 12, the infeed plan's 150) to keep the phase within its seconds.
+FAILURE_BUDGET, FAILURE_SIM_ITERS = 2, 4
+INFEED_BUDGET, INFEED_CHAINS = 4, 8
+TRACE_ITERS = 20  # the products job's first 20 of its 40 iterations, traced
+SLOTTED_SLOTS = ((0.25, 0.35), (0.05, 0.1))  # (slot, tests/test_oes.py's bound)
+
+
+def _blame_numbers(rep):
+    """A blame report's chain (compared exactly) and numbers (at the
+    engine's parity tolerance)."""
+    from repro_torch.obs.trace import TaskSpan
+
+    chain = [("task", s.task, s.iter) if isinstance(s, TaskSpan) else
+             ("flow", s.edge, s.iter) for s in rep.path]
+    machines = sorted(rep.per_machine_contention)
+    return ({"chain": chain, "machines": machines},
+            [rep.makespan, *rep.components.values(),
+             *(rep.per_machine_contention[m] for m in machines)])
+
+
+def _unit_trace_products(device):
+    """The products testbed job (IFS placement and realization, seed 0;
+    its first ``TRACE_ITERS`` iterations) recorded under oes (DGTP's policy) and fifo (DistDGL's: waterfill's
+    rates), ``utilization=True`` in the same run: ``ScheduleTrace``,
+    ``blame`` and ``write_trace`` of each, the file validated as read
+    back; blame conserves the makespan, each NIC's utilization integral
+    equals its delivered GB, and the trace's per-NIC integrals equal the
+    engine's own aggregates of the run."""
+    import tempfile
+
+    from repro_torch.core import ifs_placement, simulate_torch
+    from repro_torch.obs.blame import blame
+    from repro_torch.obs.perfetto import validate_trace_events, write_trace
+    from repro_torch.obs.trace import ScheduleTrace
+
+    _, wl, cluster = _jobs()[1]
+    p = ifs_placement(wl, cluster, seed=0)
+    r = wl.realize(seed=0).window(0, TRACE_ITERS)
+    exact, close, lines = {}, {}, []
+    for policy in ("oes", "fifo"):
+        res = simulate_torch(wl, cluster, p, r, policy=policy, record=True,
+                             utilization=True, device=device)
+        tr = ScheduleTrace.from_result(res, wl, cluster, p, r)
+        rep = blame(tr)
+        with tempfile.TemporaryDirectory() as d:
+            path = Path(d) / "trace.json"
+            write_trace(tr, path)
+            counts = validate_trace_events(json.loads(path.read_text()))
+        if abs(rep.residual) >= 1e-6 * max(1.0, tr.makespan):
+            raise AssertionError(f"{policy}: blame residual {rep.residual}")
+        agg, mine = res.aggregates, tr.aggregates()
+        for m in range(tr.M):
+            for direction in ("in", "out"):
+                got = tr.utilization_integral(m, direction)
+                want = tr.delivered_gb(m, direction)
+                if not np.isclose(got, want, rtol=1e-9, atol=1e-9):
+                    raise AssertionError(f"{policy} machine {m} {direction}: "
+                                         f"integral {got} != delivered {want}")
+        for k in ("nic_in_gb", "nic_out_gb"):
+            if not np.allclose(agg[k], mine[k], rtol=1e-9, atol=1e-9):
+                raise AssertionError(f"{policy} {k}: engine {agg[k]} != trace {mine[k]}")
+        ex, nums = _blame_numbers(rep)
+        exact[policy] = {**ex, "counts": counts, "spans": (len(tr.tasks), len(tr.flows))}
+        close[policy] = nums + agg["nic_in_gb"].tolist() + agg["nic_out_gb"].tolist()
+        lines.append(rep.table(f"{policy} ({'DGTP' if policy == 'oes' else 'DistDGL'}"
+                               f"'s policy), {len(tr.tasks)} task and {len(tr.flows)} "
+                               f"flow spans, {len(rep.path)} on the critical path"))
+    return {
+        "exact": exact, "close": close,
+        "line": (f"traces of the products testbed job (J={wl.J}, E={wl.E}, its first "
+                 f"{r.n_iters} of {wl.n_iters} iterations, IFS placement): blame conserves each makespan, NIC integrals equal "
+                 f"delivered GB and the engine's utilization aggregates, trace.json "
+                 f"validated\n" + "\n".join(lines)),
+    }
+
+
+def _unit_failure(device):
+    """``examples/replan_failure.py``'s job (6 machines) through
+    ``FailureController``: a small GraphSAGE's state checkpointed from
+    ``device`` and restored onto it bit for bit, then machine 2 fails and
+    ``on_failure`` re-plans on the survivors."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import (
+        OGBN_PRODUCTS,
+        build_workload_from_profile,
+        heterogeneous_cluster,
+        ifs_placement,
+    )
+    from repro_torch.models.gnn import GraphSAGE, GraphSAGEConfig
+    from repro_torch.train import FailureController, save_checkpoint
+
+    wl = build_workload_from_profile(OGBN_PRODUCTS, n_stores=4, n_workers=6,
+                                     samplers_per_worker=2, n_ps=1, n_iters=30)
+    cluster = heterogeneous_cluster(6, seed=7)
+    placement = ifs_placement(wl, cluster, seed=0)
+    model = GraphSAGE(GraphSAGEConfig(in_dim=100, hidden=256, n_classes=47, n_layers=3),
+                      device=device, seed=0)
+    state = {"model": model.state_dict(),
+             "bf16": {k: v.to(torch.bfloat16) for k, v in model.state_dict().items()},
+             "step": torch.tensor(17, device=device)}
+    with tempfile.TemporaryDirectory() as d:
+        save_checkpoint(d, state, step=17)
+        fc = FailureController(wl, cluster, placement, ckpt_dir=d,
+                               replan_budget=FAILURE_BUDGET, device=device)
+        like = {k: ({n: torch.zeros_like(t) for n, t in v.items()}
+                    if isinstance(v, dict) else torch.zeros_like(v))
+                for k, v in state.items()}
+        back, step = fc.restore(like)
+    for k, v in state.items():
+        for n, t in (v.items() if isinstance(v, dict) else [("", v)]):
+            b = back[k][n] if n else back[k]
+            if step != 17 or b.device != t.device or b.dtype != t.dtype or not torch.equal(b, t):
+                raise AssertionError(f"checkpoint leaf {k}/{n} did not come back bit for bit")
+    rp = fc.replanner(0)
+    rp.config = dataclasses.replace(rp.config, sim_iters=FAILURE_SIM_ITERS)
+    new_cluster, new_p, res = fc.on_failure(machine=2, seed=0)
+    rec = fc.last_record
+    n_leaves = sum(len(v) if isinstance(v, dict) else 1 for v in state.values())
+    return {
+        "exact": {"cluster": [(m.name, m.bw_in, m.bw_out) for m in new_cluster.machines],
+                  "placement": new_p.y.tolist(), "evaluations": res.evaluations,
+                  "moved": rec.moved_tasks,
+                  "flows": [(f.src, f.dst, f.task, f.cls) for f in rec.flows]},
+        "close": {"mk": [res.best_makespan, rec.makespan, rec.objective, rec.overlap_s,
+                         rec.forced_gb]},
+        "line": (f"checkpoint of a GraphSAGE state (ogbn-products widths, {n_leaves} "
+                 f"leaves, fp32 and bf16) restored bit for bit; machine 2 of 6 failed -> "
+                 f"re-planned on {new_cluster.M} machines (budget {FAILURE_BUDGET}, "
+                 f"{FAILURE_SIM_ITERS} simulated iterations): {res.evaluations} "
+                 f"evaluations, makespan {rec.makespan:.4f} s, {len(rec.flows)} restore "
+                 f"flows ({rec.forced_gb:.2f} GB forced, {rec.moved_tasks} moved), "
+                 f"overlap {rec.overlap_s:.4f} s"),
+    }
+
+
+def _unit_infeed(device):
+    """``plan_infeed`` on ``tests/test_system.py``'s spec (internlm2-1.8b,
+    global batch 256, sequence 4096, 2 pods, parameter-server sync)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.infeed_planner import LMJobSpec, plan_infeed
+
+    spec = LMJobSpec(cfg=get_config(LM_ARCH), global_batch=256, seq_len=4096, n_pods=2,
+                     sync="ps")
+    ip = plan_infeed(spec, budget=INFEED_BUDGET, seed=0, n_chains=INFEED_CHAINS,
+                     device=device)
+    s = ip.summary()
+    return {
+        "exact": {"placement": ip.plan.placement.y.tolist(),
+                  "shards": sorted(ip.shard_of_loader.items()), "delta": s["delta"]},
+        "close": {"summary": [s["makespan_s"], s["inter_host_gb"], s["locality"]]},
+        "line": (f"plan_infeed ({LM_ARCH}, {spec.cfg.active_param_count()} active "
+                 f"parameters, batch 256 x 4096, 2 pods, ps; {INFEED_CHAINS} chains, "
+                 f"budget {INFEED_BUDGET}): makespan {s['makespan_s']:.4f} s over "
+                 f"{spec.steps_per_plan} steps, inter-host {s['inter_host_gb']:.2f} GB, "
+                 f"loader shards {ip.shard_of_loader}"),
+    }
+
+
+def _unit_slotted(device):
+    """``tests/test_oes.py``'s tiny job: the engine's ``oes_strict``
+    makespan against the slotted Alg. 1 oracle (on the host) at two slot
+    widths, within that test's bounds."""
+    from repro_torch.core import (
+        build_gnn_workload,
+        heterogeneous_cluster,
+        ifs_placement,
+        simulate_slotted,
+        simulate_torch,
+    )
+
+    wl = build_gnn_workload(
+        n_stores=2, n_workers=2, samplers_per_worker=1, n_ps=1, n_iters=4,
+        store_to_sampler_gb=1.0, sampler_to_worker_gb=1.0, grad_gb=0.1,
+        store_exec_s=0.5, sampler_exec_s=0.5, worker_exec_s=1.0, ps_exec_s=0.25,
+        pmr=1.0,
+    )
+    cluster = heterogeneous_cluster(3, seed=4)
+    p = ifs_placement(wl, cluster, seed=0)
+    r = wl.realize(seed=2)
+    ev = simulate_torch(wl, cluster, p, r, policy="oes_strict", device=device).makespan
+    slotted = []
+    for slot, tol in SLOTTED_SLOTS:
+        sl = simulate_slotted(wl, cluster, p, r, slot=slot)
+        if abs(sl.makespan * slot - ev) > tol * ev:
+            raise AssertionError(f"slot {slot}: slotted {sl.makespan * slot} vs engine "
+                                 f"{ev}, past {tol}")
+        slotted.append((sl.makespan, sorted(sl.task_start.items())))
+    return {
+        "exact": {"slotted": slotted}, "close": {"engine": [ev]},
+        "line": (f"oes_strict on tests/test_oes.py's tiny job: engine {ev:.4f} s, slotted "
+                 + ", ".join(f"{m * s:.4f} s at slot {s}"
+                             for (m, _), (s, _) in zip(slotted, SLOTTED_SLOTS))),
+    }
+
+
+OBS_UNITS = {"trace_products": _unit_trace_products, "failure": _unit_failure,
+             "infeed": _unit_infeed, "slotted": _unit_slotted}
+
+
 TENANT_UNITS = {"joint": _unit_joint, "service_example": _unit_service_example,
                 "service_mixed": _unit_service_mixed}
 CACHE_UNITS = {"cache_sweep": _unit_cache_sweep, "cache_products": _unit_cache_products}
@@ -2906,7 +3165,7 @@ def _cpu_unit(name):
     import torch
 
     torch.set_num_threads(1)
-    return {**TENANT_UNITS, **CACHE_UNITS}[name]("cpu")
+    return {**TENANT_UNITS, **CACHE_UNITS, **OBS_UNITS}[name]("cpu")
 
 
 def _check_unit(name, gpu, cpu):
@@ -2940,7 +3199,8 @@ def phase_tenants_cache(wf, t, units, tag):
         for name, fn in units.items():
             t0 = time.perf_counter()
             gpu[name] = fn("cuda")
-            print(f"[{tag}] {gpu[name]['line']}; wall {time.perf_counter() - t0:.1f} s",
+            line = gpu[name]["line"].replace("\n", f"\n[{tag}] ")
+            print(f"[{tag}] {line}\n[{tag}] {name}: wall {time.perf_counter() - t0:.1f} s",
                   flush=True)
         launches = wf.waterfill_fill.launches
         t = _phase_done(f"{tag} on the card ({', '.join(units)})", t)
@@ -2992,8 +3252,9 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("regimes", "tenants", "cache", "sage", "lm_serve",
-                                       "mamba_serve", "moe_serve", "kimi_serve"),
+    ap.add_argument("--only", choices=("regimes", "tenants", "cache", "obs", "sage",
+                                       "lm_serve", "mamba_serve", "moe_serve",
+                                       "kimi_serve"),
                     default=None, help="build the kernels and run this phase alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -3025,11 +3286,12 @@ def main(argv=None) -> int:
           f"{torch.backends.cuda.matmul.allow_tf32}, torch.backends.cudnn."
           f"allow_tf32 = {torch.backends.cudnn.allow_tf32}", flush=True)
     if args.only is not None:
-        if args.only in ("regimes", "tenants", "cache"):
+        if args.only in ("regimes", "tenants", "cache", "obs"):
             if args.only == "regimes":
                 launches, t = phase_regimes_all(wf, t)
             else:
-                units = TENANT_UNITS if args.only == "tenants" else CACHE_UNITS
+                units = {"tenants": TENANT_UNITS, "cache": CACHE_UNITS,
+                         "obs": OBS_UNITS}[args.only]
                 launches, t = phase_tenants_cache(wf, t, units, args.only)
             print(json.dumps({"waterfill_launches": launches}))
             print(f"[done] {time.perf_counter() - t_start:.1f} s ({args.only} only)")
@@ -3077,6 +3339,7 @@ def main(argv=None) -> int:
     regime_launches, t = phase_regimes_all(wf, t)
     tenant_launches, t = phase_tenants_cache(wf, t, TENANT_UNITS, "tenants")
     cache_launches, t = phase_tenants_cache(wf, t, CACHE_UNITS, "cache")
+    obs_launches, t = phase_tenants_cache(wf, t, OBS_UNITS, "obs")
 
     sage, sage_launches, t = phase_sage_all(sa, wf, t)
 
@@ -3091,7 +3354,7 @@ def main(argv=None) -> int:
         "kernels": [
             _entry("waterfill_fill", "waterfill", "src/repro/kernels/waterfill.py:64",
                    kern, launches + regime_launches + tenant_launches + cache_launches
-                   + sage_launches["waterfill_fill"]),
+                   + obs_launches + sage_launches["waterfill_fill"]),
             _sage_entry(sage, sage_launches),
             _flash_entry(flash, flash_launches + moe_flash_launches
                          + kimi_launches["flash_attention"]),
@@ -3102,7 +3365,7 @@ def main(argv=None) -> int:
     print(f"[launches] planning path: waterfill_fill {launches}; regimes and "
           f"re-planning path: waterfill_fill {regime_launches}; tenants path: "
           f"waterfill_fill {tenant_launches}; cache path: waterfill_fill "
-          f"{cache_launches}; GraphSAGE "
+          f"{cache_launches}; obs path: waterfill_fill {obs_launches}; GraphSAGE "
           f"path: {sage_launches}; LM serving path: flash_attention "
           f"{flash_launches}; mamba2 path: ssd_scan {ssd_entry['launches']}; "
           f"MoE path: moe_gemm {moe_entry['launches'] - kimi_launches['moe_gemm']}, "

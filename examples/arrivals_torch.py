@@ -19,10 +19,9 @@ heterogeneous 4-machine cluster, walking the service surface:
     schedule.
 
 It closes with the per-job SLO report (deadline compliance, slowdown,
-Jain fairness), the audited event log and the epoch log.  Every
-simulation runs on ``--device``.  The reference's last section, the
-per-tenant critical-path blame, needs schedule traces, which the port
-does not record yet (ROADMAP Queue 1 item 6); the output says so.
+Jain fairness), the audited event log, the epoch log, and the per-tenant
+critical-path blame split — which sums to each epoch's makespan at
+machine precision.  Every simulation runs on ``--device``.
 """
 import argparse
 import sys
@@ -83,7 +82,7 @@ def main(argv=None):
     cluster = heterogeneous_cluster(4, seed=3, gpu_range=(2, 4))
     out = run_service(
         stream(cluster, args.device), cluster,
-        ServiceConfig(replan=False, device=args.device),
+        ServiceConfig(replan=False, device=args.device), collect_traces=True,
     )
     print(f"device {args.device}")
 
@@ -116,9 +115,23 @@ def main(argv=None):
     assert any(e.kind == "reject" and e.job == "doomed" for e in out.events)
     assert [t for t in rep.tenants if t.name == "bg"][0].met
 
-    print("\n== per-tenant critical-path blame ==")
-    print("  left out: the blame split needs per-epoch schedule traces, which "
-          "wait for the observability slice (ROADMAP Queue 1 item 6)")
+    print("\n== per-tenant critical-path blame (sums to each epoch) ==")
+    from repro_torch.obs import blame_by_tenant
+
+    for tr, offsets, names in out.traces:
+        shares = blame_by_tenant(tr, offsets)
+        pretty = {("<service>" if j < 0 else names[j]): s
+                  for j, s in shares.items()}
+        resid = abs(sum(shares.values()) - tr.makespan)
+        line = " + ".join(f"{n}={s:.2f}s" for n, s in sorted(pretty.items()))
+        print(f"  makespan {tr.makespan:7.2f}s = {line}  "
+              f"(residual {resid:.1e})")
+        assert resid <= 1e-9 * max(1.0, tr.makespan)
+
+    totals = out.tenant_blame()
+    top = max(totals, key=totals.get)
+    print(f"\n  heaviest tenant on the critical path: {top} "
+          f"({totals[top]:.2f}s of blame)")
     return out
 
 

@@ -12,9 +12,8 @@ true simulation as real migration flows, and the oracle bound; then
 machine leave and join through the same re-plan path, with forced
 restores billed as flows on the survivors' NICs; then the three shaping
 modes of the restore flows.  Every simulation runs on ``--device``.
-The critical-path blame section of the reference's walkthrough needs
-schedule traces, which the port does not record yet (ROADMAP Queue 1
-item 6); it is left out and the output says so.
+The scenario records every committed interval, and the critical-path
+blame splits the static-vs-replan wall-clock gap into named components.
 """
 import argparse
 import sys
@@ -71,7 +70,7 @@ def main(argv=None):
         out = run_scenario(
             wl, cluster, trace, strategy=strat,
             n_intervals=n_intervals, iters_per_interval=iters, seed=0,
-            replan_config=cfg, oracle_budget=360,
+            replan_config=cfg, oracle_budget=360, collect_traces=True,
         )
         outcomes[strat] = out
         print(f"  {strat:7s}: total {out.total_s:7.2f}s  "
@@ -86,9 +85,27 @@ def main(argv=None):
           f"overlapped vs {rp.migration_total_s:.3f}s serial drain bill "
           f"(serial books would read {rp.serial_total_s:.2f}s total)")
 
-    print("\n== where did the time go? ==")
-    print("  left out: critical-path blame needs schedule traces, which the "
-          "port does not record yet (ROADMAP Queue 1 item 6, obs/)")
+    print("\n== where did the time go? (repro_torch.obs critical-path blame) ==")
+    # collect_traces=True recorded every committed interval; blame() walks
+    # each interval's critical path and the components sum to its makespan,
+    # so the static-vs-replan wall-clock gap decomposes exactly into named
+    # deltas — the delta column sums to the makespan delta
+    from repro_torch.obs import blame_delta
+
+    rep_static = outcomes["static"].blame()
+    rep_replan = outcomes["replan"].blame()
+    for line in blame_delta(
+        rep_static, rep_replan, "static", "replan"
+    ).splitlines():
+        print("  " + line)
+    dsum = sum(
+        rep_replan.components[k] - rep_static.components[k]
+        for k in rep_replan.components
+    )
+    dmk = rep_replan.makespan - rep_static.makespan
+    assert abs(dsum - dmk) < 1e-6 * max(1.0, abs(dmk)), (dsum, dmk)
+    print(f"  component deltas sum to the makespan delta: "
+          f"{dsum:+.3f}s == {dmk:+.3f}s")
 
     print("\n== elastic membership through the same path ==")
     rp = Replanner(wl, cluster, p0.copy(), config=cfg)

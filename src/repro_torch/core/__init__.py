@@ -4,7 +4,9 @@ Task placement (IFS/ETP), online execution & flow scheduling (OES + the
 baseline policies) as one batched event program on a CUDA card (or the
 CPU, when asked), with bandwidth traces, migration flows and traffic-class
 shaping; the audit quantities (Delta, the Theorem-1 chain certificate,
-traffic summary) and the dataset traffic profiles.
+traffic summary), the dataset traffic profiles, and the paper's
+time-slotted Algorithm 1 as a host-side fidelity oracle.  The LM infeed
+planner is ``repro_torch.core.infeed_planner``.
 """
 from .analysis import (
     ChainCertificate,
@@ -47,6 +49,7 @@ from .engine_torch import (
     simulate_batch_torch,
     simulate_torch,
 )
+from .oes_slotted import SlottedResult, simulate_slotted
 from .placement import (
     ETPResult,
     distdgl_placement,

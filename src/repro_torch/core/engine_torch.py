@@ -81,6 +81,7 @@ from .engine import (
 )
 from .workload import Realization, Workload
 from ..kernels.waterfill import waterfill_fill
+from ..obs import metrics as obs_metrics
 
 if TYPE_CHECKING:
     from numpy.typing import ArrayLike
@@ -744,6 +745,36 @@ def simulate_batch_torch(
     ``ScheduleResult`` per instance agreeing with the numpy engine at
     ``PARITY_RTOL`` (see the module docstring).  ``record=True`` fills
     ``task_events`` and ``flow_log``."""
+    if obs_metrics.REGISTRY.enabled:
+        # one pre-aggregated increment per call, outside the event loop
+        obs_metrics.REGISTRY.counter("engine.simulate_batch.calls").inc()
+        obs_metrics.REGISTRY.counter("engine.simulate_batch.instances").inc(
+            len(placements)
+        )
+    return _simulate_batch(
+        workload, cluster, placements, realizations, policy, record,
+        max_events, trace, migrations, shaping, edge_classes, utilization,
+        device,
+    )
+
+
+def _simulate_batch(
+    workload: Workload,
+    cluster: ClusterSpec,
+    placements: Sequence[Placement],
+    realizations: Sequence[Realization],
+    policy: str,
+    record: bool,
+    max_events: int,
+    trace: Optional["BandwidthTrace"],
+    migrations: Optional[Sequence[Optional[Sequence[MigrationFlow]]]],
+    shaping: Optional[str],
+    edge_classes: Optional["ArrayLike"],
+    utilization: bool,
+    device: DeviceLike,
+) -> List[ScheduleResult]:
+    """``simulate_batch_torch``'s run, uncounted: ``simulate_torch``
+    counts its own calls."""
     dev = resolve_device(device)
     name = policy_name(policy)
     mode = shaping_mode(shaping)
@@ -828,11 +859,13 @@ def simulate_torch(
     device: DeviceLike = None,
 ) -> ScheduleResult:
     """One instance: ``simulate_batch_torch`` at width 1 (``migrations``
-    is this instance's flow list)."""
-    return simulate_batch_torch(
-        workload, cluster, [placement], [realization], policy=policy,
-        record=record, max_events=max_events, trace=trace,
-        migrations=[migrations] if migrations is not None else None,
-        shaping=shaping, edge_classes=edge_classes, utilization=utilization,
-        device=device,
+    is this instance's flow list), counted as ``engine.simulate.calls``
+    as the reference counts its ``simulate``."""
+    if obs_metrics.REGISTRY.enabled:
+        obs_metrics.REGISTRY.counter("engine.simulate.calls").inc()
+    return _simulate_batch(
+        workload, cluster, [placement], [realization], policy, record,
+        max_events, trace,
+        [migrations] if migrations is not None else None,
+        shaping, edge_classes, utilization, device,
     )[0]

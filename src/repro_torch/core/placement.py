@@ -39,6 +39,7 @@ from .engine import (
 )
 from .multijob import SEED_NS_CHAIN, derive_seed
 from .workload import Realization, Workload
+from ..obs import metrics as obs_metrics
 
 
 # ---------------------------------------------------------------------------
@@ -474,6 +475,11 @@ class _Chain:
             # legitimate result and competes on makespan in _best_of; the
             # flag only marks placements returned WITHOUT that guarantee
             fallback = not self.feasible(best)
+        if obs_metrics.REGISTRY.enabled:
+            obs_metrics.REGISTRY.counter("etp.evaluations").inc(self.evals)
+            obs_metrics.REGISTRY.counter("etp.cache_hits").inc(self.hits)
+            obs_metrics.REGISTRY.counter("etp.proposals").inc(self.proposals)
+            obs_metrics.REGISTRY.counter("etp.accepted").inc(self.accepted)
         return ETPResult(
             placement=best,
             cost_trace=self.trace,

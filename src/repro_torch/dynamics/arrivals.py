@@ -4,11 +4,9 @@ A copy of the JAX package's ``repro.dynamics.arrivals`` on the torch
 engine.  The reference pins its committed epochs, admission checks and
 solo runs to the numpy engine and scores re-plan candidates on its
 ``backend``; the port has one engine, so every one of these simulations
-runs on ``ServiceConfig.device`` (``None``: the CUDA card).  Per-epoch
-schedule traces
-(``collect_traces=True``) and ``ServiceOutcome.tenant_blame`` need the
-observability tier, which is not ported yet: both raise
-``NotImplementedError``.
+runs on ``ServiceConfig.device`` (``None``: the CUDA card).
+``collect_traces=True`` keeps each committed epoch's schedule trace, and
+``ServiceOutcome.tenant_blame`` splits the critical path by tenant.
 
 The paper's conclusion points DGTP at multiple GNN jobs sharing one
 cluster; production traffic is a *stream* — jobs arrive with deadlines
@@ -78,7 +76,6 @@ from ..core.units import GB, Ratio, Seconds
 from ..core.workload import Workload
 from ..obs import metrics as obs_metrics
 from .replan import ReplanConfig, Replanner
-from .scenario import OBS_TIER
 
 #: seed namespaces for the service's derivation levels (disjoint from
 #: core.multijob's SEED_NS_JOB / SEED_NS_DRAW)
@@ -219,11 +216,30 @@ class ServiceOutcome:
     report: SLOReport
     epochs: List[EpochRecord] = field(default_factory=list)
     events: List[ServiceEvent] = field(default_factory=list)
+    #: per epoch, when collect_traces=True: (ScheduleTrace, task_offsets,
+    #: job names) — the inputs ``obs.blame_by_tenant`` needs
+    traces: List[Tuple[object, List[int], List[str]]] = field(
+        default_factory=list
+    )
 
     def tenant_blame(self) -> Dict[str, float]:
-        """Critical-path seconds attributed to each tenant: needs the
-        per-epoch schedule traces, which the port does not record yet."""
-        raise NotImplementedError(OBS_TIER)
+        """Critical-path seconds attributed to each tenant, summed over
+        epochs (requires ``collect_traces=True``).  Per epoch the shares
+        conserve the epoch makespan at machine precision (``obs.blame``
+        telescoping), so the totals conserve the summed schedule length;
+        the service's own migration overhead lands under ``"<service>"``."""
+        if not self.traces:
+            raise ValueError(
+                "no traces recorded — run_service(..., collect_traces=True)"
+            )
+        from ..obs.blame import SERVICE_TENANT, blame_by_tenant
+
+        out: Dict[str, float] = {}
+        for tr, offsets, names in self.traces:
+            for ji, share in blame_by_tenant(tr, offsets).items():
+                key = "<service>" if ji == SERVICE_TENANT else names[ji]
+                out[key] = out.get(key, 0.0) + share
+        return out
 
 
 @dataclass
@@ -297,6 +313,7 @@ class _Epoch:
         iter_ends: List[np.ndarray],
         replanned: bool,
         migration_gb: float,
+        trace_row: Optional[Tuple[object, List[int], List[str]]],
     ) -> None:
         self.mj = mj
         self.placement = placement
@@ -304,6 +321,7 @@ class _Epoch:
         self.iter_ends = iter_ends
         self.replanned = replanned
         self.migration_gb = migration_gb
+        self.trace_row = trace_row
 
     def completion_abs(self, ji: int) -> float:
         return self.start_s + float(self.iter_ends[ji][-1])
@@ -325,10 +343,8 @@ def run_service(
 
     See the module docstring for the epoch/admission semantics.  Returns
     per-tenant SLO accounting and the epoch log.  ``collect_traces=True``
-    (one recorded schedule trace per epoch) raises
-    ``NotImplementedError``: the observability tier is not ported yet."""
-    if collect_traces:
-        raise NotImplementedError(OBS_TIER)
+    keeps one ``(ScheduleTrace, task_offsets, names)`` row per committed
+    epoch on ``ServiceOutcome.traces`` (``tenant_blame`` reads them)."""
     cfg = config or ServiceConfig()
     arrivals = sorted(stream, key=lambda a: (a.t_arrive, a.name))
     names = [a.name for a in arrivals]
@@ -483,6 +499,8 @@ def run_service(
                 replanned=epoch.replanned, migration_gb=epoch.migration_gb,
             )
         )
+        if epoch.trace_row is not None:
+            out.traces.append(epoch.trace_row)
         epoch = None
         epoch_idx += 1
 
@@ -572,6 +590,19 @@ def run_service(
                     migrations=flows or None, shaping=cfg.shaping,
                     edge_classes=ec, record=True, device=cfg.device,
                 )
+        trace_row = None
+        if collect_traces:
+            from ..obs.trace import ScheduleTrace
+
+            trace_row = (
+                ScheduleTrace.from_result(
+                    res, mj.workload, cluster, p, r,
+                    migrations=flows or None, shaping=cfg.shaping,
+                    edge_classes=ec,
+                ),
+                list(mj.task_offsets),
+                list(mj.names),
+            )
         if reg.enabled:
             reg.counter("arrivals.epochs").inc()
             reg.gauge("arrivals.active_jobs").set(len(mj.names))
@@ -579,6 +610,7 @@ def run_service(
             mj=mj, placement=p, start_s=now,
             iter_ends=per_job_iteration_ends(mj, res),
             replanned=replanned, migration_gb=migration_gb,
+            trace_row=trace_row,
         )
 
     def retry_deferred() -> None:

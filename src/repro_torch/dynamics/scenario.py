@@ -27,9 +27,9 @@ ever sees ``trace.bw_at(now)`` — the future of the trace stays hidden.
 With a feature-cache tier (``hit_model``, ``cache_config``) each
 interval's traffic is rewritten by its placement's hit rates, the caches
 staying warm across intervals.
-Per-interval schedule traces and their blame (``collect_traces``,
-``ScenarioOutcome.blame``) need the observability tier, which is not
-ported yet: both raise ``NotImplementedError``.
+``collect_traces=True`` records each committed interval and keeps its
+``repro_torch.obs.ScheduleTrace``; ``ScenarioOutcome.blame`` combines
+their critical-path blame.
 """
 from __future__ import annotations
 
@@ -45,11 +45,6 @@ from .replan import ReplannerConfig, Replanner
 from .traces import BandwidthTrace
 
 STRATEGIES = ("static", "replan", "oracle")
-
-OBS_TIER = (
-    "schedule traces and blame are not ported yet: ROADMAP Queue 1 item 6 "
-    "(obs/)"
-)
 
 
 @dataclass
@@ -75,6 +70,9 @@ class ScenarioOutcome:
     shaping: Optional[str] = None  # traffic-class mode the flows rode under
     intervals: List[IntervalOutcome] = field(default_factory=list)
     placements: List[Placement] = field(default_factory=list)
+    # one recorded ScheduleTrace per interval when the scenario ran with
+    # collect_traces=True (repro_torch.obs) — empty otherwise
+    traces: List[object] = field(default_factory=list)
 
     @property
     def compute_s(self) -> float:
@@ -107,9 +105,18 @@ class ScenarioOutcome:
         return sum(1 for iv in self.intervals if iv.replanned)
 
     def blame(self):
-        """Critical-path blame over the run's intervals: needs schedule
-        traces, which the port does not record yet."""
-        raise NotImplementedError(OBS_TIER)
+        """Combined critical-path blame over the run's intervals (requires
+        ``run_scenario(..., collect_traces=True)``).  Per-interval blame
+        conserves each interval's makespan, so the combined components sum
+        to ``total_s`` — the decomposition that turns "replan beat static
+        by X seconds" into named component deltas."""
+        if not self.traces:
+            raise ValueError(
+                "no traces recorded — run_scenario(..., collect_traces=True)"
+            )
+        from ..obs.blame import blame as _blame, combine
+
+        return combine([_blame(tr) for tr in self.traces])
 
 
 def run_scenario(
@@ -134,13 +141,15 @@ def run_scenario(
     iterations each under ``strategy`` on the true dynamic cluster, on
     ``replan_config.device``.  ``hit_model`` / ``cache_config`` add the
     feature-cache tier: every interval's traffic is cache-adjusted for its
-    placement, and ``replan`` searches against it.  ``collect_traces``
-    raises ``NotImplementedError``: the observability tier is not ported
-    yet."""
+    placement, and ``replan`` searches against it.
+
+    ``collect_traces=True`` records every interval's committed simulation
+    and attaches one ``repro_torch.obs.ScheduleTrace`` per interval to
+    ``ScenarioOutcome.traces`` (makespans are unchanged: recording is
+    observational).  ``ScenarioOutcome.blame()`` then decomposes the
+    run's total into named critical-path components."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; known: {STRATEGIES}")
-    if collect_traces:
-        raise NotImplementedError(OBS_TIER)
     cfg = replan_config or ReplannerConfig()
     placement = init_placement or ifs_placement(workload, cluster, seed=seed)
     full = workload.realize(
@@ -202,7 +211,18 @@ def run_scenario(
             workload, cluster, placement, r_iv,
             policy=policy, trace=tw, migrations=flows or None,
             shaping=shaping if flows else None, device=cfg.device,
+            record=collect_traces,
         )
+        if collect_traces:
+            from ..obs.trace import ScheduleTrace
+
+            out.traces.append(
+                ScheduleTrace.from_result(
+                    res_iv, workload, cluster, placement, r_iv,
+                    trace=tw, migrations=flows or None,
+                    shaping=shaping if flows else None,
+                )
+            )
         overlap_s = 0.0
         if flows:
             clean_iv = simulate_torch(

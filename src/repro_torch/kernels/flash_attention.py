@@ -31,7 +31,7 @@ kernel of its route or raises.  Each launch adds one to
 ``flash_attention.launches`` and to its route's count in
 ``flash_attention.launches_by_route`` (a decode over several chunks is
 one launch of the wrapper: the kernel and its merge).  There is no
-backward yet (ROADMAP Queue 2 item 4): an input that requires a gradient
+backward yet (ROADMAP Queue 2 item 1): an input that requires a gradient
 is refused.
 """
 from __future__ import annotations
@@ -208,7 +208,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} must be 4-D, got {tuple(t.shape)}")
         if t.requires_grad and torch.is_grad_enabled():
             raise NotImplementedError(
-                "flash_attention has no backward yet (ROADMAP Queue 2 item 4)"
+                "flash_attention has no backward yet (ROADMAP Queue 2 item 1)"
             )
     if q.dtype not in _DTYPES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")

@@ -21,7 +21,8 @@ reference.  Public surface:
 As in the reference, ``prefill`` returns logits only: it hands no state
 to ``decode_step``.  The weights take no gradient: this slice serves
 (training waits for the attention kernel's backward, ROADMAP Queue 2
-item 3b).  The other block patterns raise ``NotImplementedError``.
+item 1, and for the training loop, Queue 1 item 13).  The other block
+patterns raise ``NotImplementedError``.
 """
 from __future__ import annotations
 

@@ -21,8 +21,8 @@ and capacity = t k, so no token is dropped):
 
 A layer's parameters: router [d, E] fp32, w_gate and w_up [E, d, f] and
 w_down [E, f, d] in the model's dtype.  Expert parallelism over a mesh
-waits for ROADMAP Queue 1 item 15, and the load-balance loss and the aux
-output for training (item 14).
+waits for ROADMAP Queue 1 item 14, and the load-balance loss and the aux
+output for training (item 13).
 """
 from __future__ import annotations
 

@@ -15,8 +15,8 @@ on the CPU.
     reference's reports, and the service meets strictly more deadlines
     than each on the mixed stream;
   * the solo references equal the reference's;
-  * ``collect_traces`` and ``tenant_blame`` raise, naming ROADMAP Queue 1
-    item 6.
+  * ``collect_traces`` records the reference's epoch traces and
+    ``tenant_blame`` equals the reference's.
 """
 import math
 import re
@@ -225,12 +225,52 @@ def test_slo_math_and_validation_match_reference():
         assert getattr(port_arrivals, k) == getattr(ref.arrivals, k), k
 
 
+def _traced_service_matches_reference(case):
+    """``collect_traces=True`` on both packages: one trace a committed
+    epoch, with the reference's task offsets, names and spans, and the
+    reference's ``tenant_blame()``, which conserves the epochs' summed
+    makespans."""
+    rc = cluster4()
+    cluster = from_reference(rc)
+    make, kw = CASES[case]
+    stream = make(rc)
+    want = ref.run_service(stream, rc, ref.ServiceConfig(**kw), collect_traces=True)
+    got = port.run_service(_port_stream(stream), cluster,
+                           port.ServiceConfig(device="cpu", **kw), collect_traces=True)
+    _same_outcome(want, got)
+    assert len(got.traces) == len(got.epochs) == len(want.traces)
+    for (ta, oa, na), (tb, ob, nb) in zip(want.traces, got.traces):
+        assert (oa, na) == (ob, nb)
+        assert _close(ta.makespan, tb.makespan)
+        assert sorted((s.task, s.iter) for s in ta.tasks) == sorted(
+            (s.task, s.iter) for s in tb.tasks)
+        assert sorted((f.edge, f.iter, f.cls) for f in ta.flows) == sorted(
+            (f.edge, f.iter, f.cls) for f in tb.flows)
+    bw, bg = want.tenant_blame(), got.tenant_blame()
+    assert bw.keys() == bg.keys()
+    for k in bw:
+        assert _close(bw[k], bg[k]), (k, bw[k], bg[k])
+    total = sum(tr.makespan for tr, _, _ in got.traces)
+    assert sum(bg.values()) == pytest.approx(total, rel=1e-9)
+    return got
+
+
 def test_traces_and_blame_raise_naming_item_6():
-    cluster = from_reference(cluster4())
-    stream = _port_stream(mixed_stream(cluster4()))
-    cfg = port.ServiceConfig(replan=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        port.run_service(stream, cluster, cfg, collect_traces=True)
-    out = port.run_service(stream[:1], cluster, cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    """Both used to raise, naming ROADMAP Queue 1 item 6 (the name is
+    kept): on the mixed stream they equal the reference's; without traces
+    ``tenant_blame()`` refuses."""
+    got = _traced_service_matches_reference("mixed")
+    assert got.traces
+    out = port.run_service(_port_stream(mixed_stream(cluster4()))[:1],
+                           from_reference(cluster4()),
+                           port.ServiceConfig(replan=False, device="cpu"))
+    assert out.traces == []
+    with pytest.raises(ValueError, match="collect_traces"):
         out.tenant_blame()
+
+
+def test_tenant_blame_with_replanning_matches_reference():
+    """``examples/arrivals.py``'s stream with warm re-planning: the
+    service's migrations ride the traced epochs too."""
+    got = _traced_service_matches_reference("example_replan")
+    assert any(e.replanned for e in got.epochs)

@@ -10,7 +10,8 @@
     strategy (budget 24, 2 intervals), give the reference's records and
     placements at ``PARITY_RTOL``; the re-planner counts into the port's
     metrics registry as the reference's does;
-  * ``collect_traces`` and ``blame()`` raise, naming their ROADMAP item;
+  * ``run_scenario(collect_traces=True)`` records the reference's traces
+    and ``blame()`` equals the reference's;
     ``from_reference`` carries flows, traces, events and configs.
 """
 import dataclasses
@@ -30,6 +31,7 @@ from repro_torch.core import PARITY_ATOL, PARITY_RTOL
 from repro_torch.obs import REGISTRY as PORT_REGISTRY
 
 from test_golden_schedules import _jobs
+from test_torch_obs import _same_blame, _same_trace as _same_schedule_trace
 
 
 def _close(a, b):
@@ -203,18 +205,23 @@ def test_replanner_counts_into_the_metrics_registry(case):
             reg.enabled = was
             reg.reset()
     want, got = snaps
-    replan_keys = {k for k in want if k.startswith("replan.")}
-    assert replan_keys == set(got)
-    for k in replan_keys:
+    # the re-planner's own counters, and beneath them the search's
+    # (etp.*) and the engine's (engine.simulate*), as the reference counts
+    assert {k for k in want if k.startswith("replan.")} <= set(got)
+    assert set(want) == set(got)
+    for k in want:
         assert want[k]["kind"] == got[k]["kind"]
         if want[k]["kind"] == "counter":
             assert _close(want[k]["value"], got[k]["value"]), k
 
 
 def test_unported_tiers_raise_naming_their_items(case):
-    """Only the observability tier (schedule traces, blame) still raises;
-    the cache tier is ported (``tests/test_torch_cache.py`` holds
-    ``Replanner`` and ``run_scenario`` with it to the reference)."""
+    """Both tiers these raises named are ported now (the name is kept): the
+    cache tier (``tests/test_torch_cache.py`` holds ``Replanner`` and
+    ``run_scenario`` with it to the reference) and the observability tier:
+    ``run_scenario(collect_traces=True)`` records one trace per interval,
+    equal to the reference's, and ``blame()`` equals the reference's and
+    conserves the run's total; without traces ``blame()`` refuses."""
     from repro_torch.cache import CacheConfig
 
     wl, cluster, p0 = case
@@ -223,12 +230,26 @@ def test_unported_tiers_raise_naming_their_items(case):
     budgets = CacheConfig(cache_gb=[1.0, 2.0, 3.0, 4.0])
     rp = port.Replanner(pwl, pc, pp, config=cfg, cache_config=budgets)
     assert rp.cache_config is budgets and rp.hit_model is None
-    trace = port.constant_trace(pc)
-    kw = dict(strategy="static", n_intervals=1, iters_per_interval=2, replan_config=cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        port.run_scenario(pwl, pc, trace, collect_traces=True, **kw)
-    out = port.run_scenario(pwl, pc, trace, **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    trace = ref.drift_trace(cluster, horizon_s=8.0, n_segments=4, seed=1,
+                            bw_scale_range=(0.25, 1.0))
+    ref_cfg = ref.ReplanConfig(budget=24, sim_iters=4, drift_threshold=0.2,
+                               shaping="deadline", backend="numpy")
+    kw = dict(strategy="replan", n_intervals=2, iters_per_interval=2, seed=0)
+    want = ref.run_scenario(wl, cluster, trace, replan_config=ref_cfg,
+                            collect_traces=True, **kw)
+    got = port.run_scenario(pwl, pc, from_reference(trace),
+                            replan_config=from_reference(ref_cfg, device="cpu"),
+                            collect_traces=True, **kw)
+    assert len(got.traces) == len(want.traces) == 2
+    assert any(f.is_migration for tr in got.traces for f in tr.flows)
+    for a, b in zip(want.traces, got.traces):
+        _same_schedule_trace(a, b)
+    _same_blame(want.blame(), got.blame())
+    assert got.blame().makespan == pytest.approx(got.total_s)
+    out = port.run_scenario(pwl, pc, port.constant_trace(pc), strategy="static",
+                            n_intervals=1, iters_per_interval=2, replan_config=cfg)
+    assert out.traces == []
+    with pytest.raises(ValueError, match="collect_traces"):
         out.blame()
 
 
