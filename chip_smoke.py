@@ -4,7 +4,8 @@
     python3 chip_smoke.py        # on a machine with one CUDA card
 
 Drives the port's paths on the card, DGTP planning, GraphSAGE training
-and LM serving (dense, mamba2 and MoE), and holds them against the
+and LM serving (dense, mamba2, MoE, gemma2, the zamba2 hybrid, the llava
+patch prefix) and encoding (hubert), and holds them against the
 port's own CPU path and against the plain version of every kernel.
 Phases, in order; any failure ends the run with a non-zero exit:
 
@@ -145,29 +146,75 @@ Phases, in order; any failure ends the run with a non-zero exit:
      moe_gemm's streaming routes; the prefill against the plain path;
      decode against forward beside the same through the plain versions;
      one profiled tick;
- 11. the kernel table's JSON line (the flash and moe_gemm records also
+ 11. gemma2_serve (gemma2-27b, bf16, full width: d_model 4608, 32 heads
+     of 128 over 16 KV heads, d_ff 36864, vocab 256000; 8 of its 46
+     layers): the attention kernel at its prefill shape q [1, 32, 8192,
+     128] (softcap 50, scale 144^-0.5) with window 4096 and without, and
+     its decode shape q [8, 32, 1, 128] at position 6143 of a [8, 8192,
+     16, 128] cache, windowed and global, against the plain version and
+     timed; 2 layers in fp32 on the card against the CPU; decode against
+     forward over 64 positions in bf16; the prefill of one 8192-token
+     sequence (its 8 launches on the wgmma route, the even layers
+     windowed) against the plain attention, then ``ServeEngine`` (8
+     requests, 8 slots, smax 2048, 64 new tokens each: one wave) and one
+     profiled tick;
+ 12. zamba2_serve (zamba2-7b, bf16, full width: d_model 3584, mamba2
+     d_inner 7168 in 112 SSM heads of 64, d_state 64, chunk 256; its
+     shared block 32 heads of 112 over 32 KV heads, d_ff 14336; 13 of 81
+     layers: two groups of 6, each followed by the shared block, and 1
+     trailing layer): ssd_scan at x [4, 2048, 112, 64] and the attention
+     kernel at q [4, 32, 2048, 112] against their plain versions and
+     timed; 7 layers in fp32 on the card against the CPU; decode against
+     forward in bf16 (both shared-block applications' KV entries
+     written); the 4 x 2048 prefill (ssd_scan on the mma route, flash
+     on wgmma) against the plain path, ``ServeEngine`` as in phase 11
+     and one profiled tick;
+ 13. llava_serve (llava-next-mistral-7b, bf16, full width and depth):
+     the attention kernel at q [2, 32, 4928, 128] over 8 KV heads with
+     window 4096; 2 layers in fp32 with a patch prefix on the card
+     against the CPU; decode against forward on tokens; the prefill of 2
+     x (2880 patch embeddings + 2048 tokens) (its 32 launches on wgmma,
+     the window cutting) against the plain attention, ``ServeEngine`` as
+     in phase 11 and one profiled tick;
+ 14. hubert_encode (hubert-xlarge, bf16, full width and depth: 48 layers,
+     16 heads of 80, layernorm, GELU, bidirectional): the attention
+     kernel at q [4, 16, 1500, 80], non-causal, against its plain
+     version and timed beside ``F.scaled_dot_product_attention``; 2
+     layers in fp32 on the card against the CPU; the forward over 4 x
+     1500 frames to per-frame logits [4, 1500, 2048] (the padded entries
+     -1e30; its 48 launches on wgmma) against the plain attention, its
+     wall first and warm; ``decode_step``, ``cache_struct`` and
+     ``ServeEngine`` refuse the encoder;
+ 15. the kernel table's JSON line (the flash and moe_gemm records also
      carry their prefill shape's times, ``prefill_ms``,
      ``prefill_bound_ms``, ``prefill_library_ms``, and kimi-k2's decode
      shape's, ``kimi_decode_ms``, ``kimi_decode_plain_ms``,
-     ``kimi_decode_bound_ms``, ``kimi_decode_library_ms``; waterfill's
-     its measured ``chain_bound_ms`` beside the bytes bound; ssd_scan's
-     its path's ``launches_by_route`` and the FMA route's
-     ``fma_ms``; sage_aggregate's the gather probe's ``probe_ms`` and
-     its backward's ``bwd_ms``,
+     ``kimi_decode_bound_ms``, ``kimi_decode_library_ms``, and the last
+     four families' shapes', ``gemma2_*``, ``zamba2_*``, ``llava_*`` and
+     ``hubert_*`` (``_ms``, ``_plain_ms``, ``_bound_ms``,
+     ``_library_ms``, None where no PyTorch call computes a softcap);
+     waterfill's its measured ``chain_bound_ms`` beside the bytes bound;
+     ssd_scan's its paths' ``launches_by_route``, the FMA route's
+     ``fma_ms`` and zamba2's prefill shape's ``zamba2_prefill_*``;
+     sage_aggregate's the gather probe's ``probe_ms`` and its backward's
+     ``bwd_ms``,
      ``bwd_bound_ms`` and ``bwd_library_ms``), the card's name and power
      limit, and the closing status line.
 
-Ten main paths, each with the kernel launch counts set to 0 just
+Fourteen main paths, each with the kernel launch counts set to 0 just
 before it and read just after: phases 3-4 (planning), phases 5a-5b (the
 engine's regimes and re-planning), phase 5c (multi-job planning and the
 arrival service), phase 5d (the feature-cache tier), phase 5e (traces
 and blame, failure handling, the infeed planner), the training
 steps, calibration and baseline plan of phase 6 (GraphSAGE), the
 ``ServeEngine`` run of phase 7 (LM serving), and the prefill followed by
-the ``ServeEngine`` run of phases 8 (mamba2), 9 (MoE) and 10 (kimi-k2).
+the ``ServeEngine`` run of phases 8 (mamba2), 9 (MoE), 10 (kimi-k2), 11
+(gemma2), 12 (zamba2) and 13 (llava), and the forward to per-frame
+logits of phase 14 (hubert).
 Each phase's seconds are printed on a ``[time]`` line.  ``--only
 regimes`` (phases 5a-5b), ``tenants`` (5c), ``cache`` (5d), ``obs`` (5e), ``sage``,
-``lm_serve``, ``mamba_serve``, ``moe_serve`` or ``kimi_serve``
+``lm_serve``, ``mamba_serve``, ``moe_serve``, ``kimi_serve``,
+``gemma2_serve``, ``zamba2_serve``, ``llava_serve`` or ``hubert_encode``
 builds the kernels and runs that phase alone (for work on that path; it prints no
 closing status line).
 Imports nothing of JAX or of the ``repro`` package.
@@ -178,6 +225,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -1557,9 +1605,6 @@ def phase_flash_kernel(fa):
     and decode shapes (fp32 and bf16), and its times at the prefill and
     decode shapes in bf16.  Returns the JSON numbers: the decode at the
     full cache (position 2047), the serving path's launch."""
-    import torch
-    import torch.nn.functional as F
-
     checks = []
     for i, (b, h, sq, sk, d, causal, window, softcap) in enumerate(FLASH_SWEEP):
         checks.append((f"sweep {i}", (b, h, h, sq, sk, d), dict(
@@ -1571,47 +1616,83 @@ def phase_flash_kernel(fa):
     # internlm2 prefill and decode, and kimi-k2's decode (64 heads over 8
     # KV heads of 112)
     B, S = LM_PREFILL
-    timed = [("prefill", (B, 16, 8, S, S, 128), dict(causal=True), None)]
+    timed = [("prefill", (B, 16, 8, S, S, 128), dict(causal=True))]
     timed += [(f"decode pos {pos}", (LM_SLOTS, 16, 8, 1, LM_SMAX, 128),
-               dict(causal=True, q_offset=pos), pos) for pos in DECODE_POSITIONS]
+               dict(causal=True, q_offset=pos)) for pos in DECODE_POSITIONS]
     timed += [(f"kimi decode pos {pos}", (LM_SLOTS, 64, 8, 1, LM_SMAX, 112),
-               dict(causal=True, q_offset=pos), pos) for pos in DECODE_POSITIONS]
-    rows = {}
-    for label, (b, h, kv, sq, sk, d), kw, pos in timed:
-        q, k, v = _flash_qkv(7, b, h, kv, sq, sk, d, torch.bfloat16)
-        kernel = lambda: fa.flash_attention(q, k, v, **kw)
-        _bit_stable(f"flash {label}", kernel)
-        plain = lambda: fa.flash_attention_plain(q, k, v, **kw)
-        if pos is None:
-            lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                         enable_gqa=True)
-        else:  # the one query row sees keys 0..pos
-            kk, vv = k[:, :, : pos + 1], v[:, :, : pos + 1]
-            lib = lambda: F.scaled_dot_product_attention(q, kk, vv, enable_gqa=True)
-        err_lib = (lib().float() - plain().float()).abs().max().item()
-        ms = _device_ms(kernel, 10 if pos is None else 50, flush=True)
-        plain_ms = _device_ms(plain, 2 if pos is None else 10, flush=True)
-        library_ms = _device_ms(lib, 10 if pos is None else 50, flush=True)
-        mask = fa.causal_mask(sq, sk, kw.get("window"), kw.get("q_offset", 0),
-                              kw["causal"], device="cuda")
-        n_pairs = b * h * int(mask.sum().item())
-        n_keys = int(mask.any(0).sum().item())
-        bound, by, flops, n_bytes = _flash_bound(b, h, kv, sq, d, n_pairs, n_keys, 2)
-        print(
-            f"[flash kernel] {label} bf16: device time per call, L2 flushed: "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"scaled_dot_product_attention {library_ms:.4f} ms (max diff to "
-            f"plain {err_lib:.3g}); bound {bound:.6f} ms by {by} ({flops} "
-            f"flops, {n_bytes} bytes; {100 * bound / ms:.1f}% of the kernel's "
-            f"time)", flush=True)
-        rows[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                           bound_ms=bound, bound_by=by)
-        del q, k, v
+               dict(causal=True, q_offset=pos)) for pos in DECODE_POSITIONS]
+    rows = {label: _flash_time(fa, "flash kernel", label, shape, kw)
+            for label, shape, kw in timed}
     out = dict(rows[f"decode pos {DECODE_POSITIONS[-1]}"])
     out["max_abs_err"] = worst
     out.update(_prefill_nums(rows["prefill"]))
     out.update(_shape_nums("kimi_decode", rows[f"kimi decode pos {DECODE_POSITIONS[-1]}"]))
     return out
+
+
+def _sdpa(q, k, v, kw):
+    """``F.scaled_dot_product_attention`` computing the attention of ``kw``
+    on q, k and v, the yardstick (the port never calls it), or None where
+    it computes another function (a tanh softcap).  A causal prefill from
+    position 0 takes ``is_causal``; a causal decode without a window reads
+    keys 0..pos; any other mask is passed as a boolean ``attn_mask``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    if kw.get("softcap"):
+        return None
+    sq, sk = q.shape[2], k.shape[2]
+    causal, window, off = kw.get("causal", True), kw.get("window"), kw.get("q_offset", 0)
+    extra = dict(scale=kw["scale"]) if kw.get("scale") is not None else {}
+    if window is None and causal and sq == 1:  # the one query row sees keys 0..pos
+        kk, vv = k[:, :, : off + 1], v[:, :, : off + 1]
+        return lambda: F.scaled_dot_product_attention(q, kk, vv, enable_gqa=True, **extra)
+    if window is None and (not causal or (off == 0 and sq == sk)):
+        return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                      enable_gqa=True, **extra)
+    mask = fa.causal_mask(sq, sk, window, off, causal, device=q.device)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True, **extra)
+
+
+def _flash_time(fa, tag, label, shape, kw):
+    """One bf16 attention shape (B, H, KV, Sq, Sk, D) with ``kw``, L2
+    flushed before each call: the kernel (two runs giving the same bits),
+    its plain version and ``_sdpa``'s call timed, beside the bound.
+    Returns the row (``library_ms`` None where no PyTorch call computes
+    the function)."""
+    import torch
+
+    b, h, kv, sq, sk, d = shape
+    q, k, v = _flash_qkv(7, b, h, kv, sq, sk, d, torch.bfloat16)
+    kernel = lambda: fa.flash_attention(q, k, v, **kw)
+    _bit_stable(f"flash {label}", kernel)
+    plain = lambda: fa.flash_attention_plain(q, k, v, **kw)
+    lib = _sdpa(q, k, v, kw)
+    reps = 10 if sq > 1 else 50
+    ms = _device_ms(kernel, reps, flush=True)
+    plain_ms = _device_ms(plain, 2 if sq > 1 else 10, flush=True)
+    if lib is None:
+        library_ms, lib_note = None, "no PyTorch call computes a tanh softcap"
+    else:
+        err_lib = (lib().float() - plain().float()).abs().max().item()
+        library_ms = _device_ms(lib, reps, flush=True)
+        lib_note = (f"scaled_dot_product_attention {library_ms:.4f} ms (max diff to "
+                    f"plain {err_lib:.3g})")
+    mask = fa.causal_mask(sq, sk, kw.get("window"), kw.get("q_offset", 0),
+                          kw.get("causal", True), device="cuda")
+    n_pairs = b * h * int(mask.sum().item())
+    n_keys = int(mask.any(0).sum().item())
+    del mask
+    bound, by, flops, n_bytes = _flash_bound(b, h, kv, sq, d, n_pairs, n_keys, 2)
+    print(
+        f"[{tag}] {label} bf16: device time per call, L2 flushed: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {lib_note}; bound "
+        f"{bound:.6f} ms by {by} ({flops} flops, {n_bytes} bytes; "
+        f"{100 * bound / ms:.1f}% of the kernel's time)", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+                bound_by=by)
 
 
 def _bit_stable(tag, fn):
@@ -1732,15 +1813,8 @@ def phase_lm(fa):
 
 
 def _warm_prefill(model, toks):
-    """Seconds of a second, warm call of ``model.prefill`` (the allocator's
-    blocks and the kernels' first-launch costs already in place)."""
-    import torch
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    model.prefill(toks)
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0
+    """Seconds of a second, warm call of ``model.prefill``."""
+    return _warm(lambda: model.prefill(toks))
 
 
 def _routes(*counted):
@@ -1770,16 +1844,17 @@ def _gate_prefill(tag, d_pre, want):
                              f"with the plain path ({d_pre} > {lim})")
 
 
-def _decode_vs_forward(m, n_pos, batch):
+def _decode_run(m, n_pos, batch):
     """Logits of ``n_pos`` decode steps against the forward's at the same
-    positions (seeded tokens): the max error per position, and the number
-    of positions where the argmax agrees on every sequence."""
+    positions (seeded tokens): the max error per position, the number of
+    positions where the argmax agrees on every sequence, the largest
+    forward logit's magnitude, and the decode's cache."""
     import torch
 
     vocab = m.cfg.vocab
     tk = torch.randint(0, vocab, (batch, n_pos),
                        generator=torch.Generator().manual_seed(4)).cuda()
-    full = m._logits(m.forward(tk))[..., :vocab]
+    full = m._logits(_text_forward(m, tk))[..., :vocab]
     cache = m.cache_struct(batch, n_pos)
     errs, agree = [], 0
     for t in range(n_pos):
@@ -1787,7 +1862,23 @@ def _decode_vs_forward(m, n_pos, batch):
         lg = lg[:, :vocab]
         errs.append((lg - full[:, t]).abs().max().item())
         agree += int((lg.argmax(-1) == full[:, t].argmax(-1)).all().item())
-    return errs, agree
+    return errs, agree, full.abs().max().item(), cache
+
+
+def _decode_vs_forward(m, n_pos, batch):
+    """``_decode_run``'s errors per position and argmax agreements."""
+    return _decode_run(m, n_pos, batch)[:2]
+
+
+def _text_forward(model, toks):
+    """``model.forward`` of token ids alone (a patches model with an empty
+    patch prefix: its decode reads tokens only)."""
+    import torch
+
+    if model.cfg.frontend != "patches":
+        return model.forward(toks)
+    empty = torch.zeros(toks.shape[0], 0, model.cfg.d_model, device=toks.device)
+    return model.forward(toks, patches=empty)
 
 
 def _requests(n, max_tokens):
@@ -1797,14 +1888,15 @@ def _requests(n, max_tokens):
             for i in range(n)]
 
 
-def _engine(model):
+def _engine(model, n_requests=LM_REQUESTS, max_tokens=LM_MAX_TOKENS):
     """A ServeEngine at launch/serve.py's defaults (16 requests of
     ``[1 + i % 13, 2, 3]``, 8 slots) with smax LM_SMAX and LM_MAX_TOKENS
-    new tokens each, the requests submitted."""
+    new tokens each (or ``n_requests`` of ``max_tokens``), the requests
+    submitted."""
     from repro_torch.serve import ServeEngine
 
     engine = ServeEngine(model, n_slots=LM_SLOTS, smax=LM_SMAX)
-    reqs = _requests(LM_REQUESTS, LM_MAX_TOKENS)
+    reqs = _requests(n_requests, max_tokens)
     for r in reqs:
         engine.submit(r)
     return engine, reqs
@@ -1816,11 +1908,12 @@ def _serve_checks(tag, model, stats, reqs, launches):
     (name -> (count, per tick)) launched its count per tick.  Returns the
     mean ms per tick."""
     vocab = model.cfg.vocab
+    n_req, max_tokens = len(reqs), reqs[0].max_tokens
     ms_tick = 1e3 * stats["wall_s"] / stats["ticks"]
     counts = ", ".join(f"{k} launches {n} ({n / stats['ticks']:.1f} per tick)"
                        for k, (n, _) in launches.items())
-    print(f"[{tag}] {LM_REQUESTS} requests, {LM_SLOTS} slots, smax {LM_SMAX}, "
-          f"{LM_MAX_TOKENS} new tokens each: {stats['tokens']} tokens over "
+    print(f"[{tag}] {n_req} requests, {LM_SLOTS} slots, smax {LM_SMAX}, "
+          f"{max_tokens} new tokens each: {stats['tokens']} tokens over "
           f"{stats['ticks']} ticks in {stats['wall_s']:.3f} s: "
           f"{stats['tok_per_s']:.1f} tokens/s, {ms_tick:.3f} ms per tick; "
           f"{counts}", flush=True)
@@ -1828,7 +1921,7 @@ def _serve_checks(tag, model, stats, reqs, launches):
         if n != per_tick * stats["ticks"]:
             raise AssertionError(f"{tag}: {name} launched {n} times, expected "
                                  f"{per_tick} per tick")
-    if not all(r.done for r in reqs) or stats["tokens"] != LM_REQUESTS * (LM_MAX_TOKENS + 1):
+    if not all(r.done for r in reqs) or stats["tokens"] != n_req * (max_tokens + 1):
         raise AssertionError(f"{tag}: the engine did not finish every request")
     if not all(0 <= t < vocab for r in reqs for t in r.out):
         raise AssertionError(f"{tag}: the engine emitted a token outside the vocabulary")
@@ -1844,7 +1937,7 @@ def _teacher_forced(tag, model, reqs):
     first = reqs[:LM_SLOTS]
     seqs = torch.tensor([r.prompt[:1] + r.out for r in first], device="cuda")
     with torch.no_grad():
-        pred = model._logits(model.forward(seqs[:, :-1]))[..., :vocab].argmax(-1)
+        pred = model._logits(_text_forward(model, seqs[:, :-1]))[..., :vocab].argmax(-1)
     gen_from = len(first[0].prompt) - 1  # positions whose next token was generated
     tf_agree = (pred[:, gen_from:] == seqs[:, gen_from + 1:]).float().mean().item()
     print(f"[{tag}] first wave's {seqs.shape[1] - 1 - gen_from} generated "
@@ -1958,6 +2051,58 @@ def _ssd_bound(b, s, h, hd, ds, q, elt, g=1):
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), flops, n_bytes
 
 
+def _ssd_checks(ss, tag, checks):
+    """Each (label, (b, s, h, hd, ds, chunk), wide) of ``checks`` through
+    the SSD kernel against its plain version, fp32 on the FMA route and
+    bf16 on the mma route, within KERNEL_RTOL of the largest output.
+    Returns the largest fp32 error."""
+    import torch
+
+    worst = 0.0
+    for seed, (label, (b, s, h, hd, ds, q), wide) in enumerate(checks):
+        errs = {}
+        for dtype in ("float32", "bfloat16"):
+            args = _ssd_inputs(seed, b, s, h, hd, ds, getattr(torch, dtype), wide)
+            before = _routes(ss.ssd_scan)
+            got = ss.ssd_scan(*args, chunk=q)
+            _check_route(f"ssd {label} {dtype}", before, _routes(ss.ssd_scan),
+                         ["mma" if dtype == "bfloat16" else "fma"])
+            want = ss.ssd_scan_plain(*args, chunk=q)[0]
+            torch.cuda.synchronize()
+            errs[dtype] = _rel_err(got, want)
+            if not errs[dtype] <= KERNEL_RTOL[dtype]:
+                raise AssertionError(f"ssd kernel != plain at {label} {dtype}: "
+                                     f"relative err {errs[dtype]} (tol {KERNEL_RTOL[dtype]})")
+            if dtype == "float32":
+                worst = max(worst, (got - want).abs().max().item())
+            del args, got, want
+        print(f"[{tag}] {label}: x [{b}, {s}, {h}, {hd}], d_state {ds}, chunk "
+              f"{q}: max err relative to the largest output, fp32 (fma route) "
+              f"{errs['float32']:.3g}, bf16 (mma route) {errs['bfloat16']:.3g}", flush=True)
+    return worst
+
+
+def _ssd_time(ss, tag, full):
+    """The mma route at ``full`` (b, s, h, hd, ds, chunk) in bf16, L2
+    flushed before each call: the same bits on two runs, the kernel's and
+    the plain version's times beside the bound.  Returns the row."""
+    import torch
+
+    args = _ssd_inputs(99, *full[:5], torch.bfloat16)
+    kernel = lambda: ss.ssd_scan(*args, chunk=full[5])
+    plain = lambda: ss.ssd_scan_plain(*args, chunk=full[5])
+    _bit_stable(f"ssd_scan mma route, {tag} bf16", kernel)
+    ms = _device_ms(kernel, 10, flush=True)
+    plain_ms = _device_ms(plain, 2, flush=True)
+    bound, by, flops, n_bytes = _ssd_bound(*full, 2)
+    print(f"[{tag}] x {list(full[:4])}, d_state {full[4]}, chunk {full[5]}, bf16: "
+          f"device time per call, L2 flushed: kernel (mma route) {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, no library call computes it; bound {bound:.6f} ms by "
+          f"{by} ({flops} flops, {n_bytes} bytes): the mma route at "
+          f"{100 * bound / ms:.1f}% of its bound", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by=by)
+
+
 def phase_ssd_kernel(ss):
     """The SSD kernel against its plain version at the sweep shapes of
     ``tests/test_kernels.py``, the smoke config's chunk of 32, and
@@ -1978,45 +2123,14 @@ def phase_ssd_kernel(ss):
     checks += [("smoke chunk 32", (2, 96, 4, 16, 16, 32), False),
                ("prefill", full, False),
                ("prefill, x, B and C views of one projection", full, True)]
-    worst = 0.0
-    for seed, (label, (b, s, h, hd, ds, q), wide) in enumerate(checks):
-        errs = {}
-        for dtype in ("float32", "bfloat16"):
-            args = _ssd_inputs(seed, b, s, h, hd, ds, getattr(torch, dtype), wide)
-            before = _routes(ss.ssd_scan)
-            got = ss.ssd_scan(*args, chunk=q)
-            _check_route(f"ssd {label} {dtype}", before, _routes(ss.ssd_scan),
-                         ["mma" if dtype == "bfloat16" else "fma"])
-            want = ss.ssd_scan_plain(*args, chunk=q)[0]
-            torch.cuda.synchronize()
-            errs[dtype] = _rel_err(got, want)
-            if not errs[dtype] <= KERNEL_RTOL[dtype]:
-                raise AssertionError(f"ssd kernel != plain at {label} {dtype}: "
-                                     f"relative err {errs[dtype]} (tol {KERNEL_RTOL[dtype]})")
-            if dtype == "float32":
-                worst = max(worst, (got - want).abs().max().item())
-            del args, got, want
-        print(f"[ssd kernel] {label}: x [{b}, {s}, {h}, {hd}], d_state {ds}, chunk "
-              f"{q}: max err relative to the largest output, fp32 (fma route) "
-              f"{errs['float32']:.3g}, bf16 (mma route) {errs['bfloat16']:.3g}", flush=True)
-    args = _ssd_inputs(99, *full[:5], torch.bfloat16)
-    kernel = lambda: ss.ssd_scan(*args, chunk=full[5])
-    plain = lambda: ss.ssd_scan_plain(*args, chunk=full[5])
-    _bit_stable("ssd_scan mma route, prefill bf16", kernel)
-    ms = _device_ms(kernel, 10, flush=True)
-    plain_ms = _device_ms(plain, 2, flush=True)
+    worst = _ssd_checks(ss, "ssd kernel", checks)
+    row = _ssd_time(ss, "ssd kernel", full)
     # the FMA route's time at the same shape (fp32), in the same run
     args32 = _ssd_inputs(99, *full[:5], torch.float32)
     fma_ms = _device_ms(lambda: ss.ssd_scan(*args32, chunk=full[5]), 3, flush=True)
     del args32
-    bound, by, flops, n_bytes = _ssd_bound(*full, 2)
-    print(f"[ssd kernel] prefill bf16: device time per call, L2 flushed: kernel "
-          f"(mma route) {ms:.4f} ms, plain {plain_ms:.4f} ms, no library call "
-          f"computes it; bound {bound:.6f} ms by {by} ({flops} flops, {n_bytes} "
-          f"bytes): the mma route at {100 * bound / ms:.1f}% of its bound; fp32 "
-          f"on the FMA route {fma_ms:.4f} ms", flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
-                bound_by=by, max_abs_err=worst, fma_ms=fma_ms)
+    print(f"[ssd kernel] prefill fp32 on the FMA route: {fma_ms:.4f} ms", flush=True)
+    return dict(row, max_abs_err=worst, fma_ms=fma_ms)
 
 
 def phase_mamba(ss, fa, mg):
@@ -2521,6 +2635,509 @@ def phase_kimi_serve(mg, fa, t):
     return launches, flash_err, t
 
 
+# ------------------------------------------------- the last four families
+# gemma2-27b, zamba2-7b, llava-next-mistral-7b and hubert-xlarge at full
+# width.  Each ServeEngine run is one wave: FAMILY_REQUESTS requests of
+# launch/serve.py's prompts over LM_SLOTS slots, smax LM_SMAX, with
+# FAMILY_MAX_TOKENS new tokens each.
+FAMILY_REQUESTS, FAMILY_MAX_TOKENS = 8, 64
+FLASH_KEYS = ("flash_decode", "flash_tiled", "flash_wgmma")
+# gemma2: 8 of its 46 layers, four local/global pairs (~11.5 GB of the
+# ~54 GB; cut for time, and for room for the plain path's 8192^2 fp32
+# scores in the prefill check); the prefill of one sequence at its
+# context of 8192, past its 4096 window; the kernel's decode shape at a
+# position the window cuts; decode against forward over 64 positions
+GEMMA_ARCH, GEMMA_LAYERS, GEMMA_PREFILL = "gemma2-27b", 8, (1, 8192)
+GEMMA_DECODE_POS, GEMMA_DECODE_STEPS = 6143, 64
+# zamba2: 13 of its 81 layers, two groups of 6 each followed by the shared
+# block, then 1 trailing layer (~2.9 GB of ~13.5 GB; cut for time); the
+# fp32 check runs one group, the shared block and the trailing layer
+ZAMBA_ARCH, ZAMBA_LAYERS, ZAMBA_FP32_LAYERS = "zamba2-7b", 13, 7
+# llava: full depth; the prefill of 2 x (2880 patch embeddings + 2048
+# tokens), 4928 positions, past mistral's 4096 window
+LLAVA_ARCH, LLAVA_PREFILL = "llava-next-mistral-7b", (2, 2048)
+# hubert: full depth; 4 clips of 30 s at its conv frontend's 50 Hz
+HUBERT_ARCH, HUBERT_FRAMES = "hubert-xlarge", (4, 1500)
+FAMILY_DECODE_STEPS = 16  # zamba2's and llava's decode against forward
+
+
+def _lm_kernels(fa, ss, mg):
+    """The LM's kernel wrappers by name."""
+    return {"flash_attention": fa.flash_attention, "ssd_scan": ss.ssd_scan,
+            "moe_gemm": mg.moe_grouped_gemm}
+
+
+def _family_model(tag, cfg, depth):
+    """``cfg``'s bf16 model on the card, weights from a seeded generator."""
+    import torch
+
+    from repro_torch.models import TransformerLM
+
+    t0 = time.perf_counter()
+    model = TransformerLM(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"[{tag}] {cfg.name} ({cfg.block_pattern}, {depth}): d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of "
+          f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab} padded to {model.vp}; "
+          f"{sum(p.numel() for p in model.parameters())} parameters in {cfg.dtype} "
+          f"(param_count {cfg.param_count()}), initialised on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return model
+
+
+def _fp32_card_vs_cpu(tag, cfg, n_layers, toks, kw):
+    """``n_layers`` of ``cfg`` at full width in fp32: the card's kernel path
+    against the CPU's plain path on the same weights (drawn on the card,
+    copied to the CPU) and inputs (CPU tensors: ``toks`` or None, and the
+    frontend's ``kw``): hidden states and last-position logits within
+    LM_FP32_ATOL."""
+    import torch
+
+    from repro_torch.models import TransformerLM
+
+    cfg2 = dataclasses.replace(cfg, n_layers=n_layers, dtype="float32")
+    card_m = TransformerLM(cfg2, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(2))
+    cpu_m = TransformerLM(cfg2, device="cpu")
+    cpu_m.load_state_dict(card_m.state_dict())
+    h_card = card_m.forward(None if toks is None else toks.cuda(),
+                            **{k: v.cuda() for k, v in kw.items()})
+    l_card = card_m._logits(h_card[:, -1]).cpu()
+    h_card = h_card.cpu()
+    del card_m
+    _free()
+    h_cpu = cpu_m.forward(toks, **kw)
+    l_cpu = cpu_m._logits(h_cpu[:, -1])
+    d_h = (h_card - h_cpu).abs().max().item()
+    d_l = (l_card - l_cpu)[:, : cfg.vocab].abs().max().item()
+    shape = "x".join(str(n) for n in h_cpu.shape[:2])
+    print(f"[{tag}] {n_layers} layers, full width, fp32, {shape} positions: card "
+          f"(kernels) vs cpu (plain): hidden max diff {d_h:.3g}, last logits max "
+          f"diff {d_l:.3g} (atol {LM_FP32_ATOL})", flush=True)
+    if not max(d_h, d_l) <= LM_FP32_ATOL:
+        raise AssertionError(f"{tag}: the card's fp32 model disagrees with the CPU's")
+
+
+def _decode_gate(tag, model, n_pos):
+    """bf16 decode against forward over the first ``n_pos`` positions of
+    LM_SLOTS seeded sequences: every logit within PREFILL_RTOL of the
+    largest forward logit (the two round differently; a wrong kernel or
+    cache entry moves logits by their own size).  Returns the decode's
+    cache."""
+    errs, agree, scale, cache = _decode_run(model, n_pos, LM_SLOTS)
+    lim = PREFILL_RTOL * scale
+    print(f"[{tag}] decode vs forward, {model.cfg.n_layers} layers bf16, {LM_SLOTS} "
+          f"sequences, {n_pos} positions: max err per position "
+          f"{' '.join(f'{e:.2g}' for e in errs)}; argmax agrees on all sequences at "
+          f"{agree} of {n_pos} positions; limit {lim:.4g} ({PREFILL_RTOL} of the "
+          f"largest forward logit)", flush=True)
+    if not (all(np.isfinite(errs)) and max(errs) <= lim):
+        raise AssertionError(f"{tag}: bf16 decode disagrees with the forward")
+    return cache
+
+
+def _main_path(counted, call, engine=None):
+    """A family's main path: every wrapper of ``counted`` (name ->
+    wrapper) at 0 launches, ``call()`` (the prefill, or the encoder's
+    forward) timed, then ``engine.run()`` when given, the counts read
+    after.  Returns the call's output, its wall, its launches by route
+    per wrapper, the engine's stats and the path's launches and launches
+    by route per wrapper."""
+    import torch
+
+    torch.cuda.synchronize()
+    for w in counted.values():
+        w.launches = 0
+    start = {n: dict(w.launches_by_route) for n, w in counted.items()}
+
+    def moved():
+        return {n: {r: c - start[n][r] for r, c in w.launches_by_route.items()}
+                for n, w in counted.items()}
+
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pre = moved()
+    stats = engine.run() if engine is not None else None
+    launches = {n: w.launches for n, w in counted.items()}
+    return out, wall, pre, stats, launches, moved()
+
+
+def _expect_routes(tag, moved, want):
+    """Fail unless the launches by route of ``moved`` are exactly ``want``
+    (name -> {route: count}; every other route and wrapper at 0)."""
+    for name, by_route in moved.items():
+        exp = {r: want.get(name, {}).get(r, 0) for r in by_route}
+        if by_route != exp:
+            raise AssertionError(f"{tag}: {name} launches by route were {by_route}, "
+                                 f"expected {exp}")
+    print(f"[{tag}] launches by route: " + "; ".join(
+        f"{n} {r}" for n, r in moved.items() if any(r.values())), flush=True)
+
+
+def _warm(call):
+    """Seconds of a second, warm ``call()`` (the allocator's blocks and the
+    kernels' first-launch costs already in place)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _against_plain(tag, label, cfg, got, call, names, wall):
+    """The main path's ``got`` (logits, the vocabulary's columns first)
+    against ``call()`` through the plain versions of ``names``, within
+    PREFILL_RTOL of the largest plain logit; prints the first and warm
+    walls."""
+    import torch
+
+    warm = _warm(call)
+    with _plain(*names):
+        want = call()
+    if not (torch.isfinite(got[..., : cfg.vocab]).all() and got.shape == want.shape):
+        raise AssertionError(f"{tag}: logits not finite or of the wrong shape")
+    d = (got - want)[..., : cfg.vocab].abs().max().item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    print(f"[{tag}] {label}, bf16: {wall:.3f} s (first call), {warm:.3f} s "
+          f"(second call); against the plain path: max abs logit diff {d:.4g} "
+          f"(logits in [{got[..., :cfg.vocab].min().item():.3f}, "
+          f"{got[..., :cfg.vocab].max().item():.3f}]), argmax agrees at "
+          f"{100 * agree:.1f}% of the rows", flush=True)
+    _gate_prefill(tag, d, want[..., : cfg.vocab])
+
+
+def _serve_family(tag, model, stats, reqs, launches, pre, per_tick, kernels):
+    """The family's engine run checked (``per_tick``: name -> launches a
+    tick; the other wrappers none), its first wave against a
+    teacher-forced forward, one profiled tick, the peak memory."""
+    import torch
+
+    ms_tick = _serve_checks(tag + " serve", model, stats, reqs, {
+        n: (launches[n] - sum(pre[n].values()), per_tick.get(n, 0)) for n in launches})
+    _teacher_forced(tag + " serve", model, reqs)
+    _profile_tick(tag + " profile", model, ms_tick, kernels)
+    print(f"[{tag}] peak device memory {torch.cuda.max_memory_allocated()} bytes",
+          flush=True)
+
+
+def phase_gemma(fa, ss, mg):
+    """gemma2-27b at full width and GEMMA_LAYERS of its 46 layers on the
+    card: 2 layers in fp32 against the CPU; bf16 decode against forward;
+    the main path (the prefill of one 8192-token sequence, its 8 flash
+    launches on the wgmma route with the window on the even layers, then
+    the ServeEngine run); the prefill against the plain attention; one
+    profiled tick (the tied head's fp32 copy among the copies).  Returns
+    the path's launches and launches by route."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(GEMMA_ARCH), n_layers=GEMMA_LAYERS)
+    toks2 = torch.randint(0, cfg.vocab, (2, 128), generator=torch.Generator().manual_seed(3))
+    _fp32_card_vs_cpu("gemma2", cfg, 2, toks2, {})
+    model = _family_model("gemma2", cfg, f"{cfg.n_layers} of 46 layers")
+    windows = [model._window_for(i) for i in range(cfg.n_layers)]
+    print(f"[gemma2] windows by layer: {windows}; attention softcap "
+          f"{cfg.attn_softcap}, logit softcap {cfg.logit_softcap}, query scale "
+          f"{cfg.q_scaling():.6f}", flush=True)
+    _decode_gate("gemma2", model, GEMMA_DECODE_STEPS)
+
+    B, S = GEMMA_PREFILL
+    toks = torch.randint(0, cfg.vocab, (B, S), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    engine, reqs = _engine(model, FAMILY_REQUESTS, FAMILY_MAX_TOKENS)
+    call = lambda: model.prefill(toks)
+    got, wall, pre, stats, launches, path = _main_path(_lm_kernels(fa, ss, mg), call, engine)
+    _expect_routes("gemma2 prefill", pre, {"flash_attention": {"wgmma": cfg.n_layers}})
+    _against_plain("gemma2", f"prefill {B} x {S} tokens", cfg, got, call, ("flash",), wall)
+    del got
+    _serve_family("gemma2", model, stats, reqs, launches, pre,
+                  {"flash_attention": cfg.n_layers},
+                  {"flash_attention": FLASH_KEYS, "copies and casts": ("copy",)})
+    return launches, path
+
+
+def phase_zamba(fa, ss, mg):
+    """zamba2-7b at full width and ZAMBA_LAYERS of its 81 layers on the
+    card: ZAMBA_FP32_LAYERS in fp32 against the CPU; bf16 decode against
+    forward, with both shared-block applications' KV entries written; the
+    main path (the prefill of 4 x 2048 tokens, its ssd_scan launches on
+    the mma route and its flash launches on wgmma, then the ServeEngine
+    run); the prefill against the plain path; one profiled tick.  Returns
+    the path's launches and launches by route."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(ZAMBA_ARCH), n_layers=ZAMBA_LAYERS)
+    n_apps = cfg.n_layers // cfg.hybrid_every
+    toks2 = torch.randint(0, cfg.vocab, (1, 512), generator=torch.Generator().manual_seed(3))
+    _fp32_card_vs_cpu("zamba2", cfg, ZAMBA_FP32_LAYERS, toks2, {})
+    s = cfg.ssm
+    model = _family_model("zamba2", cfg, f"{cfg.n_layers} of 81 layers: the shared "
+                          f"block after layers {cfg.hybrid_every - 1} and "
+                          f"{2 * cfg.hybrid_every - 1}; mamba2 d_inner "
+                          f"{s.d_inner(cfg.d_model)}, {s.n_heads(cfg.d_model)} SSM "
+                          f"heads of {s.head_dim}, d_state {s.d_state}, chunk {s.chunk}")
+    cache = _decode_gate("zamba2", model, FAMILY_DECODE_STEPS)
+    kv = cache["attn"]["k"]
+    norms = [kv[a].float().norm().item() for a in range(kv.shape[0])]
+    print(f"[zamba2] decode cache: mamba {sorted(cache['mamba'])} over "
+          f"{cache['mamba']['h'].shape[0]} layers; shared-block KV {list(kv.shape)}, "
+          f"one entry per application, norms {norms}", flush=True)
+    if kv.shape[0] != n_apps or not all(np.isfinite(norms)) or min(norms) == 0:
+        raise AssertionError("zamba2: a shared-block application's KV entry was not written")
+    del cache, kv
+
+    B, S = LM_PREFILL
+    toks = torch.randint(0, cfg.vocab, (B, S), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    engine, reqs = _engine(model, FAMILY_REQUESTS, FAMILY_MAX_TOKENS)
+    call = lambda: model.prefill(toks)
+    got, wall, pre, stats, launches, path = _main_path(_lm_kernels(fa, ss, mg), call, engine)
+    _expect_routes("zamba2 prefill", pre, {"ssd_scan": {"mma": cfg.n_layers},
+                                           "flash_attention": {"wgmma": n_apps}})
+    _against_plain("zamba2", f"prefill {B} x {S} tokens", cfg, got, call,
+                   ("flash", "ssd"), wall)
+    del got
+    _serve_family("zamba2", model, stats, reqs, launches, pre,
+                  {"flash_attention": n_apps},
+                  {"flash_attention": FLASH_KEYS, "ssd_scan": ("ssd_scan",)})
+    return launches, path
+
+
+def _patches(b, n, d, gen, device):
+    """Seeded precomputed patch embeddings [b, n, d] at the embedding
+    table's scale (standard normals over sqrt(d))."""
+    import torch
+
+    return torch.randn(b, n, d, generator=gen, device=device) / math.sqrt(d)
+
+
+def phase_llava(fa, ss, mg):
+    """llava-next-mistral-7b at full width and depth on the card: 2 layers
+    in fp32 with a patch prefix against the CPU; bf16 decode against
+    forward (tokens only, as the engine serves it); the main path (the
+    prefill of 2 x (2880 patches + 2048 tokens), its 32 flash launches on
+    the wgmma route with mistral's window cutting, then the ServeEngine
+    run); the prefill against the plain attention; one profiled tick.
+    Returns the path's launches and launches by route."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(LLAVA_ARCH)
+    gen = torch.Generator().manual_seed(3)
+    toks2 = torch.randint(0, cfg.vocab, (2, 192), generator=gen)
+    _fp32_card_vs_cpu("llava", cfg, 2, toks2,
+                      {"patches": _patches(2, 64, cfg.d_model, gen, "cpu")})
+    model = _family_model("llava", cfg, f"full depth, {cfg.n_layers} layers, window "
+                          f"{cfg.sliding_window}, {cfg.n_patches} patches")
+    _decode_gate("llava", model, FAMILY_DECODE_STEPS)
+
+    B, S = LLAVA_PREFILL
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (B, S), device="cuda", generator=gen)
+    patches = _patches(B, cfg.n_patches, cfg.d_model, gen, "cuda").to(torch.bfloat16)
+    engine, reqs = _engine(model, FAMILY_REQUESTS, FAMILY_MAX_TOKENS)
+    call = lambda: model.prefill(toks, patches=patches)
+    got, wall, pre, stats, launches, path = _main_path(_lm_kernels(fa, ss, mg), call, engine)
+    _expect_routes("llava prefill", pre, {"flash_attention": {"wgmma": cfg.n_layers}})
+    _against_plain("llava", f"prefill {B} x ({cfg.n_patches} patches + {S} tokens) = "
+                   f"{B} x {cfg.n_patches + S} positions", cfg, got, call, ("flash",), wall)
+    del got, patches
+    _serve_family("llava", model, stats, reqs, launches, pre,
+                  {"flash_attention": cfg.n_layers}, {"flash_attention": FLASH_KEYS})
+    return launches, path
+
+
+def phase_hubert(fa, ss, mg):
+    """hubert-xlarge at full width and depth on the card: 2 layers in fp32
+    against the CPU; the main path (the forward over 4 x 1500 frames to
+    per-frame logits, its 48 flash launches on the wgmma route,
+    bidirectional); the logits against the plain attention's; the
+    encoder refused by ``decode_step``, ``cache_struct`` and the engine.
+    Returns the path's launches and launches by route."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve import ServeEngine
+
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(HUBERT_ARCH)
+    gen = torch.Generator().manual_seed(3)
+    _fp32_card_vs_cpu("hubert", cfg, 2, None,
+                      {"frames": torch.randn(2, 300, cfg.d_model, generator=gen)})
+    model = _family_model("hubert", cfg, f"full depth, {cfg.n_layers} layers, "
+                          f"{cfg.norm}, {cfg.mlp}, bidirectional, no rope")
+
+    B, T = HUBERT_FRAMES
+    frames = torch.randn(B, T, cfg.d_model, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    frames = frames.to(torch.bfloat16)
+    call = lambda: model._logits(model.forward(frames=frames))
+    got, wall, pre, _, launches, path = _main_path(_lm_kernels(fa, ss, mg), call)
+    _expect_routes("hubert forward", pre, {"flash_attention": {"wgmma": cfg.n_layers}})
+    if got.shape != (B, T, model.vp) or not (got[..., cfg.vocab:] == -1e30).all():
+        raise AssertionError(f"hubert: per-frame logits {list(got.shape)}, or a padded "
+                             "entry not at -1e30")
+    print(f"[hubert] per-frame logits {list(got.shape)} fp32, the {model.vp - cfg.vocab} "
+          f"padded entries at -1e30", flush=True)
+    _against_plain("hubert", f"forward {B} x {T} frames", cfg, got, call, ("flash",), wall)
+    refused = []
+    for name, fn in (("decode_step", lambda: model.decode_step(
+                         {}, torch.zeros(B, dtype=torch.int32, device="cuda"), 0)),
+                     ("cache_struct", lambda: model.cache_struct(B, 8)),
+                     ("ServeEngine", lambda: ServeEngine(model, n_slots=B, smax=8))):
+        try:
+            fn()
+        except ValueError as err:
+            refused.append(f"{name} ({err})")
+            continue
+        raise AssertionError(f"hubert: {name} accepted the encoder")
+    print(f"[hubert] refused: {'; '.join(refused)}", flush=True)
+    print(f"[hubert] peak device memory {torch.cuda.max_memory_allocated()} bytes",
+          flush=True)
+    return launches, path
+
+
+def _timed_flash(fa, tag, prefix, checks):
+    """``checks`` (label, shape, kwargs) against the plain version in fp32
+    and bf16, then each timed in bf16: (the largest fp32 error, the
+    record's ``<prefix>_<label>_*`` numbers)."""
+    err = _flash_checks(fa, checks, tag)
+    nums = {}
+    for label, shape, kw in checks:
+        row = _flash_time(fa, tag, label, shape, kw)
+        nums.update(_shape_nums(f"{prefix}_{label.replace(' ', '_')}", row))
+    return err, nums
+
+
+def phase_gemma_serve(fa, ss, mg, t):
+    """gemma2_serve: the attention kernel at gemma2-27b's prefill shape
+    (window and global, softcap 50, scale 144^-0.5) and decode shape
+    (position GEMMA_DECODE_POS of an 8192 cache, window and global), then
+    the model."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(GEMMA_ARCH)
+    B, S = GEMMA_PREFILL
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    sc = dict(causal=True, softcap=cfg.attn_softcap, scale=cfg.q_scaling())
+    win = dict(sc, window=cfg.sliding_window)
+    dec = dict(q_offset=GEMMA_DECODE_POS)
+    err, nums = _timed_flash(fa, "gemma2 flash kernel", "gemma2", [
+        ("prefill", (B, h, kv, S, S, d), win),
+        ("prefill global", (B, h, kv, S, S, d), sc),
+        ("decode", (LM_SLOTS, h, kv, 1, S, d), dict(win, **dec)),
+        ("decode global", (LM_SLOTS, h, kv, 1, S, d), dict(sc, **dec)),
+    ])
+    t = _phase_done(f"flash_attention checks and times at {GEMMA_ARCH}'s shapes", t)
+    launches, path = phase_gemma(fa, ss, mg)
+    t = _phase_done(f"gemma2 serving (gemma2-27b at {GEMMA_LAYERS} layers: parity, "
+                    "decode, prefill, ServeEngine, profile)", t)
+    return dict(flash_err=err, flash_nums=nums, launches=launches, by_route=path), t
+
+
+def phase_zamba_serve(fa, ss, mg, t):
+    """zamba2_serve: the SSD kernel at zamba2-7b's prefill shape (112 heads
+    of 64, d_state 64, chunk 256) and the attention kernel at its shared
+    block's (32 query heads over 32 KV heads of 112), then the model."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ZAMBA_ARCH)
+    B, S = LM_PREFILL
+    s = cfg.ssm
+    full = (B, S, s.n_heads(cfg.d_model), s.head_dim, s.d_state, s.chunk)
+    ssd_err = _ssd_checks(ss, "zamba2 ssd kernel", [("prefill", full, False)])
+    ssd_nums = _shape_nums("zamba2_prefill", _ssd_time(ss, "zamba2 ssd kernel", full))
+    flash_err, flash_nums = _timed_flash(fa, "zamba2 flash kernel", "zamba2", [
+        ("prefill", (B, cfg.n_heads, cfg.n_kv_heads, S, S, cfg.hd), dict(causal=True))])
+    t = _phase_done(f"ssd_scan and flash_attention checks and times at {ZAMBA_ARCH}'s "
+                    "shapes", t)
+    launches, path = phase_zamba(fa, ss, mg)
+    t = _phase_done(f"zamba2 serving (zamba2-7b at {ZAMBA_LAYERS} layers: parity, "
+                    "decode, prefill, ServeEngine, profile)", t)
+    return dict(flash_err=flash_err, flash_nums=flash_nums, ssd_err=ssd_err,
+                ssd_nums=ssd_nums, launches=launches, by_route=path), t
+
+
+def phase_llava_serve(fa, ss, mg, t):
+    """llava_serve: the attention kernel at llava's prefill shape (4928
+    positions, 32 query heads over 8 KV heads, window 4096), then the
+    model."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(LLAVA_ARCH)
+    B, S = LLAVA_PREFILL
+    n = cfg.n_patches + S
+    err, nums = _timed_flash(fa, "llava flash kernel", "llava", [
+        ("prefill", (B, cfg.n_heads, cfg.n_kv_heads, n, n, cfg.hd),
+         dict(causal=True, window=cfg.sliding_window))])
+    t = _phase_done(f"flash_attention checks and times at {LLAVA_ARCH}'s shapes", t)
+    launches, path = phase_llava(fa, ss, mg)
+    t = _phase_done("llava serving (llava-next-mistral-7b at full depth: parity, "
+                    "decode, prefill with patches, ServeEngine, profile)", t)
+    return dict(flash_err=err, flash_nums=nums, launches=launches, by_route=path), t
+
+
+def phase_hubert_encode(fa, ss, mg, t):
+    """hubert_encode: the attention kernel at hubert's shape (1500 frames,
+    16 heads of 80, non-causal), then the model."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(HUBERT_ARCH)
+    B, T = HUBERT_FRAMES
+    err, nums = _timed_flash(fa, "hubert flash kernel", "hubert", [
+        ("encode", (B, cfg.n_heads, cfg.n_kv_heads, T, T, cfg.hd), dict(causal=False))])
+    t = _phase_done(f"flash_attention checks and times at {HUBERT_ARCH}'s shapes", t)
+    launches, path = phase_hubert(fa, ss, mg)
+    t = _phase_done("hubert encoding (hubert-xlarge at full depth: parity, forward, "
+                    "per-frame logits, refusals)", t)
+    return dict(flash_err=err, flash_nums=nums, launches=launches, by_route=path), t
+
+
+FAMILY_PHASES = {"gemma2_serve": phase_gemma_serve, "zamba2_serve": phase_zamba_serve,
+                 "llava_serve": phase_llava_serve, "hubert_encode": phase_hubert_encode}
+
+
+def phase_families(fa, ss, mg, t, names=tuple(FAMILY_PHASES)):
+    """The named family phases in order: their results by name."""
+    out = {}
+    for name in names:
+        out[name], t = FAMILY_PHASES[name](fa, ss, mg, t)
+    return out, t
+
+
+def _add_families(flash, ssd_entry, families):
+    """The family paths' numbers and launches merged into the flash
+    numbers and the ssd_scan record; returns the paths' flash launches."""
+    flash_launches = 0
+    for fam in families.values():
+        flash["max_abs_err"] = max(flash["max_abs_err"], fam["flash_err"])
+        flash.update(fam["flash_nums"])
+        flash_launches += fam["launches"]["flash_attention"]
+        if "ssd_nums" in fam:
+            ssd_entry.update(fam["ssd_nums"])
+            ssd_entry["max_abs_err"] = max(ssd_entry["max_abs_err"], fam["ssd_err"])
+        ssd_entry["launches"] += fam["launches"]["ssd_scan"]
+        for r, n in fam["by_route"]["ssd_scan"].items():
+            ssd_entry["launches_by_route"][r] += n
+    return flash_launches
+
+
 def _prefill_nums(row):
     """A timed prefill row as the record's prefill_* numbers."""
     return {"prefill_ms": row["ms"], "prefill_bound_ms": row["bound_ms"],
@@ -2551,7 +3168,8 @@ def _entry(name, stem, replaces, nums, launches, by_route=None):
         "bound_by": nums["bound_by"],
         "library_ms": nums.get("library_ms"),
         **{k: v for k, v in nums.items()
-           if k.startswith(("prefill_", "kimi_", "chain_", "fma_", "bwd_", "probe_"))},
+           if k.startswith(("prefill_", "kimi_", "chain_", "fma_", "bwd_", "probe_",
+                            "gemma2_", "zamba2_", "llava_", "hubert_"))},
         **({"launches_by_route": by_route} if by_route is not None else {}),
     }
 
@@ -3254,7 +3872,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("regimes", "tenants", "cache", "obs", "sage",
                                        "lm_serve", "mamba_serve", "moe_serve",
-                                       "kimi_serve"),
+                                       "kimi_serve", *FAMILY_PHASES),
                     default=None, help="build the kernels and run this phase alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -3310,6 +3928,11 @@ def main(argv=None) -> int:
             print(json.dumps({"kimi_launches": launches}))
             print(f"[done] {time.perf_counter() - t_start:.1f} s ({args.only} only)")
             return 0
+        elif args.only in FAMILY_PHASES:
+            fams, t = phase_families(fa, ss, mg, t, (args.only,))
+            print(json.dumps(fams[args.only]))
+            print(f"[done] {time.perf_counter() - t_start:.1f} s ({args.only} only)")
+            return 0
         else:
             entry, _, _, t = phase_moe_serve(mg, fa, t)
             entries = [entry]
@@ -3349,6 +3972,9 @@ def main(argv=None) -> int:
     kimi_launches, kimi_flash_err, t = phase_kimi_serve(mg, fa, t)
     flash["max_abs_err"] = max(flash["max_abs_err"], moe_flash_err, kimi_flash_err)
     moe_entry["launches"] += kimi_launches["moe_gemm"]
+    mamba_ssd_launches = ssd_entry["launches"]
+    families, t = phase_families(fa, ss, mg, t)
+    family_flash_launches = _add_families(flash, ssd_entry, families)
 
     line = {
         "kernels": [
@@ -3357,7 +3983,7 @@ def main(argv=None) -> int:
                    + obs_launches + sage_launches["waterfill_fill"]),
             _sage_entry(sage, sage_launches),
             _flash_entry(flash, flash_launches + moe_flash_launches
-                         + kimi_launches["flash_attention"]),
+                         + kimi_launches["flash_attention"] + family_flash_launches),
             ssd_entry,
             moe_entry,
         ]
@@ -3367,9 +3993,11 @@ def main(argv=None) -> int:
           f"waterfill_fill {tenant_launches}; cache path: waterfill_fill "
           f"{cache_launches}; obs path: waterfill_fill {obs_launches}; GraphSAGE "
           f"path: {sage_launches}; LM serving path: flash_attention "
-          f"{flash_launches}; mamba2 path: ssd_scan {ssd_entry['launches']}; "
+          f"{flash_launches}; mamba2 path: ssd_scan {mamba_ssd_launches}; "
           f"MoE path: moe_gemm {moe_entry['launches'] - kimi_launches['moe_gemm']}, "
-          f"flash_attention {moe_flash_launches}; kimi path: {kimi_launches}", flush=True)
+          f"flash_attention {moe_flash_launches}; kimi path: {kimi_launches}; "
+          + "; ".join(f"{name} path: {fam['launches']}" for name, fam in families.items()),
+          flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(line))
     smi = subprocess.run(

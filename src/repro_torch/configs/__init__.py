@@ -1,13 +1,11 @@
-"""Architecture registry of the port: the ``dense``, ``moe`` and ``mamba2``
-archs without a frontend.
+"""Architecture registry of the port: the reference's ten archs, over all
+six block patterns and both frontends.
 
 ``get_config(id)`` and ``get_smoke_config(id)`` take the reference's
-hyphened ids (``repro.configs``) and return the port's ``LMConfig``.  The
-reference's other archs need block patterns the port does not run yet;
-asking for one raises ``NotImplementedError`` naming its ROADMAP item.
-kimi-k2-1t-a32b serves at full width on one card at 1 of its 61 layers
-(a layer's 384 experts are 33.8 GB in bf16; its head_dim of 112 runs on
-every attention route).
+hyphened ids (``repro.configs``) and return the port's ``LMConfig``; an
+unknown id raises ``KeyError``.  kimi-k2-1t-a32b serves at full width on
+one card at 1 of its 61 layers (a layer's 384 experts are 33.8 GB in
+bf16; its head_dim of 112 runs on every attention route).
 """
 from __future__ import annotations
 
@@ -17,31 +15,27 @@ from typing import Dict, List
 from ..models.config import LMConfig
 
 _MODULES: Dict[str, str] = {
+    "zamba2-7b": "zamba2_7b",
+    "gemma2-27b": "gemma2_27b",
     "phi3-mini-3.8b": "phi3_mini_3_8b",
     "internlm2-1.8b": "internlm2_1_8b",
     "starcoder2-3b": "starcoder2_3b",
     "mamba2-1.3b": "mamba2_1_3b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "hubert-xlarge": "hubert_xlarge",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)
 
-# the reference's archs that wait for another block pattern or a frontend
-UNPORTED: Dict[str, str] = {
-    "gemma2-27b": "the gemma2 block pattern (ROADMAP Queue 1 item 9)",
-    "zamba2-7b": "the zamba2 hybrid pattern, a shared attention block over "
-                 "the ported mamba2 blocks (ROADMAP Queue 1 item 10)",
-    "hubert-xlarge": "the encoder pattern and frames frontend (ROADMAP Queue 1 item 11)",
-    "llava-next-mistral-7b": "the patches frontend (ROADMAP Queue 1 item 11)",
-}
+# the reference's archs that the port does not run (none since every
+# block pattern and frontend is ported); kept so that callers listing the
+# reference's archs as ``ARCH_IDS + list(UNPORTED)`` go on working
+UNPORTED: Dict[str, str] = {}
 
 
 def _mod(arch_id: str):
-    if arch_id in UNPORTED:
-        raise NotImplementedError(
-            f"{arch_id} is not ported yet: it needs {UNPORTED[arch_id]}"
-        )
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     return importlib.import_module(f".{_MODULES[arch_id]}", __package__)

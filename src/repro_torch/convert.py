@@ -10,8 +10,9 @@ reads the object's plain fields and numpy arrays by attribute
 (duck-typed), so nothing of ``repro`` is imported; arrays are copied.
 ``sage_from_reference(params, cfg)`` builds the port's ``GraphSAGE`` with
 the weights of the JAX package's ``init_sage`` parameter dict, and
-``lm_from_reference(params, cfg)`` the port's ``TransformerLM`` (dense,
-moe or mamba2) with those of ``TransformerLM.init``.
+``lm_from_reference(params, cfg)`` the port's ``TransformerLM`` (any of
+the six block patterns, either frontend) with those of
+``TransformerLM.init``.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ from .core.workload import Edge, Realization, TrafficModel, Workload
 from .dynamics.arrivals import JobArrival, ServiceConfig
 from .dynamics.replan import ReplanConfig
 from .dynamics.traces import BandwidthTrace, DynamicsEvent
-from .models.config import BLOCK_PATTERNS, LMConfig, MoESpec, SSMSpec
+from .models.config import BLOCK_PATTERNS, FRONTENDS, LMConfig, MoESpec, SSMSpec
 from .models.gnn import GraphSAGE, SageConfig
 from .models.model import TransformerLM
 
@@ -184,12 +185,13 @@ def sage_from_reference(
 def lm_config_from_reference(cfg: Any) -> LMConfig:
     """The port's ``LMConfig`` of a reference ``ModelConfig``: every field
     the port has, read by name (the ``moe`` and ``ssm`` specs too).
-    Raises ``NotImplementedError`` for a block pattern or frontend that
-    the port does not run."""
-    if cfg.block_pattern not in BLOCK_PATTERNS or cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs the {BLOCK_PATTERNS} block patterns "
-            f"without a frontend; got {cfg.block_pattern!r}"
+    Raises ``ValueError`` for a block pattern or frontend that the port
+    does not know."""
+    if cfg.block_pattern not in BLOCK_PATTERNS or cfg.frontend not in FRONTENDS:
+        raise ValueError(
+            f"{cfg.name}: the port runs the {BLOCK_PATTERNS} block patterns and "
+            f"the frontends {FRONTENDS}; got {cfg.block_pattern!r}, "
+            f"{cfg.frontend!r}"
         )
 
     def spec(cls: Any, ref: Any) -> Any:
@@ -210,30 +212,38 @@ def lm_from_reference(
 
     ``params`` is the pytree of the reference's ``TransformerLM.init``
     (blocks stacked over layers on axis 0; ``final_norm`` stacked over
-    one), as arrays of any float dtype; each is read as fp32 and cast to
-    the parameter's dtype (exact for bf16 weights).  The layer mappings
-    hold the reference's names: ``attn``, ``mlp`` or ``moe`` (router,
-    w_gate, w_up, w_down), ``ln_attn`` and ``ln_mlp``; a mamba2 layer
-    holds wz, wx, wB, wC, wdt, conv_x, conv_B, conv_C, A_log, D, dt_bias,
-    norm_scale, ln and out_proj."""
+    one; zamba2's ``shared`` block too), as arrays of any float dtype; each
+    is read as fp32 and cast to the parameter's dtype (exact for bf16
+    weights).  The layer mappings hold the reference's names: ``attn``,
+    ``mlp`` or ``moe`` (router, w_gate, w_up, w_down), ``ln_attn`` and
+    ``ln_mlp``, and for gemma2 ``ln_attn_post`` and ``ln_mlp_post``; a
+    mamba2 or zamba2 layer holds wz, wx, wB, wC, wdt, conv_x, conv_B,
+    conv_C, A_log, D, dt_bias, norm_scale, ln and out_proj.  A frames
+    model's tree has no ``embed``."""
     model = TransformerLM(lm_config_from_reference(cfg), device=device)
 
     def put(dst: torch.Tensor, src: Any) -> None:
         dst.copy_(torch.from_numpy(np.array(src, dtype=np.float32)))
 
+    def dense(blk: Any, tree: Mapping[str, Any], l: int) -> None:
+        for group, _ in blk.named_children():
+            for name, w in blk[group].items():
+                put(w, tree[group][name][l])
+
     with torch.no_grad():
-        put(model.embed, params["embed"])
+        if model.embed is not None:
+            put(model.embed, params["embed"])
         if model.head is not None:
             put(model.head, params["head"])
         for name, w in model.final_norm.items():
             put(w, params["final_norm"][name][0])
         blocks = params["blocks"]
         for l, blk in enumerate(model.blocks):
-            if model.cfg.block_pattern == "mamba2":
+            if model.cfg.block_pattern in ("mamba2", "zamba2"):
                 for name, w in blk.items():
                     put(w, blocks[name][l])
-                continue
-            for group, _ in blk.named_children():
-                for name, w in blk[group].items():
-                    put(w, blocks[group][name][l])
+            else:
+                dense(blk, blocks, l)
+        if model.shared is not None:
+            dense(model.shared, params["shared"], 0)
     return model

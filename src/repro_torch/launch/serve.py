@@ -4,11 +4,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve   # internlm2-1.8b on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama4-scout-17b-a16e --layers 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b --layers 8
 
 The port of ``repro.launch.serve``, with the same flags and defaults, plus
 ``--device`` (default: the CUDA card; it raises when there is none),
-``--seed`` (the weights' generator) and ``--layers`` (cut the depth: the
-48 layers of llama4-scout, ~202 GB in bf16, do not fit one card).
+``--seed`` (the weights' generator) and ``--layers`` (cut the depth, for
+any arch: the 48 layers of llama4-scout, ~202 GB in bf16, do not fit one
+card).  Every arch of the reference is a choice; an encoder
+(hubert-xlarge) has no decode path and exits, as in the reference.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from ..serve.engine import Request, ServeEngine
 def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="internlm2-1.8b",
-                    choices=cfgs.ARCH_IDS + sorted(cfgs.UNPORTED))
+                    choices=cfgs.ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--slots", type=int, default=8)
@@ -39,6 +42,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
                     help="serve only the first this many layers (default: all)")
     args = ap.parse_args(argv)
     cfg = cfgs.get_smoke_config(args.arch) if args.smoke else cfgs.get_config(args.arch)
+    if cfg.is_encoder:
+        raise SystemExit("encoder-only archs have no decode path")
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = TransformerLM(cfg, device=args.device)

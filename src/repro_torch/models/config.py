@@ -1,18 +1,18 @@
-"""The language model's configuration: the ``dense``, ``moe`` and ``mamba2``
-block patterns.
+"""The language model's configuration: all six block patterns of the
+reference and its two frontends.
 
-The port of the JAX package's ``repro.models.config``, cut to the fields
-these three patterns read.  The hybrid (``zamba2``), ``gemma2``, encoder
-and frontend fields, the tensor-parallel ``attn_mode``, and the MoE
-``router_jitter`` (which no code of the reference reads either) belong to
-block patterns, meshes and knobs the port does not run (ROADMAP Queue 1).
+The port of the JAX package's ``repro.models.config``, with every field
+the port reads.  The tensor-parallel ``attn_mode`` belongs to the mesh
+(ROADMAP Queue 1 item 14), and the MoE ``router_jitter`` is read by no
+code of the reference either; both are left out.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional
 
-BLOCK_PATTERNS = ("dense", "moe", "mamba2")
+BLOCK_PATTERNS = ("dense", "gemma2", "moe", "mamba2", "zamba2", "encoder")
+FRONTENDS = (None, "frames", "patches")
 
 
 @dataclass(frozen=True)
@@ -50,14 +50,22 @@ class SSMSpec:
 class LMConfig:
     """One architecture.  ``block_pattern`` selects the layer stack:
 
-    dense   uniform pre-norm attention + MLP blocks
-    moe     attention + a top-k MoE MLP every layer (``moe``)
-    mamba2  pure SSD blocks, attention-free (``ssm``)
+    dense    uniform pre-norm attention + MLP blocks
+    gemma2   dense blocks with sandwich norms; even layers attend within
+             ``sliding_window``, odd layers globally
+    moe      attention + a top-k MoE MLP every layer (``moe``)
+    mamba2   pure SSD blocks, attention-free (``ssm``)
+    zamba2   mamba2 blocks, with one *shared* dense block applied after
+             every ``hybrid_every`` of them
+    encoder  bidirectional dense blocks without rope; no decode
 
     ``norm`` is ``"rmsnorm"`` or ``"layernorm"``; ``mlp`` is ``"swiglu"``,
     ``"geglu"`` or ``"gelu"``; ``sliding_window``, ``attn_softcap``,
     ``logit_softcap``, ``q_scale`` and ``embed_scale`` act as in the
-    reference; ``dtype`` names the weights' torch dtype."""
+    reference; ``frontend`` is None (token ids), ``"frames"`` (precomputed
+    frame embeddings in place of the embedding table) or ``"patches"``
+    (``n_patches`` precomputed patch embeddings before the tokens');
+    ``dtype`` names the weights' torch dtype."""
 
     name: str
     n_layers: int
@@ -80,35 +88,48 @@ class LMConfig:
     embed_scale: bool = False  # multiply embeddings by sqrt(d_model)
     moe: Optional[MoESpec] = None
     ssm: Optional[SSMSpec] = None
+    hybrid_every: int = 6  # zamba2: the shared block after every k-th mamba block
+    frontend: Optional[str] = None  # None | "frames" | "patches"
+    n_patches: int = 0  # patches: the patch prefix's length
     dtype: str = "bfloat16"
 
     @property
     def hd(self) -> int:
         return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
 
+    @property
+    def is_encoder(self) -> bool:
+        return self.block_pattern == "encoder"
+
     def q_scaling(self) -> float:
         return self.q_scale if self.q_scale is not None else self.hd**-0.5
 
     def param_count(self) -> int:
-        """Analytic parameter count (embedding + blocks + head), the
-        reference's dense, mamba2 and moe branches."""
+        """Analytic parameter count (embedding + blocks + head), as the
+        reference counts it: zamba2's one shared block counted once, and a
+        frames model's embeddings as the output head only."""
         d, f, v = self.d_model, self.d_ff, self.vocab
         hd, nh, nkv = self.hd, self.n_heads, self.n_kv_heads
         attn = d * nh * hd + 2 * d * nkv * hd + nh * hd * d
         mlp = 3 * d * f if self.mlp in ("swiglu", "geglu") else 2 * d * f
-        if self.block_pattern == "mamba2":
+        shared = 0
+        if self.block_pattern in ("mamba2", "zamba2"):
             s = self.ssm
             di, nh_s = s.d_inner(d), s.n_heads(d)
             bc = 2 * s.n_groups * s.d_state
             in_proj = d * (2 * di + bc + nh_s)
             per_layer = in_proj + di * d + s.d_conv * (di + bc) + 2 * nh_s + di
+            if self.block_pattern == "zamba2":
+                shared = attn + mlp
         elif self.block_pattern == "moe":
             e = self.moe
             per_layer = attn + 3 * d * e.d_ff_expert * e.n_experts + d * e.n_experts
         else:
             per_layer = attn + mlp
         embeds = v * d * (1 if self.tie_embeddings else 2)
-        return int(self.n_layers * per_layer + embeds)
+        if self.frontend == "frames":
+            embeds = v * d
+        return int(self.n_layers * per_layer + shared + embeds)
 
     def active_param_count(self) -> int:
         """Parameters touched per token (MoE: only the routed experts)."""

@@ -1,7 +1,10 @@
 """Transformer building blocks on PyTorch: norms, RoPE, GQA attention, MLPs.
 
-The port of the JAX package's ``repro.models.layers`` for the ``dense``
-block pattern on one device.  Conventions:
+The port of the JAX package's ``repro.models.layers`` on one device: the
+attention + MLP blocks of the ``dense``, ``gemma2`` (with its sandwich
+norms), ``encoder`` (bidirectional, without rope) and ``zamba2`` (its
+shared block) patterns, and the attention of the ``moe`` pattern.
+Conventions:
 
   * a layer's parameters are a mapping of tensors (one layer's slice of
     the reference's stacked ``[L, ...]`` arrays, in the same layout: wq
@@ -48,6 +51,13 @@ def apply_norm(p: Params, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # RoPE (rotate-half convention)
 # ---------------------------------------------------------------------------
+def uses_rope(cfg: LMConfig) -> bool:
+    """Whether q and k are rotated: not at ``rope_theta`` 0 and not in an
+    encoder (the reference's ``_qkv``).  Callers build no cos and sin
+    tables otherwise (at theta 0 they would hold NaN)."""
+    return cfg.rope_theta > 0 and not cfg.is_encoder
+
+
 def rope_cos_sin(positions: torch.Tensor, hd: int,
                  theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """positions [...] -> cos, sin [..., hd/2] in fp32."""
@@ -70,11 +80,13 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
-def attn_scales(cfg: LMConfig) -> Mapping[str, float]:
+def attn_scales(cfg: LMConfig, n_layers: Optional[int] = None) -> Mapping[str, float]:
     """The reference's init scales (``init_attn``): inputs 1/sqrt(d), the
-    output projection 1/sqrt(2 L Nh hd)."""
+    output projection 1/sqrt(2 L Nh hd), with L ``n_layers`` (default the
+    model's depth; zamba2's shared block is stacked over 1)."""
+    L = cfg.n_layers if n_layers is None else n_layers
     s_in = 1.0 / math.sqrt(cfg.d_model)
-    s_out = 1.0 / math.sqrt(2 * max(cfg.n_layers, 1) * cfg.n_heads * cfg.hd)
+    s_out = 1.0 / math.sqrt(2 * max(L, 1) * cfg.n_heads * cfg.hd)
     return {"wq": s_in, "wk": s_in, "wv": s_in, "wo": s_out}
 
 
@@ -84,13 +96,15 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x.reshape(b * s, d) @ w.reshape(d, -1)).reshape(b, s, *w.shape[1:])
 
 
-def _qkv(p: Params, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+def _qkv(p: Params, x: torch.Tensor, cos: Optional[torch.Tensor],
+         sin: Optional[torch.Tensor],
          cfg: LMConfig) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Project and rope q, k, v: q [B, S, Nh, hd], k and v [B, S, KV, hd]."""
+    """Project and rope q, k, v: q [B, S, Nh, hd], k and v [B, S, KV, hd]
+    (cos and sin are None where ``uses_rope`` is false)."""
     q = _project(x, p["wq"])
     k = _project(x, p["wk"])
     v = _project(x, p["wv"])
-    if cfg.rope_theta > 0:
+    if uses_rope(cfg):
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     return q, k, v
@@ -104,13 +118,15 @@ def _out(p: Params, o: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return y.reshape(b, s, -1).to(x.dtype)
 
 
-def apply_attn(p: Params, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-               cfg: LMConfig, window: Optional[int]) -> torch.Tensor:
-    """Full-sequence attention (prefill). x: [B, S, D]."""
+def apply_attn(p: Params, x: torch.Tensor, cos: Optional[torch.Tensor],
+               sin: Optional[torch.Tensor], cfg: LMConfig,
+               window: Optional[int]) -> torch.Tensor:
+    """Full-sequence attention (prefill). x: [B, S, D].  Causal unless the
+    config says otherwise or the model is an encoder (bidirectional)."""
     q, k, v = _qkv(p, x, cos, sin, cfg)
     o = flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=cfg.causal, window=window, softcap=cfg.attn_softcap,
+        causal=cfg.causal and not cfg.is_encoder, window=window, softcap=cfg.attn_softcap,
         scale=cfg.q_scaling(),
     )
     return _out(p, o, x)
@@ -139,11 +155,13 @@ def decode_attn(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
-def mlp_scales(cfg: LMConfig) -> Mapping[str, float]:
+def mlp_scales(cfg: LMConfig, n_layers: Optional[int] = None) -> Mapping[str, float]:
     """The reference's init scales (``init_mlp``): inputs 1/sqrt(d), the
-    down projection 1/sqrt(2 L f); gated MLPs have a gate, GELU has none."""
+    down projection 1/sqrt(2 L f), with L as in ``attn_scales``; gated
+    MLPs have a gate, GELU has none."""
+    L = cfg.n_layers if n_layers is None else n_layers
     s_in = 1.0 / math.sqrt(cfg.d_model)
-    s_out = 1.0 / math.sqrt(2 * max(cfg.n_layers, 1) * cfg.d_ff)
+    s_out = 1.0 / math.sqrt(2 * max(L, 1) * cfg.d_ff)
     if cfg.mlp in ("swiglu", "geglu"):
         return {"w_gate": s_in, "w_up": s_in, "w_down": s_out}
     return {"w_up": s_in, "w_down": s_out}
@@ -164,24 +182,32 @@ def apply_mlp(p: Params, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # the dense block
 # ---------------------------------------------------------------------------
-def apply_dense_block(p: Mapping[str, Params], x: torch.Tensor, cos: torch.Tensor,
-                      sin: torch.Tensor, cfg: LMConfig,
-                      window: Optional[int]) -> torch.Tensor:
-    """Pre-norm block: x + attn(norm(x)), then + mlp(norm(.))."""
-    h = apply_norm(p["ln_attn"], x, cfg)
-    x = x + apply_attn(p["attn"], h, cos, sin, cfg, window)
-    h = apply_norm(p["ln_mlp"], x, cfg)
-    return x + apply_mlp(p["mlp"], h, cfg)
+def _sandwich(p: Mapping[str, Params], name: str, h: torch.Tensor,
+              cfg: LMConfig) -> torch.Tensor:
+    """gemma2's post-norm ``name`` of a sublayer's output, before the
+    residual add; the identity in the other patterns."""
+    return apply_norm(p[name], h, cfg) if cfg.block_pattern == "gemma2" else h
+
+
+def apply_dense_block(p: Mapping[str, Params], x: torch.Tensor,
+                      cos: Optional[torch.Tensor], sin: Optional[torch.Tensor],
+                      cfg: LMConfig, window: Optional[int]) -> torch.Tensor:
+    """Pre-norm block: x + attn(norm(x)), then + mlp(norm(.)); gemma2 also
+    norms each sublayer's output (``ln_attn_post``, ``ln_mlp_post``)."""
+    h = apply_attn(p["attn"], apply_norm(p["ln_attn"], x, cfg), cos, sin, cfg, window)
+    x = x + _sandwich(p, "ln_attn_post", h, cfg)
+    h = apply_mlp(p["mlp"], apply_norm(p["ln_mlp"], x, cfg), cfg)
+    return x + _sandwich(p, "ln_mlp_post", h, cfg)
 
 
 def decode_dense_block(
     p: Mapping[str, Params], x: torch.Tensor, cache_k: torch.Tensor,
-    cache_v: torch.Tensor, pos: int, cos: torch.Tensor, sin: torch.Tensor,
-    cfg: LMConfig, window: Optional[int],
+    cache_v: torch.Tensor, pos: int, cos: Optional[torch.Tensor],
+    sin: Optional[torch.Tensor], cfg: LMConfig, window: Optional[int],
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     h = apply_norm(p["ln_attn"], x, cfg)
     h, cache_k, cache_v = decode_attn(p["attn"], h, cache_k, cache_v, pos, cos,
                                       sin, cfg, window)
-    x = x + h
-    h = apply_norm(p["ln_mlp"], x, cfg)
-    return x + apply_mlp(p["mlp"], h, cfg), cache_k, cache_v
+    x = x + _sandwich(p, "ln_attn_post", h, cfg)
+    h = apply_mlp(p["mlp"], apply_norm(p["ln_mlp"], x, cfg), cfg)
+    return x + _sandwich(p, "ln_mlp_post", h, cfg), cache_k, cache_v

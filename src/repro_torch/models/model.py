@@ -1,33 +1,47 @@
-"""TransformerLM on PyTorch: the ``dense``, ``moe`` and ``mamba2`` block
-patterns, for serving.
+"""TransformerLM on PyTorch: all six block patterns of the reference and
+its two frontends, for serving.
 
-The port of the JAX package's ``repro.models.model.TransformerLM`` for
-uniform pre-norm attention + MLP blocks (internlm2, phi3, starcoder2),
-attention + top-k MoE blocks (llama4-scout, kimi-k2) and attention-free
-Mamba2 blocks (mamba2).  The vocabulary is padded to a multiple of
-``VOCAB_PAD`` and the padded logits are pushed to -1e30, as in the
-reference.  Public surface:
+The port of the JAX package's ``repro.models.model.TransformerLM``:
+uniform pre-norm attention + MLP blocks (``dense``: internlm2, phi3,
+starcoder2, llava's mistral), the same with sandwich norms and
+local/global windows alternating by layer (``gemma2``), bidirectional
+blocks without rope (``encoder``: hubert), attention + top-k MoE blocks
+(``moe``: llama4-scout, kimi-k2), attention-free Mamba2 blocks
+(``mamba2``), and Mamba2 blocks with one shared attention + MLP block
+applied after every ``hybrid_every`` of them (``zamba2``).  The
+``frames`` frontend takes precomputed frame embeddings in place of the
+embedding table (the model has none); ``patches`` places precomputed
+patch embeddings before the token embeddings.  The vocabulary is padded
+to a multiple of ``VOCAB_PAD`` and the padded logits are pushed to
+-1e30, as in the reference.  Public surface:
 
   TransformerLM(cfg, device=)  -> weights allocated on the device
   init(generator)              -> weights drawn at the reference's scales
-  forward(tokens)              -> final-normed hidden states [B, S, d]
-  prefill(tokens)              -> last-position logits [B, vocab_padded]
+  forward(tokens, frames=, patches=)
+                               -> final-normed hidden states [B, S, d]
+                                  (S counts a patch prefix too)
+  prefill(tokens, frames=, patches=)
+                               -> last-position logits [B, vocab_padded]
   cache_struct(batch, smax)    -> zeroed decode cache: KV {"k", "v"} [L,
-                                  B, Smax, KV, hd], or for mamba2 the
+                                  B, Smax, KV, hd]; for mamba2 the
                                   convolution windows and SSM state
-                                  {"conv_x", "conv_B", "conv_C", "h"}
+                                  {"conv_x", "conv_B", "conv_C", "h"};
+                                  for zamba2 {"mamba": those, "attn":
+                                  {"k", "v"} [L // hybrid_every, B, Smax,
+                                  KV, hd]}, indexed by application
   decode_step(cache, token, pos) -> (cache, logits [B, vocab_padded])
 
 As in the reference, ``prefill`` returns logits only: it hands no state
-to ``decode_step``.  The weights take no gradient: this slice serves
-(training waits for the attention kernel's backward, ROADMAP Queue 2
-item 1, and for the training loop, Queue 1 item 13).  The other block
-patterns raise ``NotImplementedError``.
+to ``decode_step``, which takes token ids (a patch prefix is not
+decoded), and an encoder has neither a cache nor a decode step.  The
+weights take no gradient: this slice serves (training waits for the
+attention kernel's backward, ROADMAP Queue 2 item 1, and for the
+training loop, Queue 1 item 13).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,10 +51,10 @@ from ..core.engine import DeviceLike, resolve_device
 from . import layers as ly
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .config import BLOCK_PATTERNS, LMConfig
+from .config import BLOCK_PATTERNS, FRONTENDS, LMConfig
 
 VOCAB_PAD = 2048
-Cache = Dict[str, torch.Tensor]
+Cache = Dict[str, Any]  # tensors, or for zamba2 two mappings of tensors
 
 
 def padded_vocab(v: int) -> int:
@@ -73,7 +87,8 @@ class DenseBlock(nn.Module):
     """One layer's weights, in the reference's layout (``attn``: wq, wk,
     wv, wo; ``mlp``: w_gate, w_up, w_down or w_up, w_down, or for the moe
     pattern ``moe``: router, w_gate, w_up, w_down; ``ln_attn`` and
-    ``ln_mlp``: scale, and bias for layernorm)."""
+    ``ln_mlp``: scale, and bias for layernorm; for gemma2 also the
+    sandwich norms ``ln_attn_post`` and ``ln_mlp_post``)."""
 
     def __init__(self, cfg: LMConfig, dtype: torch.dtype, device: torch.device) -> None:
         super().__init__()
@@ -90,6 +105,9 @@ class DenseBlock(nn.Module):
             self.mlp = _weights(mlp, dtype, device)
         self.ln_attn = _norm(cfg, device)
         self.ln_mlp = _norm(cfg, device)
+        if cfg.block_pattern == "gemma2":
+            self.ln_attn_post = _norm(cfg, device)
+            self.ln_mlp_post = _norm(cfg, device)
 
     def __getitem__(self, name: str) -> nn.ParameterDict:
         return getattr(self, name)
@@ -99,10 +117,13 @@ class TransformerLM(nn.Module):
     def __init__(self, cfg: LMConfig, *, device: DeviceLike = None) -> None:
         super().__init__()
         if cfg.block_pattern not in BLOCK_PATTERNS:
-            raise NotImplementedError(
-                f"{cfg.name}: block pattern {cfg.block_pattern!r} is not ported "
-                f"(the port runs {BLOCK_PATTERNS}; see ROADMAP Queue 1)"
-            )
+            raise ValueError(f"{cfg.name}: unknown block pattern {cfg.block_pattern!r} "
+                             f"(known: {BLOCK_PATTERNS})")
+        if cfg.frontend not in FRONTENDS:
+            raise ValueError(f"{cfg.name}: unknown frontend {cfg.frontend!r} "
+                             f"(known: {FRONTENDS})")
+        if cfg.frontend == "frames" and cfg.tie_embeddings:
+            raise ValueError(f"{cfg.name}: a frames model has no embedding table to tie")
         if cfg.mlp not in ("swiglu", "geglu", "gelu"):
             raise ValueError(f"unknown mlp {cfg.mlp!r}")
         self.cfg = cfg
@@ -110,12 +131,17 @@ class TransformerLM(nn.Module):
         self.dtype = getattr(torch, cfg.dtype)
         self.vp = padded_vocab(cfg.vocab)
         dev, dt = self.device, self.dtype
-        self.embed = nn.Parameter(torch.empty(self.vp, cfg.d_model, dtype=dt, device=dev),
-                                  requires_grad=False)
-        if cfg.block_pattern == "mamba2":
+        # a frames model reads precomputed embeddings: no table
+        self.embed: Optional[nn.Parameter] = None if cfg.frontend == "frames" else (
+            nn.Parameter(torch.empty(self.vp, cfg.d_model, dtype=dt, device=dev),
+                         requires_grad=False))
+        self.shared: Optional[DenseBlock] = None
+        if cfg.block_pattern in ("mamba2", "zamba2"):
             shapes = ssm_mod.mamba_shapes(cfg)
             self.blocks = nn.ModuleList(_mixed(shapes, dt, dev)
                                         for _ in range(cfg.n_layers))
+            if cfg.block_pattern == "zamba2":
+                self.shared = DenseBlock(cfg, dt, dev)
         else:
             self.blocks = nn.ModuleList(DenseBlock(cfg, dt, dev)
                                         for _ in range(cfg.n_layers))
@@ -147,19 +173,27 @@ class TransformerLM(nn.Module):
             if "bias" in norm:
                 norm["bias"].zero_()
 
-        embed_scale = 1.0 / math.sqrt(cfg.d_model)
-        fill(self.embed, embed_scale)
-        for blk in self.blocks:
-            if cfg.block_pattern == "mamba2":
-                ssm_mod.init_mamba_block(blk, cfg, generator)
-                continue
+        def dense(blk: DenseBlock, n_layers: int) -> None:
             ffn, scales = ((blk.moe, moe_mod.moe_scales(cfg)) if cfg.block_pattern == "moe"
-                           else (blk.mlp, ly.mlp_scales(cfg)))
-            for group, group_scales in ((blk.attn, ly.attn_scales(cfg)), (ffn, scales)):
+                           else (blk.mlp, ly.mlp_scales(cfg, n_layers)))
+            for group, group_scales in ((blk.attn, ly.attn_scales(cfg, n_layers)),
+                                        (ffn, scales)):
                 for name, scale in group_scales.items():
                     fill(group[name], scale)
-            unit(blk.ln_attn)
-            unit(blk.ln_mlp)
+            for name, norm in blk.named_children():
+                if name.startswith("ln_"):
+                    unit(norm)
+
+        embed_scale = 1.0 / math.sqrt(cfg.d_model)
+        if self.embed is not None:
+            fill(self.embed, embed_scale)
+        for blk in self.blocks:
+            if cfg.block_pattern in ("mamba2", "zamba2"):
+                ssm_mod.init_mamba_block(blk, cfg, generator)
+            else:
+                dense(blk, cfg.n_layers)
+        if self.shared is not None:  # the reference stacks it over 1 layer
+            dense(self.shared, 1)
         unit(self.final_norm)
         if self.head is not None:
             fill(self.head, embed_scale)
@@ -173,19 +207,54 @@ class TransformerLM(nn.Module):
         return x
 
     def _window_for(self, idx: int) -> Optional[int]:
-        """Layer ``idx``'s attention window: the dense pattern's fixed
-        sliding window, or none."""
-        return self.cfg.sliding_window
+        """Layer ``idx``'s attention window: for gemma2 ``sliding_window``
+        on even layers and none on odd ones (the reference's 1e9 stands
+        for none), else the config's fixed window, or none."""
+        cfg = self.cfg
+        if cfg.block_pattern == "gemma2" and idx % 2 == 1:
+            return None
+        return cfg.sliding_window
+
+    def _rope(self, positions: torch.Tensor):
+        """cos and sin of ``positions``, or (None, None) where the model
+        does not rotate (``layers.uses_rope``)."""
+        if not ly.uses_rope(self.cfg):
+            return None, None
+        return ly.rope_cos_sin(positions, self.cfg.hd, self.cfg.rope_theta)
+
+    def _inputs(self, tokens: Optional[torch.Tensor], frames: Optional[torch.Tensor],
+                patches: Optional[torch.Tensor]) -> torch.Tensor:
+        """The first block's input [B, S, d] in the model's dtype: the frame
+        embeddings (``frames`` frontend), or the token embeddings, after the
+        patch embeddings (``patches`` frontend)."""
+        cfg = self.cfg
+        if cfg.frontend == "frames":
+            if frames is None or tokens is not None or patches is not None:
+                raise ValueError(f"{cfg.name} reads frame embeddings (frames=) alone")
+            return frames.to(self.dtype)
+        if frames is not None:
+            raise ValueError(f"{cfg.name} has no frames frontend")
+        if (patches is None) != (cfg.frontend != "patches"):
+            raise ValueError(f"{cfg.name}: patches= goes with the patches frontend "
+                             f"(frontend {cfg.frontend!r})")
+        x = self._embed(tokens)
+        if patches is not None:
+            x = torch.cat([patches.to(self.dtype), x], dim=1)
+        return x
 
     # ----------------------------------------------------------------- stack
     def _apply_stack(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        if cfg.block_pattern == "mamba2":
-            for blk in self.blocks:
+        cos, sin = (None, None) if cfg.block_pattern == "mamba2" else self._rope(
+            torch.arange(x.shape[1], device=x.device))
+        if cfg.block_pattern in ("mamba2", "zamba2"):
+            # zamba2: the shared block after each full group of
+            # hybrid_every mamba blocks; the trailing ones run alone
+            for idx, blk in enumerate(self.blocks):
                 x = ssm_mod.apply_mamba_block(blk, x, cfg)
+                if self.shared is not None and (idx + 1) % cfg.hybrid_every == 0:
+                    x = ly.apply_dense_block(self.shared, x, cos, sin, cfg, None)
             return x
-        pos = torch.arange(x.shape[1], device=x.device)
-        cos, sin = ly.rope_cos_sin(pos, cfg.hd, cfg.rope_theta)
         for idx, blk in enumerate(self.blocks):
             w = self._window_for(idx)
             if cfg.block_pattern == "moe":
@@ -209,48 +278,76 @@ class TransformerLM(nn.Module):
         return logits + self.vocab_bias
 
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens [B, S] -> final-normed hidden states [B, S, d]."""
-        x = self._apply_stack(self._embed(tokens))
+    def forward(self, tokens: Optional[torch.Tensor] = None, *,
+                frames: Optional[torch.Tensor] = None,
+                patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens [B, S] -> final-normed hidden states [B, S, d].  A
+        ``frames`` model takes ``frames`` [B, T, d] in place of tokens; a
+        ``patches`` model also takes ``patches`` [B, P, d] (P may be 0),
+        and returns [B, P + S, d]."""
+        x = self._apply_stack(self._inputs(tokens, frames, patches))
         return ly.apply_norm(self.final_norm, x, self.cfg)
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Full-sequence forward; returns the last position's logits
-        [B, vocab_padded] (fp32)."""
-        return self._logits(self.forward(tokens)[:, -1:, :])[:, 0]
+    def prefill(self, tokens: Optional[torch.Tensor] = None, *,
+                frames: Optional[torch.Tensor] = None,
+                patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full-sequence forward (inputs as ``forward``); returns the last
+        position's logits [B, vocab_padded] (fp32)."""
+        h = self.forward(tokens, frames=frames, patches=patches)
+        return self._logits(h[:, -1:, :])[:, 0]
 
     # --------------------------------------------------------------- serving
+    def _kv_cache(self, n: int, batch: int, smax: int) -> Cache:
+        shape = (n, batch, smax, self.cfg.n_kv_heads, self.cfg.hd)
+        return {name: torch.zeros(shape, dtype=self.dtype, device=self.device)
+                for name in ("k", "v")}
+
     def cache_struct(self, batch: int, smax: int) -> Cache:
         """A zeroed decode cache on the model's device, in the reference's
-        layout: ``k`` and ``v`` [L, B, Smax, KV, hd] in the model's dtype,
-        or for mamba2 (which needs no ``smax``) ``conv_x``, ``conv_B`` and
+        layout: ``k`` and ``v`` [L, B, Smax, KV, hd] in the model's dtype;
+        for mamba2 (which needs no ``smax``) ``conv_x``, ``conv_B`` and
         ``conv_C`` [L, B, K-1, C] in the model's dtype and ``h`` [L, B, nh,
-        hd, ds] in fp32."""
+        hd, ds] in fp32; for zamba2 ``{"mamba": those, "attn": {"k", "v"}}``
+        with one KV entry per application of the shared block, [L //
+        hybrid_every, B, Smax, KV, hd].  An encoder has no cache."""
         cfg = self.cfg
-        if cfg.block_pattern == "mamba2":
-            return ssm_mod.init_mamba_cache(cfg, cfg.n_layers, batch, self.dtype,
-                                            self.device)
-        shape = (cfg.n_layers, batch, smax, cfg.n_kv_heads, cfg.hd)
-        return {n: torch.zeros(shape, dtype=self.dtype, device=self.device)
-                for n in ("k", "v")}
+        if cfg.is_encoder:
+            raise ValueError(f"{cfg.name}: an encoder has no decode cache")
+        if cfg.block_pattern in ("mamba2", "zamba2"):
+            mamba = ssm_mod.init_mamba_cache(cfg, cfg.n_layers, batch, self.dtype,
+                                             self.device)
+            if cfg.block_pattern == "mamba2":
+                return mamba
+            n_apps = cfg.n_layers // cfg.hybrid_every
+            return {"mamba": mamba, "attn": self._kv_cache(n_apps, batch, smax)}
+        return self._kv_cache(cfg.n_layers, batch, smax)
 
     @torch.no_grad()
     def decode_step(self, cache: Cache, token: torch.Tensor,
                     pos: int) -> Tuple[Cache, torch.Tensor]:
         """One-token decode of token [B] at position ``pos`` (shared by the
         whole batch).  Updates the cache in place (the KV entries at
-        ``pos``, or the mamba2 convolution windows and state) and returns
-        it with the logits [B, vocab_padded] (fp32)."""
+        ``pos``, the mamba2 convolution windows and state, or both for
+        zamba2) and returns it with the logits [B, vocab_padded] (fp32).
+        An encoder has no decode."""
         cfg = self.cfg
+        if cfg.is_encoder:
+            raise ValueError(f"{cfg.name}: an encoder has no decode step")
         x = self._embed(token[:, None])
-        if cfg.block_pattern == "mamba2":
+        cos, sin = (None, None) if cfg.block_pattern == "mamba2" else self._rope(
+            torch.full((1,), pos, dtype=torch.int64, device=x.device))
+        if cfg.block_pattern in ("mamba2", "zamba2"):
+            mamba = cache if cfg.block_pattern == "mamba2" else cache["mamba"]
             for idx, blk in enumerate(self.blocks):
                 x = ssm_mod.decode_mamba_block(
-                    blk, x, {n: c[idx] for n, c in cache.items()}, cfg)
+                    blk, x, {n: c[idx] for n, c in mamba.items()}, cfg)
+                if self.shared is not None and (idx + 1) % cfg.hybrid_every == 0:
+                    app = idx // cfg.hybrid_every  # the shared block's application
+                    x, _, _ = ly.decode_dense_block(
+                        self.shared, x, cache["attn"]["k"][app], cache["attn"]["v"][app],
+                        pos, cos, sin, cfg, None)
         else:
-            positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
-            cos, sin = ly.rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
             for idx, blk in enumerate(self.blocks):
                 w = self._window_for(idx)
                 if cfg.block_pattern == "moe":

@@ -1,7 +1,9 @@
 """Mamba2 (SSD) blocks on PyTorch: the full-sequence and decode paths.
 
 The port of the JAX package's ``repro.models.ssm`` on one device (its
-tensor-parallel layout has no counterpart here).  A layer's parameters
+tensor-parallel layout has no counterpart here), for the mamba2 pattern
+and for zamba2's mamba2 layers, which take the same paths and the same
+per-layer cache.  A layer's parameters
 are a mapping of tensors in the reference's layout (one layer's slice of
 its stacked ``[L, ...]`` arrays): wz and wx [d, d_inner], wB and wC [d, G
 ds], wdt [d, nh], conv_x [K, d_inner], conv_B and conv_C [K, G ds] and

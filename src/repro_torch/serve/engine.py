@@ -13,7 +13,11 @@ kept, so that the same weights give the same tokens:
     ``pos`` on, and a slot's cache is not reset on admit, so it attends
     over what earlier requests in that slot left below ``pos``.
 
-The model holds its weights, so the engine takes no ``params``.
+The model holds its weights, so the engine takes no ``params``.  The
+cache is whatever ``model.cache_struct`` gives (zamba2's nested one
+too), handed back and forth unread.  As in the reference the engine
+serves token ids only (llava decodes text without its patch prefix), and
+it refuses an encoder, which has no decode step.
 """
 from __future__ import annotations
 
@@ -37,6 +41,9 @@ class Request:
 
 class ServeEngine:
     def __init__(self, model: TransformerLM, n_slots: int, smax: int) -> None:
+        if model.cfg.is_encoder:
+            raise ValueError(f"{model.cfg.name}: encoder archs are not served "
+                             "(no decode step)")
         self.model = model
         self.n_slots = n_slots
         self.smax = smax

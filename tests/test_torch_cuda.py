@@ -4,7 +4,8 @@ The torch engine (static, and under a trace, flows and deadline
 shaping), the arrival service, multi-job search and cache-aware search
 (each under fifo, so that waterfill runs), the GraphSAGE aggregation kernels (the forward at
 each access width, and the backward) against their plain versions, GraphSAGE's
-forward and backward, and the wgmma probe
+forward and backward, the gemma2, zamba2, hubert and llava smoke
+models (fp32 forward, prefill and decode), and the wgmma probe
 (``csrc/wgmma_probe.cu``: one block of m64nNk16 products through the
 helpers of ``csrc/sm90.cuh`` against ``torch.matmul``).  Marked ``cuda``:
 those tests skip without a card (the engine's fifo and mrtf rates and
@@ -491,6 +492,68 @@ def test_graphsage_on_card_matches_cpu(cuda):
     assert abs(loss_g.item() - loss_c.item()) < 1e-4
     for pg, pc in zip(on_card.parameters(), on_cpu.parameters()):
         assert (pg.grad.cpu() - pc.grad).abs().max().item() < 1e-4
+
+
+def _family_inputs(cfg, gen, seq=32, b=2):
+    """Seeded CPU inputs of a smoke config's frontend (32 positions, a
+    patch prefix included): (tokens or None, keyword inputs)."""
+    if cfg.frontend == "frames":
+        return None, {"frames": torch.randn(b, seq, cfg.d_model, generator=gen)}
+    n_patch = cfg.n_patches if cfg.frontend == "patches" else 0
+    toks = torch.randint(0, cfg.vocab, (b, seq - n_patch), generator=gen)
+    kw = {"patches": torch.randn(b, n_patch, cfg.d_model, generator=gen)} if n_patch else {}
+    return toks, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma2-27b", "zamba2-7b", "hubert-xlarge",
+                                  "llava-next-mistral-7b"])
+def test_family_on_card_matches_cpu(cuda, arch):
+    """A smoke model of the last four families in fp32 on the card
+    (the kernels) against the same weights on the CPU (the plain
+    versions): hidden states, prefill logits and, except for the encoder,
+    24 decode steps at smax 32 (past the smoke windows of 16) within 1e-4;
+    the forward launches flash once per attention layer or shared-block
+    application and ssd_scan once per mamba2 layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models import TransformerLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    on_cpu = TransformerLM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    on_card = TransformerLM(cfg, device=cuda)
+    on_card.load_state_dict(on_cpu.state_dict())
+    toks, kw = _family_inputs(cfg, torch.Generator().manual_seed(1))
+    if cfg.block_pattern == "zamba2":
+        want = (cfg.n_layers // cfg.hybrid_every, cfg.n_layers)
+    else:
+        want = (cfg.n_layers, 0)
+    before = (flash_attention.launches, ssd_scan.launches)
+    h_card = on_card.forward(None if toks is None else toks.to(cuda),
+                             **{k: v.to(cuda) for k, v in kw.items()})
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - before[0], ssd_scan.launches - before[1]) == want
+    h_cpu = on_cpu.forward(toks, **kw)
+    assert (h_card.cpu() - h_cpu).abs().max().item() < 1e-4
+    l_card = on_card._logits(h_card[:, -1]).cpu()[:, : cfg.vocab]
+    l_cpu = on_cpu._logits(h_cpu[:, -1])[:, : cfg.vocab]
+    assert (l_card - l_cpu).abs().max().item() < 1e-4
+    if cfg.is_encoder:
+        with pytest.raises(ValueError, match="encoder"):
+            on_card.cache_struct(2, 32)
+        return
+    steps = torch.randint(0, cfg.vocab, (2, 24), generator=torch.Generator().manual_seed(2))
+    c_card, c_cpu = on_card.cache_struct(2, 32), on_cpu.cache_struct(2, 32)
+    for t in range(24):
+        before = flash_attention.launches
+        c_card, g = on_card.decode_step(c_card, steps[:, t].to(cuda), t)
+        assert flash_attention.launches - before == want[0]
+        c_cpu, w = on_cpu.decode_step(c_cpu, steps[:, t], t)
+        assert (g.cpu() - w)[:, : cfg.vocab].abs().max().item() < 1e-4, t
 
 
 # the MN-major B descriptor's offsets: the two 64-column halves of the

@@ -302,10 +302,12 @@ def test_lm_serving_defaults_to_cuda(monkeypatch):
     assert flash_attention.launches == before
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "llama4-scout-17b-a16e"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "llama4-scout-17b-a16e", "gemma2-27b",
+                                  "zamba2-7b", "llava-next-mistral-7b"])
 def test_new_patterns_default_to_cuda(monkeypatch, arch):
-    """``launch.serve --arch mamba2-1.3b`` and ``--arch
-    llama4-scout-17b-a16e`` run on CUDA unless asked for the CPU, and
+    """``launch.serve --arch mamba2-1.3b``, ``--arch
+    llama4-scout-17b-a16e`` and the gemma2, zamba2 and llava archs run on
+    CUDA unless asked for the CPU, and
     raise with no card (before allocating the full-width weights); their
     kernels' wrappers route a tensor on neither the CPU nor a card to no
     kernel."""

@@ -8,7 +8,10 @@ feed, greedy argmax, one lock-step ``pos``, caches not reset on admit),
 so a request admitted into a used slot reads what its predecessor left
 (the KV entries, or mamba2's convolution windows and SSM state); 6
 requests over 4 slots exercise that, on the dense, mamba2 and moe
-patterns.
+patterns, and on gemma2 (whose smoke window of 16 the lock-step
+position passes), zamba2 (its nested cache) and llava (text only, as in
+the reference).  Both engines and both drivers refuse the hubert
+encoder, which has no decode step.
 """
 import dataclasses
 
@@ -35,7 +38,8 @@ def _requests(cls, n, max_tokens):
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "starcoder2-3b", "mamba2-1.3b",
-                                  "llama4-scout-17b-a16e"])
+                                  "llama4-scout-17b-a16e", "gemma2-27b", "zamba2-7b",
+                                  "llava-next-mistral-7b"])
 def test_engine_emits_reference_tokens(arch):
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     model = build_model(cfg, single_device_ctx())
@@ -101,3 +105,42 @@ def test_serve_driver_new_patterns_on_cpu(capsys, arch, name):
             flash_attention.launches) == before
     assert stats["tokens"] == 5 * (4 + 1)
     assert f"{name} (2 layers)" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch,name,layers", [
+    ("gemma2-27b", "gemma2-smoke", 2), ("zamba2-7b", "zamba2-smoke", 4),
+    ("llava-next-mistral-7b", "llava-smoke", 2)])
+def test_serve_driver_families_on_cpu(capsys, arch, name, layers):
+    """``--arch`` gemma2, zamba2 (4 layers: one application of its shared
+    block) and llava with ``--smoke --device cpu``: every request
+    finishes, and no kernel launches."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    before = (ssd_scan.launches, flash_attention.launches)
+    stats = port_serve.main(["--smoke", "--device", "cpu", "--arch", arch,
+                             "--requests", "5", "--slots", "3", "--max-tokens", "4",
+                             "--layers", str(layers)])
+    assert (ssd_scan.launches, flash_attention.launches) == before
+    assert stats["tokens"] == 5 * (4 + 1)
+    assert f"{name} ({layers} layers)" in capsys.readouterr().out
+
+
+def test_encoder_is_not_served(monkeypatch):
+    """hubert has no decode step: the reference's engine asserts and its
+    driver exits; the port's engine raises and its driver exits with the
+    reference's message."""
+    from repro.launch import serve as ref_serve
+
+    cfg = dataclasses.replace(get_smoke_config("hubert-xlarge"), dtype="float32")
+    model = build_model(cfg, single_device_ctx())
+    params = model.init(jax.random.key(0))
+    with pytest.raises(AssertionError, match="encoder"):
+        RefEngine(model, params, n_slots=2, smax=8)
+    with pytest.raises(ValueError, match="encoder"):
+        ServeEngine(lm_from_reference(params, cfg, device="cpu"), n_slots=2, smax=8)
+    monkeypatch.setattr("sys.argv", ["serve", "--arch", "hubert-xlarge", "--smoke"])
+    with pytest.raises(SystemExit) as ref_exit:
+        ref_serve.main()
+    with pytest.raises(SystemExit) as port_exit:
+        port_serve.main(["--arch", "hubert-xlarge", "--smoke", "--device", "cpu"])
+    assert str(port_exit.value) == str(ref_exit.value) == "encoder-only archs have no decode path"
