@@ -3,16 +3,18 @@
 
     python3 chip_smoke.py        # on a machine with one CUDA card
 
-Drives the port's paths on the card, DGTP planning, GraphSAGE training
-and LM serving (dense, mamba2, MoE, gemma2, the zamba2 hybrid, the llava
-patch prefix) and encoding (hubert), and holds them against the
-port's own CPU path and against the plain version of every kernel.
+Drives the port's paths on the card, DGTP planning, GraphSAGE training,
+LM serving (dense, mamba2, MoE, gemma2, the zamba2 hybrid, the llava
+patch prefix), encoding (hubert) and LM training (internlm2), and holds
+them against the port's own CPU path and against the plain version of
+every kernel.
 Phases, in order; any failure ends the run with a non-zero exit:
 
-  1. build the five kernels (waterfill, sage_aggregate, flash_attention,
-     ssd_scan, moe_gemm) from ``src/repro_torch/kernels/csrc`` with nvcc
-     for sm_90a, one nvcc per source, all started together; TF32 off for
-     fp32 products and convolutions;
+  1. build the five kernels (waterfill, sage_aggregate, flash_attention
+     with its backward in a source of its own, ssd_scan, moe_gemm) from
+     ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one nvcc per
+     source (six), all started together; TF32 off for fp32 products and
+     convolutions;
   2. the waterfill kernel against its plain version on the card, at
      every shape the main path gives it (B=1024 with EG=1400, M=16 and
      with EG=72, M=4; B=1 with EG=72, M=4), on inputs with tied priority
@@ -26,7 +28,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      policies, on the card; the first 8 instances are held against the
      same 8 on the CPU (run in worker processes meanwhile, compared once
      phase 4 is done) at the engine's parity tolerance;
-  4. ``plan()`` on the quickstart job and cluster (budget 240, 15
+  4. ``plan()`` on the quickstart job and cluster (budget 160, 15
      simulated iterations, seed 0) and ``plan_baseline("distdgl")``, each
      committed schedule held against the CPU engine, and each Theorem-1
      certificate against the one built from the CPU engine's recorded
@@ -185,7 +187,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
      -1e30; its 48 launches on wgmma) against the plain attention, its
      wall first and warm; ``decode_step``, ``cache_struct`` and
      ``ServeEngine`` refuse the encoder;
- 15. the kernel table's JSON line (the flash and moe_gemm records also
+ 15. lm_train (internlm2-1.8b, bf16, full width and depth, random
+     weights): the attention's backward kernels against autograd through
+     the plain version at internlm2's training shape q [4, 16, 2048, 128]
+     over 8 KV heads, a small fp32 case, gemma2's window and softcap,
+     hubert's non-causal D 80 and zamba2's D 112 (fp32 within 1e-4, bf16
+     within 2e-2 of the largest gradient; two runs give the same bits),
+     bf16 times beside the bound, the plain backward and SDPA's; 8 AdamW
+     steps of ``TrainStepBuilder`` on the ``TokenPipeline`` stream's
+     first 2 batches of 4 x 2048 tokens in turn (finite losses and grad
+     norms, the loss falling, 48 forward and 24
+     backward attention launches a step), step wall, tokens/s, peak
+     memory and one profiled step; two fp32 steps of a narrow config on
+     the card against the CPU, a resumed run (train 2, save, restore,
+     train 2) equal to 4 direct steps bit for bit under
+     ``torch.use_deterministic_algorithms(True)``, and one step's bf16
+     gradients at 2 full-width layers against the plain attention's;
+ 16. the kernel table's JSON line (the flash and moe_gemm records also
      carry their prefill shape's times, ``prefill_ms``,
      ``prefill_bound_ms``, ``prefill_library_ms``, and kimi-k2's decode
      shape's, ``kimi_decode_ms``, ``kimi_decode_plain_ms``,
@@ -198,10 +216,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
      ``fma_ms`` and zamba2's prefill shape's ``zamba2_prefill_*``;
      sage_aggregate's the gather probe's ``probe_ms`` and its backward's
      ``bwd_ms``,
-     ``bwd_bound_ms`` and ``bwd_library_ms``), the card's name and power
+     ``bwd_bound_ms`` and ``bwd_library_ms``; flash's its backward's,
+     ``bwd_ms``, ``bwd_plain_ms``, ``bwd_bound_ms``, ``bwd_library_ms``,
+     ``bwd_source`` and ``bwd_launches``), the card's name and power
      limit, and the closing status line.
 
-Fourteen main paths, each with the kernel launch counts set to 0 just
+Fifteen main paths, each with the kernel launch counts set to 0 just
 before it and read just after: phases 3-4 (planning), phases 5a-5b (the
 engine's regimes and re-planning), phase 5c (multi-job planning and the
 arrival service), phase 5d (the feature-cache tier), phase 5e (traces
@@ -209,13 +229,13 @@ and blame, failure handling, the infeed planner), the training
 steps, calibration and baseline plan of phase 6 (GraphSAGE), the
 ``ServeEngine`` run of phase 7 (LM serving), and the prefill followed by
 the ``ServeEngine`` run of phases 8 (mamba2), 9 (MoE), 10 (kimi-k2), 11
-(gemma2), 12 (zamba2) and 13 (llava), and the forward to per-frame
-logits of phase 14 (hubert).
+(gemma2), 12 (zamba2) and 13 (llava), the forward to per-frame
+logits of phase 14 (hubert), and the training steps of phase 15.
 Each phase's seconds are printed on a ``[time]`` line.  ``--only
 regimes`` (phases 5a-5b), ``tenants`` (5c), ``cache`` (5d), ``obs`` (5e), ``sage``,
 ``lm_serve``, ``mamba_serve``, ``moe_serve``, ``kimi_serve``,
-``gemma2_serve``, ``zamba2_serve``, ``llava_serve`` or ``hubert_encode``
-builds the kernels and runs that phase alone (for work on that path; it prints no
+``gemma2_serve``, ``zamba2_serve``, ``llava_serve``, ``hubert_encode`` or
+``lm_train`` builds the kernels and runs that phase alone (for work on that path; it prints no
 closing status line).
 Imports nothing of JAX or of the ``repro`` package.
 """
@@ -226,6 +246,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -251,10 +272,12 @@ CPU_WORKERS = 6
 # of it; NVIDIA H100 80GB HBM3, 700 W; the engine is bound by the host,
 # so batch width buys no time back): the engine phase simulates the
 # papers job's first 2 of its 10 iterations, the regimes phase its first
-# 5, and plan() searches with a budget of 240 evaluations (600 before).
+# 5, and plan() searches with a budget of 160 evaluations (600, then 240
+# before; cut to 160 to pay for the lm_train phase: the whole smoke took
+# 760.8 s with 240 on a host ~1.2x slower than the one of 595.1 s).
 ENGINE_PAPERS_ITERS = 2
 REGIME_PAPERS_ITERS = 5
-PLAN_BUDGET = 240
+PLAN_BUDGET = 160
 # H100 SXM data sheet: HBM3 bandwidth and the fp64 and fp32 (non-tensor) peaks
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOP_PER_S = 34e12
@@ -3833,6 +3856,420 @@ def phase_tenants_cache(wf, t, units, tag):
     return launches, t
 
 
+# ------------------------------------------------------------ LM training
+# lm_train: internlm2-1.8b at full width (bf16, all 24 layers), batch 4 x
+# 2048 tokens, the first LM_TRAIN_STEPS AdamW steps of a run of
+# LM_TRAIN_TOTAL (so the cosine decay has not begun), over the
+# TokenPipeline stream's first LM_TRAIN_CYCLE batches in turn: on fresh
+# batches the loss moves less than its noise in so few steps (the
+# stream's successors are uniform over the vocabulary), on revisited ones
+# it falls as the model learns them
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS, LM_TRAIN_TOTAL = 4, 2048, 8, 1000
+LM_TRAIN_CYCLE = 2
+LM_TRAIN_LAYERS = None  # all 24
+LM_TRAIN_LR, LM_TRAIN_WARMUP = 1e-3, 2
+# the backward kernels' checks: (label, (B, H, KV, S, D), kwargs, dtype);
+# the first is the training path's shape, timed with the others in bf16
+BWD_CHECKS = [
+    ("internlm2", (4, 16, 8, 2048, 128), dict(causal=True), "bfloat16"),
+    ("small fp32", (2, 4, 2, 256, 64), dict(causal=True), "float32"),
+    ("gemma2 window + softcap", (1, 32, 16, 2048, 128),
+     dict(causal=True, window=1024, softcap=50.0, scale=144 ** -0.5), "bfloat16"),
+    ("hubert non-causal", (4, 16, 16, 1500, 80), dict(causal=False), "bfloat16"),
+    ("zamba2 hd112", (2, 32, 32, 2048, 112), dict(causal=True), "bfloat16"),
+]
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # of the largest gradient
+# the narrow config of the card-vs-CPU and resume checks: internlm2's
+# pattern at head dim 64 (the backward kernel's least), 2 layers
+LM_TRAIN_NARROW = dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
+                       vocab=1000)
+LM_TRAIN_FP32_ATOL = 1e-4
+# the fp32 check's learning rate: Adam moves a weight by up to ~lr whatever
+# its gradient's size, so a gradient of ~1e-9 whose sign the card's sums
+# and the CPU's give differently moves it by up to 2 lr
+LM_TRAIN_FP32_LR = 3e-5
+LM_TRAIN_BF16_RTOL = 2e-2  # kernel vs plain attention: gradients, of the largest
+
+
+def _bwd_qkv(seed, B, H, KV, S, D, dtype):
+    """q, k, v (needing gradients) as views of [B, S, N, D] tensors, and an
+    output gradient, on the card."""
+    import torch
+
+    q, k, v = _flash_qkv(seed, B, H, KV, S, S, D, dtype)
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 100)
+    do = torch.randn(B, H, S, D, generator=gen, device="cuda").to(dtype)
+    return q, k, v, do
+
+
+def _bwd_bound(B, H, KV, S, D, n_pairs, elt):
+    """Least time of the backward: 2.5 times the forward's 4 D flops per
+    unmasked pair (five products: Q K^T, dO V^T, P^T dO, dS^T Q, dS K) at
+    the bf16 tensor-core peak, against q, k, v, o and dO read and dq, dk
+    and dv written once at the HBM rate."""
+    flops = 10 * D * n_pairs
+    n_bytes = elt * (4 * B * H * S * D + 4 * B * KV * S * D)
+    ops_ms, bytes_ms = flops / BF16_FLOP_PER_S * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def _sdpa_backward(q, k, v, do, kw):
+    """A call computing the backward of ``F.scaled_dot_product_attention``
+    (GQA) at the same function, its forward run once beforehand, or None
+    where it computes another function (a tanh softcap)."""
+    import torch
+
+    ins = tuple(t.detach().requires_grad_(True) for t in (q, k, v))
+    sd = _sdpa(*ins, kw)
+    if sd is None:
+        return None
+    out = sd()
+    return lambda: torch.autograd.grad(out, ins, do, retain_graph=True)
+
+
+def phase_flash_backward(fa):
+    """The backward kernels against autograd through the plain version at
+    BWD_CHECKS (each giving the same bits on two runs), and their times
+    in bf16 (L2 flushed) beside the bound, the plain backward's and SDPA's.
+    Returns the training shape's numbers as the flash record's bwd_*."""
+    import torch
+
+    worst, out = 0.0, {}
+    for seed, (label, (B, H, KV, S, D), kw, dtype) in enumerate(BWD_CHECKS):
+        q, k, v, do = _bwd_qkv(seed, B, H, KV, S, D, getattr(torch, dtype))
+        ins = (q, k, v)
+        before = fa.flash_attention.backward_launches
+        kernel = lambda: torch.autograd.grad(o_k, ins, do, retain_graph=True)
+        o_k = fa.flash_attention(q, k, v, **kw)
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        if fa.flash_attention.backward_launches != before + 2:
+            raise AssertionError(f"flash backward at {label}: the kernel did not launch")
+        o_p = fa.flash_attention_plain(q, k, v, **kw)
+        plain = lambda: torch.autograd.grad(o_p, ins, do, retain_graph=True)
+        want = plain()
+        errs = []
+        for name, g, g2, w in zip("qkv", got, again, want):
+            if not torch.equal(g, g2):
+                raise AssertionError(f"flash backward at {label}: two runs differ in d{name}")
+            rel = (g.float() - w.float()).abs().max().item() / w.float().abs().max().item()
+            if not rel <= BWD_TOL[dtype]:
+                raise AssertionError(f"flash backward != plain autograd at {label} {dtype}: "
+                                     f"d{name} off by {rel:.3g} of its largest (tol "
+                                     f"{BWD_TOL[dtype]})")
+            errs.append(rel)
+            if dtype == "float32":
+                worst = max(worst, (g - w).abs().max().item())
+        del got, again, want
+        line = (f"[flash backward] {label}: q {(B, H, S, D)} over {KV} KV heads, {kw}, "
+                f"{dtype}: dq, dk, dv off by {errs[0]:.3g}, {errs[1]:.3g}, {errs[2]:.3g} of "
+                f"their largest; two runs give the same bits")
+        if dtype != "bfloat16":
+            print(line, flush=True)
+            continue
+        ms = _device_ms(kernel, 3, flush=True)
+        plain_ms = _device_ms(plain, 1, flush=True)
+        lib = _sdpa_backward(q, k, v, do, kw)
+        lib_ms = _device_ms(lib, 3, flush=True) if lib is not None else None
+        mask = fa.causal_mask(S, S, kw.get("window"), 0, kw.get("causal", True),
+                              device="cuda")
+        n_pairs = B * H * int(mask.sum().item())
+        del mask, o_k, o_p
+        bound, by = _bwd_bound(B, H, KV, S, D, n_pairs, 2)
+        print(f"{line}; device time per backward, L2 flushed: kernels {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, SDPA's backward "
+              f"{'none (no PyTorch call computes a tanh softcap)' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+              f"; bound {bound:.6f} ms by {by} ({100 * bound / ms:.1f}% of the kernels' "
+              f"time)", flush=True)
+        if not out:
+            out = {"bwd_ms": ms, "bwd_plain_ms": plain_ms, "bwd_bound_ms": bound,
+                   "bwd_bound_by": by, "bwd_library_ms": lib_ms,
+                   "bwd_source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"}
+        del q, k, v, do
+        _free()
+    out["bwd_max_abs_err"] = worst
+    return out
+
+
+def _narrow_cfg(dtype):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(LM_ARCH), name="internlm2-narrow", dtype=dtype,
+                               **LM_TRAIN_NARROW)
+
+
+def _builder(cfg, device, seed=2, lr=LM_TRAIN_LR):
+    import torch
+
+    from repro_torch.models import TransformerLM
+    from repro_torch.train import AdamWSettings, TrainStepBuilder
+
+    model = TransformerLM(cfg, device=device)
+    b = TrainStepBuilder(model, AdamWSettings(lr=lr, warmup_steps=1,
+                                              total_steps=LM_TRAIN_STEPS))
+    return b, b.init_state(torch.Generator(device=device).manual_seed(seed))
+
+
+def _pipe_batch(pipe, step, device):
+    import torch
+
+    return {k: torch.from_numpy(v).to(device) for k, v in pipe.batch_at(step).items()}
+
+
+def _train_card_vs_cpu():
+    """Two fp32 train steps of the narrow config on the card (the flash
+    kernels) against the same on the CPU (plain attention; the schedule's
+    first step has lr 0): the first step's gradients within
+    LM_TRAIN_FP32_ATOL of each leaf's largest, losses, grad norms and the
+    updated weights within LM_TRAIN_FP32_ATOL."""
+    from repro_torch.convert import lm_to_reference
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.train.optimizer import tree_items
+    from repro_torch.train.train_loop import stacked_weights
+
+    cfg = _narrow_cfg("float32")
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=256, global_batch=2, seed=3)
+    b_gpu, s_gpu = _builder(cfg, "cuda", lr=LM_TRAIN_FP32_LR)
+    b_cpu, _ = _builder(cfg, "cpu", lr=LM_TRAIN_FP32_LR)
+    b_cpu.model.load_state_dict(b_gpu.model.state_dict())
+    s_cpu = b_cpu.init_state()
+    rel = 0.0
+    for dev, b in (("cuda", b_gpu), ("cpu", b_cpu)):
+        b.model.zero_grad(set_to_none=True)
+        b.model.loss_fn(_pipe_batch(pipe, 0, dev))[0].backward()
+    g_cpu = dict(tree_items(lm_to_reference(b_cpu.model, grads=True)))
+    for path, g in tree_items(lm_to_reference(b_gpu.model, grads=True)):
+        w = g_cpu[path]
+        rel = max(rel, float(np.abs(g - w).max()) / max(float(np.abs(w).max()), 1e-30))
+    worst = 0.0
+    for i in range(2):
+        s_gpu, m_gpu = b_gpu.train_step(s_gpu, _pipe_batch(pipe, i, "cuda"))
+        s_cpu, m_cpu = b_cpu.train_step(s_cpu, _pipe_batch(pipe, i, "cpu"))
+        worst = max([worst] + [abs(m_gpu[n].item() - m_cpu[n].item())
+                               for n in ("loss", "grad_norm")])
+    want = dict(tree_items(stacked_weights(s_cpu.params)))
+    for path, t in tree_items(stacked_weights(s_gpu.params)):
+        worst = max(worst, (t.cpu() - want[path]).abs().max().item())
+    print(f"[lm train] fp32 narrow config ({LM_TRAIN_NARROW}), card (kernels) vs cpu "
+          f"(plain): gradients within {rel:.3g} of each leaf's largest; two steps at lr "
+          f"{LM_TRAIN_FP32_LR}: losses, grad norms and weights within {worst:.3g} "
+          f"(tol {LM_TRAIN_FP32_ATOL})", flush=True)
+    if not max(worst, rel) <= LM_TRAIN_FP32_ATOL:
+        raise AssertionError("lm train: the card's fp32 steps disagree with the CPU's")
+
+
+def _train_resume_bitwise():
+    """With ``torch.use_deterministic_algorithms(True)``, the narrow config
+    in bf16: train 2, save, restore into other weights, train 2 equals a
+    direct 4-step run bit for bit."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.train import latest_checkpoint, restore_state, save_state
+    from repro_torch.train.optimizer import tree_items
+    from repro_torch.train.train_loop import stacked_weights
+
+    cfg = _narrow_cfg("bfloat16")
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=256, global_batch=2, seed=4)
+    # cuBLAS is deterministic on one stream; torch asks for the setting
+    # before it allows its products in deterministic mode
+    saved = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        b, s = _builder(cfg, "cuda")
+        for i in range(4):
+            s, _ = b.train_step(s, _pipe_batch(pipe, i, "cuda"))
+        direct = {p: t.clone() for p, t in tree_items(stacked_weights(s.params))}
+        b, s = _builder(cfg, "cuda")
+        for i in range(2):
+            s, _ = b.train_step(s, _pipe_batch(pipe, i, "cuda"))
+        with tempfile.TemporaryDirectory() as d:
+            save_state(d, s)
+            b, s = _builder(cfg, "cuda", seed=9)
+            s = restore_state(latest_checkpoint(d), s)
+        for i in range(2, 4):
+            s, _ = b.train_step(s, _pipe_batch(pipe, i, "cuda"))
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if saved is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved
+    diff = [p for p, t in tree_items(stacked_weights(s.params)) if not torch.equal(t, direct[p])]
+    if diff:
+        raise AssertionError(f"lm train: the resumed run differs from the direct one at {diff}")
+    print("[lm train] deterministic algorithms on, narrow config in bf16: train 2, save, "
+          "restore, train 2 equals 4 direct steps bit for bit", flush=True)
+
+
+def _train_grads_vs_plain(fa):
+    """One step's bf16 gradients of internlm2 at full width and 2 layers
+    through the flash kernels against the same with the plain attention:
+    every leaf within LM_TRAIN_BF16_RTOL of its largest gradient."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_to_reference
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import TransformerLM
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=2)
+    model = TransformerLM(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(5))
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=LM_TRAIN_SEQ, global_batch=2, seed=5)
+    batch = _pipe_batch(pipe, 0, "cuda")
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        model.loss_fn(batch)[0].backward()
+        return lm_to_reference(model, grads=True)
+
+    before = fa.flash_attention.backward_launches
+    got = grads()
+    if fa.flash_attention.backward_launches != before + cfg.n_layers:
+        raise AssertionError("lm train: the kernel path did not run the backward kernel")
+    with _plain("flash"):
+        want = grads()
+    worst = 0.0
+
+    def walk(a, b, path=()):
+        nonlocal worst
+        if isinstance(b, dict):
+            for key in b:
+                walk(a[key], b[key], path + (key,))
+            return
+        scale = max(float(np.abs(b).max()), 1e-30)
+        rel = float(np.abs(a - b).max()) / scale
+        worst = max(worst, rel)
+        if not rel <= LM_TRAIN_BF16_RTOL:
+            raise AssertionError(f"lm train: gradient {'/'.join(path)} through the kernels "
+                                 f"off the plain attention's by {rel:.3g} of its largest")
+
+    walk(got, want)
+    print(f"[lm train] one bf16 step at full width, 2 layers: every gradient leaf through "
+          f"the flash kernels within {worst:.3g} of its largest of the plain attention's "
+          f"(tol {LM_TRAIN_BF16_RTOL})", flush=True)
+    model.zero_grad(set_to_none=True)
+    del model
+    _free()
+
+
+def _profile_train_step(builder, state, batch, step_ms):
+    """One profiled train step: the device's busy share and its time split
+    into the attention's forward and backward kernels, the matrix
+    products and the rest."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = builder.train_step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted((a for a in prof.key_averages() if a.device_type == DeviceType.CUDA),
+                  key=_device_us, reverse=True)
+    dev_ms = sum(_device_us(a) for a in rows) / 1e3
+    split = {"flash forward": 0.0, "flash backward": 0.0, "matmul": 0.0, "other": 0.0}
+    for a in rows:
+        key = a.key.lower()
+        part = ("flash backward" if "bwd_" in key else
+                "flash forward" if "flash_" in key else
+                "matmul" if any(w in key for w in ("gemm", "nvjet", "gemv", "cutlass"))
+                else "other")
+        split[part] += _device_us(a) / 1e3
+    print(f"[lm train] one profiled step: wall {1e3 * wall:.1f} ms, device busy "
+          f"{dev_ms:.1f} ms ({100 * dev_ms / 1e3 / wall:.1f}% of the profiled wall; the "
+          f"unprofiled step {step_ms:.1f} ms), {sum(a.count for a in rows)} device "
+          f"operations; split: " + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items()),
+          flush=True)
+    for a in rows[:8]:
+        print(f"[lm train]   {_device_us(a) / 1e3:9.3f} ms {a.count:5d}x {a.key[:70]}",
+              flush=True)
+    return state
+
+
+def phase_lm_train(fa):
+    """LM training on the card: the backward kernels' checks and times;
+    then the main path, internlm2-1.8b at full width training on
+    TokenPipeline batches through TrainStepBuilder (the counts set to 0
+    just before the steps and read just after: the forward twice a layer
+    and the backward once a layer each step); then a profiled step and
+    the parity checks (fp32 card vs CPU, bitwise resume, bf16 gradients
+    against the plain attention's).  Returns the flash record's bwd_*
+    numbers and the path's forward launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import TransformerLM
+    from repro_torch.train import AdamWSettings, TrainStepBuilder
+
+    t = time.perf_counter()
+    nums = phase_flash_backward(fa)
+    t = _phase_done("flash backward checks and times", t)
+
+    cfg = get_config(LM_ARCH)
+    if LM_TRAIN_LAYERS is not None:
+        cfg = dataclasses.replace(cfg, n_layers=LM_TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    model = TransformerLM(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    builder = TrainStepBuilder(model, AdamWSettings(lr=LM_TRAIN_LR,
+                                                    warmup_steps=LM_TRAIN_WARMUP,
+                                                    total_steps=LM_TRAIN_TOTAL))
+    state = builder.init_state()
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=LM_TRAIN_SEQ,
+                         global_batch=LM_TRAIN_BATCH, seed=0)
+    batches = [_pipe_batch(pipe, i, "cuda") for i in range(LM_TRAIN_CYCLE)]
+    torch.cuda.synchronize()
+    # the main path: counts at 0 just before, read just after
+    fa.flash_attention.launches = 0
+    fa.flash_attention.backward_launches = 0
+    losses, norms, walls = [], [], []
+    for i in range(LM_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, met = builder.train_step(state, batches[i % LM_TRAIN_CYCLE])
+        losses.append(met["loss"].item())  # waits for the step
+        norms.append(met["grad_norm"].item())
+        walls.append(time.perf_counter() - t0)
+    fwd, bwd = fa.flash_attention.launches, fa.flash_attention.backward_launches
+    if not (fwd == 2 * cfg.n_layers * LM_TRAIN_STEPS and bwd == cfg.n_layers * LM_TRAIN_STEPS):
+        raise AssertionError(f"lm train: flash launched {fwd} forwards and {bwd} backwards "
+                             f"over {LM_TRAIN_STEPS} steps of {cfg.n_layers} layers")
+    if not all(math.isfinite(x) for x in losses + norms) or not losses[-1] < losses[0]:
+        raise AssertionError(f"lm train: losses {losses}, grad norms {norms}")
+    step_ms = 1e3 * float(np.median(walls[1:]))
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    print(f"[lm train] {cfg.name} ({cfg.n_layers} layers, full width, bf16), batch "
+          f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}, the stream's first {LM_TRAIN_CYCLE} batches "
+          f"in turn: losses "
+          + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+          + ", ".join(f"{x:.3f}" for x in norms) + f"; step walls "
+          + ", ".join(f"{1e3 * w:.1f}" for w in walls) + f" ms (median after the first "
+          f"{step_ms:.1f} ms, {tokens / step_ms * 1e3:.0f} tokens/s); flash launches a "
+          f"step: {fwd // LM_TRAIN_STEPS} forward ({cfg.n_layers} and {cfg.n_layers} "
+          f"rematerialised), {bwd // LM_TRAIN_STEPS} backward; peak device memory "
+          f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
+    state = _profile_train_step(builder, state, batches[0], step_ms)
+    del builder, state, model, batches
+    _free()
+    t = _phase_done("lm train (internlm2-1.8b at full width: steps, profile)", t)
+    _train_card_vs_cpu()
+    _train_resume_bitwise()
+    _train_grads_vs_plain(fa)
+    _phase_done("lm train parity (fp32 card vs cpu, bitwise resume, bf16 kernel vs "
+                "plain gradients)", t)
+    nums["bwd_launches"] = bwd
+    return nums, fwd
+
+
 def _phase_done(name, t0):
     print(f"[time] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
     return time.perf_counter()
@@ -3872,7 +4309,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("regimes", "tenants", "cache", "obs", "sage",
                                        "lm_serve", "mamba_serve", "moe_serve",
-                                       "kimi_serve", *FAMILY_PHASES),
+                                       "kimi_serve", *FAMILY_PHASES, "lm_train"),
                     default=None, help="build the kernels and run this phase alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -3889,13 +4326,13 @@ def main(argv=None) -> int:
     t_start = t = time.perf_counter()
     print(f"[device] {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}", flush=True)
-    sources = (wf.SOURCE, sa.SOURCE, fa.SOURCE, ss.SOURCE, mg.SOURCE)
+    sources = (wf.SOURCE, sa.SOURCE, fa.SOURCE, fa.BWD_SOURCE, ss.SOURCE, mg.SOURCE)
     for src, (_, secs, log) in zip(sources, _build.build(*sources)):
         print(f"[build] {src.name} built in {secs:.1f} s", flush=True)
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"[build] {line.strip()}", flush=True)
-    t = _phase_done("build (five kernels, in parallel)", t)
+    t = _phase_done("build (six sources, in parallel)", t)
     # full fp32 products and convolutions wherever the card is held to a
     # plain or CPU result (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3926,6 +4363,11 @@ def main(argv=None) -> int:
         elif args.only == "kimi_serve":
             launches, _, t = phase_kimi_serve(mg, fa, t)
             print(json.dumps({"kimi_launches": launches}))
+            print(f"[done] {time.perf_counter() - t_start:.1f} s ({args.only} only)")
+            return 0
+        elif args.only == "lm_train":
+            nums, fwd = phase_lm_train(fa)
+            print(json.dumps({"flash_attention": {**nums, "train_forward_launches": fwd}}))
             print(f"[done] {time.perf_counter() - t_start:.1f} s ({args.only} only)")
             return 0
         elif args.only in FAMILY_PHASES:
@@ -3975,6 +4417,10 @@ def main(argv=None) -> int:
     mamba_ssd_launches = ssd_entry["launches"]
     families, t = phase_families(fa, ss, mg, t)
     family_flash_launches = _add_families(flash, ssd_entry, families)
+    train_nums, train_flash_launches = phase_lm_train(fa)
+    t = time.perf_counter()
+    flash.update(train_nums)
+    flash["max_abs_err"] = max(flash["max_abs_err"], train_nums["bwd_max_abs_err"])
 
     line = {
         "kernels": [
@@ -3983,7 +4429,8 @@ def main(argv=None) -> int:
                    + obs_launches + sage_launches["waterfill_fill"]),
             _sage_entry(sage, sage_launches),
             _flash_entry(flash, flash_launches + moe_flash_launches
-                         + kimi_launches["flash_attention"] + family_flash_launches),
+                         + kimi_launches["flash_attention"] + family_flash_launches
+                         + train_flash_launches),
             ssd_entry,
             moe_entry,
         ]
@@ -3996,8 +4443,9 @@ def main(argv=None) -> int:
           f"{flash_launches}; mamba2 path: ssd_scan {mamba_ssd_launches}; "
           f"MoE path: moe_gemm {moe_entry['launches'] - kimi_launches['moe_gemm']}, "
           f"flash_attention {moe_flash_launches}; kimi path: {kimi_launches}; "
-          + "; ".join(f"{name} path: {fam['launches']}" for name, fam in families.items()),
-          flush=True)
+          + "; ".join(f"{name} path: {fam['launches']}" for name, fam in families.items())
+          + f"; LM training path: flash_attention {train_flash_launches} forward, "
+          f"{train_nums['bwd_launches']} backward", flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(line))
     smi = subprocess.run(

@@ -12,12 +12,13 @@ reads the object's plain fields and numpy arrays by attribute
 the weights of the JAX package's ``init_sage`` parameter dict, and
 ``lm_from_reference(params, cfg)`` the port's ``TransformerLM`` (any of
 the six block patterns, either frontend) with those of
-``TransformerLM.init``.
+``TransformerLM.init``; ``lm_to_reference(model)`` turns the port's
+weights (or their gradients) back into that tree.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -35,6 +36,7 @@ from .dynamics.traces import BandwidthTrace, DynamicsEvent
 from .models.config import BLOCK_PATTERNS, FRONTENDS, LMConfig, MoESpec, SSMSpec
 from .models.gnn import GraphSAGE, SageConfig
 from .models.model import TransformerLM
+from .train.optimizer import tree_build
 
 
 def _traffic(t: Any) -> TrafficModel:
@@ -247,3 +249,23 @@ def lm_from_reference(
         if model.shared is not None:
             dense(model.shared, params["shared"], 0)
     return model
+
+
+def lm_to_reference(model: TransformerLM, *, grads: bool = False) -> Dict[str, Any]:
+    """The inverse of ``lm_from_reference``: the port's parameters (or,
+    with ``grads``, their ``.grad``, zeros where none) as the pytree of the
+    reference's ``TransformerLM.init``, blocks stacked over the layers on
+    axis 0, ``final_norm`` and zamba2's ``shared`` block over one; every
+    leaf an fp32 numpy array (exact for bf16 values)."""
+
+    def value(p: torch.Tensor) -> np.ndarray:
+        t = p.grad if grads else p
+        if t is None:
+            t = torch.zeros_like(p)
+        return t.detach().float().cpu().numpy()
+
+    items = []
+    for path, params, stacked in model.leaf_groups():
+        arrays = [value(p) for p in params]
+        items.append((path, np.stack(arrays) if stacked else arrays[0]))
+    return tree_build(items)

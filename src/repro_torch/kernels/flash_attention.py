@@ -30,9 +30,21 @@ There is no fallback between the routes: a CUDA tensor launches the
 kernel of its route or raises.  Each launch adds one to
 ``flash_attention.launches`` and to its route's count in
 ``flash_attention.launches_by_route`` (a decode over several chunks is
-one launch of the wrapper: the kernel and its merge).  There is no
-backward yet (ROADMAP Queue 2 item 1): an input that requires a gradient
-is refused.
+one launch of the wrapper: the kernel and its merge).
+
+Gradients.  On CPU tensors autograd differentiates the plain version.
+On CUDA tensors, when q, k or v requires a gradient (and grad mode is
+on), the forward launch above runs inside a ``torch.autograd.Function``
+that saves q, k, v and the output, and its backward launches the three
+kernels of ``csrc/flash_attention_bwd.cu`` (built beside the forward's
+library): one recomputes each row's logsumexp and delta = rowsum(dO * O),
+one accumulates dK and dV a key tile at a time over the group's query
+heads, one accumulates dQ a query tile at a time; bf16 on mma.sync, fp32
+on FMAs, no atomics, so two runs give the same bits.  It takes self-attention over a whole
+sequence (Sq == Sk > 1, ``q_offset`` 0) with any mask, softcap and
+grouping, D in ``WGMMA_HEAD_DIMS``, fp32 or bf16; anything else that
+needs a gradient on a card raises (there is no fallback).  Each backward
+adds one to ``flash_attention.backward_launches``.
 """
 from __future__ import annotations
 
@@ -45,6 +57,7 @@ import torch
 from . import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 # dtype codes of the C interface
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 80, 96, 112, 128)
@@ -64,6 +77,7 @@ DECODE_CHUNK_STEP = 64
 DECODE_TARGET_BLOCKS = 2 * 132
 
 _LIB: Optional[ctypes.CDLL] = None
+_BWD_LIB: Optional[ctypes.CDLL] = None
 
 
 def build() -> Tuple[Path, float, str]:
@@ -90,6 +104,24 @@ def _library() -> ctypes.CDLL:
     return _LIB
 
 
+def load_backward(path: Path) -> ctypes.CDLL:
+    """A built library of the backward kernels with its C interface declared."""
+    lib = ctypes.CDLL(str(path))
+    vp, ci, ll, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.repro_flash_attention_bwd.argtypes = (
+        [vp] * 10 + [ll] * 24 + [ci] * 5 + [cf, cf] + [ci] * 3 + [vp]
+    )
+    lib.repro_flash_attention_bwd.restype = ci
+    return lib
+
+
+def _backward_library() -> ctypes.CDLL:
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        _BWD_LIB = load_backward(_build.build(BWD_SOURCE)[0][0])
+    return _BWD_LIB
+
+
 def route(dtype: torch.dtype, sq: int, d: int) -> str:
     """The kernel a CUDA call launches, from q's dtype, Sq and D alone:
     ``"wgmma"`` for bf16 with Sq > 1 and D in ``WGMMA_HEAD_DIMS``,
@@ -103,14 +135,20 @@ def route(dtype: torch.dtype, sq: int, d: int) -> str:
     return "fma"
 
 
+def _misaligned(t: torch.Tensor) -> bool:
+    """Whether t's address or an outer stride (of a dimension larger than
+    1) is not a multiple of 16 bytes."""
+    return bool(t.data_ptr() % 16) or any(
+        n > 1 and (st * t.element_size()) % 16
+        for st, n in zip(t.stride()[:-1], t.shape[:-1]))
+
+
 def _check_aligned(r: str, **tensors: torch.Tensor) -> None:
-    """TMA (the wgmma route) and 16-byte vector loads (the decode route)
-    read a tensor whose address and outer strides (of dimensions larger
-    than 1) are multiples of 16 bytes."""
+    """TMA (the wgmma route), 16-byte vector loads (the decode route) and
+    cp.async (the bf16 backward) read a tensor whose address and outer
+    strides are multiples of 16 bytes."""
     for name, t in tensors.items():
-        bad = [s for s, n in zip(t.stride()[:-1], t.shape[:-1])
-               if n > 1 and (s * t.element_size()) % 16]
-        if t.data_ptr() % 16 or bad:
+        if _misaligned(t):
             raise ValueError(f"{name} is not 16-byte aligned for the {r} route "
                              f"(address {t.data_ptr()}, strides {t.stride()})")
 
@@ -206,10 +244,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
             raise ValueError(f"{name} must be 4-D, got {tuple(t.shape)}")
-        if t.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "flash_attention has no backward yet (ROADMAP Queue 2 item 1)"
-            )
     if q.dtype not in _DTYPES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     B, H, _, D = q.shape
@@ -289,9 +323,77 @@ def flash_attention(
                                      softcap=softcap, scale=scale,
                                      q_offset=q_offset)
     if q.device.type == "cuda":
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            _check_backward(q, k, q_offset)
+            return _Attention.apply(q, k, v, causal, window, softcap, scale)
         return _launch(q, k, v, causal, window, softcap, scale, q_offset)
     raise ValueError(f"no flash_attention kernel for device {q.device}")
 
 
+def _check_backward(q: torch.Tensor, k: torch.Tensor, q_offset: int) -> None:
+    """Refuse, before the forward, a call whose gradient the backward
+    kernels do not compute."""
+    sq, sk, d = q.shape[2], k.shape[2], q.shape[3]
+    if q_offset != 0 or sq != sk or sq < 2 or d not in WGMMA_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention's backward kernel takes self-attention over a whole "
+            f"sequence (Sq == Sk > 1, q_offset 0) at D in {WGMMA_HEAD_DIMS}; got "
+            f"Sq {sq}, Sk {sk}, q_offset {q_offset}, D {d}")
+
+
+def _launch_backward(q, k, v, o, do, causal, window, softcap,
+                     scale) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    if do.stride(3) != 1:
+        do = do.contiguous()
+
+    def like(t: torch.Tensor) -> torch.Tensor:  # t's layout where it is dense
+        g = torch.empty_like(t)
+        return g if g.stride(3) == 1 else torch.empty(t.shape, dtype=t.dtype,
+                                                      device=t.device)
+
+    if q.dtype == torch.bfloat16:  # cp.async reads 16-byte chunks of rows
+        if _misaligned(do):
+            do = do.contiguous()
+        _check_aligned("backward", q=q, k=k, v=v, o=o, do=do)
+    dq, dk, dv = like(q), like(k), like(v)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    win = window if window is not None and window <= S else 0
+    lib = _backward_library()
+    tensors = (q, k, v, o, do, dq, dk, dv)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.repro_flash_attention_bwd(
+            *(t.data_ptr() for t in tensors), lse.data_ptr(), delta.data_ptr(),
+            *(s for t in tensors for s in t.stride()[:3]),
+            B, H, KV, S, D, float(scale), float(softcap or 0.0), int(causal),
+            int(win), _DTYPES[q.dtype], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: error {err}")
+    flash_attention.backward_launches += 1
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """The forward kernel, with the backward kernels as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        o = _launch(q, k, v, causal, window, softcap, scale, 0)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.mask = (causal, window, softcap, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = _launch_backward(q, k, v, o, do, *ctx.mask)
+        return dq, dk, dv, None, None, None, None
+
+
 flash_attention.launches = 0  # type: ignore[attr-defined]
 flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)  # type: ignore[attr-defined]
+flash_attention.backward_launches = 0  # type: ignore[attr-defined]

@@ -34,9 +34,11 @@ expert (``ops.padded_group_layout``); this kernel takes the segments as
 they are, so the layout has no counterpart here.  There is no fallback
 between the routes: a CUDA tensor launches the kernel of its route or
 raises.  Each launch adds one to ``moe_grouped_gemm.launches`` and to
-its route's count in ``moe_grouped_gemm.launches_by_route``.  There is no
-backward (the reference has none): an input that requires a gradient is
-refused.
+its route's count in ``moe_grouped_gemm.launches_by_route``.  On CPU tensors
+autograd differentiates the plain version (the training path's
+gradients, held to ``jax.grad`` of the reference's XLA path).  There is
+no backward kernel yet (ROADMAP Queue 2 item 9): a CUDA tensor that
+requires a gradient is refused.
 """
 from __future__ import annotations
 
@@ -127,8 +129,9 @@ def _check(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> None:
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     for name, t in (("x", x), ("w", w)):
-        if t.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError("moe_grouped_gemm has no backward (nor has the reference)")
+        if t.requires_grad and torch.is_grad_enabled() and t.device.type == "cuda":
+            raise NotImplementedError(
+                "moe_grouped_gemm has no backward kernel yet (ROADMAP Queue 2 item 9)")
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if w.dtype != x.dtype:

@@ -35,9 +35,11 @@ order the TPU kernel sums it.
 There is no fallback between the two: a CUDA tensor launches the kernel
 or raises.  Each call on a card adds one to ``ssd_scan.launches`` and to
 its route's count in ``ssd_scan.launches_by_route`` (the mma route's
-four kernels are one launch of the wrapper).  There is no
-backward (the reference has none): an input that requires a gradient is
-refused.
+four kernels are one launch of the wrapper).  On CPU tensors
+autograd differentiates the plain version (the training path's
+gradients, held to ``jax.grad`` of the reference's XLA path).  There is
+no backward kernel yet (ROADMAP Queue 2 item 9): a CUDA tensor that
+requires a gradient is refused.
 """
 from __future__ import annotations
 
@@ -200,8 +202,9 @@ def _check(x, dt, A, Bm, Cm) -> None:
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     for name, t in (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
-        if t.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError("ssd_scan has no backward (nor has the reference)")
+        if t.requires_grad and torch.is_grad_enabled() and t.device.type == "cuda":
+            raise NotImplementedError(
+                "ssd_scan has no backward kernel yet (ROADMAP Queue 2 item 9)")
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if dt.dtype != torch.float32 or A.dtype != torch.float32:

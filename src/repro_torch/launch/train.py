@@ -1,0 +1,118 @@
+"""Training driver: the LM on TokenPipeline batches, with checkpoints.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
+        --steps 20 --batch 4 --seq 2048 --ckpt-dir /tmp/run1   # on the card
+
+The port of ``repro.launch.train`` with the same flags and defaults,
+except ``--mesh`` (the mesh waits for ROADMAP Queue 1 item 14), plus
+``--device`` (default: the CUDA card; it raises when there is none).
+Features: DGTP infeed planning (``--plan-infeed``, the port's
+``plan_infeed``), the deterministic sharded data pipeline, AdamW with
+optional gradient accumulation and bf16 first moments with a factored
+second moment (``--opt8``), periodic checkpoints with exact resume from
+the latest, straggler tracking.  Frontend archs (hubert's frames,
+llava's patches) are refused, as the reference refuses them; on the card
+so are the moe, mamba2 and zamba2 patterns until moe_gemm and ssd_scan
+have backward kernels (ROADMAP Queue 2 item 9).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from .. import configs as cfgs
+from ..core.engine import resolve_device
+from ..core.infeed_planner import LMJobSpec, plan_infeed
+from ..data.pipeline import TokenPipeline
+from ..models.config import LMConfig
+from ..models.model import TransformerLM
+from ..train.checkpoint import latest_checkpoint
+from ..train.fault_tolerance import StragglerPolicy
+from ..train.optimizer import AdamWSettings
+from ..train.train_loop import TrainStepBuilder, restore_state, save_state
+
+CARD_TRAINS = ("dense", "gemma2", "encoder")  # patterns whose kernels all have backwards
+
+
+def card_refusal(cfg: LMConfig) -> Optional[str]:
+    """Why ``cfg`` cannot train on a card, or None."""
+    if cfg.block_pattern in CARD_TRAINS:
+        return None
+    return (f"{cfg.name}: the {cfg.block_pattern} pattern trains on the CPU only: "
+            "moe_gemm and ssd_scan have no backward kernel yet (ROADMAP Queue 2 item 9)")
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="internlm2-1.8b", choices=cfgs.ARCH_IDS)
+    ap.add_argument("--smoke", action="store_true", help="reduced config")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--opt8", action="store_true", help="bf16 m + factored v")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--plan-infeed", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="cpu or cuda (default: cuda; raises without a card)")
+    args = ap.parse_args(argv)
+
+    cfg = cfgs.get_smoke_config(args.arch) if args.smoke else cfgs.get_config(args.arch)
+    if cfg.frontend is not None:
+        raise SystemExit("frontend-stub archs train via inputs.train_batch; "
+                         "use the dry-run for their full shapes")
+    device = resolve_device(args.device)
+    if device.type == "cuda" and card_refusal(cfg) is not None:
+        raise SystemExit(card_refusal(cfg))
+
+    if args.plan_infeed:
+        spec = LMJobSpec(cfg=cfg, global_batch=256, seq_len=4096, n_pods=2)
+        print("infeed plan:", plan_infeed(spec, budget=150, device=device).summary())
+
+    opt = AdamWSettings(lr=args.lr, warmup_steps=max(2, args.steps // 10),
+                        total_steps=args.steps)
+    if args.opt8:
+        opt = dataclasses.replace(opt, m_dtype="bfloat16", factored_v=True)
+    model = TransformerLM(cfg, device=device)
+    builder = TrainStepBuilder(model, opt, accum_steps=args.accum)
+    print(f"{cfg.name}: {cfg.param_count()/1e6:.1f}M params, {device}")
+
+    state = builder.init_state(torch.Generator(device=device).manual_seed(0))
+    start = 0
+    if args.ckpt_dir:
+        latest = latest_checkpoint(args.ckpt_dir)
+        if latest is not None:
+            state = restore_state(latest, state)
+            start = state.step
+            print(f"resumed from step {start}")
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch, seed=0)
+    straggler = StragglerPolicy()
+    losses = []
+    for step in range(start, args.steps):
+        t0 = time.perf_counter()
+        batch = {k: torch.from_numpy(v).to(device) for k, v in pipe.batch_at(step).items()}
+        state, metrics = builder.train_step(state, batch)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        dt = time.perf_counter() - t0
+        slow = straggler.observe(dt)
+        if step % 5 == 0 or step == args.steps - 1:
+            print(f"step {step:5d} loss {losses[-1]:.4f} "
+                  f"gnorm {float(metrics['grad_norm']):.2f} "
+                  f"{dt*1e3:.0f}ms{'  STRAGGLER' if slow else ''}")
+        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+            save_state(args.ckpt_dir, state)
+    if args.ckpt_dir:
+        save_state(args.ckpt_dir, state)
+        print(f"final checkpoint at {args.ckpt_dir}")
+    return {"losses": losses, "start": start, "step": state.step}
+
+
+if __name__ == "__main__":
+    main()

@@ -30,22 +30,33 @@ to a multiple of ``VOCAB_PAD`` and the padded logits are pushed to
                                   {"k", "v"} [L // hybrid_every, B, Smax,
                                   KV, hd]}, indexed by application
   decode_step(cache, token, pos) -> (cache, logits [B, vocab_padded])
+  forward_train(tokens, frames=, patches=)
+                               -> (hidden states, aux): differentiable
+  loss_fn(batch)               -> (total loss, metrics)     [train]
 
 As in the reference, ``prefill`` returns logits only: it hands no state
 to ``decode_step``, which takes token ids (a patch prefix is not
 decoded), and an encoder has neither a cache nor a decode step.  The
-weights take no gradient: this slice serves (training waits for the
-attention kernel's backward, ROADMAP Queue 2 item 1, and for the
-training loop, Queue 1 item 13).
+weights are parameters that take gradients; the serving methods
+(``forward``, ``prefill``, ``decode_step``, ``_logits``) run without
+autograd.  ``forward_train`` rematerialises each layer in the backward
+(``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``) and
+returns the MoE layers' summed load-balance loss beside the hidden
+states; ``loss_fn`` is the reference's causal-LM (or per-frame) cross
+entropy over the padded vocabulary.  On the card the dense patterns
+train through the attention kernel's forward and backward; the moe,
+mamba2 and zamba2 patterns train on the CPU only until moe_gemm and
+ssd_scan have backward kernels (ROADMAP Queue 2 item 9).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.engine import DeviceLike, resolve_device
 from . import layers as ly
@@ -64,8 +75,7 @@ def padded_vocab(v: int) -> int:
 def _weights(shapes: Dict[str, Tuple[int, ...]], dtype: torch.dtype,
              device: torch.device) -> nn.ParameterDict:
     return nn.ParameterDict({
-        name: nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                           requires_grad=False)
+        name: nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
         for name, shape in shapes.items()
     })
 
@@ -133,8 +143,7 @@ class TransformerLM(nn.Module):
         dev, dt = self.device, self.dtype
         # a frames model reads precomputed embeddings: no table
         self.embed: Optional[nn.Parameter] = None if cfg.frontend == "frames" else (
-            nn.Parameter(torch.empty(self.vp, cfg.d_model, dtype=dt, device=dev),
-                         requires_grad=False))
+            nn.Parameter(torch.empty(self.vp, cfg.d_model, dtype=dt, device=dev)))
         self.shared: Optional[DenseBlock] = None
         if cfg.block_pattern in ("mamba2", "zamba2"):
             shapes = ssm_mod.mamba_shapes(cfg)
@@ -147,7 +156,7 @@ class TransformerLM(nn.Module):
                                         for _ in range(cfg.n_layers))
         self.final_norm = _norm(cfg, dev)
         self.head: Optional[nn.Parameter] = None if cfg.tie_embeddings else nn.Parameter(
-            torch.empty(self.vp, cfg.d_model, dtype=dt, device=dev), requires_grad=False)
+            torch.empty(self.vp, cfg.d_model, dtype=dt, device=dev))
         # the padded vocabulary entries' logit bias
         bias = torch.zeros(self.vp, dtype=torch.float32, device=dev)
         bias[cfg.vocab:] = -1e30
@@ -243,29 +252,54 @@ class TransformerLM(nn.Module):
         return x
 
     # ----------------------------------------------------------------- stack
-    def _apply_stack(self, x: torch.Tensor) -> torch.Tensor:
+    def _moe_layer(self, blk: DenseBlock, x: torch.Tensor, cos, sin,
+                   window: Optional[int], aux: bool):
+        """One moe-pattern layer: (x after it, its load-balance loss or
+        None)."""
+        cfg = self.cfg
+        x = x + ly.apply_attn(blk.attn, ly.apply_norm(blk.ln_attn, x, cfg), cos, sin,
+                              cfg, window)
+        m, lb = moe_mod.apply_moe(blk.moe, ly.apply_norm(blk.ln_mlp, x, cfg), cfg, aux=aux)
+        return x + m, lb
+
+    def _apply_stack(self, x: torch.Tensor,
+                     train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The blocks over x [B, S, d]: (x, aux), aux the sum of the MoE
+        layers' load-balance losses (fp32; 0 without MoE layers, and
+        unless ``train``).  With ``train`` each layer (for zamba2 each
+        mamba layer and each application of the shared block) is
+        rematerialised in the backward, as the reference's scan body under
+        ``jax.checkpoint``."""
         cfg = self.cfg
         cos, sin = (None, None) if cfg.block_pattern == "mamba2" else self._rope(
             torch.arange(x.shape[1], device=x.device))
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+        def run(fn, h):
+            return checkpoint(fn, h, use_reentrant=False) if train else fn(h)
+
         if cfg.block_pattern in ("mamba2", "zamba2"):
             # zamba2: the shared block after each full group of
             # hybrid_every mamba blocks; the trailing ones run alone
             for idx, blk in enumerate(self.blocks):
-                x = ssm_mod.apply_mamba_block(blk, x, cfg)
+                x = run(lambda h, blk=blk: ssm_mod.apply_mamba_block(blk, h, cfg), x)
                 if self.shared is not None and (idx + 1) % cfg.hybrid_every == 0:
-                    x = ly.apply_dense_block(self.shared, x, cos, sin, cfg, None)
-            return x
+                    x = run(lambda h: ly.apply_dense_block(self.shared, h, cos, sin, cfg,
+                                                           None), x)
+            return x, aux
         for idx, blk in enumerate(self.blocks):
             w = self._window_for(idx)
             if cfg.block_pattern == "moe":
-                x = x + ly.apply_attn(blk.attn, ly.apply_norm(blk.ln_attn, x, cfg),
-                                      cos, sin, cfg, w)
-                x = x + moe_mod.apply_moe(blk.moe, ly.apply_norm(blk.ln_mlp, x, cfg), cfg)
+                x, lb = run(lambda h, blk=blk, w=w: self._moe_layer(blk, h, cos, sin, w,
+                                                                    train), x)
+                if lb is not None:
+                    aux = aux + lb
             else:
-                x = ly.apply_dense_block(blk, x, cos, sin, cfg, w)
-        return x
+                x = run(lambda h, blk=blk, w=w: ly.apply_dense_block(blk, h, cos, sin,
+                                                                     cfg, w), x)
+        return x, aux
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+    def _head_logits(self, x: torch.Tensor) -> torch.Tensor:
         """fp32 logits of hidden states x [..., d] over the padded
         vocabulary: products of the weights' values summed in fp32 (the
         reference's ``preferred_element_type=float32``), then the softcap
@@ -278,6 +312,11 @@ class TransformerLM(nn.Module):
         return logits + self.vocab_bias
 
     @torch.no_grad()
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """``_head_logits`` for serving (no autograd)."""
+        return self._head_logits(x)
+
+    @torch.no_grad()
     def forward(self, tokens: Optional[torch.Tensor] = None, *,
                 frames: Optional[torch.Tensor] = None,
                 patches: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -285,7 +324,7 @@ class TransformerLM(nn.Module):
         ``frames`` model takes ``frames`` [B, T, d] in place of tokens; a
         ``patches`` model also takes ``patches`` [B, P, d] (P may be 0),
         and returns [B, P + S, d]."""
-        x = self._apply_stack(self._inputs(tokens, frames, patches))
+        x, _ = self._apply_stack(self._inputs(tokens, frames, patches))
         return ly.apply_norm(self.final_norm, x, self.cfg)
 
     @torch.no_grad()
@@ -296,6 +335,78 @@ class TransformerLM(nn.Module):
         position's logits [B, vocab_padded] (fp32)."""
         h = self.forward(tokens, frames=frames, patches=patches)
         return self._logits(h[:, -1:, :])[:, 0]
+
+    # -------------------------------------------------------------- training
+    def leaf_groups(self) -> List[Tuple[Tuple[str, ...], List[nn.Parameter], bool]]:
+        """The reference's parameter tree over the port's parameters:
+        ``(path, parameters, stacked)`` per reference leaf, in the order
+        its tree flattens (keys sorted at every level).  A stacked leaf is
+        its parameters stacked on a new axis 0: the blocks' over the layers
+        (``("blocks", group, name)``, or ``("blocks", name)`` for the mamba
+        patterns), ``final_norm``'s and zamba2's ``shared`` block's over
+        one; ``embed`` and ``head`` are one parameter each, unstacked."""
+        out: List[Tuple[Tuple[str, ...], List[nn.Parameter], bool]] = []
+        if self.embed is not None:
+            out.append((("embed",), [self.embed], False))
+        if self.head is not None:
+            out.append((("head",), [self.head], False))
+        for name, w in self.final_norm.items():
+            out.append((("final_norm", name), [w], True))
+
+        def stacked(prefix: str, layers: List[nn.Module]) -> None:
+            first = layers[0]
+            if isinstance(first, nn.ParameterDict):  # a mamba layer
+                for name in first:
+                    out.append(((prefix, name), [blk[name] for blk in layers], True))
+                return
+            for group, mod in first.named_children():
+                for name in mod:
+                    out.append(((prefix, group, name),
+                                [blk[group][name] for blk in layers], True))
+
+        stacked("blocks", list(self.blocks))
+        if self.shared is not None:
+            stacked("shared", [self.shared])
+        return sorted(out, key=lambda item: item[0])
+
+    def forward_train(self, tokens: Optional[torch.Tensor] = None, *,
+                      frames: Optional[torch.Tensor] = None,
+                      patches: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``forward`` with autograd and each layer rematerialised in the
+        backward; returns (final-normed hidden states, aux) with aux the
+        MoE layers' summed load-balance loss (the reference's
+        ``forward``)."""
+        x, aux = self._apply_stack(self._inputs(tokens, frames, patches), train=True)
+        return ly.apply_norm(self.final_norm, x, self.cfg), aux
+
+    def loss_fn(self, batch: Mapping[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The reference's ``loss_fn``: causal-LM (or, for frames, per-frame)
+        cross entropy over the padded vocabulary, labels < 0 ignored (a
+        patch prefix gets -1 labels); returns ``(total, metrics)`` with
+        ``total = loss + 0.01 * aux_loss``, ``aux_loss`` the summed
+        load-balance loss over ``n_layers`` and ``tokens`` the count of
+        labelled positions (at least 1).  ``batch`` holds ``labels`` [B, S]
+        and ``tokens``, ``frames`` or ``tokens`` and ``patches`` as
+        ``forward`` takes them."""
+        cfg = self.cfg
+        x, aux = self.forward_train(batch.get("tokens"), frames=batch.get("frames"),
+                                    patches=batch.get("patches"))
+        logits = self._head_logits(x)
+        labels = batch["labels"].long()
+        if cfg.frontend == "patches":
+            pad = torch.full((labels.shape[0], batch["patches"].shape[1]), -1,
+                             dtype=labels.dtype, device=labels.device)
+            labels = torch.cat([pad, labels], dim=1)
+        mask = labels >= 0
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+        per_tok = torch.where(mask, lse - gold, torch.zeros_like(lse))
+        ntok = mask.sum().clamp(min=1)
+        loss = per_tok.sum() / ntok
+        metrics = {"loss": loss, "aux_loss": aux / max(cfg.n_layers, 1), "tokens": ntok}
+        return loss + 0.01 * metrics["aux_loss"], metrics
 
     # --------------------------------------------------------------- serving
     def _kv_cache(self, n: int, batch: int, smax: int) -> Cache:
@@ -356,7 +467,7 @@ class TransformerLM(nn.Module):
                         cache["v"][idx], pos, cos, sin, cfg, w)
                     x = x + a
                     x = x + moe_mod.apply_moe(blk.moe, ly.apply_norm(blk.ln_mlp, x, cfg),
-                                              cfg)
+                                              cfg, aux=False)[0]
                 else:
                     x, _, _ = ly.decode_dense_block(
                         blk, x, cache["k"][idx], cache["v"][idx], pos, cos, sin, cfg, w)

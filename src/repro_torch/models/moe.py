@@ -20,14 +20,17 @@ and capacity = t k, so no token is dropped):
      may change.
 
 A layer's parameters: router [d, E] fp32, w_gate and w_up [E, d, f] and
-w_down [E, f, d] in the model's dtype.  Expert parallelism over a mesh
-waits for ROADMAP Queue 1 item 14, and the load-balance loss and the aux
-output for training (item 13).
+w_down [E, f, d] in the model's dtype.  ``apply_moe`` returns ``(y,
+aux)`` as the reference's does: aux is the Switch-style
+``load_balance_loss`` of the layer's routing, which training adds to the
+loss; the serving paths ask for none (``aux=False``: the reference's jit
+drops the unused value).  Expert parallelism over a mesh waits for
+ROADMAP Queue 1 item 14.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -72,6 +75,18 @@ def _route(xt: torch.Tensor, router: torch.Tensor,
     return topi, weights, probs
 
 
+def load_balance_loss(probs: torch.Tensor, expert_ids: torch.Tensor,
+                      n_experts: int) -> torch.Tensor:
+    """Switch-style aux loss: E * sum_e mean_prob_e * mean_assign_e (the
+    reference's ``load_balance_loss``)."""
+    me = probs.mean(0)
+    assign = torch.zeros(n_experts, dtype=torch.float32, device=probs.device).index_add_(
+        0, expert_ids.reshape(-1), torch.ones(expert_ids.numel(), dtype=torch.float32,
+                                              device=probs.device))
+    ce = assign / max(expert_ids.numel(), 1)
+    return n_experts * (me * ce).sum()
+
+
 def _expert_compute(x_rows: torch.Tensor, gs: torch.Tensor, wg: torch.Tensor,
                     wu: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
     """SwiGLU of rows sorted by expert: gate and up, silu(gate) * up in
@@ -83,12 +98,14 @@ def _expert_compute(x_rows: torch.Tensor, gs: torch.Tensor, wg: torch.Tensor,
     return moe_grouped_gemm(h, wd, gs)
 
 
-def _moe_local(xt: torch.Tensor, p: Params, cfg: LMConfig) -> torch.Tensor:
+def _moe_local(xt: torch.Tensor, p: Params, cfg: LMConfig,
+               aux: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """All tokens xt [t, d] through all experts, dropless: [t, d] in the
-    experts' output dtype."""
+    experts' output dtype, and the load-balance loss when ``aux``."""
     t, d = xt.shape
     k, n_exp = cfg.moe.top_k, cfg.moe.n_experts
-    topi, weights, _ = _route(xt, p["router"], cfg)
+    topi, weights, probs = _route(xt, p["router"], cfg)
+    lb = load_balance_loss(probs, topi, n_exp) if aux else None
     eids = topi.reshape(-1)
     wts = weights.reshape(-1)
     tids = torch.arange(t, device=xt.device).repeat_interleave(k)
@@ -101,10 +118,13 @@ def _moe_local(xt: torch.Tensor, p: Params, cfg: LMConfig) -> torch.Tensor:
     out_rows = _expert_compute(xt[st], gs, p["w_gate"], p["w_up"], p["w_down"])
     scale = sw.to(out_rows.dtype)
     y = torch.zeros((t, d), dtype=out_rows.dtype, device=xt.device)
-    return y.index_add_(0, st, out_rows * scale[:, None])
+    return y.index_add_(0, st, out_rows * scale[:, None]), lb
 
 
-def apply_moe(p: Params, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
-    """MoE FFN, x [B, S, d] -> [B, S, d] in x's dtype."""
+def apply_moe(p: Params, x: torch.Tensor, cfg: LMConfig, *,
+              aux: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """MoE FFN, x [B, S, d] -> (y [B, S, d] in x's dtype, the load-balance
+    loss, fp32 scalar; None when ``aux`` is false)."""
     b, s, d = x.shape
-    return _moe_local(x.reshape(b * s, d), p, cfg).reshape(b, s, d).to(x.dtype)
+    y, lb = _moe_local(x.reshape(b * s, d), p, cfg, aux)
+    return y.reshape(b, s, d).to(x.dtype), lb

@@ -28,6 +28,17 @@
     the same bits on two runs.  They skip without a card; run them there
     with ``python -m pytest -m cuda tests/test_torch_flash.py``.
 
+  * gradients: on the CPU the wrapper's inputs that need a gradient get
+    autograd through the plain version, equal to ``jax.grad`` of the
+    oracle (K and V's gradients summed over each group); marked ``cuda``,
+    the backward kernels (``csrc/flash_attention_bwd.cu``) against
+    autograd through the plain version on the card over causal, window,
+    softcap, non-causal, 1:1, 2:1 and 5:1 grouping, D 64, 80, 96, 112 and
+    128, ragged lengths, fp32 within 1e-4 and bf16 within 2e-2 of the
+    largest gradient, on views of [B, S, N, D] tensors, each giving the
+    same bits on two runs; and the refusal of what they do not compute
+    (q_offset > 0, a decode, Sq != Sk, D 32), before any launch.
+
 JAX is imported only by the tests that compare with it, so the card's
 tests run where JAX is absent.
 """
@@ -158,8 +169,6 @@ def test_wrapper_validates_inputs():
         flash_attention(q, k, v, window=0)
     with pytest.raises(ValueError, match="q_offset"):
         flash_attention(q, k, v, q_offset=-1)
-    with pytest.raises(NotImplementedError, match="backward"):
-        flash_attention(q.requires_grad_(True), k, v)
     # a tensor on neither the CPU nor a card raises: no fallback
     with pytest.raises(ValueError, match="no flash_attention kernel"):
         flash_attention(*(t.detach().to("meta") for t in (q, k, v)))
@@ -422,3 +431,107 @@ def test_decode_kernel_refuses_unaligned_cache(cuda):
     with pytest.raises(ValueError, match="16-byte aligned for the decode route"):
         flash_attention(q, k, k, q_offset=8)
     assert flash_attention.launches == before
+
+
+# ------------------------------------------------------------- gradients
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # of the largest gradient
+
+
+def _grads(fn, q, k, v, w):
+    """Gradients of sum(fn(q, k, v) * w) with respect to q, k and v."""
+    q, k, v = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    (fn(q, k, v).float() * w).sum().backward()
+    return q.grad, k.grad, v.grad
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cpu_gradients_match_jax_grad(jx, case):
+    """CPU inputs that need a gradient take the plain version, which
+    autograd differentiates: equal to ``jax.grad`` of the oracle."""
+    import jax
+
+    jnp, _, ref = jx
+    b, h, kv, sq, sk, d, causal, window, softcap, off = CASES[case]
+    q, k, v = _inputs(3, b, h, kv, sq, sk, d)
+    w = np.random.default_rng(4).standard_normal((b, h, sq, d)).astype(np.float32)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
+
+    def loss(qj, kj, vj):
+        return (ref(qj, kj, vj, **kw).astype(jnp.float32) * w).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*_jax_side(jnp, q, k, v, "float32"))
+    g = h // kv
+    want = [np.asarray(want[0])] + [np.asarray(x).reshape(b, kv, g, sk, d).sum(2)
+                                    for x in want[1:]]
+    before = flash_attention.launches
+    got = _grads(lambda *t: flash_attention(*t, **kw),
+                 *(torch.from_numpy(a) for a in (q, k, v)), torch.from_numpy(w))
+    assert flash_attention.launches == before
+    for name, gt, wt in zip("qkv", got, want):
+        assert gt.shape == wt.shape, name
+        assert np.abs(gt.numpy() - wt).max() <= 1e-4 * np.abs(wt).max(), name
+
+
+# (b, h, kv, s, d, causal, window, softcap)
+BWD_CASES = {
+    "causal": (2, 2, 2, 128, 64, True, None, None),
+    "gqa": (2, 4, 2, 160, 128, True, None, None),
+    "g5_ragged": (1, 10, 2, 77, 128, True, None, None),
+    "window_softcap": (1, 4, 2, 200, 128, True, 64, 30.0),
+    "non_causal_hd80": (2, 2, 1, 150, 80, False, None, None),
+    "hd96_window": (1, 2, 2, 130, 96, True, 40, None),
+    "hd112": (1, 4, 1, 96, 112, True, None, 20.0),
+    "non_causal_window": (1, 2, 2, 100, 64, False, 30, None),
+}
+
+
+def _bwd_inputs(device, dtype, b, h, kv, s, d, seed=6):
+    """q, k, v as views of [B, S, N, D] tensors (the model's layout) and
+    the output gradient's weights."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def draw(n):
+        return torch.randn(b, s, n, d, generator=gen).to(device, dtype).transpose(1, 2)
+
+    w = torch.randn(b, h, s, d, generator=gen).to(device)
+    return draw(h), draw(kv), draw(kv), w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_backward_kernel_matches_plain_autograd(cuda, case, dtype):
+    b, h, kv, s, d, causal, window, softcap = BWD_CASES[case]
+    dt = getattr(torch, dtype)
+    q, k, v, w = _bwd_inputs(cuda, dt, b, h, kv, s, d)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = flash_attention.backward_launches
+    got = _grads(lambda *t: flash_attention(*t, **kw), q, k, v, w)
+    again = _grads(lambda *t: flash_attention(*t, **kw), q, k, v, w)
+    torch.cuda.synchronize()
+    assert flash_attention.backward_launches == before + 2
+    want = _grads(lambda *t: flash_attention_plain(*t, **kw), q, k, v, w)
+    for name, g, g2, wt in zip("qkv", got, again, want):
+        assert g.dtype == dt and g.shape == wt.shape, name
+        err = (g.float() - wt.float()).abs().max().item()
+        assert err <= GRAD_TOL[dtype] * wt.float().abs().max().item(), (name, err)
+        assert torch.equal(g, g2), name
+
+
+@pytest.mark.cuda
+def test_backward_refuses_what_it_does_not_compute(cuda):
+    """A call needing a gradient that the backward kernels do not compute
+    raises before the forward launches: no fallback."""
+    q = torch.zeros(1, 2, 8, 64, device=cuda, requires_grad=True)
+    k = torch.zeros(1, 2, 8, 64, device=cuda)
+    before = (flash_attention.launches, flash_attention.backward_launches)
+    for args, kw in (((q, k, k), dict(q_offset=3)),
+                     ((q[:, :, :1], k, k), dict(q_offset=7)),
+                     ((q, k[:, :, :6], k[:, :, :6]), {}),
+                     ((q[..., :32], k[..., :32], k[..., :32]), {})):
+        with pytest.raises(NotImplementedError, match="backward kernel"):
+            flash_attention(*args, **kw)
+    assert (flash_attention.launches, flash_attention.backward_launches) == before
+    # without grad mode the same forward runs
+    with torch.no_grad():
+        flash_attention(q, k, k, q_offset=3)

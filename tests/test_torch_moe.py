@@ -29,6 +29,11 @@ grouped GEMM's CUDA kernel.
     ``apply_moe`` through the kernel against the plain path.  They skip without a card; run them there
     with ``python -m pytest -m cuda tests/test_torch_moe.py``.
 
+  * gradients: CPU inputs that need a gradient take the plain version,
+    which autograd differentiates, equal to ``jax.grad`` of the oracle;
+    marked ``cuda``: a card's input that needs a gradient is refused
+    (no backward kernel yet, ROADMAP Queue 2 item 9) before any launch.
+
 JAX is imported only by the tests that compare with it.
 """
 import dataclasses
@@ -161,12 +166,16 @@ def test_apply_moe_matches_reference(jx, arch):
     cfg, port_cfg = _moe_cfgs(arch)
     p_ref, p = _moe_params(jax, cfg, 5)
     x = np.random.default_rng(6).standard_normal((2, 9, cfg.d_model)).astype(np.float32)
-    want, _ = ref_moe.apply_moe(p_ref, jax.numpy.asarray(x), cfg, single_device_ctx())
+    want, want_aux = ref_moe.apply_moe(p_ref, jax.numpy.asarray(x), cfg, single_device_ctx())
     before = moe_grouped_gemm.launches
-    got = moe.apply_moe(p, torch.from_numpy(x), port_cfg)
+    got, aux = moe.apply_moe(p, torch.from_numpy(x), port_cfg)
     assert moe_grouped_gemm.launches == before
     assert got.shape == x.shape
     assert np.abs(got.numpy() - np.asarray(want)).max() < 1e-5
+    # the load-balance loss, and none when the caller asks for none
+    assert abs(aux.item() - float(want_aux)) < 1e-5
+    y, none = moe.apply_moe(p, torch.from_numpy(x), port_cfg, aux=False)
+    assert none is None and torch.equal(y, got)
 
 
 def test_empty_experts_and_zero_rows():
@@ -196,8 +205,6 @@ def test_wrapper_validates_inputs():
         moe_grouped_gemm(x, w, gs[:2])
     with pytest.raises(ValueError, match=r"\[T, D\]"):
         moe_grouped_gemm(x[:, :8], w, gs)
-    with pytest.raises(NotImplementedError, match="backward"):
-        moe_grouped_gemm(x.requires_grad_(True), w, gs)
     with pytest.raises(ValueError, match="no moe_grouped_gemm kernel"):
         moe_grouped_gemm(*(t.detach().to("meta") for t in (x, w, gs)))
 
@@ -275,9 +282,9 @@ def test_apply_moe_kernel_matches_plain(cuda, arch, monkeypatch):
     p = {n: torch.randn(s, device=cuda, generator=gen) * moe.moe_scales(cfg)[n]
          for n, s in {**shapes, **shapes32}.items()}
     x = torch.randn(3, 7, cfg.d_model, device=cuda, generator=gen)
-    got = moe.apply_moe(p, x, cfg)
+    got, _ = moe.apply_moe(p, x, cfg)
     monkeypatch.setattr(moe, "moe_grouped_gemm", moe_grouped_gemm_plain)
-    want = moe.apply_moe(p, x, cfg)
+    want, _ = moe.apply_moe(p, x, cfg)
     # top-2 adds a token's two rows with atomics in either order
     assert _rel_err(got, want) < 1e-4
 
@@ -361,3 +368,36 @@ def test_stream_route_matches_plain(cuda, case, dtype):
     rows = int(gs.sum())
     assert torch.equal(got[rows:], torch.zeros_like(got[rows:]))
     assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("shape", SWEEP)
+def test_cpu_gradients_match_jax_grad(jx, shape):
+    """CPU inputs that need a gradient get autograd through the plain
+    version, equal to ``jax.grad`` of the oracle (``ragged_dot``)."""
+    jax, _, ref = jx
+    jnp = jax.numpy
+    x, w, gs = _inputs(9, *shape, empty=(1,))
+    r = np.random.default_rng(10).standard_normal((x.shape[0], w.shape[2])).astype(np.float32)
+    want = jax.grad(lambda a, b: (ref(a, b, jnp.asarray(gs)) * r).sum(), argnums=(0, 1))(
+        jnp.asarray(x), jnp.asarray(w))
+    xt, wt, g = _torch(x, w, gs, "float32")
+    xt.requires_grad_(True)
+    wt.requires_grad_(True)
+    before = moe_grouped_gemm.launches
+    (moe_grouped_gemm(xt, wt, g) * torch.from_numpy(r)).sum().backward()
+    assert moe_grouped_gemm.launches == before
+    for got, w_ in zip((xt.grad, wt.grad), want):
+        w_ = np.asarray(w_)
+        assert np.abs(got.numpy() - w_).max() <= 1e-5 * max(np.abs(w_).max(), 1.0)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_gradients(cuda):
+    x, w, gs = _torch(*_inputs(8, 32, 16, 24, 3), "float32", cuda)
+    before = moe_grouped_gemm.launches
+    for args in ((x.requires_grad_(True), w, gs), (x.detach(), w.requires_grad_(True), gs)):
+        with pytest.raises(NotImplementedError, match="Queue 2 item 9"):
+            moe_grouped_gemm(*args)
+    assert moe_grouped_gemm.launches == before
+    with torch.no_grad():
+        moe_grouped_gemm(x, w, gs)

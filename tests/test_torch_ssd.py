@@ -26,6 +26,10 @@
     grouped strided views, giving the same bits on two runs; fp32 on the
     FMA route.  They skip without a card; run them there with
     ``python -m pytest -m cuda tests/test_torch_ssd.py``.
+  * gradients: CPU inputs that need a gradient take the plain version,
+    which autograd differentiates, equal to ``jax.grad`` of
+    ``ssd_chunked``; marked ``cuda``: a card's input that needs a
+    gradient is refused (no backward kernel yet, ROADMAP Queue 2 item 9).
 
 JAX is imported only by the tests that compare with it.
 """
@@ -150,8 +154,6 @@ def test_wrapper_validates_inputs():
         ssd_scan(x, dt[:, :, :1], A, Bm, Cm)
     with pytest.raises(ValueError, match="group"):
         ssd_scan(x, dt, A, Bm[:, :, None].expand(1, 48, 3, 8), Cm[:, :, None].expand(1, 48, 3, 8))
-    with pytest.raises(NotImplementedError, match="backward"):
-        ssd_scan(x.requires_grad_(True), dt, A, Bm, Cm)
     with pytest.raises(ValueError, match="no ssd_scan kernel"):
         ssd_scan(*(t.detach().to("meta") for t in (x, dt, A, Bm, Cm)))
 
@@ -288,3 +290,43 @@ def test_fp32_stays_on_the_fma_route(cuda):
     args = _torch(_inputs(12, b, s, h, hd, ds), "float32", cuda)
     got = _routed(args, chunk, "fma")
     assert _rel_err(got, ssd_scan_plain(*args, chunk=chunk)[0]) < 1e-4
+
+
+@pytest.mark.parametrize("shape", SWEEP)
+def test_cpu_gradients_match_jax_grad(jx, shape):
+    """CPU inputs that need a gradient get autograd through the plain
+    version, equal to ``jax.grad`` of the reference's ``ssd_chunked`` (the
+    XLA path the reference trains through), B and C's gradients summed
+    over the heads they are broadcast to."""
+    import jax
+
+    jnp, _, _, ref_chunked = jx
+    b, s, h, hd, ds, chunk = shape
+    arrays = _inputs(11, b, s, h, hd, ds)
+    r = np.random.default_rng(12).standard_normal((b, s, h, hd)).astype(np.float32)
+
+    def loss(x, dt, A, Bm, Cm):
+        Bh, Ch = (jnp.broadcast_to(m[:, :, None], (b, s, h, ds)) for m in (Bm, Cm))
+        return (ref_chunked(x, dt, A, Bh, Ch, chunk)[0] * r).sum()
+
+    want = jax.grad(loss, argnums=tuple(range(5)))(*(jnp.asarray(a) for a in arrays))
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+    before = ssd_scan.launches
+    y = ssd_scan(ts[0], ts[1], ts[2], ts[3][:, :, None], ts[4][:, :, None], chunk=chunk)
+    (y * torch.from_numpy(r)).sum().backward()
+    assert ssd_scan.launches == before
+    for name, t, w_ in zip(("x", "dt", "A", "B", "C"), ts, want):
+        w_ = np.asarray(w_)
+        assert np.abs(t.grad.numpy() - w_).max() <= 1e-4 * max(np.abs(w_).max(), 1.0), name
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_gradients(cuda):
+    x, dt, A, Bm, Cm = _torch(_inputs(3, 1, 64, 2, 64, 16), "float32", cuda)
+    Bm, Cm = Bm[:, :, None], Cm[:, :, None]
+    before = ssd_scan.launches
+    with pytest.raises(NotImplementedError, match="Queue 2 item 9"):
+        ssd_scan(x.requires_grad_(True), dt, A, Bm, Cm, chunk=32)
+    assert ssd_scan.launches == before
+    with torch.no_grad():
+        ssd_scan(x, dt, A, Bm, Cm, chunk=32)
