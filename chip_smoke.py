@@ -5,16 +5,16 @@
 
 Drives the port's paths on the card, DGTP planning, GraphSAGE training,
 LM serving (dense, mamba2, MoE, gemma2, the zamba2 hybrid, the llava
-patch prefix), encoding (hubert) and LM training (internlm2), and holds
-them against the port's own CPU path and against the plain version of
-every kernel.
+patch prefix), encoding (hubert) and LM training (internlm2, llama4-scout,
+mamba2-1.3b), and holds them against the port's own CPU path and against
+the plain version of every kernel.
 Phases, in order; any failure ends the run with a non-zero exit:
 
-  1. build the five kernels (waterfill, sage_aggregate, flash_attention
-     with its backward in a source of its own, ssd_scan, moe_gemm) from
-     ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one nvcc per
-     source (six), all started together; TF32 off for fp32 products and
-     convolutions;
+  1. build the five kernels (waterfill, sage_aggregate, and
+     flash_attention, ssd_scan and moe_gemm each with its backward in a
+     source of its own) from ``src/repro_torch/kernels/csrc`` with nvcc
+     for sm_90a, one nvcc per source (eight), all started together; TF32
+     off for fp32 products and convolutions;
   2. the waterfill kernel against its plain version on the card, at
      every shape the main path gives it (B=1024 with EG=1400, M=16 and
      with EG=72, M=4; B=1 with EG=72, M=4), on inputs with tied priority
@@ -24,11 +24,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
      one-NIC-a-lane shuffle form beside it;
   3. ``simulate_batch_torch`` at width 1024 on the papers100M job (J=117,
      E=1400, M=16, its first 2 of 10 iterations; the regimes phase runs
-     5) and the products job (J=23, E=72, M=4, N=40), all five
+     4) and the products job (J=23, E=72, M=4, N=40), all five
      policies, on the card; the first 8 instances are held against the
      same 8 on the CPU (run in worker processes meanwhile, compared once
      phase 4 is done) at the engine's parity tolerance;
-  4. ``plan()`` on the quickstart job and cluster (budget 160, 15
+  4. ``plan()`` on the quickstart job and cluster (budget 120, 15
      simulated iterations, seed 0) and ``plan_baseline("distdgl")``, each
      committed schedule held against the CPU engine, and each Theorem-1
      certificate against the one built from the CPU engine's recorded
@@ -39,7 +39,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      priority on three jobs), built with the port's own builders, for all
      five policies on the card against ``tests/golden/golden_schedules.json``;
      then the papers job at full width (J=117, E=1400, M=16) and its
-     first 5 of 10 iterations under a 6-segment drift trace with
+     first 4 of 10 iterations under a 6-segment drift trace with
      stragglers, each instance with its own migration flows (a store's
      restore and the moves from its base placement; none for the three
      bases), deadline shaping with deadlines from ``annotate_deadlines`` on
@@ -203,7 +203,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
      train 2) equal to 4 direct steps bit for bit under
      ``torch.use_deterministic_algorithms(True)``, and one step's bf16
      gradients at 2 full-width layers against the plain attention's;
- 16. the kernel table's JSON line (the flash and moe_gemm records also
+ 16. moe_train (llama4-scout-17b-a16e, bf16, full width, 1 of its 48
+     layers): the grouped GEMM's backward kernels against the plain
+     backward at its training shapes (gate/up x [4096, 5120], w [16, 5120,
+     8192]; down x [4096, 8192], w [16, 8192, 5120]; a skewed routing with
+     one expert holding most rows, two empty and rows past the sum) and a
+     small fp32 case (fp32 within 1e-4, bf16 within 2e-2 of the largest
+     gradient; two runs give the same bits), the gate/up backward timed
+     beside its bound, the plain backward and ``torch._grouped_mm``'s
+     backward; 4 AdamW steps (bf16 first moments, a factored second
+     moment) of ``TrainStepBuilder`` on the stream's first 2 batches of 2
+     x 2048 tokens in turn (the loss falling; 6 grouped-GEMM and 2
+     attention forward launches, 3 and 1 backward launches, a layer and
+     step), step wall, tokens/s, peak memory and one profiled step; two
+     fp32 steps of a narrow llama4 on the card against the CPU;
+ 17. mamba_train (mamba2-1.3b, bf16, full width and depth): the SSD scan's
+     backward kernels against the plain backward at mamba2-1.3b's training
+     shape (x [4, 2048, 64, 64], d_state 128, chunk 256) and zamba2's (x
+     [4, 2048, 112, 64], d_state 64) on the mma route and a small fp32
+     case with two groups on the FMA route (against the plain backward in
+     fp64), the mamba2 backward timed beside its bound and the plain
+     backward; 4 AdamW steps on the stream's first 2 batches of 4 x 2048
+     tokens in turn (2 forward and 1 backward scan launches a layer and
+     step), step wall, tokens/s, peak memory and one profiled step; two
+     fp32 steps of a narrow mamba2 and of a narrow zamba2 on the card
+     against the CPU;
+ 18. the kernel table's JSON line (the flash and moe_gemm records also
      carry their prefill shape's times, ``prefill_ms``,
      ``prefill_bound_ms``, ``prefill_library_ms``, and kimi-k2's decode
      shape's, ``kimi_decode_ms``, ``kimi_decode_plain_ms``,
@@ -218,10 +243,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
      ``bwd_ms``,
      ``bwd_bound_ms`` and ``bwd_library_ms``; flash's its backward's,
      ``bwd_ms``, ``bwd_plain_ms``, ``bwd_bound_ms``, ``bwd_library_ms``,
-     ``bwd_source`` and ``bwd_launches``), the card's name and power
-     limit, and the closing status line.
+     ``bwd_source`` and ``bwd_launches``, as are the moe_gemm and ssd_scan
+     records' from phases 16 and 17), the card's name and power limit,
+     and the closing status line.
 
-Fifteen main paths, each with the kernel launch counts set to 0 just
+Seventeen main paths, each with the kernel launch counts set to 0 just
 before it and read just after: phases 3-4 (planning), phases 5a-5b (the
 engine's regimes and re-planning), phase 5c (multi-job planning and the
 arrival service), phase 5d (the feature-cache tier), phase 5e (traces
@@ -230,12 +256,14 @@ steps, calibration and baseline plan of phase 6 (GraphSAGE), the
 ``ServeEngine`` run of phase 7 (LM serving), and the prefill followed by
 the ``ServeEngine`` run of phases 8 (mamba2), 9 (MoE), 10 (kimi-k2), 11
 (gemma2), 12 (zamba2) and 13 (llava), the forward to per-frame
-logits of phase 14 (hubert), and the training steps of phase 15.
+logits of phase 14 (hubert), and the training steps of phases 15, 16
+and 17 (forward and backward counts).
 Each phase's seconds are printed on a ``[time]`` line.  ``--only
 regimes`` (phases 5a-5b), ``tenants`` (5c), ``cache`` (5d), ``obs`` (5e), ``sage``,
 ``lm_serve``, ``mamba_serve``, ``moe_serve``, ``kimi_serve``,
-``gemma2_serve``, ``zamba2_serve``, ``llava_serve``, ``hubert_encode`` or
-``lm_train`` builds the kernels and runs that phase alone (for work on that path; it prints no
+``gemma2_serve``, ``zamba2_serve``, ``llava_serve``, ``hubert_encode``,
+``lm_train``, ``moe_train`` or ``mamba_train`` builds the kernels and runs
+that phase alone (for work on that path; it prints no
 closing status line).
 Imports nothing of JAX or of the ``repro`` package.
 """
@@ -276,8 +304,8 @@ CPU_WORKERS = 6
 # before; cut to 160 to pay for the lm_train phase: the whole smoke took
 # 760.8 s with 240 on a host ~1.2x slower than the one of 595.1 s).
 ENGINE_PAPERS_ITERS = 2
-REGIME_PAPERS_ITERS = 5
-PLAN_BUDGET = 160
+REGIME_PAPERS_ITERS = 4
+PLAN_BUDGET = 120
 # H100 SXM data sheet: HBM3 bandwidth and the fp64 and fp32 (non-tensor) peaks
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOP_PER_S = 34e12
@@ -773,8 +801,9 @@ GOLDEN = ROOT / "tests" / "golden" / "golden_schedules.json"
 REGIME_WIDTH = {"fifo": WIDTH, "oes": WIDTH, "oes_strict": 16, "mrtf": 16,
                 "omcoflow": 16}
 # the trace's horizon: ~1.2x the first candidate's static makespan over
-# REGIME_PAPERS_ITERS iterations (oes: 12.27 s over 5, 24.2 s over 10)
-REGIME_HORIZON_S = 14.7
+# REGIME_PAPERS_ITERS iterations (oes: 12.27 s over 5, 24.2 s over 10; so
+# ~9.8 s over 4)
+REGIME_HORIZON_S = 11.76
 # policies whose first instances also run under strict shaping, on the CPU
 STRICT_POLICIES = ("fifo", "oes")
 # the replan phase: the example's job and trace (examples/dynamic_replan_torch.py)
@@ -4017,46 +4046,58 @@ def _pipe_batch(pipe, step, device):
     return {k: torch.from_numpy(v).to(device) for k, v in pipe.batch_at(step).items()}
 
 
-def _train_card_vs_cpu():
-    """Two fp32 train steps of the narrow config on the card (the flash
-    kernels) against the same on the CPU (plain attention; the schedule's
-    first step has lr 0): the first step's gradients within
-    LM_TRAIN_FP32_ATOL of each leaf's largest, losses, grad norms and the
-    updated weights within LM_TRAIN_FP32_ATOL."""
+def _train_card_vs_cpu(cfg=None, tag="lm train", seq=256, scan64=False):
+    """Two fp32 train steps of a narrow config (internlm2's by default) on
+    the card (the kernels) against the same on the CPU (the plain
+    versions; the schedule's first step has lr 0), over batches of 2 x
+    ``seq`` tokens: the first step's gradients within LM_TRAIN_FP32_ATOL
+    of each leaf's largest, losses, grad norms and the updated weights
+    within LM_TRAIN_FP32_ATOL.  With ``scan64`` (the SSM configs) the CPU
+    reference runs its scan in fp64 (``_cpu_scan_fp64``)."""
     from repro_torch.convert import lm_to_reference
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.train.optimizer import tree_items
     from repro_torch.train.train_loop import stacked_weights
 
-    cfg = _narrow_cfg("float32")
-    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=256, global_batch=2, seed=3)
+    cfg = cfg if cfg is not None else _narrow_cfg("float32")
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=seq, global_batch=2, seed=3)
     b_gpu, s_gpu = _builder(cfg, "cuda", lr=LM_TRAIN_FP32_LR)
     b_cpu, _ = _builder(cfg, "cpu", lr=LM_TRAIN_FP32_LR)
     b_cpu.model.load_state_dict(b_gpu.model.state_dict())
     s_cpu = b_cpu.init_state()
-    rel = 0.0
-    for dev, b in (("cuda", b_gpu), ("cpu", b_cpu)):
+    reference = _cpu_scan_fp64 if scan64 else contextlib.nullcontext
+
+    def grads(b, dev):
         b.model.zero_grad(set_to_none=True)
         b.model.loss_fn(_pipe_batch(pipe, 0, dev))[0].backward()
-    g_cpu = dict(tree_items(lm_to_reference(b_cpu.model, grads=True)))
-    for path, g in tree_items(lm_to_reference(b_gpu.model, grads=True)):
-        w = g_cpu[path]
-        rel = max(rel, float(np.abs(g - w).max()) / max(float(np.abs(w).max()), 1e-30))
+        return dict(tree_items(lm_to_reference(b.model, grads=True)))
+
+    def rel(a, w):
+        return float(np.abs(a - w).max()) / max(float(np.abs(w).max()), 1e-30)
+
+    with reference():
+        g_cpu = grads(b_cpu, "cpu")
+    worst_rel = max(rel(g, g_cpu[path]) for path, g in grads(b_gpu, "cuda").items())
     worst = 0.0
-    for i in range(2):
-        s_gpu, m_gpu = b_gpu.train_step(s_gpu, _pipe_batch(pipe, i, "cuda"))
-        s_cpu, m_cpu = b_cpu.train_step(s_cpu, _pipe_batch(pipe, i, "cpu"))
-        worst = max([worst] + [abs(m_gpu[n].item() - m_cpu[n].item())
-                               for n in ("loss", "grad_norm")])
+    with reference():
+        for i in range(2):
+            s_gpu, m_gpu = b_gpu.train_step(s_gpu, _pipe_batch(pipe, i, "cuda"))
+            s_cpu, m_cpu = b_cpu.train_step(s_cpu, _pipe_batch(pipe, i, "cpu"))
+            worst = max([worst] + [abs(m_gpu[n].item() - m_cpu[n].item())
+                                   for n in ("loss", "grad_norm")])
     want = dict(tree_items(stacked_weights(s_cpu.params)))
     for path, t in tree_items(stacked_weights(s_gpu.params)):
         worst = max(worst, (t.cpu() - want[path]).abs().max().item())
-    print(f"[lm train] fp32 narrow config ({LM_TRAIN_NARROW}), card (kernels) vs cpu "
-          f"(plain): gradients within {rel:.3g} of each leaf's largest; two steps at lr "
-          f"{LM_TRAIN_FP32_LR}: losses, grad norms and weights within {worst:.3g} "
-          f"(tol {LM_TRAIN_FP32_ATOL})", flush=True)
-    if not max(worst, rel) <= LM_TRAIN_FP32_ATOL:
-        raise AssertionError("lm train: the card's fp32 steps disagree with the CPU's")
+    print(f"[{tag}] fp32 narrow {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}), "
+          f"2 x {seq} tokens, card (kernels) vs cpu (plain"
+          f"{', its scan in fp64' if scan64 else ''}): gradients within "
+          f"{worst_rel:.3g} of each leaf's largest; two steps at lr {LM_TRAIN_FP32_LR}: "
+          f"losses, grad norms and weights within {worst:.3g} (tol {LM_TRAIN_FP32_ATOL})",
+          flush=True)
+    if not max(worst, worst_rel) <= LM_TRAIN_FP32_ATOL:
+        raise AssertionError(f"{tag}: the card's fp32 steps disagree with the CPU's")
+    del b_gpu, s_gpu, b_cpu, s_cpu
+    _free()
 
 
 def _train_resume_bitwise():
@@ -4159,10 +4200,21 @@ def _train_grads_vs_plain(fa):
     _free()
 
 
-def _profile_train_step(builder, state, batch, step_ms):
+# a train step's device time by kernel family, from the kernels' names
+# (the first family whose words a name holds; then matmul and other)
+_TRAIN_SPLIT = ("ssd backward", "flash backward", "moe backward", "moe forward",
+                "ssd forward", "flash forward")
+_TRAIN_SPLIT_WORDS = (("bwd_states", "bwd_pass", "bwd_keys", "bwd_queries", "bwd_finalize",
+                       "bwd_reduce"),
+                      ("bwd_prep", "bwd_dkdv", "bwd_dq"),
+                      ("moe_wgmma_dx", "moe_dx_fma", "moe_dw_"),
+                      ("moe_",), ("ssd_",), ("flash_",))
+
+
+def _profile_train_step(builder, state, batch, step_ms, tag="lm train"):
     """One profiled train step: the device's busy share and its time split
-    into the attention's forward and backward kernels, the matrix
-    products and the rest."""
+    into the attention's, the grouped GEMM's and the SSD scan's forward and
+    backward kernels, the matrix products and the rest."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4176,21 +4228,23 @@ def _profile_train_step(builder, state, batch, step_ms):
     rows = sorted((a for a in prof.key_averages() if a.device_type == DeviceType.CUDA),
                   key=_device_us, reverse=True)
     dev_ms = sum(_device_us(a) for a in rows) / 1e3
-    split = {"flash forward": 0.0, "flash backward": 0.0, "matmul": 0.0, "other": 0.0}
+    split = dict.fromkeys(_TRAIN_SPLIT + ("matmul", "other"), 0.0)
     for a in rows:
         key = a.key.lower()
-        part = ("flash backward" if "bwd_" in key else
-                "flash forward" if "flash_" in key else
-                "matmul" if any(w in key for w in ("gemm", "nvjet", "gemv", "cutlass"))
-                else "other")
+        part = next((name for name, words in zip(_TRAIN_SPLIT, _TRAIN_SPLIT_WORDS)
+                     if any(w in key for w in words)), None)
+        if part is None:
+            part = ("matmul" if any(w in key for w in ("gemm", "nvjet", "gemv", "cutlass"))
+                    else "other")
         split[part] += _device_us(a) / 1e3
-    print(f"[lm train] one profiled step: wall {1e3 * wall:.1f} ms, device busy "
+    print(f"[{tag}] one profiled step: wall {1e3 * wall:.1f} ms, device busy "
           f"{dev_ms:.1f} ms ({100 * dev_ms / 1e3 / wall:.1f}% of the profiled wall; the "
           f"unprofiled step {step_ms:.1f} ms), {sum(a.count for a in rows)} device "
-          f"operations; split: " + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items()),
+          f"operations; split: " + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items()
+                                             if v or k in ("matmul", "other")),
           flush=True)
     for a in rows[:8]:
-        print(f"[lm train]   {_device_us(a) / 1e3:9.3f} ms {a.count:5d}x {a.key[:70]}",
+        print(f"[{tag}]   {_device_us(a) / 1e3:9.3f} ms {a.count:5d}x {a.key[:70]}",
               flush=True)
     return state
 
@@ -4270,6 +4324,446 @@ def phase_lm_train(fa):
     return nums, fwd
 
 
+# moe_train and mamba_train: the grouped GEMM's and the SSD scan's backward
+# kernels, then llama4-scout and mamba2-1.3b training at full width.
+# llama4-scout at 1 of its 48 layers: one layer's 16 experts (2.01 B
+# parameters) and its untied 202048-row embedding and head (2.07 B) are
+# ~4.15 B parameters, ~42 GB with bf16 first moments and a factored second
+# moment (the reference's --opt8); 8 layers would be ~300 GB of weights
+# and optimizer state.  Its batch is cut from 4 to 2 sequences for the
+# fp32 logits over 202048 columns.  mamba2-1.3b at all 48 layers.  Each
+# phase takes TRAIN_STEPS steps over the TokenPipeline stream's first
+# LM_TRAIN_CYCLE batches in turn, as lm_train does.
+MOE_TRAIN_LAYERS = 1
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 2, 2048
+MAMBA_TRAIN_LAYERS = None  # all 48
+MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ = 4, 2048
+TRAIN_STEPS = 4
+# the narrow configs of the fp32 card-vs-CPU checks: full patterns at head
+# dim 64 (the attention backward's least), 2 layers (zamba2: 7, one shared
+# block application and a trailing layer), mamba2 and zamba2 over 2 chunks
+MOE_TRAIN_NARROW = dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
+                        vocab=1000)
+MAMBA_TRAIN_NARROW = dict(n_layers=2, d_model=256, vocab=1000)
+ZAMBA_TRAIN_NARROW = dict(n_layers=7, d_model=256, n_heads=4, n_kv_heads=4, d_ff=512,
+                          vocab=1000)
+
+
+def _moe_bwd_bound(t, d, f, e, gs, elt):
+    """Least time of the grouped GEMM's backward: dx and dw, 2 flops per
+    routed row and product each, at the bf16 tensor-core peak (fp32 peak
+    for fp32); against x's routed rows, dy and the hit experts' weights
+    read once, dx and every expert's dw written once, at the HBM rate."""
+    rows, hit = min(sum(gs), t), sum(1 for g in gs if g > 0)
+    flops = 4 * rows * d * f
+    n_bytes = elt * (rows * d + t * f + hit * d * f + t * d + e * d * f) + 4 * e
+    ops_ms = flops / (BF16_FLOP_PER_S if elt == 2 else FP32_FLOP_PER_S) * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), flops, n_bytes
+
+
+def _grouped_mm_backward(x, w, gs, dy):
+    """The backward of ``torch._grouped_mm`` on the same inputs (autograd
+    through one call), the yardstick (the port never calls it): a
+    callable and a note, or None and the reason."""
+    import torch
+
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "torch has no _grouped_mm"
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
+    reason = ""
+    for label, wl in (("w as stored", w),
+                      ("w column-major", w.transpose(1, 2).contiguous().transpose(1, 2))):
+        xa, wa = x.detach().requires_grad_(True), wl.detach().requires_grad_(True)
+        try:
+            out = torch._grouped_mm(xa, wa, offs=offs)
+            fn = lambda out=out, xa=xa, wa=wa: torch.autograd.grad(out, (xa, wa), dy,
+                                                                  retain_graph=True)
+            fn()
+            torch.cuda.synchronize()
+        except (RuntimeError, TypeError, ValueError, NotImplementedError) as err:
+            reason = f"torch._grouped_mm's backward refused ({label}): {str(err).splitlines()[0]}"
+            continue
+        return fn, label
+    return None, reason
+
+
+def _kernel_split(tag, fn):
+    """One call of ``fn`` under the profiler (after a warm-up call in the
+    same trace, traced again up to three times until its kernels show:
+    without ``acc_events`` a short trace lost them; in the whole smoke
+    the first split after lm_train's profile still showed none, which is
+    printed as such): its device time by kernel, printed, largest first;
+    returns ``{name: ms}``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    rows = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1), acc_events=True) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        rows = sorted((a for a in prof.key_averages() if a.device_type == DeviceType.CUDA
+                       and not a.key.startswith("ProfilerStep")),
+                      key=_device_us, reverse=True)
+        if rows:
+            break
+    split = {re.sub(r"\(anonymous namespace\)::", "", a.key).split("(")[0][:48]:
+             _device_us(a) / 1e3 for a in rows}
+    print(f"[{tag}] one call's device time by kernel (profiler, L2 warm): "
+          + (", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+             or "no device rows in three traces (seen after an earlier phase's profile)"),
+          flush=True)
+    return split
+
+
+def phase_moe_backward(mg):
+    """The grouped GEMM's backward kernels (through autograd) against the
+    plain backward at llama4-scout's training shapes (gate/up and down at
+    T = MOE_TRAIN_BATCH x MOE_TRAIN_SEQ routed rows, uniform and skewed
+    routing: one expert holding most rows, two empty, rows past the sum)
+    in bf16 and a small fp32 case: each gradient within BWD_TOL of its
+    largest, the same bits on two runs; the gate/up backward timed
+    beside its bound, the plain backward and ``torch._grouped_mm``'s
+    backward.  Returns the moe_gemm record's bwd_* numbers."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MOE_ARCH)
+    D, Fe, E = cfg.d_model, cfg.moe.d_ff_expert, cfg.moe.n_experts
+    T = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ * cfg.moe.top_k
+    routed = _routed(20, T, E)
+    skewed = [T - 196 - 13 * 40, 0, 0] + [40] * 13  # 196 rows past the sum
+    checks = [("gate/up", (T, D, Fe, E), routed, "bfloat16"),
+              ("down", (T, Fe, D, E), routed, "bfloat16"),
+              ("gate/up skewed", (T, D, Fe, E), skewed, "bfloat16"),
+              ("small fp32", (300, 72, 136, 6), [0, 130, 0, 0, 101, 0], "float32")]
+    worst, out = 0.0, {}
+    for seed, (label, (t, d, f, e), gs, dtype) in enumerate(checks):
+        x, w, g = _moe_inputs(30 + seed, t, d, f, e, getattr(torch, dtype), gs)
+        gen = torch.Generator(device="cuda").manual_seed(40 + seed)
+        dy = torch.randn(t, f, generator=gen, device="cuda").to(x.dtype)
+        xa, wa = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        o = mg.moe_grouped_gemm(xa, wa, g)
+        kernel = lambda: torch.autograd.grad(o, (xa, wa), dy, retain_graph=True)
+        before = mg.moe_grouped_gemm.backward_launches
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        if mg.moe_grouped_gemm.backward_launches != before + 2:
+            raise AssertionError(f"moe backward at {label}: the kernels did not launch")
+        plain = lambda: mg.moe_grouped_gemm_backward_plain(x, w, g, dy)
+        want = plain()
+        errs = []
+        for name, a, b, c in zip(("dx", "dw"), got, again, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"moe backward at {label}: two runs differ in {name}")
+            rel = _rel_err(a, c)
+            if not rel <= BWD_TOL[dtype]:
+                raise AssertionError(f"moe backward != plain at {label} {dtype}: {name} off "
+                                     f"by {rel:.3g} of its largest (tol {BWD_TOL[dtype]})")
+            errs.append(rel)
+            if dtype == "float32":
+                worst = max(worst, (a - c).abs().max().item())
+        rows = min(sum(gs), t)
+        if got[0][rows:].any():
+            raise AssertionError(f"moe backward at {label}: dx past the routed rows not zero")
+        line = (f"[moe backward] {label}: x [{t}, {d}], w [{e}, {d}, {f}], {rows} rows over "
+                f"{sum(1 for v in gs if v)} experts, {dtype}: dx, dw off by {errs[0]:.3g}, "
+                f"{errs[1]:.3g} of their largest; two runs give the same bits")
+        del got, again, want
+        if label != "gate/up":
+            print(line, flush=True)
+            del x, w, g, dy, xa, wa, o
+            _free()
+            continue
+        ms = _device_ms(kernel, 3, flush=True)
+        _kernel_split("moe backward", kernel)
+        plain_ms = _event_ms(plain, 2)
+        lib, note = _grouped_mm_backward(x, w, g, dy)
+        lib_ms = _device_ms(lib, 3, flush=True) if lib is not None else None
+        bound, by, flops, n_bytes = _moe_bwd_bound(t, d, f, e, gs, 2)
+        print(f"{line}; device time per backward (dx and dw), L2 flushed: kernels "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms (host included: it reads the group "
+              f"sizes), torch._grouped_mm's backward "
+              f"{f'{lib_ms:.4f} ms ({note})' if lib_ms is not None else f'none ({note})'}; "
+              f"bound {bound:.6f} ms by {by} ({flops} flops, {n_bytes} bytes; "
+              f"{100 * bound / ms:.1f}% of the kernels' time)", flush=True)
+        out = {"bwd_ms": ms, "bwd_plain_ms": plain_ms, "bwd_bound_ms": bound,
+               "bwd_bound_by": by, "bwd_library_ms": lib_ms,
+               "bwd_source": "src/repro_torch/kernels/csrc/moe_gemm_bwd.cu"}
+        del x, w, g, dy, xa, wa, o, lib
+        _free()
+    out["bwd_max_abs_err"] = worst
+    return out
+
+
+def _ssd_bwd_bound(b, s, h, hd, ds, q, elt, g=1):
+    """Least time of the scan's backward: per (batch row, chunk) the causal
+    C B^T once per group and, per head, the causal dy x^T, W^T dy, V^T C
+    and V B products (q (q + 1) / 2 pairs each) and six [hd, ds] state
+    products over the chunk's rows (the chunk state, the state
+    gradient's share, G B, x G, h C, h^T dy), 2 flops a product, at the
+    bf16 tensor-core peak (fp32 peak for fp32); against x, dy, B, C and
+    dt read once, dx, dB, dC and ddt written once, at the HBM rate."""
+    pairs = q * (q + 1) // 2
+    flops = b * (s // q) * (g * 2 * pairs * ds
+                            + h * (2 * pairs * (2 * hd + 2 * ds) + 12 * q * hd * ds))
+    n_bytes = elt * (3 * b * s * h * hd + 4 * b * s * g * ds) + 4 * (2 * b * s * h + 2 * h)
+    ops_ms = flops / (BF16_FLOP_PER_S if elt == 2 else FP32_FLOP_PER_S) * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), flops, n_bytes
+
+
+def _ssd_bwd_inputs(seed, b, s, h, hd, ds, g, dtype):
+    """Seeded scan inputs on the card (x, dt = softplus(normal), mamba2's A
+    = -linspace(1, 16, h), B and C [b, s, g, ds]) needing gradients, and
+    an output gradient."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    leaves = [draw(b, s, h, hd).to(dtype), F.softplus(draw(b, s, h)),
+              -torch.linspace(1.0, 16.0, h, device="cuda"), draw(b, s, g, ds).to(dtype),
+              draw(b, s, g, ds).to(dtype)]
+    return [t.requires_grad_(True) for t in leaves], draw(b, s, h, hd).to(dtype)
+
+
+def phase_ssd_backward(ss):
+    """The SSD scan's backward kernels (through autograd) against the plain
+    backward at mamba2-1.3b's training shape (x [4, 2048, 64, 64], d_state
+    128, chunk 256) and zamba2's (x [4, 2048, 112, 64], d_state 64) in bf16
+    on the mma route, and a small fp32 case with two groups on the FMA
+    route (against the plain backward in fp64): each gradient within
+    BWD_TOL of its largest, the same bits on two runs; mamba2's backward
+    timed beside its bound and the plain backward.  Returns the ssd_scan
+    record's bwd_* numbers."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    checks = []
+    for label, arch in (("mamba2-1.3b", MAMBA_ARCH), ("zamba2", "zamba2-7b")):
+        c = get_config(arch)
+        sp = c.ssm
+        checks.append((label, (4, 2048, sp.n_heads(c.d_model), sp.head_dim, sp.d_state,
+                               sp.chunk, sp.n_groups), "bfloat16"))
+    checks.append(("small fp32", (2, 512, 4, 64, 128, 256, 2), "float32"))
+    worst, out = 0.0, {}
+    for seed, (label, (b, s, h, hd, ds, q, g), dtype) in enumerate(checks):
+        leaves, dy = _ssd_bwd_inputs(50 + seed, b, s, h, hd, ds, g, getattr(torch, dtype))
+        want_route = ss.backward_route(leaves[0].dtype, hd, ds, q)
+        y = ss.ssd_scan(*leaves, chunk=q)
+        kernel = lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)
+        before = dict(ss.ssd_scan.backward_launches_by_route)
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        moved = {r: n - before[r] for r, n in ss.ssd_scan.backward_launches_by_route.items()}
+        if moved != {r: 2 * int(r == want_route) for r in moved}:
+            raise AssertionError(f"ssd backward at {label}: launches by route {moved}, "
+                                 f"want 2 on {want_route}")
+        args = [t.detach() for t in leaves]
+        ref = [t.double() for t in args] if dtype == "float32" else args
+        plain = lambda: ss.ssd_scan_backward_plain(*ref, dy.double() if dtype == "float32"
+                                                   else dy, chunk=q)
+        want = plain()
+        errs = []
+        for name, a, a2, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, again, want):
+            if not torch.equal(a, a2):
+                raise AssertionError(f"ssd backward at {label}: two runs differ in {name}")
+            rel = _rel_err(a, w)
+            if not rel <= BWD_TOL[dtype]:
+                raise AssertionError(f"ssd backward != plain at {label} {dtype}: {name} off "
+                                     f"by {rel:.3g} of its largest (tol {BWD_TOL[dtype]})")
+            errs.append(rel)
+            if dtype == "float32":
+                worst = max(worst, (a.double() - w).abs().max().item())
+        line = (f"[ssd backward] {label}: x [{b}, {s}, {h}, {hd}], d_state {ds}, {g} "
+                f"group(s), chunk {q}, {dtype}, {want_route} route: dx, ddt, dA, dB, dC off "
+                f"by " + ", ".join(f"{e:.3g}" for e in errs) + " of their largest; two "
+                "runs give the same bits")
+        del got, again, want
+        if seed != 0:
+            print(line, flush=True)
+            del leaves, dy, y, args, ref
+            _free()
+            continue
+        ms = _device_ms(kernel, 3, flush=True)
+        _kernel_split("ssd backward", kernel)
+        plain_ms = _device_ms(plain, 1, flush=True)
+        bound, by, flops, n_bytes = _ssd_bwd_bound(b, s, h, hd, ds, q, 2, g)
+        print(f"{line}; device time per backward, L2 flushed: kernels {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, no library call computes it; bound {bound:.6f} ms by "
+              f"{by} ({flops} flops, {n_bytes} bytes; {100 * bound / ms:.1f}% of the "
+              f"kernels' time)", flush=True)
+        out = {"bwd_ms": ms, "bwd_plain_ms": plain_ms, "bwd_bound_ms": bound,
+               "bwd_bound_by": by, "bwd_library_ms": None,
+               "bwd_source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu"}
+        del leaves, dy, y, args, ref
+        _free()
+    out["bwd_max_abs_err"] = worst
+    return out
+
+
+def _train_path(tag, cfg, opt, batch, seq, counted):
+    """The training main path of a phase: ``cfg`` at full width on the
+    card, ``TRAIN_STEPS`` AdamW steps of ``TrainStepBuilder`` over the
+    stream's first LM_TRAIN_CYCLE batches of ``batch`` x ``seq`` tokens in
+    turn, with every kernel's forward and backward counts set to 0 just
+    before the steps and read just after (``counted``: the wrappers);
+    finite losses and grad norms, the loss falling.  Returns the counts
+    ``{name: (forward, backward)}``."""
+    import torch
+
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import TransformerLM
+    from repro_torch.train import TrainStepBuilder
+
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = TransformerLM(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    builder = TrainStepBuilder(model, opt)
+    state = builder.init_state()
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=0)
+    batches = [_pipe_batch(pipe, i, "cuda") for i in range(LM_TRAIN_CYCLE)]
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab}, {n_params} parameters in {cfg.dtype}, optimizer m {opt.m_dtype}, "
+          f"factored v {opt.factored_v}; built on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for fn in counted.values():
+        fn.launches = 0
+        fn.backward_launches = 0
+    losses, norms, walls = [], [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, met = builder.train_step(state, batches[i % LM_TRAIN_CYCLE])
+        losses.append(met["loss"].item())  # waits for the step
+        norms.append(met["grad_norm"].item())
+        walls.append(time.perf_counter() - t0)
+    counts = {n: (fn.launches, fn.backward_launches) for n, fn in counted.items()}
+    if not all(math.isfinite(x) for x in losses + norms) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag}: losses {losses}, grad norms {norms}")
+    step_ms = 1e3 * float(np.median(walls[1:]))
+    tokens = batch * seq
+    print(f"[{tag}] {cfg.name} ({cfg.n_layers} layers, full width, bf16), batch {batch} x "
+          f"{seq}, the stream's first {LM_TRAIN_CYCLE} batches in turn: losses "
+          + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+          + ", ".join(f"{x:.3f}" for x in norms) + "; step walls "
+          + ", ".join(f"{1e3 * w:.1f}" for w in walls) + f" ms (median after the first "
+          f"{step_ms:.1f} ms, {tokens / step_ms * 1e3:.0f} tokens/s); launches over the "
+          f"{TRAIN_STEPS} steps (forward, backward): {counts}; peak device memory "
+          f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
+    state = _profile_train_step(builder, state, batches[0], step_ms, tag)
+    del builder, state, model, batches
+    _free()
+    return counts
+
+
+def phase_moe_train(mg, fa):
+    """MoE training on the card: the grouped GEMM's backward checks and
+    times; then the main path, llama4-scout at full width and
+    MOE_TRAIN_LAYERS layer(s) (bf16, AdamW with bf16 first moments and a
+    factored second moment), every grouped GEMM and attention call
+    launching its forward kernel (twice a layer and step: rematerialised)
+    and its backward kernels (once); then the fp32 card-vs-CPU check on a
+    narrow llama4.  Returns the moe_gemm record's bwd_* numbers and the
+    path's counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.train import AdamWSettings
+
+    t = time.perf_counter()
+    nums = phase_moe_backward(mg)
+    t = _phase_done("moe_gemm backward checks and times", t)
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    opt = AdamWSettings(lr=LM_TRAIN_LR, warmup_steps=LM_TRAIN_WARMUP,
+                        total_steps=LM_TRAIN_TOTAL, m_dtype="bfloat16", factored_v=True)
+    counts = _train_path("moe train", cfg, opt, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ,
+                         {"moe_gemm": mg.moe_grouped_gemm, "flash_attention": fa.flash_attention})
+    L, n = cfg.n_layers, TRAIN_STEPS
+    if counts != {"moe_gemm": (6 * L * n, 3 * L * n), "flash_attention": (2 * L * n, L * n)}:
+        raise AssertionError(f"moe train: launches {counts} over {n} steps of {L} layers")
+    t = _phase_done(f"moe train ({MOE_ARCH} at {L} layer(s), full width: steps, profile)", t)
+    base = get_config(MOE_ARCH)
+    narrow = dataclasses.replace(base, name="llama4-narrow", dtype="float32",
+                                 moe=dataclasses.replace(base.moe, d_ff_expert=512),
+                                 **MOE_TRAIN_NARROW)
+    _train_card_vs_cpu(narrow, "moe train")
+    _phase_done("moe train parity (fp32 narrow llama4, card vs cpu)", t)
+    return nums, counts
+
+
+@contextlib.contextmanager
+def _cpu_scan_fp64():
+    """The model's scan on CPU tensors through the plain version in fp64
+    (calls on the card still launch the kernel): the CPU reference of the
+    SSM configs' fp32 checks.  Their A_log gradients sum d(seg)'s reverse
+    cumulative sums, which cancel: the CPU's fp32 autograd is 1.2e-4 to
+    2.9e-4 of A_log's largest gradient off the same with the scan in fp64
+    (narrow mamba2), the kernels on an H100 (which sum that part in fp64)
+    2.2e-5."""
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import ssm as ssm_mod
+
+    kernel = ssm_mod.ssd_scan
+
+    def scan(x, dt, A, Bm, Cm, *, chunk):
+        if x.device.type != "cpu":
+            return kernel(x, dt, A, Bm, Cm, chunk=chunk)
+        return ss.ssd_scan_plain(*(t.double() for t in (x, dt, A, Bm, Cm)),
+                                 chunk=chunk)[0].to(x.dtype)
+
+    ssm_mod.ssd_scan = scan
+    try:
+        yield
+    finally:
+        ssm_mod.ssd_scan = kernel
+
+
+def phase_mamba_train(ss, fa):
+    """Mamba2 training on the card: the SSD scan's backward checks and
+    times; then the main path, mamba2-1.3b at full width and depth (bf16,
+    AdamW), every scan call launching its forward kernels (twice a layer
+    and step: rematerialised) and its backward kernels (once); then the
+    fp32 card-vs-CPU checks on a narrow mamba2 and a narrow zamba2 (the
+    CPU's scan in fp64: ``_train_card_vs_cpu``'s ``scan64``).  Returns the ssd_scan record's bwd_* numbers and the path's counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.train import AdamWSettings
+
+    t = time.perf_counter()
+    nums = phase_ssd_backward(ss)
+    t = _phase_done("ssd_scan backward checks and times", t)
+    cfg = get_config(MAMBA_ARCH)
+    if MAMBA_TRAIN_LAYERS is not None:
+        cfg = dataclasses.replace(cfg, n_layers=MAMBA_TRAIN_LAYERS)
+    opt = AdamWSettings(lr=LM_TRAIN_LR, warmup_steps=LM_TRAIN_WARMUP,
+                        total_steps=LM_TRAIN_TOTAL)
+    counts = _train_path("mamba train", cfg, opt, MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ,
+                         {"ssd_scan": ss.ssd_scan, "flash_attention": fa.flash_attention})
+    L, n = cfg.n_layers, TRAIN_STEPS
+    if counts != {"ssd_scan": (2 * L * n, L * n), "flash_attention": (0, 0)}:
+        raise AssertionError(f"mamba train: launches {counts} over {n} steps of {L} layers")
+    t = _phase_done(f"mamba train ({MAMBA_ARCH} at {L} layers, full width: steps, profile)", t)
+    for label, arch, narrow in (("mamba2", MAMBA_ARCH, MAMBA_TRAIN_NARROW),
+                                ("zamba2", "zamba2-7b", ZAMBA_TRAIN_NARROW)):
+        cfg_n = dataclasses.replace(get_config(arch), name=f"{label}-narrow", dtype="float32",
+                                    **narrow)
+        _train_card_vs_cpu(cfg_n, "mamba train", seq=512, scan64=True)
+    _phase_done("mamba train parity (fp32 narrow mamba2 and zamba2, card vs cpu)", t)
+    return nums, counts
+
+
 def _phase_done(name, t0):
     print(f"[time] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
     return time.perf_counter()
@@ -4309,7 +4803,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("regimes", "tenants", "cache", "obs", "sage",
                                        "lm_serve", "mamba_serve", "moe_serve",
-                                       "kimi_serve", *FAMILY_PHASES, "lm_train"),
+                                       "kimi_serve", *FAMILY_PHASES, "lm_train",
+                                       "moe_train", "mamba_train"),
                     default=None, help="build the kernels and run this phase alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -4326,13 +4821,14 @@ def main(argv=None) -> int:
     t_start = t = time.perf_counter()
     print(f"[device] {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}", flush=True)
-    sources = (wf.SOURCE, sa.SOURCE, fa.SOURCE, fa.BWD_SOURCE, ss.SOURCE, mg.SOURCE)
+    sources = (wf.SOURCE, sa.SOURCE, fa.SOURCE, fa.BWD_SOURCE, ss.SOURCE, ss.BWD_SOURCE,
+               mg.SOURCE, mg.BWD_SOURCE)
     for src, (_, secs, log) in zip(sources, _build.build(*sources)):
         print(f"[build] {src.name} built in {secs:.1f} s", flush=True)
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"[build] {line.strip()}", flush=True)
-    t = _phase_done("build (six sources, in parallel)", t)
+    t = _phase_done(f"build ({len(sources)} sources, in parallel)", t)
     # full fp32 products and convolutions wherever the card is held to a
     # plain or CPU result (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4368,6 +4864,14 @@ def main(argv=None) -> int:
         elif args.only == "lm_train":
             nums, fwd = phase_lm_train(fa)
             print(json.dumps({"flash_attention": {**nums, "train_forward_launches": fwd}}))
+            print(f"[done] {time.perf_counter() - t_start:.1f} s ({args.only} only)")
+            return 0
+        elif args.only in ("moe_train", "mamba_train"):
+            if args.only == "moe_train":
+                nums, counts = phase_moe_train(mg, fa)
+            else:
+                nums, counts = phase_mamba_train(ss, fa)
+            print(json.dumps({"backward": nums, "train_launches": counts}))
             print(f"[done] {time.perf_counter() - t_start:.1f} s ({args.only} only)")
             return 0
         elif args.only in FAMILY_PHASES:
@@ -4418,9 +4922,22 @@ def main(argv=None) -> int:
     families, t = phase_families(fa, ss, mg, t)
     family_flash_launches = _add_families(flash, ssd_entry, families)
     train_nums, train_flash_launches = phase_lm_train(fa)
-    t = time.perf_counter()
     flash.update(train_nums)
     flash["max_abs_err"] = max(flash["max_abs_err"], train_nums["bwd_max_abs_err"])
+    moe_bwd, moe_counts = phase_moe_train(mg, fa)
+    ssd_bwd, ssd_counts = phase_mamba_train(ss, fa)
+    t = time.perf_counter()
+    moe_serve_launches = moe_entry["launches"]
+    moe_entry["launches"] += moe_counts["moe_gemm"][0]
+    moe_entry.update({k: v for k, v in moe_bwd.items() if k != "bwd_max_abs_err"})
+    moe_entry["bwd_launches"] = moe_counts["moe_gemm"][1]
+    moe_entry["max_abs_err"] = max(moe_entry["max_abs_err"], moe_bwd["bwd_max_abs_err"])
+    ssd_entry["launches"] += ssd_counts["ssd_scan"][0]
+    ssd_entry.update({k: v for k, v in ssd_bwd.items() if k != "bwd_max_abs_err"})
+    ssd_entry["bwd_launches"] = ssd_counts["ssd_scan"][1]
+    ssd_entry["max_abs_err"] = max(ssd_entry["max_abs_err"], ssd_bwd["bwd_max_abs_err"])
+    train_flash_launches += moe_counts["flash_attention"][0]
+    flash["bwd_launches"] += moe_counts["flash_attention"][1]
 
     line = {
         "kernels": [
@@ -4441,11 +4958,14 @@ def main(argv=None) -> int:
           f"{cache_launches}; obs path: waterfill_fill {obs_launches}; GraphSAGE "
           f"path: {sage_launches}; LM serving path: flash_attention "
           f"{flash_launches}; mamba2 path: ssd_scan {mamba_ssd_launches}; "
-          f"MoE path: moe_gemm {moe_entry['launches'] - kimi_launches['moe_gemm']}, "
+          f"MoE path: moe_gemm {moe_serve_launches - kimi_launches['moe_gemm']}, "
           f"flash_attention {moe_flash_launches}; kimi path: {kimi_launches}; "
           + "; ".join(f"{name} path: {fam['launches']}" for name, fam in families.items())
-          + f"; LM training path: flash_attention {train_flash_launches} forward, "
-          f"{train_nums['bwd_launches']} backward", flush=True)
+          + f"; LM training paths: flash_attention {train_flash_launches} forward, "
+          f"{flash['bwd_launches']} backward (internlm2 and llama4-scout); MoE training "
+          f"path: moe_gemm {moe_counts['moe_gemm'][0]} forward, {moe_counts['moe_gemm'][1]} "
+          f"backward; mamba2 training path: ssd_scan {ssd_counts['ssd_scan'][0]} forward, "
+          f"{ssd_counts['ssd_scan'][1]} backward", flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(line))
     smi = subprocess.run(

@@ -34,11 +34,24 @@ expert (``ops.padded_group_layout``); this kernel takes the segments as
 they are, so the layout has no counterpart here.  There is no fallback
 between the routes: a CUDA tensor launches the kernel of its route or
 raises.  Each launch adds one to ``moe_grouped_gemm.launches`` and to
-its route's count in ``moe_grouped_gemm.launches_by_route``.  On CPU tensors
-autograd differentiates the plain version (the training path's
-gradients, held to ``jax.grad`` of the reference's XLA path).  There is
-no backward kernel yet (ROADMAP Queue 2 item 9): a CUDA tensor that
-requires a gradient is refused.
+its route's count in ``moe_grouped_gemm.launches_by_route``.
+
+Gradients.  On CPU tensors autograd differentiates the plain version (the
+training path's gradients, held to ``jax.grad`` of the reference's XLA
+path).  On CUDA tensors, when x or w requires a gradient (and grad mode
+is on), the forward launch above runs inside a
+``torch.autograd.Function`` that saves x, w and the group sizes, and its
+backward launches ``csrc/moe_gemm_bwd.cu`` (built beside the forward's
+library): dx = dy w[e]^T per segment, the forward's grouped GEMM with
+each expert's weights read K-major (bf16 on the wgmma route's tiling,
+fp32 on FMAs, whatever route the forward took), and dw[e] = x[seg]^T
+dy[seg], one block per (expert, D tile, F tile) walking the segment's
+rows in order (bf16 on mma.sync, fp32 on FMAs).  No atomics: two runs
+give the same bits.  ``moe_grouped_gemm_backward_plain`` is the same
+function written out plainly.  The backward takes D a multiple of 8 (it
+stores dx and reads x in 16-byte pieces); a call that needs a gradient
+on a card at another D raises before the forward.  Each backward adds
+one to ``moe_grouped_gemm.backward_launches``.
 """
 from __future__ import annotations
 
@@ -51,6 +64,7 @@ import torch
 from . import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gemm.cu"
+BWD_SOURCE = SOURCE.with_name("moe_gemm_bwd.cu")
 # dtype codes of the C interface (x, w and the output)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VEC = 8  # F must be a multiple of this: w rows are read 16 bytes at a time
@@ -64,6 +78,7 @@ STREAM_SLICE = 512
 STREAM_SLICE_STEP = 128
 
 _LIB: Optional[ctypes.CDLL] = None
+_BWD_LIB: Optional[ctypes.CDLL] = None
 
 
 def build() -> Tuple[Path, float, str]:
@@ -82,6 +97,17 @@ def _library() -> ctypes.CDLL:
         lib.repro_moe_gemm.restype = ci
         _LIB = lib
     return _LIB
+
+
+def _backward_library() -> ctypes.CDLL:
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        lib = ctypes.CDLL(str(_build.build(BWD_SOURCE)[0][0]))
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.repro_moe_gemm_bwd.argtypes = [vp] * 6 + [ci] * 5 + [vp]
+        lib.repro_moe_gemm_bwd.restype = ci
+        _BWD_LIB = lib
+    return _BWD_LIB
 
 
 def route(dtype: torch.dtype, t: int, e: int) -> str:
@@ -124,14 +150,33 @@ def moe_grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def moe_grouped_gemm_backward_plain(
+    x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, dy: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward of ``moe_grouped_gemm`` written out plainly, for
+    tensors on any device (it reads the group sizes on the host): ``(dx,
+    dw)``, a loop over the experts of dx[seg] = dy[seg] w[e]^T and dw[e] =
+    x[seg]^T dy[seg], summed in fp32 and cast to x's and w's dtypes; rows
+    past ``sum(group_sizes)`` get zero dx and an expert with no rows zero
+    dw."""
+    t = x.shape[0]
+    dx = torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+    dw = torch.zeros(w.shape, dtype=w.dtype, device=w.device)
+    start = 0
+    for e, g in enumerate(group_sizes.tolist()):
+        g = max(min(int(g), t - start), 0)
+        if g:
+            d = dy[start:start + g].float()
+            dx[start:start + g] = (d @ w[e].float().T).to(x.dtype)
+            dw[e] = (x[start:start + g].float().T @ d).to(w.dtype)
+        start += g
+    return dx, dw
+
+
 def _check(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> None:
     for name, t in (("w", w), ("group_sizes", group_sizes)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-    for name, t in (("x", x), ("w", w)):
-        if t.requires_grad and torch.is_grad_enabled() and t.device.type == "cuda":
-            raise NotImplementedError(
-                "moe_grouped_gemm has no backward kernel yet (ROADMAP Queue 2 item 9)")
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if w.dtype != x.dtype:
@@ -191,9 +236,64 @@ def moe_grouped_gemm(x: torch.Tensor, w: torch.Tensor,
     if x.device.type == "cpu":
         return moe_grouped_gemm_plain(x, w, group_sizes)
     if x.device.type == "cuda":
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            _check_backward(x)
+            return _GroupedGemm.apply(x, w, group_sizes)
         return _launch(x, w, group_sizes)
     raise ValueError(f"no moe_grouped_gemm kernel for device {x.device}")
 
 
+def _check_backward(x: torch.Tensor) -> None:
+    """Refuse, before the forward, a call whose gradient the backward
+    kernels do not compute."""
+    if x.shape[1] % VEC != 0:
+        raise NotImplementedError(
+            f"moe_grouped_gemm's backward kernels take D a multiple of {VEC}; got "
+            f"D = {x.shape[1]}")
+
+
+def _launch_backward(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
+                     dy: torch.Tensor, want_dx: bool,
+                     want_dw: bool) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    T, D = x.shape
+    E, _, F = w.shape
+    # the kernels read x, dy and w in 16-byte pieces of dense rows
+    x, dy = (t.contiguous() for t in (x, dy))
+    x, dy = (t.clone() if t.data_ptr() % 16 else t for t in (x, dy))
+    gs = group_sizes.to(torch.int32).contiguous()
+    dx = torch.empty((T, D), dtype=x.dtype, device=x.device) if want_dx else None
+    dw = torch.empty((E, D, F), dtype=w.dtype, device=w.device) if want_dw else None
+    lib = _backward_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.repro_moe_gemm_bwd(
+            x.data_ptr(), w.data_ptr(), gs.data_ptr(), dy.data_ptr(),
+            dx.data_ptr() if dx is not None else None,
+            dw.data_ptr() if dw is not None else None,
+            T, D, F, E, _DTYPES[x.dtype], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"moe_gemm backward launch failed: error {err}")
+    moe_grouped_gemm.backward_launches += 1
+    return dx, dw
+
+
+class _GroupedGemm(torch.autograd.Function):
+    """The forward kernel, with the backward kernels as its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, group_sizes):
+        out = _launch(x, w, group_sizes)
+        ctx.save_for_backward(x, w, group_sizes)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, gs = ctx.saved_tensors
+        dx, dw = _launch_backward(x, w, gs, dy, *ctx.needs_input_grad[:2])
+        return dx, dw, None
+
+
 moe_grouped_gemm.launches = 0  # type: ignore[attr-defined]
 moe_grouped_gemm.launches_by_route = dict.fromkeys(ROUTES, 0)  # type: ignore[attr-defined]
+moe_grouped_gemm.backward_launches = 0  # type: ignore[attr-defined]

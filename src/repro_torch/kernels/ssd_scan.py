@@ -35,11 +35,26 @@ order the TPU kernel sums it.
 There is no fallback between the two: a CUDA tensor launches the kernel
 or raises.  Each call on a card adds one to ``ssd_scan.launches`` and to
 its route's count in ``ssd_scan.launches_by_route`` (the mma route's
-four kernels are one launch of the wrapper).  On CPU tensors
-autograd differentiates the plain version (the training path's
-gradients, held to ``jax.grad`` of the reference's XLA path).  There is
-no backward kernel yet (ROADMAP Queue 2 item 9): a CUDA tensor that
-requires a gradient is refused.
+four kernels are one launch of the wrapper).
+
+Gradients.  On CPU tensors autograd differentiates the plain version (the
+training path's gradients, held to ``jax.grad`` of the reference's XLA
+path).  On CUDA tensors, when any input requires a gradient (and grad
+mode is on), the forward launch above runs inside a
+``torch.autograd.Function`` that saves the inputs, and its backward
+launches ``csrc/ssd_scan_bwd.cu`` (built beside the forward's library):
+the chunk states recomputed in fp32, a pass over the chunks for the
+states entering them and, in reverse, the state gradients leaving them,
+then per chunk the gradients of x, dt, B and C (key tiles: dx, dB and
+dt's direct terms; query tiles: dC and the rows' share of d(seg)), a pass
+that turns d(seg) into d(A dt) by a reverse cumulative sum, and fixed-
+order sums of dB and dC over a group's heads and of dA over the batch
+and chunks.  ``backward_route`` chooses its kernels: ``"mma"`` (bf16 at
+hd up to 64 and d_state up to 128, products on mma.sync) or ``"fma"``
+(fp32 FMA code, every shape the forward takes).  No atomics: two runs
+give the same bits.  ``ssd_scan_backward_plain`` is the same chunked
+backward written out in torch.  Each backward adds one to
+``ssd_scan.backward_launches``.
 """
 from __future__ import annotations
 
@@ -52,6 +67,7 @@ import torch
 from . import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
+BWD_SOURCE = SOURCE.with_name("ssd_scan_bwd.cu")
 # dtype codes of the C interface (x and y; B and C)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
@@ -61,8 +77,14 @@ ROUTES = {"fma": 0, "mma": 1}
 # query rows of an outputs block of the mma route, key rows of its tiles
 MMA_ROWS = 64
 _MAX_SMEM_BYTES = 232_448  # a block's shared memory on Hopper
+# the backward's mma route: head dims and the largest d_state its
+# register tiles hold
+BWD_MMA_HEAD_DIMS = (16, 32, 64)
+BWD_MMA_MAX_STATE = 128
+BWD_FMA_ROWS = 32  # rows of the backward's FMA tiles
 
 _LIB: Optional[ctypes.CDLL] = None
+_BWD_LIB: Optional[ctypes.CDLL] = None
 
 
 def build() -> Tuple[Path, float, str]:
@@ -91,6 +113,49 @@ def _library() -> ctypes.CDLL:
                                f"wrapper's {mma_smem_bytes(64, 128, 256)}")
         _LIB = lib
     return _LIB
+
+
+def _backward_library() -> ctypes.CDLL:
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        lib = ctypes.CDLL(str(_build.build(BWD_SOURCE)[0][0]))
+        vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.repro_ssd_scan_bwd.argtypes = [vp] * 11 + [ll] * 12 + [ci] * 9 + [vp] * 6 + [vp]
+        lib.repro_ssd_scan_bwd.restype = ci
+        lib.repro_ssd_bwd_smem_bytes.argtypes = [ci] * 4
+        lib.repro_ssd_bwd_smem_bytes.restype = ll
+        for args in ((64, 128, 256, 1), (128, 256, 256, 0)):
+            if lib.repro_ssd_bwd_smem_bytes(*args) != backward_smem_bytes(*args[:3], args[3] == 1):
+                raise RuntimeError(f"ssd_scan_bwd.cu's shared memory at {args} differs from "
+                                   "the wrapper's")
+        _BWD_LIB = lib
+    return _BWD_LIB
+
+
+def backward_smem_bytes(hd: int, ds: int, q: int, mma: bool) -> int:
+    """The largest shared memory of the backward's kernels on a route
+    (``smem_bytes`` of the source): dt and seg of the chunk (fp32), then on
+    the mma route the chunk states kernel's x and B rows (bf16, rows of 8
+    more values) and the tile kernels' two 64-row key and query tiles, on
+    the FMA route the tile kernels' fp32 tiles of ``BWD_FMA_ROWS`` rows,
+    their accumulators and fp64 sums of M's columns."""
+    if mma:
+        states = 2 * q * (hd + 8) + 2 * q * (ds + 8)
+        tiles = 2 * 2 * MMA_ROWS * (ds + 8) + 2 * 2 * MMA_ROWS * (hd + 8)
+        return 8 * q + max(states, tiles)
+    r = BWD_FMA_ROWS
+    return 8 * q + 4 * (3 * r * ds + 3 * r * hd + 4 * r * r + 2 * r) + 8 * r
+
+
+def backward_route(dtype: torch.dtype, hd: int, ds: int, q: int, aligned: bool = True) -> str:
+    """The backward's kernels, from x's dtype, the head dim, the state
+    size, the chunk and whether x, B and C are 16-byte aligned: ``"mma"``
+    for bf16 when its tiles take the shape, else ``"fma"``."""
+    if (dtype == torch.bfloat16 and aligned and hd in BWD_MMA_HEAD_DIMS and ds % 16 == 0
+            and ds <= BWD_MMA_MAX_STATE and q % 16 == 0
+            and backward_smem_bytes(hd, ds, q, True) <= _MAX_SMEM_BYTES):
+        return "mma"
+    return "fma"
 
 
 def mma_smem_bytes(hd: int, ds: int, q: int) -> Tuple[int, int, int]:
@@ -163,23 +228,25 @@ def ssd_scan_plain(
     """The same function as the kernel, written out plainly, for tensors
     on any device; returns ``(y, h_final)``, the state [B, H, hd, ds] in
     fp32 after the last chunk.  ``h0`` is the state before the first
-    chunk (zeros when None)."""
+    chunk (zeros when None).  Sums are fp32, fp64 (and the state fp64)
+    for fp64 inputs."""
     b, s, h, hd = x.shape
     Bg, Cg = _grouped(Bm), _grouped(Cm)
     rep = h // Bg.shape[2]
     ds = Bg.shape[-1]
     q = chunk_len(s, chunk)
-    A = A.float()
-    dt = dt.float()
-    state = (torch.zeros(b, h, hd, ds, dtype=torch.float32, device=x.device)
-             if h0 is None else h0.float())
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    A = A.to(acc)
+    dt = dt.to(acc)
+    state = (torch.zeros(b, h, hd, ds, dtype=acc, device=x.device)
+             if h0 is None else h0.to(acc))
     masked = ~torch.tril(torch.ones(q, q, dtype=torch.bool, device=x.device))
     ys = []
     for c0 in range(0, s, q):
-        xc = x[:, c0:c0 + q].float()  # [b, q, h, hd]
+        xc = x[:, c0:c0 + q].to(acc)  # [b, q, h, hd]
         dtc = dt[:, c0:c0 + q]  # [b, q, h]
-        bc = Bg[:, c0:c0 + q].float().repeat_interleave(rep, dim=2)  # [b, q, h, ds]
-        cc = Cg[:, c0:c0 + q].float().repeat_interleave(rep, dim=2)
+        bc = Bg[:, c0:c0 + q].to(acc).repeat_interleave(rep, dim=2)  # [b, q, h, ds]
+        cc = Cg[:, c0:c0 + q].to(acc).repeat_interleave(rep, dim=2)
         seg = torch.cumsum(A * dtc, dim=1)  # [b, q, h]
         total = seg[:, -1]  # [b, h]
         # intra-chunk: mask before the exp, as the reference does
@@ -197,14 +264,95 @@ def ssd_scan_plain(
     return torch.cat(ys, dim=1), state
 
 
+def ssd_scan_backward_plain(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+    Cm: torch.Tensor, dy: torch.Tensor, *, chunk: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of ``ssd_scan`` written out as the chunked backward the
+    kernels compute (not as autograd), for tensors on any device: ``(dx,
+    ddt, dA, dB, dC)`` in the inputs' dtypes and shapes, from the output
+    gradient dy [B, S, H, hd].  Per (batch row, head), with h_c the fp32
+    state entering chunk c, seg the chunk's cumulative sum of A dt and tot
+    its last entry:
+
+      g_c  = exp(tot_c) g_{c+1} + sum_i exp(seg_i) dy_i C_i^T  (g_nc = 0)
+      dx_j = dt_j [sum_{i >= j} (C_i . B_j) exp(seg_i - seg_j) dy_i
+                   + exp(tot - seg_j) g_{c+1} B_j]
+
+    dB and dC by the same two parts (within the chunk, and the carried
+    state), summed over a group's heads; dt's direct terms, then d(seg)
+    carried to d(A dt) by a reverse cumulative sum within the chunk, ddt +=
+    A d(A dt) and dA = sum dt d(A dt).  The mask is applied before the exp,
+    as in the forward.  Sums are fp32, fp64 for fp64 inputs."""
+    b, s, h, hd = x.shape
+    Bg, Cg = _grouped(Bm), _grouped(Cm)
+    G, ds = Bg.shape[2], Bg.shape[3]
+    rep = h // G
+    q = chunk_len(s, chunk)
+    nc = s // q
+    # sums in fp32, or in fp64 for fp64 inputs (a reference for the fp32
+    # kernels: d(seg)'s reverse cumulative sums and dA cancel heavily)
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf = x.to(acc).reshape(b, nc, q, h, hd)
+    dyf = dy.to(acc).reshape(b, nc, q, h, hd)
+    Bh = Bg.to(acc).repeat_interleave(rep, dim=2).reshape(b, nc, q, h, ds)
+    Ch = Cg.to(acc).repeat_interleave(rep, dim=2).reshape(b, nc, q, h, ds)
+    dtc = dt.to(acc).reshape(b, nc, q, h)
+    Af = A.to(acc)
+    seg = torch.cumsum(Af * dtc, dim=2)  # [b, nc, q, h]
+    tot = seg[:, :, -1]  # [b, nc, h]
+    e_tail = torch.exp(tot[:, :, None] - seg)  # exp(tot - seg_j)
+    e_seg = torch.exp(seg)
+    # each chunk's own state contribution and its share of the state gradient
+    s_c = torch.einsum("bcqhp,bcqhn->bchpn", xf * (e_tail * dtc)[..., None], Bh)
+    u_c = torch.einsum("bcqhp,bcqhn->bchpn", dyf * e_seg[..., None], Ch)
+    H = torch.zeros_like(s_c)  # the state entering chunk c
+    Gl = torch.zeros_like(u_c)  # the gradient of the state leaving chunk c
+    run = torch.zeros_like(s_c[:, 0])
+    for c in range(nc):
+        H[:, c] = run
+        run = torch.exp(tot[:, c])[..., None, None] * run + s_c[:, c]
+    run = torch.zeros_like(u_c[:, 0])
+    for c in reversed(range(nc)):
+        Gl[:, c] = run
+        run = torch.exp(tot[:, c])[..., None, None] * run + u_c[:, c]
+    # within the chunk: [b, nc, h, i, j], masked before the exp
+    sp = seg.permute(0, 1, 3, 2)
+    keep = torch.tril(torch.ones(q, q, dtype=torch.bool, device=x.device))
+    decay = torch.exp((sp[..., :, None] - sp[..., None, :]).masked_fill(~keep, float("-inf")))
+    dtj = dtc.permute(0, 1, 3, 2)[..., None, :]
+    CB = torch.einsum("bcihn,bcjhn->bchij", Ch, Bh)
+    DX = torch.einsum("bcihp,bcjhp->bchij", dyf, xf)
+    W = CB * decay * dtj
+    V = DX * decay * dtj
+    E = CB * decay * DX
+    GB = torch.einsum("bchpn,bcjhn->bcjhp", Gl, Bh)
+    dx = torch.einsum("bchij,bcihp->bcjhp", W, dyf) + (dtc * e_tail)[..., None] * GB
+    dBh = (torch.einsum("bchij,bcihn->bcjhn", V, Ch)
+           + (e_tail * dtc)[..., None] * torch.einsum("bchpn,bcjhp->bcjhn", Gl, xf))
+    dCh = (torch.einsum("bchij,bcjhn->bcihn", V, Bh)
+           + e_seg[..., None] * torch.einsum("bchpn,bcihp->bcihn", H, dyf))
+    e1 = E.sum(-2).permute(0, 1, 3, 2)  # [b, nc, j, h]
+    e2 = e_tail * (xf * GB).sum(-1)
+    rows = (E * dtj).sum(-1).permute(0, 1, 3, 2)  # [b, nc, i, h]
+    HC = torch.einsum("bchpn,bcihn->bcihp", H, Ch)
+    n_inter = e_seg * (dyf * HC).sum(-1)
+    # d(seg), then d(A dt) by a reverse cumulative sum within the chunk
+    dseg = rows + n_inter - dtc * (e1 + e2)
+    dtot = torch.exp(tot) * (Gl * H).sum((-1, -2)) + (dtc * e2).sum(2)
+    dseg[:, :, -1] += dtot
+    da = torch.flip(torch.cumsum(torch.flip(dseg, [2]), 2), [2])
+    ddt = (e1 + e2 + Af * da).reshape(b, s, h)
+    dA = (dtc * da).sum((0, 1, 2))
+    dB = dBh.reshape(b, s, G, rep, ds).sum(3).to(Bm.dtype).reshape(Bm.shape)
+    dC = dCh.reshape(b, s, G, rep, ds).sum(3).to(Cm.dtype).reshape(Cm.shape)
+    return (dx.reshape(b, s, h, hd).to(x.dtype), ddt.to(dt.dtype), dA.to(A.dtype), dB, dC)
+
+
 def _check(x, dt, A, Bm, Cm) -> None:
     for name, t in (("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-    for name, t in (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
-        if t.requires_grad and torch.is_grad_enabled() and t.device.type == "cuda":
-            raise NotImplementedError(
-                "ssd_scan has no backward kernel yet (ROADMAP Queue 2 item 9)")
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if dt.dtype != torch.float32 or A.dtype != torch.float32:
@@ -276,9 +424,88 @@ def ssd_scan(
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=q)[0]
     if x.device.type == "cuda":
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, Bm, Cm)):
+            _check_backward(x, Bm, q)
+            return _Scan.apply(x, dt, A, Bm, Cm, q)
         return _launch(x, dt, A, Bm, Cm, q)
     raise ValueError(f"no ssd_scan kernel for device {x.device}")
 
 
+def _check_backward(x: torch.Tensor, Bm: torch.Tensor, q: int) -> None:
+    """Refuse, before the forward, a call whose gradient the backward
+    kernels do not compute: the FMA route (which every shape may take)
+    must fit a block's shared memory."""
+    hd, ds = x.shape[3], _grouped(Bm).shape[3]
+    if (hd not in HEAD_DIMS or ds > MAX_STATE
+            or backward_smem_bytes(hd, ds, q, False) > _MAX_SMEM_BYTES):
+        raise NotImplementedError(
+            f"ssd_scan's backward kernels take hd in {HEAD_DIMS}, d_state up to "
+            f"{MAX_STATE} and tiles within a block's shared memory; got hd {hd}, "
+            f"d_state {ds}, chunk {q}")
+
+
+def _launch_backward(x, dt, A, Bm, Cm, dy, q: int):
+    b, s, h, hd = x.shape
+    Bg, Cg = _grouped(Bm), _grouped(Cm)
+    G, ds = Bg.shape[2], Bg.shape[3]
+    nc = s // q
+    dy = dy.contiguous()
+    A = A.contiguous()
+    r = backward_route(x.dtype, hd, ds, q, _aligned(x, Bg, Cg, dy))
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((b, s, h, hd), dtype=x.dtype, device=dev)
+    ddt = torch.empty((b, s, h), **f32)
+    dA = torch.empty((h,), **f32)
+    dB = torch.empty((b, s, G, ds), dtype=Bm.dtype, device=dev)
+    dC = torch.empty((b, s, G, ds), dtype=Cm.dtype, device=dev)
+    # scratch: the states entering each chunk and the state gradients
+    # leaving it [b, h, nc, hd, ds], seg [b, h, nc, q], four per-row terms
+    # [b, h, nc, q, 4] (fp64: d(seg)'s row and column sums cancel), the
+    # per-head dB and dC [b, s, h, ds] and dA's per-chunk parts [b, h, nc]
+    # (fp64)
+    hst = torch.empty(b * h * nc * hd * ds, **f32)
+    gst = torch.empty_like(hst)
+    segs = torch.empty(b * h * nc * q, **f32)
+    aux = torch.empty(b * h * nc * q * 4, dtype=torch.float64, device=dev)
+    part = torch.empty(2 * b * s * h * ds, **f32)
+    dA_part = torch.empty(b * h * nc, dtype=torch.float64, device=dev)
+    lib = _backward_library()
+    outs = (dy, dx, ddt, dA, dB, dC)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.repro_ssd_scan_bwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bg.data_ptr(), Cg.data_ptr(),
+            *(t.data_ptr() for t in outs),
+            *x.stride()[:3], *dt.stride(), *Bg.stride()[:3], *Cg.stride()[:3],
+            b, s, h, hd, G, ds, q, _DTYPES[x.dtype], ROUTES[r],
+            hst.data_ptr(), gst.data_ptr(), segs.data_ptr(), aux.data_ptr(),
+            part.data_ptr(), dA_part.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ssd_scan backward launch failed ({r} route): error {err}")
+    ssd_scan.backward_launches += 1
+    ssd_scan.backward_launches_by_route[r] += 1
+    return dx, ddt, dA, dB.reshape(Bm.shape), dC.reshape(Cm.shape)
+
+
+class _Scan(torch.autograd.Function):
+    """The forward kernels, with the backward kernels as their gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, q):
+        y = _launch(x, dt, A, Bm, Cm, q)
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.q = q
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        grads = _launch_backward(*ctx.saved_tensors, dy, ctx.q)
+        return (*grads, None)
+
+
 ssd_scan.launches = 0  # type: ignore[attr-defined]
 ssd_scan.launches_by_route = dict.fromkeys(ROUTES, 0)  # type: ignore[attr-defined]
+ssd_scan.backward_launches = 0  # type: ignore[attr-defined]
+ssd_scan.backward_launches_by_route = dict.fromkeys(ROUTES, 0)  # type: ignore[attr-defined]

@@ -12,9 +12,10 @@ Features: DGTP infeed planning (``--plan-infeed``, the port's
 optional gradient accumulation and bf16 first moments with a factored
 second moment (``--opt8``), periodic checkpoints with exact resume from
 the latest, straggler tracking.  Frontend archs (hubert's frames,
-llava's patches) are refused, as the reference refuses them; on the card
-so are the moe, mamba2 and zamba2 patterns until moe_gemm and ssd_scan
-have backward kernels (ROADMAP Queue 2 item 9).
+llava's patches) are refused, as the reference refuses them; every other
+arch trains on the card as on the CPU (the attention, grouped-GEMM and
+SSD kernels each have a backward).  A configuration that does not fit
+the card fails with PyTorch's out-of-memory error.
 """
 from __future__ import annotations
 
@@ -29,23 +30,11 @@ from .. import configs as cfgs
 from ..core.engine import resolve_device
 from ..core.infeed_planner import LMJobSpec, plan_infeed
 from ..data.pipeline import TokenPipeline
-from ..models.config import LMConfig
 from ..models.model import TransformerLM
 from ..train.checkpoint import latest_checkpoint
 from ..train.fault_tolerance import StragglerPolicy
 from ..train.optimizer import AdamWSettings
 from ..train.train_loop import TrainStepBuilder, restore_state, save_state
-
-CARD_TRAINS = ("dense", "gemma2", "encoder")  # patterns whose kernels all have backwards
-
-
-def card_refusal(cfg: LMConfig) -> Optional[str]:
-    """Why ``cfg`` cannot train on a card, or None."""
-    if cfg.block_pattern in CARD_TRAINS:
-        return None
-    return (f"{cfg.name}: the {cfg.block_pattern} pattern trains on the CPU only: "
-            "moe_gemm and ssd_scan have no backward kernel yet (ROADMAP Queue 2 item 9)")
-
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     ap = argparse.ArgumentParser()
@@ -69,8 +58,6 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         raise SystemExit("frontend-stub archs train via inputs.train_batch; "
                          "use the dry-run for their full shapes")
     device = resolve_device(args.device)
-    if device.type == "cuda" and card_refusal(cfg) is not None:
-        raise SystemExit(card_refusal(cfg))
 
     if args.plan_infeed:
         spec = LMJobSpec(cfg=cfg, global_batch=256, seq_len=4096, n_pods=2)

@@ -43,10 +43,10 @@ autograd.  ``forward_train`` rematerialises each layer in the backward
 (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``) and
 returns the MoE layers' summed load-balance loss beside the hidden
 states; ``loss_fn`` is the reference's causal-LM (or per-frame) cross
-entropy over the padded vocabulary.  On the card the dense patterns
-train through the attention kernel's forward and backward; the moe,
-mamba2 and zamba2 patterns train on the CPU only until moe_gemm and
-ssd_scan have backward kernels (ROADMAP Queue 2 item 9).
+entropy over the padded vocabulary.  On the card every pattern trains
+through its kernels' forwards and backwards: the attention's, the MoE
+grouped GEMM's and the SSD scan's (each a ``torch.autograd.Function``
+around the forward launch).
 """
 from __future__ import annotations
 

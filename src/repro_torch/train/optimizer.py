@@ -131,21 +131,29 @@ def global_norm(grads: Tree) -> torch.Tensor:
 
 def _update_leaf(cfg: AdamWSettings, lr: float, c1: float, c2: float, master: torch.Tensor,
                  m: torch.Tensor, v: Any, g: torch.Tensor) -> None:
-    """One leaf's AdamW step on fp32 gradients g, in place."""
+    """One leaf's AdamW step on fp32 gradients g, in place.  Temporaries
+    are updated in place where the operation allows (the same operations
+    in the same order, so the same bits), so that a leaf of N values holds
+    about four more fp32 tensors of N at once: the largest leaves (an
+    embedding of 200k rows) set the step's peak memory."""
     m_new = cfg.beta1 * m.float() + (1 - cfg.beta1) * g
     if isinstance(v, Mapping):  # factored second moment
         g2 = g * g
         v["r"].copy_(cfg.beta2 * v["r"] + (1 - cfg.beta2) * g2.mean(-1))
         v["c"].copy_(cfg.beta2 * v["c"] + (1 - cfg.beta2) * g2.mean(-2))
+        del g2
         denom = torch.clamp(v["r"].mean(-1, keepdim=True), min=1e-30)
-        vh = (v["r"] / denom)[..., None] * v["c"][..., None, :] / c2
+        vh = (v["r"] / denom)[..., None] * v["c"][..., None, :]
+        vh.div_(c2)
     else:
         v.copy_(cfg.beta2 * v + (1 - cfg.beta2) * (g * g))
         vh = v / c2
-    mh = m_new / c1
-    # decoupled weight decay on leaves of two or more dimensions
+    # decoupled weight decay on leaves of two or more dimensions:
+    # master -= lr * (m_hat / (sqrt(v_hat) + eps) + wd * master)
     wd = cfg.weight_decay if master.dim() >= 2 else 0.0
-    master.copy_(master - lr * (mh / (torch.sqrt(vh) + cfg.eps) + wd * master))
+    step = (m_new / c1).div_(vh.sqrt_().add_(cfg.eps))
+    del vh
+    master.sub_(step.add_(wd * master).mul_(lr))
     m.copy_(m_new)
 
 

@@ -31,8 +31,16 @@ grouped GEMM's CUDA kernel.
 
   * gradients: CPU inputs that need a gradient take the plain version,
     which autograd differentiates, equal to ``jax.grad`` of the oracle;
-    marked ``cuda``: a card's input that needs a gradient is refused
-    (no backward kernel yet, ROADMAP Queue 2 item 9) before any launch.
+    the plain backward ``moe_grouped_gemm_backward_plain`` against
+    autograd through the plain version and against ``jax.grad`` of
+    ``ragged_dot`` (fp32 within 1e-5 of the largest gradient) with empty
+    experts, rows past the sum and T not a multiple of any tile; marked
+    ``cuda``: the backward kernels against the plain backward (fp32
+    within 1e-4, bf16 within 2e-2 of the largest gradient; the same bits
+    on two runs) at the sweep shapes, skewed routings, decode-sized T
+    (the forward on its streaming route) and ragged D and F, and a call
+    whose gradient the kernels do not compute (D not a multiple of 8)
+    refused before the forward's launch.
 
 JAX is imported only by the tests that compare with it.
 """
@@ -46,6 +54,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels.moe_gemm import (
     STREAM_SLICE,
     moe_grouped_gemm,
+    moe_grouped_gemm_backward_plain,
     moe_grouped_gemm_plain,
     route,
     stream_scratch_floats,
@@ -391,13 +400,128 @@ def test_cpu_gradients_match_jax_grad(jx, shape):
         assert np.abs(got.numpy() - w_).max() <= 1e-5 * max(np.abs(w_).max(), 1.0)
 
 
+# (t, d, f, e, group sizes): the backward's cases on the CPU; None draws
+# the sweep's sizes (~0.9 t, expert 1 empty)
+BWD_CASES = [
+    (256, 128, 128, 4, None),
+    (512, 256, 256, 8, None),
+    (77, 24, 40, 5, [30, 0, 0, 41, 2]),  # T a multiple of no tile, two empty experts
+    (50, 16, 24, 3, [0, 0, 0]),  # no rows at all: dx and dw zero
+    (40, 16, 8, 3, [25, 30, 10]),  # group sizes past T: the segments clamp
+]
+
+
+def _bwd_inputs(seed, t, d, f, e, gs):
+    x, w, g = _inputs(seed, t, d, f, e, empty=(1,))
+    if gs is not None:
+        g = np.array(gs, np.int32)
+    dy = np.random.default_rng(seed + 1).standard_normal((t, f)).astype(np.float32)
+    return x, w, g, dy
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_plain_backward_matches_autograd_and_jax_grad(jx, case):
+    """The plain backward against autograd through the plain forward and
+    against ``jax.grad`` of ``ragged_dot``, fp32 within 1e-5 of the
+    largest gradient; rows past the sum get zero dx, experts with no rows
+    zero dw."""
+    jax, _, ref = jx
+    jnp = jax.numpy
+    x, w, gs, dy = _bwd_inputs(11, *case)
+    xt, wt, g = _torch(x, w, gs, "float32")
+    dyt = torch.from_numpy(dy)
+    dx, dw = moe_grouped_gemm_backward_plain(xt, wt, g, dyt)
+    assert dx.shape == xt.shape and dw.shape == wt.shape
+    xa, wa = xt.clone().requires_grad_(True), wt.clone().requires_grad_(True)
+    out = moe_grouped_gemm_plain(xa, wa, g)
+    # with no rows the plain output is a constant: its gradients are zero
+    auto = (torch.autograd.grad(out, (xa, wa), dyt) if out.requires_grad
+            else (torch.zeros_like(xt), torch.zeros_like(wt)))
+    rows = min(int(np.maximum(gs, 0).sum()), x.shape[0])
+    want = jax.grad(lambda a, b: (ref(a, b, jnp.asarray(gs)) * dy).sum(), argnums=(0, 1))(
+        jnp.asarray(x), jnp.asarray(w))
+    for got, a, j in zip((dx, dw), auto, want):
+        j = np.asarray(j)
+        scale = max(np.abs(j).max(), 1.0)
+        assert np.abs(got.numpy() - a.numpy()).max() <= 1e-5 * scale
+        assert np.abs(got.numpy() - j).max() <= 1e-5 * scale
+    assert not dx[rows:].any()
+    for e, n in enumerate(gs):
+        if n <= 0:
+            assert not dw[e].any()
+
+
+def test_backward_refusal_before_the_forward():
+    """A call whose gradient the backward kernels do not compute (D not a
+    multiple of 8) is refused by the check that runs before the forward
+    on a card; D = 16 passes it."""
+    from repro_torch.kernels.moe_gemm import _check_backward
+
+    with pytest.raises(NotImplementedError, match="multiple of 8"):
+        _check_backward(torch.zeros(4, 12))
+    _check_backward(torch.zeros(4, 16))
+
+
 @pytest.mark.cuda
 def test_kernel_refuses_gradients(cuda):
+    """On a card a call that needs a gradient runs the forward kernel
+    inside the autograd Function and the backward kernels in its
+    backward (one backward launch), equal to the plain backward; a call
+    at a D the backward does not take is refused before the forward
+    launches."""
     x, w, gs = _torch(*_inputs(8, 32, 16, 24, 3), "float32", cuda)
-    before = moe_grouped_gemm.launches
-    for args in ((x.requires_grad_(True), w, gs), (x.detach(), w.requires_grad_(True), gs)):
-        with pytest.raises(NotImplementedError, match="Queue 2 item 9"):
-            moe_grouped_gemm(*args)
-    assert moe_grouped_gemm.launches == before
+    before = (moe_grouped_gemm.launches, moe_grouped_gemm.backward_launches)
+    xa, wa = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    out = moe_grouped_gemm(xa, wa, gs)
+    dy = torch.randn_like(out)
+    out.backward(dy)
+    torch.cuda.synchronize()
+    assert (moe_grouped_gemm.launches, moe_grouped_gemm.backward_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = moe_grouped_gemm_backward_plain(x, w, gs, dy)
+    assert _rel_err(xa.grad, want[0]) < 1e-4 and _rel_err(wa.grad, want[1]) < 1e-4
+    x12 = torch.randn(32, 12, device=cuda, requires_grad=True)
+    w12 = torch.randn(3, 12, 24, device=cuda)
+    with pytest.raises(NotImplementedError, match="multiple of 8"):
+        moe_grouped_gemm(x12, w12, gs)
+    assert moe_grouped_gemm.launches == before[0] + 1
     with torch.no_grad():
-        moe_grouped_gemm(x, w, gs)
+        moe_grouped_gemm(x12, w12, gs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", BWD_CASES[:3] + [
+    (8, 256, 512, 16, [1, 0, 1, 1, 0, 2, 0, 0, 1, 0, 0, 0, 1, 0, 1, 0]),  # the streaming forward
+    (300, 72, 136, 6, [0, 130, 0, 0, 101, 0]),  # D and F not multiples of the tiles
+    (1000, 200, 264, 5, [900, 0, 1, 2, 0]),  # one expert holds most rows, rows past the sum
+    (4096, 512, 384, 16, "routed"),  # top-1 routing, sum = T
+])
+def test_backward_kernel_matches_plain(cuda, case, dtype):
+    """The backward kernels (through autograd) against the plain backward:
+    fp32 within 1e-4, bf16 within 2e-2 of each gradient's largest
+    magnitude, the same bits on two runs, rows past the sum zero dx."""
+    t, d, f, e, gs = case
+    if gs == "routed":
+        gs = np.bincount(np.random.default_rng(5).integers(0, e, t), minlength=e).tolist()
+    x, w, g, dy = _bwd_inputs(12, t, d, f, e, gs)
+    xt, wt, gt = _torch(x, w, g, dtype, cuda)
+    dyt = torch.from_numpy(dy).to(cuda, xt.dtype)
+
+    def run():
+        xa, wa = xt.clone().requires_grad_(True), wt.clone().requires_grad_(True)
+        torch.autograd.backward(moe_grouped_gemm(xa, wa, gt), dyt)
+        return xa.grad, wa.grad
+
+    before = moe_grouped_gemm.backward_launches
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert moe_grouped_gemm.backward_launches == before + 2
+    want = moe_grouped_gemm_backward_plain(xt, wt, gt, dyt)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for a, b, c in zip(got, again, want):
+        assert a.dtype == c.dtype and a.shape == c.shape
+        assert torch.equal(a, b)
+        assert _rel_err(a, c) < tol
+    rows = min(int(np.maximum(g, 0).sum()), t)
+    assert not got[0][rows:].any()

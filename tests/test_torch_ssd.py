@@ -28,8 +28,16 @@
     ``python -m pytest -m cuda tests/test_torch_ssd.py``.
   * gradients: CPU inputs that need a gradient take the plain version,
     which autograd differentiates, equal to ``jax.grad`` of
-    ``ssd_chunked``; marked ``cuda``: a card's input that needs a
-    gradient is refused (no backward kernel yet, ROADMAP Queue 2 item 9).
+    ``ssd_chunked``; the plain backward ``ssd_scan_backward_plain``
+    against autograd through the plain version (fp32 within 1e-5 of each
+    gradient's largest magnitude) and against ``jax.grad`` of
+    ``ssd_chunked`` (1e-4), for S of one chunk and of several, B and C
+    shared by all heads and in groups (G < H); the backward's route
+    choice and shared memory; marked ``cuda``: the backward kernels
+    against the plain backward (fp32 within 1e-4, bf16 within 2e-2 of
+    each gradient's largest magnitude; the same bits on two runs) on both
+    routes, and a call whose gradient the kernels do not compute refused
+    before the forward's launch.
 
 JAX is imported only by the tests that compare with it.
 """
@@ -39,7 +47,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.ssd_scan import (
-    HEAD_DIMS, MAX_STATE, mma_smem_bytes, route, scratch_sizes, ssd_scan, ssd_scan_plain)
+    HEAD_DIMS, MAX_STATE, backward_route, backward_smem_bytes, mma_smem_bytes, route,
+    scratch_sizes, ssd_scan, ssd_scan_backward_plain, ssd_scan_plain)
 
 TOL = {"float32": 5e-4, "bfloat16": 5e-2}
 SWEEP = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 64, 64)]  # b, s, h, hd, ds, chunk
@@ -156,6 +165,19 @@ def test_wrapper_validates_inputs():
         ssd_scan(x, dt, A, Bm[:, :, None].expand(1, 48, 3, 8), Cm[:, :, None].expand(1, 48, 3, 8))
     with pytest.raises(ValueError, match="no ssd_scan kernel"):
         ssd_scan(*(t.detach().to("meta") for t in (x, dt, A, Bm, Cm)))
+
+
+def test_plain_sums_in_fp64_for_fp64_inputs():
+    """fp64 inputs take the plain forward in fp64 (the CPU reference of
+    the card's fp32 training checks): y and the final state in fp64,
+    equal to the fp32 sums within their rounding."""
+    b, s, h, hd, ds, chunk, groups = BWD_CASES[2]
+    arrays, _ = _bwd_inputs(15, b, s, h, hd, ds, groups)
+    ts = [torch.from_numpy(a) for a in arrays]
+    y64, h64 = ssd_scan_plain(*(t.double() for t in ts), chunk=chunk)
+    y32, h32 = ssd_scan_plain(*ts, chunk=chunk)
+    assert y64.dtype == h64.dtype == torch.float64
+    assert _rel_err(y32, y64) < 1e-5 and _rel_err(h32, h64) < 1e-5
 
 
 @pytest.mark.parametrize("dtype,hd,ds,q,aligned,want", [
@@ -320,13 +342,180 @@ def test_cpu_gradients_match_jax_grad(jx, shape):
         assert np.abs(t.grad.numpy() - w_).max() <= 1e-4 * max(np.abs(w_).max(), 1.0), name
 
 
+# (b, s, h, hd, ds, chunk, groups): the backward's cases; groups 0 passes
+# B and C as [b, s, ds], shared by every head
+BWD_CASES = [
+    (2, 128, 4, 32, 16, 32, 0),  # several chunks, shared B and C
+    (1, 64, 2, 16, 32, 64, 1),  # S of one chunk, one group
+    (2, 96, 4, 16, 16, 32, 2),  # three chunks, two groups of two heads
+    (1, 64, 6, 16, 16, 16, 3),  # four chunks of 16, three groups
+]
+
+
+def _bwd_inputs(seed, b, s, h, hd, ds, groups):
+    """The scan's inputs with B and C [b, s, groups, ds] (or [b, s, ds]),
+    and an output gradient."""
+    x, dt, A, Bm, Cm = _inputs(seed, b, s, h, hd, ds)
+    if groups:
+        rng = np.random.default_rng(seed + 1)
+        Bm = rng.standard_normal((b, s, groups, ds)).astype(np.float32)
+        Cm = rng.standard_normal((b, s, groups, ds)).astype(np.float32)
+    dy = np.random.default_rng(seed + 2).standard_normal((b, s, h, hd)).astype(np.float32)
+    return (x, dt, A, Bm, Cm), dy
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_plain_backward_matches_autograd_and_jax_grad(jx, case):
+    """``ssd_scan_backward_plain`` against autograd through the plain
+    forward (1e-5 of each gradient's largest magnitude) and against
+    ``jax.grad`` of the reference's ``ssd_chunked`` (1e-4), B and C's
+    gradients summed over the heads of their group."""
+    import jax
+
+    jnp, _, _, ref_chunked = jx
+    b, s, h, hd, ds, chunk, groups = case
+    arrays, dy = _bwd_inputs(13, b, s, h, hd, ds, groups)
+    ts = [torch.from_numpy(a) for a in arrays]
+    got = ssd_scan_backward_plain(*ts, torch.from_numpy(dy), chunk=chunk)
+    for g, t in zip(got, ts):
+        assert g.shape == t.shape and g.dtype == t.dtype
+    leaves = [t.clone().requires_grad_(True) for t in ts]
+    auto = torch.autograd.grad(ssd_scan_plain(*leaves, chunk=chunk)[0], leaves,
+                               torch.from_numpy(dy))
+    rep = h // max(groups, 1)
+
+    def loss(x, dt, A, Bm, Cm):
+        Bg, Cg = (m[:, :, None] if m.ndim == 3 else m for m in (Bm, Cm))
+        Bh, Ch = (jnp.repeat(m, rep, axis=2) for m in (Bg, Cg))
+        return (ref_chunked(x, dt, A, Bh, Ch, chunk)[0] * dy).sum()
+
+    want = jax.grad(loss, argnums=tuple(range(5)))(*(jnp.asarray(a) for a in arrays))
+    for name, g, a, j in zip(("x", "dt", "A", "B", "C"), got, auto, want):
+        j = np.asarray(j)
+        scale = max(np.abs(j).max(), 1.0)
+        assert np.abs(g.numpy() - a.numpy()).max() <= 1e-5 * scale, name
+        assert np.abs(g.numpy() - j).max() <= 1e-4 * scale, name
+
+
+def test_plain_sums_in_fp64_for_fp64_inputs():
+    """fp64 inputs take the plain forward in fp64 (the CPU reference of
+    the card's fp32 training checks): y and the final state in fp64,
+    equal to the fp32 sums within their rounding."""
+    b, s, h, hd, ds, chunk, groups = BWD_CASES[2]
+    arrays, _ = _bwd_inputs(15, b, s, h, hd, ds, groups)
+    ts = [torch.from_numpy(a) for a in arrays]
+    y64, h64 = ssd_scan_plain(*(t.double() for t in ts), chunk=chunk)
+    y32, h32 = ssd_scan_plain(*ts, chunk=chunk)
+    assert y64.dtype == h64.dtype == torch.float64
+    assert _rel_err(y32, y64) < 1e-5 and _rel_err(h32, h64) < 1e-5
+
+
+@pytest.mark.parametrize("dtype,hd,ds,q,aligned,want", [
+    ("bfloat16", 64, 128, 256, True, "mma"),  # mamba2-1.3b
+    ("bfloat16", 64, 64, 256, True, "mma"),  # zamba2
+    ("bfloat16", 16, 16, 32, True, "mma"),
+    ("bfloat16", 128, 128, 256, True, "fma"),  # hd past the register tiles
+    ("bfloat16", 64, 256, 256, True, "fma"),  # d_state past the register tiles
+    ("bfloat16", 64, 24, 256, True, "fma"),  # d_state not a multiple of 16
+    ("bfloat16", 64, 128, 40, True, "fma"),  # chunk not a multiple of 16
+    ("bfloat16", 64, 128, 256, False, "fma"),  # unaligned rows
+    ("float32", 64, 128, 256, True, "fma"),
+])
+def test_backward_route_by_dtype_and_shape(dtype, hd, ds, q, aligned, want):
+    assert backward_route(getattr(torch, dtype), hd, ds, q, aligned) == want
+
+
+def test_backward_smem_fits_every_forward_shape():
+    """The FMA route's tiles fit a block at every head dim and d_state
+    the forward takes (chunks up to 256), and the mma route's at
+    mamba2-1.3b's and zamba2's shapes."""
+    for hd in HEAD_DIMS:
+        for ds in (16, 64, 128, MAX_STATE):
+            assert backward_smem_bytes(hd, ds, 256, False) <= 232_448
+    assert backward_smem_bytes(64, 128, 256, True) == 8 * 256 + 2 * 256 * 72 + 2 * 256 * 136
+    assert backward_smem_bytes(64, 64, 256, True) <= 232_448
+
+
+def test_backward_refusal_before_the_forward():
+    """The check that runs before the forward on a card refuses a d_state
+    past the kernels' and passes mamba2-1.3b's shape."""
+    from repro_torch.kernels.ssd_scan import _check_backward
+
+    with pytest.raises(NotImplementedError, match="d_state"):
+        _check_backward(torch.zeros(1, 64, 2, 64), torch.zeros(1, 64, MAX_STATE + 16), 64)
+    _check_backward(torch.zeros(1, 512, 2, 64), torch.zeros(1, 512, 1, 128), 256)
+
+
+def _plain_backward(args, dy, chunk):
+    """The plain backward on the same inputs; for fp32 inputs in fp64 (the
+    exact gradient's stand-in: d(seg)'s reverse sums and dA cancel, so two
+    fp32 orders of summing differ by ~1e-4 of dA's largest entry)."""
+    if args[0].dtype == torch.float32:
+        args, dy = [t.double() for t in args], dy.double()
+    return ssd_scan_backward_plain(*args, dy, chunk=chunk)
+
+
 @pytest.mark.cuda
 def test_kernel_refuses_gradients(cuda):
+    """On a card a call that needs a gradient runs the forward kernels
+    inside the autograd Function and the backward kernels in its backward
+    (one backward launch), equal to the plain backward; a d_state the
+    backward does not take is refused before the forward launches."""
     x, dt, A, Bm, Cm = _torch(_inputs(3, 1, 64, 2, 64, 16), "float32", cuda)
     Bm, Cm = Bm[:, :, None], Cm[:, :, None]
-    before = ssd_scan.launches
-    with pytest.raises(NotImplementedError, match="Queue 2 item 9"):
-        ssd_scan(x.requires_grad_(True), dt, A, Bm, Cm, chunk=32)
-    assert ssd_scan.launches == before
-    with torch.no_grad():
-        ssd_scan(x, dt, A, Bm, Cm, chunk=32)
+    before = (ssd_scan.launches, ssd_scan.backward_launches)
+    leaves = [t.clone().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+    y = ssd_scan(*leaves, chunk=32)
+    dy = torch.randn_like(y)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (ssd_scan.launches, ssd_scan.backward_launches) == (before[0] + 1, before[1] + 1)
+    want = _plain_backward((x, dt, A, Bm, Cm), dy, 32)
+    for leaf, w in zip(leaves, want):
+        assert _rel_err(leaf.grad, w) < 1e-4
+    wide = torch.zeros(1, 64, 1, MAX_STATE + 16, device=cuda)
+    with pytest.raises(NotImplementedError, match="d_state"):
+        ssd_scan(x.requires_grad_(True), dt, A, wide, wide, chunk=32)
+    assert ssd_scan.launches == before[0] + 1
+
+
+# the card's backward cases in both dtypes, then the largest tiles in
+# bf16 alone (the forward's FMA route does not fit them in fp32)
+BWD_CARD_CASES = [(c, dtype) for dtype in ("float32", "bfloat16") for c in BWD_CASES + [
+    (2, 512, 4, 64, 128, 256, 1),  # mamba2-1.3b's head dim, d_state and chunk
+    (1, 512, 4, 64, 64, 256, 1),  # zamba2's
+    (2, 128, 4, 32, 64, 64, 2),  # grouped, several chunks
+    (1, 96, 2, 64, 128, 48, 1),  # a chunk of three 16-row steps: partial 64-row tiles
+]] + [((1, 256, 2, 128, 256, 256, 1), "bfloat16")]  # the backward's FMA route in bf16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype", BWD_CARD_CASES)
+def test_backward_kernel_matches_plain(cuda, case, dtype):
+    """The backward kernels (through autograd) against the plain backward
+    (fp32 against it in fp64, bf16 against it in fp32), fp32 within 1e-4
+    and bf16 within 2e-2 of each gradient's largest magnitude, the same
+    bits on two runs, on the route ``backward_route`` names."""
+    b, s, h, hd, ds, chunk, groups = case
+    arrays, dy = _bwd_inputs(14, b, s, h, hd, ds, groups)
+    x, dt, A, Bm, Cm = _torch(arrays, dtype, cuda)
+    dyt = torch.from_numpy(dy).to(cuda, x.dtype)
+    want_route = backward_route(x.dtype, hd, ds, min(chunk, s))
+
+    def run():
+        leaves = [t.clone().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+        torch.autograd.backward(ssd_scan(*leaves, chunk=chunk), dyt)
+        return [t.grad for t in leaves]
+
+    before = dict(ssd_scan.backward_launches_by_route)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    moved = {r: ssd_scan.backward_launches_by_route[r] - before[r] for r in before}
+    assert moved == {r: 2 * int(r == want_route) for r in before}
+    want = _plain_backward((x, dt, A, Bm, Cm), dyt, chunk)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for name, a, a2, w, t in zip(("x", "dt", "A", "B", "C"), got, again, want,
+                                 (x, dt, A, Bm, Cm)):
+        assert a.dtype == t.dtype and a.shape == w.shape, name
+        assert torch.equal(a, a2), name
+        assert _rel_err(a, w) < tol, (name, _rel_err(a, w))

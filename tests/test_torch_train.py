@@ -24,11 +24,13 @@
   * resume: train 4 == train 2, save, restore, train 2, bit for bit; a
     checkpoint of another shape raises; the reference restores a port
     checkpoint's weights;
-  * ``python -m repro_torch.launch.train --smoke --device cpu`` end to end,
-    and its refusals.
+  * ``python -m repro_torch.launch.train --smoke --device cpu`` end to end
+    (also on llama4-scout, mamba2 and zamba2), and its refusal of the
+    frontend archs.
 
-The card's training path (the attention's backward kernel, internlm2 at
-full width) is ``chip_smoke.py``'s ``lm_train`` phase.
+The card's training paths are ``chip_smoke.py``'s ``lm_train`` (the
+attention's backward kernel, internlm2 at full width), ``moe_train``
+(llama4-scout) and ``mamba_train`` (mamba2-1.3b) phases.
 """
 import dataclasses
 import tempfile
@@ -408,6 +410,15 @@ def test_launch_train_refusals():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             train.main(["--smoke"])
-    assert train.card_refusal(configs.get_config("mamba2-1.3b")) is not None
-    assert train.card_refusal(configs.get_config("internlm2-1.8b")) is None
-    assert "Queue 2 item 9" in train.card_refusal(configs.get_config("kimi-k2-1t-a32b"))
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "mamba2-1.3b", "zamba2-7b"])
+def test_launch_train_smoke_moe_and_ssm_on_cpu(arch):
+    """``launch.train`` trains the moe, mamba2 and zamba2 patterns (the ones the
+    grouped-GEMM and SSD backwards serve): finite losses over 4 steps of
+    the smoke configs."""
+    from repro_torch.launch import train
+
+    out = train.main(["--smoke", "--device", "cpu", "--arch", arch, "--steps", "4",
+                      "--batch", "2", "--seq", "32"])
+    assert len(out["losses"]) == 4 and all(np.isfinite(out["losses"]))
