@@ -4389,39 +4389,34 @@ def _grouped_mm_backward(x, w, gs, dy):
 
 
 def _kernel_split(tag, fn):
-    """One call of ``fn`` under the profiler (after a warm-up call in the
-    same trace, traced again up to three times until its kernels show:
-    without ``acc_events`` a short trace lost them; in the whole smoke
-    the first split after lm_train's profile still showed none, which is
-    printed as such): its device time by kernel, printed, largest first;
-    returns ``{name: ms}``."""
+    """One call of ``fn`` under the profiler, after a warm-up call in the
+    same trace: its device time by kernel, printed, largest first;
+    returns ``{name: ms}``.  Run only where its phase runs alone
+    (``--only``): in the whole smoke, after lm_train's profile, the
+    profiler showed no device rows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    rows = []
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1), acc_events=True) as prof:
-            for _ in range(2):
-                fn()
-                torch.cuda.synchronize()
-                prof.step()
-        rows = sorted((a for a in prof.key_averages() if a.device_type == DeviceType.CUDA
-                       and not a.key.startswith("ProfilerStep")),
-                      key=_device_us, reverse=True)
-        if rows:
-            break
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1), acc_events=True) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    rows = sorted((a for a in prof.key_averages() if a.device_type == DeviceType.CUDA
+                   and not a.key.startswith("ProfilerStep")),
+                  key=_device_us, reverse=True)
     split = {re.sub(r"\(anonymous namespace\)::", "", a.key).split("(")[0][:48]:
              _device_us(a) / 1e3 for a in rows}
     print(f"[{tag}] one call's device time by kernel (profiler, L2 warm): "
           + (", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
-             or "no device rows in three traces (seen after an earlier phase's profile)"),
+             or "no device rows"),
           flush=True)
     return split
 
 
-def phase_moe_backward(mg):
+def phase_moe_backward(mg, split=False):
     """The grouped GEMM's backward kernels (through autograd) against the
     plain backward at llama4-scout's training shapes (gate/up and down at
     T = MOE_TRAIN_BATCH x MOE_TRAIN_SEQ routed rows, uniform and skewed
@@ -4429,7 +4424,8 @@ def phase_moe_backward(mg):
     in bf16 and a small fp32 case: each gradient within BWD_TOL of its
     largest, the same bits on two runs; the gate/up backward timed
     beside its bound, the plain backward and ``torch._grouped_mm``'s
-    backward.  Returns the moe_gemm record's bwd_* numbers."""
+    backward, and with ``split`` its device time by kernel
+    (``_kernel_split``).  Returns the moe_gemm record's bwd_* numbers."""
     import torch
 
     from repro_torch.configs import get_config
@@ -4482,7 +4478,8 @@ def phase_moe_backward(mg):
             _free()
             continue
         ms = _device_ms(kernel, 3, flush=True)
-        _kernel_split("moe backward", kernel)
+        if split:
+            _kernel_split("moe backward", kernel)
         plain_ms = _event_ms(plain, 2)
         lib, note = _grouped_mm_backward(x, w, g, dy)
         lib_ms = _device_ms(lib, 3, flush=True) if lib is not None else None
@@ -4505,14 +4502,16 @@ def phase_moe_backward(mg):
 def _ssd_bwd_bound(b, s, h, hd, ds, q, elt, g=1):
     """Least time of the scan's backward: per (batch row, chunk) the causal
     C B^T once per group and, per head, the causal dy x^T, W^T dy, V^T C
-    and V B products (q (q + 1) / 2 pairs each) and six [hd, ds] state
+    and V B products (q (q + 1) / 2 pairs each) and five [hd, ds] state
     products over the chunk's rows (the chunk state, the state
-    gradient's share, G B, x G, h C, h^T dy), 2 flops a product, at the
-    bf16 tensor-core peak (fp32 peak for fp32); against x, dy, B, C and
-    dt read once, dx, dB, dC and ddt written once, at the HBM rate."""
+    gradient's share, G B, x G, h^T dy; d(seg)'s carried term is
+    C . (h^T dy), q ds operations, not counted), 2 flops a product, at
+    the bf16 tensor-core peak (fp32 peak for fp32); against x, dy, B, C
+    and dt read once, dx, dB, dC and ddt written once, at the HBM
+    rate."""
     pairs = q * (q + 1) // 2
     flops = b * (s // q) * (g * 2 * pairs * ds
-                            + h * (2 * pairs * (2 * hd + 2 * ds) + 12 * q * hd * ds))
+                            + h * (2 * pairs * (2 * hd + 2 * ds) + 10 * q * hd * ds))
     n_bytes = elt * (3 * b * s * h * hd + 4 * b * s * g * ds) + 4 * (2 * b * s * h + 2 * h)
     ops_ms = flops / (BF16_FLOP_PER_S if elt == 2 else FP32_FLOP_PER_S) * 1e3
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -4537,14 +4536,15 @@ def _ssd_bwd_inputs(seed, b, s, h, hd, ds, g, dtype):
     return [t.requires_grad_(True) for t in leaves], draw(b, s, h, hd).to(dtype)
 
 
-def phase_ssd_backward(ss):
+def phase_ssd_backward(ss, split=False):
     """The SSD scan's backward kernels (through autograd) against the plain
     backward at mamba2-1.3b's training shape (x [4, 2048, 64, 64], d_state
     128, chunk 256) and zamba2's (x [4, 2048, 112, 64], d_state 64) in bf16
     on the mma route, and a small fp32 case with two groups on the FMA
     route (against the plain backward in fp64): each gradient within
     BWD_TOL of its largest, the same bits on two runs; mamba2's backward
-    timed beside its bound and the plain backward.  Returns the ssd_scan
+    timed beside its bound and the plain backward, and with ``split`` its
+    device time by kernel (``_kernel_split``).  Returns the ssd_scan
     record's bwd_* numbers."""
     import torch
 
@@ -4597,7 +4597,8 @@ def phase_ssd_backward(ss):
             _free()
             continue
         ms = _device_ms(kernel, 3, flush=True)
-        _kernel_split("ssd backward", kernel)
+        if split:
+            _kernel_split("ssd backward", kernel)
         plain_ms = _device_ms(plain, 1, flush=True)
         bound, by, flops, n_bytes = _ssd_bwd_bound(b, s, h, hd, ds, q, 2, g)
         print(f"{line}; device time per backward, L2 flushed: kernels {ms:.4f} ms, plain "
@@ -4671,7 +4672,7 @@ def _train_path(tag, cfg, opt, batch, seq, counted):
     return counts
 
 
-def phase_moe_train(mg, fa):
+def phase_moe_train(mg, fa, split=False):
     """MoE training on the card: the grouped GEMM's backward checks and
     times; then the main path, llama4-scout at full width and
     MOE_TRAIN_LAYERS layer(s) (bf16, AdamW with bf16 first moments and a
@@ -4684,7 +4685,7 @@ def phase_moe_train(mg, fa):
     from repro_torch.train import AdamWSettings
 
     t = time.perf_counter()
-    nums = phase_moe_backward(mg)
+    nums = phase_moe_backward(mg, split)
     t = _phase_done("moe_gemm backward checks and times", t)
     cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
     opt = AdamWSettings(lr=LM_TRAIN_LR, warmup_steps=LM_TRAIN_WARMUP,
@@ -4706,9 +4707,12 @@ def phase_moe_train(mg, fa):
 
 @contextlib.contextmanager
 def _cpu_scan_fp64():
-    """The model's scan on CPU tensors through the plain version in fp64
-    (calls on the card still launch the kernel): the CPU reference of the
-    SSM configs' fp32 checks.  Their A_log gradients sum d(seg)'s reverse
+    """The model's scan on CPU tensors through the plain version in fp64:
+    the CPU reference of the SSM configs' fp32 checks.  For the context's
+    duration it replaces the module attribute
+    ``repro_torch.models.ssm.ssd_scan``; only CPU tensors take the
+    replacement, calls on the card still launch the kernel, and the port
+    itself has no such switch.  Their A_log gradients sum d(seg)'s reverse
     cumulative sums, which cancel: the CPU's fp32 autograd is 1.2e-4 to
     2.9e-4 of A_log's largest gradient off the same with the scan in fp64
     (narrow mamba2), the kernels on an H100 (which sum that part in fp64)
@@ -4731,7 +4735,7 @@ def _cpu_scan_fp64():
         ssm_mod.ssd_scan = kernel
 
 
-def phase_mamba_train(ss, fa):
+def phase_mamba_train(ss, fa, split=False):
     """Mamba2 training on the card: the SSD scan's backward checks and
     times; then the main path, mamba2-1.3b at full width and depth (bf16,
     AdamW), every scan call launching its forward kernels (twice a layer
@@ -4742,7 +4746,7 @@ def phase_mamba_train(ss, fa):
     from repro_torch.train import AdamWSettings
 
     t = time.perf_counter()
-    nums = phase_ssd_backward(ss)
+    nums = phase_ssd_backward(ss, split)
     t = _phase_done("ssd_scan backward checks and times", t)
     cfg = get_config(MAMBA_ARCH)
     if MAMBA_TRAIN_LAYERS is not None:
@@ -4868,9 +4872,9 @@ def main(argv=None) -> int:
             return 0
         elif args.only in ("moe_train", "mamba_train"):
             if args.only == "moe_train":
-                nums, counts = phase_moe_train(mg, fa)
+                nums, counts = phase_moe_train(mg, fa, split=True)
             else:
-                nums, counts = phase_mamba_train(ss, fa)
+                nums, counts = phase_mamba_train(ss, fa, split=True)
             print(json.dumps({"backward": nums, "train_launches": counts}))
             print(f"[done] {time.perf_counter() - t_start:.1f} s ({args.only} only)")
             return 0

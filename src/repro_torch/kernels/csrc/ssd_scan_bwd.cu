@@ -20,7 +20,8 @@
 // sum_i (C_i.B_j) exp(seg_i - seg_j) (dy_i.x_j) and e2_j = exp(tot -
 // seg_j) x_j.(G_c B_j); d(seg)_k = r_k - dt_k (e1_k + e2_k), r_k = the row
 // sum of M_kj = (C_k.B_j) exp(seg_k - seg_j) dt_j (dy_k.x_j) plus
-// exp(seg_k) dy_k.(h_c C_k), and d(seg)_{q-1} += exp(tot) sum(G_c * h_c) +
+// exp(seg_k) C_k.(h_c^T dy_k) (dC_k's carried term dotted with C_k: no
+// product of its own), and d(seg)_{q-1} += exp(tot) sum(G_c * h_c) +
 // sum_j dt_j e2_j; then d(A dt) is d(seg)'s reverse cumulative sum within
 // the chunk, ddt = e1 + e2 + A d(A dt) and dA = sum dt d(A dt).  The mask
 // is applied before the exp.  ssd_scan.py's ssd_scan_backward_plain is the
@@ -69,12 +70,14 @@
 // No atomics: every sum has one order, so two runs give the same bits.
 //
 // Bound.  At mamba2-1.3b's training shape (x [4, 2048, 64, 64] bf16, ds
-// 128, chunk 256) the products are ~3.5x the forward's (C B^T and dy x^T
-// on both tile kernels, the weights' products with dy, C and B, the four
-// state products), ~90 GFLOP, 0.09 ms at the bf16 tensor-core rate; the
-// bytes (x, dy, B, C read, dx, dB, dC written, the fp32 scratch of the
-// states and the per-head dB, dC) ~0.7 GB, 0.2 ms at 3.35 TB/s: a first
-// design, to be measured.
+// 128, chunk 256) the function's least work is C B^T once a group, four
+// causal products a head (dy x^T, W^T dy, V^T C, V B) and five [hd, ds]
+// state products a head (the chunk state, the state gradient's share,
+// G_c B, x G_c, h_c^T dy): ~95 GFLOP, 0.096 ms at the bf16 tensor-core
+// rate.  These kernels do more: C B^T per head and dy x^T in both tile
+// kernels, and they move ~0.7 GB (x, dy, B, C read, dx, dB, dC written,
+// the fp32 scratch of the states and the per-head dB, dC), 0.2 ms at
+// 3.35 TB/s.
 //
 // Built with nvcc for sm_90a into a shared library with a plain C
 // interface (repro_torch/kernels/ssd_scan.py loads it with ctypes).
@@ -512,10 +515,10 @@ __global__ void __launch_bounds__(kFThreads) bwd_queries_fma(const Args a) {
   float* seg = fsm + 2 * R;     // [q]
   float* dtv = seg + q;         // [q]
   float* Ci = dtv + q;          // [R][ds]
-  float* Bj = Ci + R * ds;      // [R][ds]
+  float* Bj = Ci + R * ds;      // [R][ds] (then h_c^T dy_i)
   float* ac = Bj + R * ds;      // [R][ds] dC accumulators
   float* Yi = ac + R * ds;      // [R][hd]
-  float* Xj = Yi + R * hd;      // [R][hd] (then h_c C_i)
+  float* Xj = Yi + R * hd;      // [R][hd]
   float* Vm = Xj + R * hd;      // [R][R]
   float* Mm = Vm + R * R;       // [R][R]
   const float* DT = ch.dt(a);
@@ -567,24 +570,19 @@ __global__ void __launch_bounds__(kFThreads) bwd_queries_fma(const Args a) {
   }
   __syncthreads();
   const float* Hc = a.hst + ch.bhc * hd * ds;
-  for (int e = tid; e < R * hd; e += kFThreads) {
-    const int ii = e / hd, p = e % hd;
+  for (int e = tid; e < ni * ds; e += kFThreads) {
+    const int ii = e / ds, n = e % ds, i = i0 + ii;
     float s = 0.f;
-    for (int n = 0; n < ds; ++n) s += Hc[p * ds + n] * Ci[ii * ds + n];
-    Xj[e] = s;  // (h_c C_i)[p]
+    for (int p = 0; p < hd; ++p) s += Hc[p * ds + n] * Yi[ii * hd + p];
+    Bj[e] = s;  // (h_c^T dy_i)[n]
+    a.dCp[ch.row(a, i) * ds + n] = ac[e] + expf(seg[i]) * s;
   }
   __syncthreads();
   if (tid < ni) {
     const int i = i0 + tid;
     float s = 0.f;
-    for (int p = 0; p < hd; ++p) s += Yi[tid * hd + p] * Xj[tid * hd + p];
+    for (int n = 0; n < ds; ++n) s += Ci[tid * ds + n] * Bj[tid * ds + n];
     a.aux[(ch.bhc * q + i) * 4 + 2] = rm[tid] + static_cast<double>(expf(seg[i]) * s);
-  }
-  for (int e = tid; e < ni * ds; e += kFThreads) {
-    const int ii = e / ds, n = e % ds, i = i0 + ii;
-    float s = 0.f;
-    for (int p = 0; p < hd; ++p) s += Hc[p * ds + n] * Yi[ii * hd + p];
-    a.dCp[ch.row(a, i) * ds + n] = ac[e] + expf(seg[i]) * s;
   }
 }
 
@@ -932,7 +930,7 @@ __global__ void __launch_bounds__(kMmaThreads) bwd_keys_mma(const Args a) {
 template <int HD>
 __global__ void __launch_bounds__(kMmaThreads) bwd_queries_mma(const Args a) {
   extern __shared__ __align__(16) unsigned char dsm[];
-  constexpr int HG = HD / 16, XP = HD + 8;
+  constexpr int XP = HD + 8;
   const int q = a.q, ds = a.ds, BP = ds + 8, dg = ds / 16;
   const int nqt = (q + kRows - 1) / kRows;
   const Chunk ch(a, blockIdx.x / nqt, blockIdx.y, blockIdx.z);
@@ -1001,28 +999,23 @@ __global__ void __launch_bounds__(kMmaThreads) bwd_queries_mma(const Args a) {
   load_state(Bj, a.hst + ch.bhc * HD * ds, HD, ds, tid);
   __syncthreads();
   const float esa = ia < q ? expf(sia) : 0.f, esb = ib < q ? expf(sib) : 0.f;
+  // dC's carried term e^seg_i (h_c^T dy_i), and d(seg)'s, its dot with C_i
   float na = 0.f, nb = 0.f;
-  {
-    float hc[2 * HG][4];
-    zero(hc);
-    mma_nt<HG>(hc, Ci, BP, r0, Bj, BP, ds, HG, lane);  // (h_c C_i)[p]
-#pragma unroll
-    for (int nt = 0; nt < 2 * HG; ++nt) {
-      const int p = 8 * nt + 2 * tq;
-      const float2 u = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(Yi + (r0 + gq) * XP + p));
-      const float2 v = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(Yi + (r0 + gq + 8) * XP + p));
-      na += u.x * hc[nt][0] + u.y * hc[nt][1];
-      nb += v.x * hc[nt][2] + v.y * hc[nt][3];
-    }
-  }
   {
     float hy[2 * kDsGroups][4];
     zero(hy);
     mma_sn<kDsGroups>(hy, Yi, XP, r0, HD, Bj, BP, dg, lane);  // (h_c^T dy_i)[n]
 #pragma unroll
     for (int nt = 0; nt < 2 * kDsGroups; ++nt) {
+      if (nt < 2 * dg) {
+        const int n = 8 * nt + 2 * tq;
+        const float2 u = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(Ci + (r0 + gq) * BP + n));
+        const float2 v = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(Ci + (r0 + gq + 8) * BP + n));
+        na += u.x * hy[nt][0] + u.y * hy[nt][1];
+        nb += v.x * hy[nt][2] + v.y * hy[nt][3];
+      }
       ac[nt][0] += esa * hy[nt][0];
       ac[nt][1] += esa * hy[nt][1];
       ac[nt][2] += esb * hy[nt][2];

@@ -330,13 +330,12 @@ def ssd_scan_backward_plain(
     dx = torch.einsum("bchij,bcihp->bcjhp", W, dyf) + (dtc * e_tail)[..., None] * GB
     dBh = (torch.einsum("bchij,bcihn->bcjhn", V, Ch)
            + (e_tail * dtc)[..., None] * torch.einsum("bchpn,bcjhp->bcjhn", Gl, xf))
-    dCh = (torch.einsum("bchij,bcjhn->bcihn", V, Bh)
-           + e_seg[..., None] * torch.einsum("bchpn,bcihp->bcihn", H, dyf))
+    HY = torch.einsum("bchpn,bcihp->bcihn", H, dyf)  # h_c^T dy_i
+    dCh = torch.einsum("bchij,bcjhn->bcihn", V, Bh) + e_seg[..., None] * HY
     e1 = E.sum(-2).permute(0, 1, 3, 2)  # [b, nc, j, h]
     e2 = e_tail * (xf * GB).sum(-1)
     rows = (E * dtj).sum(-1).permute(0, 1, 3, 2)  # [b, nc, i, h]
-    HC = torch.einsum("bchpn,bcihn->bcihp", H, Ch)
-    n_inter = e_seg * (dyf * HC).sum(-1)
+    n_inter = e_seg * (Ch * HY).sum(-1)  # dy_i . (h_c C_i), as C_i . (h_c^T dy_i)
     # d(seg), then d(A dt) by a reverse cumulative sum within the chunk
     dseg = rows + n_inter - dtc * (e1 + e2)
     dtot = torch.exp(tot) * (Gl * H).sum((-1, -2)) + (dtc * e2).sum(2)
