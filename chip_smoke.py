@@ -192,12 +192,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
      the plain version at internlm2's training shape q [4, 16, 2048, 128]
      over 8 KV heads, a small fp32 case, gemma2's window and softcap,
      hubert's non-causal D 80 and zamba2's D 112 (fp32 within 1e-4, bf16
-     within 2e-2 of the largest gradient; two runs give the same bits),
-     bf16 times beside the bound, the plain backward and SDPA's; 8 AdamW
+     within 2e-2 of the largest gradient; two runs give the same bits;
+     bf16 on the "wgmma" route, fp32 on "fma"), bf16 times beside the
+     bound, the plain backward and SDPA's, and at the training shape one
+     call's device time by kernel (delta, dK/dV, dQ) under the profiler;
+     8 AdamW
      steps of ``TrainStepBuilder`` on the ``TokenPipeline`` stream's
      first 2 batches of 4 x 2048 tokens in turn (finite losses and grad
      norms, the loss falling, 48 forward and 24
-     backward attention launches a step), step wall, tokens/s, peak
+     backward attention launches a step, every backward on the "wgmma"
+     route), step wall, tokens/s, peak
      memory and one profiled step; two fp32 steps of a narrow config on
      the card against the CPU, a resumed run (train 2, save, restore,
      train 2) equal to 4 direct steps bit for bit under
@@ -209,13 +213,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
      8192]; down x [4096, 8192], w [16, 8192, 5120]; a skewed routing with
      one expert holding most rows, two empty and rows past the sum) and a
      small fp32 case (fp32 within 1e-4, bf16 within 2e-2 of the largest
-     gradient; two runs give the same bits), the gate/up backward timed
-     beside its bound, the plain backward and ``torch._grouped_mm``'s
-     backward; 4 AdamW steps (bf16 first moments, a factored second
+     gradient; two runs give the same bits; bf16 on the "wgmma" route,
+     fp32 on "fma"), the gate/up backward timed beside its bound, the
+     plain backward and ``torch._grouped_mm``'s backward, and its device
+     time by kernel, dx and dw (under the profiler with ``--only``, else
+     each kernel alone with events); 4 AdamW steps (bf16 first moments, a factored second
      moment) of ``TrainStepBuilder`` on the stream's first 2 batches of 2
      x 2048 tokens in turn (the loss falling; 6 grouped-GEMM and 2
      attention forward launches, 3 and 1 backward launches, a layer and
-     step), step wall, tokens/s, peak memory and one profiled step; two
+     step, the backwards on "wgmma"), step wall, tokens/s, peak memory and one profiled step; two
      fp32 steps of a narrow llama4 on the card against the CPU;
  17. mamba_train (mamba2-1.3b, bf16, full width and depth): the SSD scan's
      backward kernels against the plain backward at mamba2-1.3b's training
@@ -243,7 +249,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      ``bwd_ms``,
      ``bwd_bound_ms`` and ``bwd_library_ms``; flash's its backward's,
      ``bwd_ms``, ``bwd_plain_ms``, ``bwd_bound_ms``, ``bwd_library_ms``,
-     ``bwd_source`` and ``bwd_launches``, as are the moe_gemm and ssd_scan
+     ``bwd_source``, ``bwd_split_ms`` (device ms a call by kernel: the
+     profiler's for flash and ssd_scan, moe_gemm's dx and dw each launched
+     alone) and ``bwd_launches``, as are the moe_gemm and ssd_scan
      records' from phases 16 and 17), the card's name and power limit,
      and the closing status line.
 
@@ -738,6 +746,49 @@ def _device_us(avg):
     )
 
 
+# spin kernels that open every trace: the profiler drops a trace's first
+# device rows, more of them the longer the process has run (one process
+# kept 10, 7, 4, 2, 0 of a short trace's 10 rows over two minutes:
+# ``profiler_probe.py``; after the whole smoke's earlier phases, a trace
+# of one short call kept none), so a trace counts only once a row of its
+# spin kernels survives, the work's rows after them then whole
+TRACE_SPINS = 256
+
+
+def _traced(fn, device_only=False):
+    """Runs ``fn`` under ``torch.profiler`` (the device's activity alone
+    with ``device_only``, else the host's too), after TRACE_SPINS spin
+    kernels (``torch.cuda._sleep``) and the card synchronized; again, with
+    four times the spins, up to three times while the trace keeps no spin
+    kernel's row.  Returns ``fn``'s result and the trace's device rows
+    (``key_averages``, largest first), the spin kernels' left out."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CUDA] if device_only else [ProfilerActivity.CPU,
+                                                         ProfilerActivity.CUDA]
+    spins = TRACE_SPINS
+    for attempt in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            for _ in range(spins):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            out = fn()
+            torch.cuda.synchronize()
+        rows = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
+        kept = sum(a.count for a in rows if "spin_kernel" in a.key)
+        if kept:
+            break
+        print(f"[trace] attempt {attempt + 1}: none of {spins} spin kernels' rows kept",
+              flush=True)
+        spins *= 4
+    rows = sorted((a for a in rows if "spin_kernel" not in a.key), key=_device_us,
+                  reverse=True)
+    return out, rows
+
+
 def phase_profile(cands):
     """Where the engine's time goes: one short run per cell unprofiled,
     then the same run under torch.profiler, tracing the device only (the
@@ -747,8 +798,6 @@ def phase_profile(cands):
     against both runs' wall times.  Not part of the main path (its
     launches are not counted)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import simulate_batch_torch
 
@@ -765,12 +814,7 @@ def phase_profile(cands):
             return time.perf_counter() - t0, max(r.n_events for r in res)
 
         wall, iters = run()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            wall_p, _ = run()
-        rows = sorted(
-            (a for a in prof.key_averages() if a.device_type == DeviceType.CUDA),
-            key=_device_us, reverse=True,
-        )
+        (wall_p, _), rows = _traced(run, device_only=True)
         if not rows:
             raise AssertionError(f"profile {job}: the profiler traced no device time")
         kernels = [a for a in rows if not a.key.startswith(("Memcpy", "Memset"))]
@@ -1398,8 +1442,6 @@ def phase_sage(sa, wf):
     one profiled step.  Returns the kernel numbers and the path's
     launches per kernel."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch.core import plan_baseline, testbed_cluster
     from repro_torch.core.units import BYTES_PER_GB, BYTES_PER_MIB
@@ -1504,41 +1546,25 @@ def phase_sage(sa, wf):
 
     # one profiled step: the device's busy share of a whole step
     def step():
+        t0 = time.perf_counter()
         feats, blocks, labels, _ = sample()
         loss, _ = sage_loss(model, batch_to(feats, blocks, labels, device="cuda"))
         loss.backward()
         sgd_step(model, lr=0.1)
         torch.cuda.synchronize()
+        return time.perf_counter() - t0
 
-    # the profiler can lose the first device events it traces, so a step
-    # runs as its warm-up and the next one is kept; the kept step must
-    # hold every launch of the aggregation and the batch's copies to the
-    # card, or it is traced again
+    # the traced step must hold every launch of the aggregation and the
+    # batch's copies to the card
     expect = {"sage_fwd": 3, "sage_bwd_prep": 2, "sage_bwd_fill": 2, "sage_bwd_long": 2,
               "sage_bwd_sum": 2}
-    for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1), acc_events=True) as prof:
-            for _ in range(2):
-                t0 = time.perf_counter()
-                step()
-                wall = time.perf_counter() - t0
-                prof.step()
-        # the schedule's step annotation carries its kernels' time again
-        rows = sorted(
-            (a for a in prof.key_averages() if a.device_type == DeviceType.CUDA
-             and not a.key.startswith("ProfilerStep")),
-            key=_device_us, reverse=True,
-        )
-        seen = {k: sum(a.count for a in rows if re.search(rf"::{k}[<(]", a.key))
-                for k in expect}
-        copies = sum(a.count for a in rows if a.key.startswith("Memcpy HtoD"))
-        if seen == expect and copies > 0:
-            break
-        print(f"[sage profile] trace {attempt + 1} incomplete: aggregation launches "
-              f"{seen} of {expect}, {copies} host-to-device copies", flush=True)
-    else:
-        raise AssertionError("the profiled GraphSAGE step lost device events")
+    wall, rows = _traced(step)
+    seen = {k: sum(a.count for a in rows if re.search(rf"::{k}[<(]", a.key))
+            for k in expect}
+    copies = sum(a.count for a in rows if a.key.startswith("Memcpy HtoD"))
+    if seen != expect or copies == 0:
+        raise AssertionError(f"the profiled GraphSAGE step lost device events: aggregation "
+                             f"launches {seen} of {expect}, {copies} host-to-device copies")
     dev_ms = sum(_device_us(a) for a in rows) / 1e3
     kernel_ms = sum(_device_us(a) for a in rows if not a.key.startswith("Memcpy")) / 1e3
     print(f"[sage profile] one step: wall {wall:.3f} s profiled, device busy "
@@ -2003,8 +2029,6 @@ def _profile_tick(tag, model, ms_tick, kernels):
     split into the kernels named in ``kernels`` (name -> key substrings),
     the matrix products (cuBLAS) and the rest (copies, casts, norms, ...)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import ServeEngine
 
@@ -2013,16 +2037,13 @@ def _profile_tick(tag, model, ms_tick, kernels):
         engine.submit(r)
     for _ in range(4):
         engine.tick()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def tick():
         t0 = time.perf_counter()
         engine.tick()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = sorted(
-        (a for a in prof.key_averages() if a.device_type == DeviceType.CUDA),
-        key=_device_us, reverse=True,
-    )
+        return time.perf_counter() - t0
+
+    wall, rows = _traced(tick)
     dev_ms = sum(_device_us(a) for a in rows) / 1e3
     n_kernels = sum(a.count for a in rows)
     print(f"[{tag}] one tick at position {engine.pos - 1}: wall {1e3 * wall:.3f} "
@@ -3957,11 +3978,21 @@ def _sdpa_backward(q, k, v, do, kw):
     return lambda: torch.autograd.grad(out, ins, do, retain_graph=True)
 
 
+def _bwd_route_moved(tag, wrapper, before, route, n):
+    """Fail unless ``wrapper``'s backward launches by route moved from
+    ``before`` by exactly ``n`` on ``route`` (and nowhere else)."""
+    moved = {r: c - before[r] for r, c in wrapper.backward_launches_by_route.items()}
+    _expect_routes(tag, {"backward": moved}, {"backward": {route: n}})
+
+
 def phase_flash_backward(fa):
     """The backward kernels against autograd through the plain version at
-    BWD_CHECKS (each giving the same bits on two runs), and their times
-    in bf16 (L2 flushed) beside the bound, the plain backward's and SDPA's.
-    Returns the training shape's numbers as the flash record's bwd_*."""
+    BWD_CHECKS (each giving the same bits on two runs, bf16 on the wgmma
+    route and fp32 on the FMA one), and their times in bf16 (L2 flushed)
+    beside the bound, the plain backward's and SDPA's; at the training
+    shape also one call's device time by kernel (delta, dK/dV, dQ:
+    ``_kernel_split``, since one C call launches all three).  Returns the
+    training shape's numbers as the flash record's bwd_*."""
     import torch
 
     worst, out = 0.0, {}
@@ -3969,12 +4000,15 @@ def phase_flash_backward(fa):
         q, k, v, do = _bwd_qkv(seed, B, H, KV, S, D, getattr(torch, dtype))
         ins = (q, k, v)
         before = fa.flash_attention.backward_launches
+        by_route = dict(fa.flash_attention.backward_launches_by_route)
         kernel = lambda: torch.autograd.grad(o_k, ins, do, retain_graph=True)
         o_k = fa.flash_attention(q, k, v, **kw)
         got, again = kernel(), kernel()
         torch.cuda.synchronize()
         if fa.flash_attention.backward_launches != before + 2:
             raise AssertionError(f"flash backward at {label}: the kernel did not launch")
+        _bwd_route_moved(f"flash backward {label}", fa.flash_attention, by_route,
+                         fa.backward_route(q.dtype), 2)
         o_p = fa.flash_attention_plain(q, k, v, **kw)
         plain = lambda: torch.autograd.grad(o_p, ins, do, retain_graph=True)
         want = plain()
@@ -3998,6 +4032,7 @@ def phase_flash_backward(fa):
             print(line, flush=True)
             continue
         ms = _device_ms(kernel, 3, flush=True)
+        parts = _kernel_split(f"flash backward {label}", kernel) if not out else None
         plain_ms = _device_ms(plain, 1, flush=True)
         lib = _sdpa_backward(q, k, v, do, kw)
         lib_ms = _device_ms(lib, 3, flush=True) if lib is not None else None
@@ -4014,7 +4049,8 @@ def phase_flash_backward(fa):
         if not out:
             out = {"bwd_ms": ms, "bwd_plain_ms": plain_ms, "bwd_bound_ms": bound,
                    "bwd_bound_by": by, "bwd_library_ms": lib_ms,
-                   "bwd_source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"}
+                   "bwd_source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                   "bwd_split_ms": parts}
         del q, k, v, do
         _free()
     out["bwd_max_abs_err"] = worst
@@ -4206,8 +4242,8 @@ _TRAIN_SPLIT = ("ssd backward", "flash backward", "moe backward", "moe forward",
                 "ssd forward", "flash forward")
 _TRAIN_SPLIT_WORDS = (("bwd_states", "bwd_pass", "bwd_keys", "bwd_queries", "bwd_finalize",
                        "bwd_reduce"),
-                      ("bwd_prep", "bwd_dkdv", "bwd_dq"),
-                      ("moe_wgmma_dx", "moe_dx_fma", "moe_dw_"),
+                      ("bwd_delta", "bwd_dkdv", "bwd_dq"),
+                      ("moe_wgmma_dx", "moe_dx_fma", "moe_dw_", "moe_wgmma_dw"),
                       ("moe_",), ("ssd_",), ("flash_",))
 
 
@@ -4216,17 +4252,14 @@ def _profile_train_step(builder, state, batch, step_ms, tag="lm train"):
     into the attention's, the grouped GEMM's and the SSD scan's forward and
     backward kernels, the matrix products and the rest."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def step():
         t0 = time.perf_counter()
-        state, _ = builder.train_step(state, batch)
+        out, _ = builder.train_step(state, batch)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = sorted((a for a in prof.key_averages() if a.device_type == DeviceType.CUDA),
-                  key=_device_us, reverse=True)
+        return out, time.perf_counter() - t0
+
+    (state, wall), rows = _traced(step)
     dev_ms = sum(_device_us(a) for a in rows) / 1e3
     split = dict.fromkeys(_TRAIN_SPLIT + ("matmul", "other"), 0.0)
     for a in rows:
@@ -4286,6 +4319,7 @@ def phase_lm_train(fa):
     # the main path: counts at 0 just before, read just after
     fa.flash_attention.launches = 0
     fa.flash_attention.backward_launches = 0
+    fa.flash_attention.backward_launches_by_route = dict.fromkeys(fa.BWD_ROUTES, 0)
     losses, norms, walls = [], [], []
     for i in range(LM_TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -4297,6 +4331,9 @@ def phase_lm_train(fa):
     if not (fwd == 2 * cfg.n_layers * LM_TRAIN_STEPS and bwd == cfg.n_layers * LM_TRAIN_STEPS):
         raise AssertionError(f"lm train: flash launched {fwd} forwards and {bwd} backwards "
                              f"over {LM_TRAIN_STEPS} steps of {cfg.n_layers} layers")
+    _expect_routes("lm train backward",
+                   {"flash_attention": dict(fa.flash_attention.backward_launches_by_route)},
+                   {"flash_attention": {fa.backward_route(torch.bfloat16): bwd}})
     if not all(math.isfinite(x) for x in losses + norms) or not losses[-1] < losses[0]:
         raise AssertionError(f"lm train: losses {losses}, grad norms {norms}")
     step_ms = 1e3 * float(np.median(walls[1:]))
@@ -4388,27 +4425,20 @@ def _grouped_mm_backward(x, w, gs, dy):
     return None, reason
 
 
-def _kernel_split(tag, fn):
-    """One call of ``fn`` under the profiler, after a warm-up call in the
-    same trace: its device time by kernel, printed, largest first;
-    returns ``{name: ms}``.  Run only where its phase runs alone
-    (``--only``): in the whole smoke, after lm_train's profile, the
-    profiler showed no device rows."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
+# calls of a backward traced together for its split by kernel
+SPLIT_CALLS = 32
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1), acc_events=True) as prof:
-        for _ in range(2):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-    rows = sorted((a for a in prof.key_averages() if a.device_type == DeviceType.CUDA
-                   and not a.key.startswith("ProfilerStep")),
-                  key=_device_us, reverse=True)
+
+def _kernel_split(tag, fn):
+    """``fn``'s device time per call by kernel (L2 warm): after a warm-up
+    call, SPLIT_CALLS calls in one trace (``_traced``), each kernel's
+    device time over its launches divided by SPLIT_CALLS; printed,
+    largest first.  Returns ``{name: ms}``."""
+    fn()
+    _, rows = _traced(lambda: [fn() for _ in range(SPLIT_CALLS)])
     split = {re.sub(r"\(anonymous namespace\)::", "", a.key).split("(")[0][:48]:
-             _device_us(a) / 1e3 for a in rows}
+             _device_us(a) / SPLIT_CALLS / 1e3 for a in rows}
+    split = dict(sorted(split.items(), key=lambda kv: kv[1], reverse=True))
     print(f"[{tag}] one call's device time by kernel (profiler, L2 warm): "
           + (", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
              or "no device rows"),
@@ -4416,16 +4446,17 @@ def _kernel_split(tag, fn):
     return split
 
 
-def phase_moe_backward(mg, split=False):
+def phase_moe_backward(mg):
     """The grouped GEMM's backward kernels (through autograd) against the
     plain backward at llama4-scout's training shapes (gate/up and down at
     T = MOE_TRAIN_BATCH x MOE_TRAIN_SEQ routed rows, uniform and skewed
     routing: one expert holding most rows, two empty, rows past the sum)
     in bf16 and a small fp32 case: each gradient within BWD_TOL of its
-    largest, the same bits on two runs; the gate/up backward timed
-    beside its bound, the plain backward and ``torch._grouped_mm``'s
-    backward, and with ``split`` its device time by kernel
-    (``_kernel_split``).  Returns the moe_gemm record's bwd_* numbers."""
+    largest, the same bits on two runs, bf16 on the wgmma route and fp32
+    on the FMA one; the gate/up backward timed beside its bound, the plain
+    backward and ``torch._grouped_mm``'s backward, and dx and dw each
+    launched alone, timed as the backward is.  Returns the moe_gemm
+    record's bwd_* numbers."""
     import torch
 
     from repro_torch.configs import get_config
@@ -4448,10 +4479,13 @@ def phase_moe_backward(mg, split=False):
         o = mg.moe_grouped_gemm(xa, wa, g)
         kernel = lambda: torch.autograd.grad(o, (xa, wa), dy, retain_graph=True)
         before = mg.moe_grouped_gemm.backward_launches
+        by_route = dict(mg.moe_grouped_gemm.backward_launches_by_route)
         got, again = kernel(), kernel()
         torch.cuda.synchronize()
         if mg.moe_grouped_gemm.backward_launches != before + 2:
             raise AssertionError(f"moe backward at {label}: the kernels did not launch")
+        _bwd_route_moved(f"moe backward {label}", mg.moe_grouped_gemm, by_route,
+                         mg.backward_route(x.dtype), 2)
         plain = lambda: mg.moe_grouped_gemm_backward_plain(x, w, g, dy)
         want = plain()
         errs = []
@@ -4478,8 +4512,11 @@ def phase_moe_backward(mg, split=False):
             _free()
             continue
         ms = _device_ms(kernel, 3, flush=True)
-        if split:
-            _kernel_split("moe backward", kernel)
+        parts = {part: _device_ms(lambda want=want: mg._launch_backward(x, w, g, dy, *want),
+                                  3, flush=True)
+                 for part, want in (("dx", (True, False)), ("dw", (False, True)))}
+        print("[moe backward] each kernel alone, device time per call, L2 flushed: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()), flush=True)
         plain_ms = _event_ms(plain, 2)
         lib, note = _grouped_mm_backward(x, w, g, dy)
         lib_ms = _device_ms(lib, 3, flush=True) if lib is not None else None
@@ -4492,7 +4529,8 @@ def phase_moe_backward(mg, split=False):
               f"{100 * bound / ms:.1f}% of the kernels' time)", flush=True)
         out = {"bwd_ms": ms, "bwd_plain_ms": plain_ms, "bwd_bound_ms": bound,
                "bwd_bound_by": by, "bwd_library_ms": lib_ms,
-               "bwd_source": "src/repro_torch/kernels/csrc/moe_gemm_bwd.cu"}
+               "bwd_source": "src/repro_torch/kernels/csrc/moe_gemm_bwd.cu",
+               "bwd_split_ms": parts}
         del x, w, g, dy, xa, wa, o, lib
         _free()
     out["bwd_max_abs_err"] = worst
@@ -4536,16 +4574,16 @@ def _ssd_bwd_inputs(seed, b, s, h, hd, ds, g, dtype):
     return [t.requires_grad_(True) for t in leaves], draw(b, s, h, hd).to(dtype)
 
 
-def phase_ssd_backward(ss, split=False):
+def phase_ssd_backward(ss):
     """The SSD scan's backward kernels (through autograd) against the plain
     backward at mamba2-1.3b's training shape (x [4, 2048, 64, 64], d_state
     128, chunk 256) and zamba2's (x [4, 2048, 112, 64], d_state 64) in bf16
     on the mma route, and a small fp32 case with two groups on the FMA
     route (against the plain backward in fp64): each gradient within
     BWD_TOL of its largest, the same bits on two runs; mamba2's backward
-    timed beside its bound and the plain backward, and with ``split`` its
-    device time by kernel (``_kernel_split``).  Returns the ssd_scan
-    record's bwd_* numbers."""
+    timed beside its bound and the plain backward, and its device time by
+    kernel (``_kernel_split``).  Returns the ssd_scan record's bwd_*
+    numbers."""
     import torch
 
     from repro_torch.configs import get_config
@@ -4597,8 +4635,7 @@ def phase_ssd_backward(ss, split=False):
             _free()
             continue
         ms = _device_ms(kernel, 3, flush=True)
-        if split:
-            _kernel_split("ssd backward", kernel)
+        parts = _kernel_split("ssd backward", kernel)
         plain_ms = _device_ms(plain, 1, flush=True)
         bound, by, flops, n_bytes = _ssd_bwd_bound(b, s, h, hd, ds, q, 2, g)
         print(f"{line}; device time per backward, L2 flushed: kernels {ms:.4f} ms, plain "
@@ -4607,7 +4644,8 @@ def phase_ssd_backward(ss, split=False):
               f"kernels' time)", flush=True)
         out = {"bwd_ms": ms, "bwd_plain_ms": plain_ms, "bwd_bound_ms": bound,
                "bwd_bound_by": by, "bwd_library_ms": None,
-               "bwd_source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu"}
+               "bwd_source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+               "bwd_split_ms": parts}
         del leaves, dy, y, args, ref
         _free()
     out["bwd_max_abs_err"] = worst
@@ -4619,9 +4657,11 @@ def _train_path(tag, cfg, opt, batch, seq, counted):
     card, ``TRAIN_STEPS`` AdamW steps of ``TrainStepBuilder`` over the
     stream's first LM_TRAIN_CYCLE batches of ``batch`` x ``seq`` tokens in
     turn, with every kernel's forward and backward counts set to 0 just
-    before the steps and read just after (``counted``: the wrappers);
-    finite losses and grad norms, the loss falling.  Returns the counts
-    ``{name: (forward, backward)}``."""
+    before the steps and read just after (``counted``: ``{name: (wrapper,
+    route)}``, every backward launch on ``route``, the route the
+    wrapper's module gives the path's shapes); finite losses and grad
+    norms, the loss falling.  Returns the counts ``{name: (forward,
+    backward)}``."""
     import torch
 
     from repro_torch.data.pipeline import TokenPipeline
@@ -4643,9 +4683,10 @@ def _train_path(tag, cfg, opt, batch, seq, counted):
           f"{cfg.vocab}, {n_params} parameters in {cfg.dtype}, optimizer m {opt.m_dtype}, "
           f"factored v {opt.factored_v}; built on the card in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for fn in counted.values():
+    for fn, _ in counted.values():
         fn.launches = 0
         fn.backward_launches = 0
+        fn.backward_launches_by_route = dict.fromkeys(fn.backward_launches_by_route, 0)
     losses, norms, walls = [], [], []
     for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -4653,7 +4694,10 @@ def _train_path(tag, cfg, opt, batch, seq, counted):
         losses.append(met["loss"].item())  # waits for the step
         norms.append(met["grad_norm"].item())
         walls.append(time.perf_counter() - t0)
-    counts = {n: (fn.launches, fn.backward_launches) for n, fn in counted.items()}
+    counts = {n: (fn.launches, fn.backward_launches) for n, (fn, _) in counted.items()}
+    _expect_routes(f"{tag} backward",
+                   {n: dict(fn.backward_launches_by_route) for n, (fn, _) in counted.items()},
+                   {n: {route: fn.backward_launches} for n, (fn, route) in counted.items()})
     if not all(math.isfinite(x) for x in losses + norms) or not losses[-1] < losses[0]:
         raise AssertionError(f"{tag}: losses {losses}, grad norms {norms}")
     step_ms = 1e3 * float(np.median(walls[1:]))
@@ -4672,7 +4716,7 @@ def _train_path(tag, cfg, opt, batch, seq, counted):
     return counts
 
 
-def phase_moe_train(mg, fa, split=False):
+def phase_moe_train(mg, fa):
     """MoE training on the card: the grouped GEMM's backward checks and
     times; then the main path, llama4-scout at full width and
     MOE_TRAIN_LAYERS layer(s) (bf16, AdamW with bf16 first moments and a
@@ -4681,17 +4725,21 @@ def phase_moe_train(mg, fa, split=False):
     and its backward kernels (once); then the fp32 card-vs-CPU check on a
     narrow llama4.  Returns the moe_gemm record's bwd_* numbers and the
     path's counts."""
+    import torch
+
     from repro_torch.configs import get_config
     from repro_torch.train import AdamWSettings
 
     t = time.perf_counter()
-    nums = phase_moe_backward(mg, split)
+    nums = phase_moe_backward(mg)
     t = _phase_done("moe_gemm backward checks and times", t)
     cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
     opt = AdamWSettings(lr=LM_TRAIN_LR, warmup_steps=LM_TRAIN_WARMUP,
                         total_steps=LM_TRAIN_TOTAL, m_dtype="bfloat16", factored_v=True)
+    bf16 = torch.bfloat16
     counts = _train_path("moe train", cfg, opt, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ,
-                         {"moe_gemm": mg.moe_grouped_gemm, "flash_attention": fa.flash_attention})
+                         {"moe_gemm": (mg.moe_grouped_gemm, mg.backward_route(bf16)),
+                          "flash_attention": (fa.flash_attention, fa.backward_route(bf16))})
     L, n = cfg.n_layers, TRAIN_STEPS
     if counts != {"moe_gemm": (6 * L * n, 3 * L * n), "flash_attention": (2 * L * n, L * n)}:
         raise AssertionError(f"moe train: launches {counts} over {n} steps of {L} layers")
@@ -4735,26 +4783,31 @@ def _cpu_scan_fp64():
         ssm_mod.ssd_scan = kernel
 
 
-def phase_mamba_train(ss, fa, split=False):
+def phase_mamba_train(ss, fa):
     """Mamba2 training on the card: the SSD scan's backward checks and
     times; then the main path, mamba2-1.3b at full width and depth (bf16,
     AdamW), every scan call launching its forward kernels (twice a layer
     and step: rematerialised) and its backward kernels (once); then the
     fp32 card-vs-CPU checks on a narrow mamba2 and a narrow zamba2 (the
     CPU's scan in fp64: ``_train_card_vs_cpu``'s ``scan64``).  Returns the ssd_scan record's bwd_* numbers and the path's counts."""
+    import torch
+
     from repro_torch.configs import get_config
     from repro_torch.train import AdamWSettings
 
     t = time.perf_counter()
-    nums = phase_ssd_backward(ss, split)
+    nums = phase_ssd_backward(ss)
     t = _phase_done("ssd_scan backward checks and times", t)
     cfg = get_config(MAMBA_ARCH)
     if MAMBA_TRAIN_LAYERS is not None:
         cfg = dataclasses.replace(cfg, n_layers=MAMBA_TRAIN_LAYERS)
     opt = AdamWSettings(lr=LM_TRAIN_LR, warmup_steps=LM_TRAIN_WARMUP,
                         total_steps=LM_TRAIN_TOTAL)
+    sp, bf16 = cfg.ssm, torch.bfloat16
     counts = _train_path("mamba train", cfg, opt, MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ,
-                         {"ssd_scan": ss.ssd_scan, "flash_attention": fa.flash_attention})
+                         {"ssd_scan": (ss.ssd_scan,
+                                       ss.backward_route(bf16, sp.head_dim, sp.d_state, sp.chunk)),
+                          "flash_attention": (fa.flash_attention, fa.backward_route(bf16))})
     L, n = cfg.n_layers, TRAIN_STEPS
     if counts != {"ssd_scan": (2 * L * n, L * n), "flash_attention": (0, 0)}:
         raise AssertionError(f"mamba train: launches {counts} over {n} steps of {L} layers")
@@ -4872,9 +4925,9 @@ def main(argv=None) -> int:
             return 0
         elif args.only in ("moe_train", "mamba_train"):
             if args.only == "moe_train":
-                nums, counts = phase_moe_train(mg, fa, split=True)
+                nums, counts = phase_moe_train(mg, fa)
             else:
-                nums, counts = phase_mamba_train(ss, fa, split=True)
+                nums, counts = phase_mamba_train(ss, fa)
             print(json.dumps({"backward": nums, "train_launches": counts}))
             print(f"[done] {time.perf_counter() - t_start:.1f} s ({args.only} only)")
             return 0

@@ -94,6 +94,13 @@
 //     every chunk's m at -1e30, so the merge weights the chunks equally:
 //     the mean of v over all Sk keys, as before.
 //
+// For training, the two prefill kernels (wgmma, tiled) also write each
+// query row's logsumexp when the caller passes an lse buffer: fp32, the
+// natural domain, log sum_j exp(s_j) over the row's scores as above (the
+// wgmma kernel's m and l are in the log2 domain: (m + log2 l) ln 2), at
+// lse[(b H + h) lse_stride + i].  flash_attention_bwd.cu reads it and
+// recomputes nothing.  Serving passes null: its outputs keep their bits.
+//
 // q, k, v and o are addressed by strides (elements; the head dimension is
 // contiguous), so the model's [B, S, N, D] projections and the [B, Smax,
 // KV, D] cache are read in place (TMA needs 16-byte aligned addresses and
@@ -144,6 +151,11 @@ struct Args {
   // partial results' scratch when n_chunks > 1
   int lo, hi, chunk, n_chunks;
   float* part;
+  // prefill, for the backward: each row's logsumexp, natural domain
+  // (lse[(b H + h) lse_stride + i] = log sum_j exp(s_ij) over the scores
+  // s of the note above, masked keys at -1e30), or null (serving)
+  float* lse;
+  int lse_stride;
 };
 
 __device__ __forceinline__ bool key_valid(const Args& a, int qp, int kp) {
@@ -294,6 +306,8 @@ __global__ void __launch_bounds__(kTiledThreads, 2)
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= a.Sq) continue;
+    if (a.lse != nullptr && tx == 0)
+      a.lse[(static_cast<long long>(b) * a.H + h) * a.lse_stride + row] = m[i] + logf(l[i]);
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < NC; ++c)
@@ -309,6 +323,7 @@ constexpr int kWK = 64;       // keys of a K or V tile
 constexpr int kWStages = 4;   // K and V tiles in flight
 constexpr int kWThreads = 128 * kWGroups + 32;  // and one producer warp
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // 2^x on the special-function unit (ex2.approx: relative error ~2^-22;
 // 2^-inf = 0), for the softmax of the bf16 kernel
@@ -522,6 +537,10 @@ __global__ void __launch_bounds__(kWThreads, 1)
     l[r] += __shfl_xor_sync(kFull, l[r], 2);
     const int row = g0 + r0 + 8 * r;
     if (row >= a.Sq) continue;
+    // the logsumexp leaves the log2 domain: (m + log2 l) ln 2
+    if (a.lse != nullptr && c2 == 0)
+      a.lse[(static_cast<long long>(b) * a.H + h) * a.lse_stride + row] =
+          (m[r] + log2f(l[r])) * kLn2;
     const float denom = fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
@@ -721,7 +740,6 @@ constexpr int kMmaThreads = kMmaWarps * 32;
 constexpr int kMmaRows = 16;    // query heads of a block: the mma's M
 constexpr int kMmaKeys = 16;    // keys of a warp's tile
 constexpr int kMmaStages = 3;   // a warp's tiles in flight
-constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct MLayout {
@@ -1119,6 +1137,9 @@ extern "C" {
 // flash_wgmma (bfloat16, D in {64, 80, 96, 112, 128}).  Decode reads the keys
 // [lo, hi] in n_chunks chunks of `chunk` keys; with n_chunks > 1, scratch
 // holds B * H * n_chunks * (D + 2) floats (the other routes ignore these).
+// lse, when not null (routes 0 and 2 only; decode ignores it), receives
+// each query row's logsumexp at lse[(b * H + h) * lse_stride + i], fp32,
+// natural domain (the backward's input); serving passes null.
 int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o,
     long long q_sb, long long q_sh, long long q_ss,
@@ -1128,13 +1149,14 @@ int repro_flash_attention(
     int B, int H, int KV, int Sq, int Sk, int D,
     float scale, float softcap, int causal, int window, int q_offset,
     int dtype, int route, int lo, int hi, int chunk, int n_chunks, void* scratch,
-    void* stream) {
+    void* lse, int lse_stride, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   const Args a{q, k, v, o,
                q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
                H, KV, Sq, Sk, scale, softcap, causal, window, q_offset,
-               D, lo, hi, chunk, n_chunks, static_cast<float*>(scratch)};
+               D, lo, hi, chunk, n_chunks, static_cast<float*>(scratch),
+               static_cast<float*>(lse), lse_stride};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(a, B, D, route, s);
   if (dtype == 1) return dispatch<__nv_bfloat16>(a, B, D, route, s);

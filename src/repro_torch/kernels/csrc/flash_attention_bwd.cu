@@ -19,41 +19,68 @@
 // q_offset 0 (self-attention over a whole sequence), so every row sees
 // at least its own key; the wrapper refuses anything else.
 //
-// Three kernels, launched in turn on the caller's stream:
+// lse is the forward's: flash_attention.cu's prefill kernels write each
+// row's logsumexp when asked, in the natural domain (log sum_j exp(s_ij)),
+// fp32, at lse[(b H + h) ls + i] with ls = S rounded up to 64 (so a tile
+// of 64 rows is one aligned 256-byte copy; rows past S are never read
+// unmasked).  The bf16 kernels work in the log2 domain of the forward's
+// softmax: P = 2^(s log2 e - lse log2 e).  Nothing recomputes it.
 //
-//   * prep: one block per (64 query rows, head, batch) recomputes each
-//     row's logsumexp under the mask and softcap (the forward keeps none)
-//     with an online max and sum over key tiles, and delta_i =
-//     rowsum(dO_i * O_i), both fp32, into [B, H, S] scratch;
-//   * dkdv: one block per (64 keys, KV head, batch).  It loops over the
-//     group's H / KV query heads and over the query tiles that can see
-//     its keys (from the tile's first key under `causal`, to its last key
-//     + window - 1 under `window`), recomputes P and dS for the tile, and
-//     accumulates dV and dK for its 64 keys in registers: the group's sum
-//     stays inside the block, in a fixed order;
-//   * dq: one block per (64 query rows, head, batch) loops over the key
-//     tiles its rows can see (the forward's key range), recomputes P and
-//     dS and accumulates dQ in registers.
+// Launched in turn on the caller's stream:
 //
-// Two forms of them, chosen by dtype:
+//   * delta: delta_i = rowsum(dO_i * O_i) in fp32 into [B, H, ls] scratch
+//     (zero past S), 8 lanes a row; bound by its bytes;
+//   * dkdv: one block per key tile, KV head and batch.  It loops over the
+//     group's H / KV query heads in order and over the query tiles that
+//     can see its keys (from the tile's first key under `causal`, to its
+//     last key + window - 1 under `window`), forms P^T and dS^T for the
+//     tile and accumulates dV and dK for its keys in registers: the
+//     group's sum stays inside the block, in a fixed order;
+//   * dq: one block per query tile, head and batch loops over the key
+//     tiles its rows can see (the forward's key range), forms dS and
+//     accumulates dQ in registers.
 //
-//   * bf16 (bwd_prep_mma, bwd_dkdv_mma, bwd_dq_mma): 4 warps a block,
-//     each warp 16 of its 64 rows, tiles of 64 in shared memory as bf16
-//     (loaded with cp.async), every product on mma.sync m16n8k16 with
-//     fp32 sums; P^T and dS^T (dS in dq) go from a product's accumulator
-//     straight into the next product's A registers, rounded to bf16 (P as
-//     the plain forward rounds its weights to v's dtype);
-//   * fp32 (bwd_prep, bwd_dkdv, bwd_dq): plain fp32 FMAs through shared
-//     memory (the layout of flash_attention.cu's tiled kernel: 256
-//     threads, each with 4 rows by 2 columns of a score tile and 4 rows
-//     by D / 16 columns of an output), so the fp32 gradients carry no
-//     rounding but the sums' order.
+// Two forms of dkdv and dq, chosen by dtype:
+//
+//   * bf16 (bwd_dkdv_wgmma, bwd_dq_wgmma): the forward's Hopper shape.
+//     Bound by operations: 2.5 times the forward's 4 D flops per visible
+//     pair (five products) at the 989 TFLOP/s bf16 rate; these kernels
+//     form seven (S and dP twice, once a kernel, so no dS leaves the
+//     chip and no dQ needs atomics), all on wgmma with fp32 sums.  A
+//     block is two consumer warpgroups of 64 rows each (keys in dkdv,
+//     queries in dq) and a producer warpgroup, which hands most of its
+//     registers to the consumers (setmaxnreg: 232 a consumer thread, so
+//     dK and dV stay in registers unspilled).  The producer's thread 0 loads
+//     the block's own 128 rows once (K and V in dkdv, Q and dO in dq)
+//     and streams the other side's 64-row tiles through a ring of
+//     kStages stages with TMA (4-D tensor maps over the tensors' own
+//     strides, 128-byte swizzle, zeros past the edges), each stage's
+//     arrival counted on an mbarrier and its release on another; in dkdv
+//     a stage also carries the query tile's lse and delta (two 256-byte
+//     bulk copies).  dkdv: S^T = K Q^T and dP^T = V dO^T from shared
+//     memory (both K-major); P^T and dS^T in registers (the mask, the
+//     softcap's 1 - tanh^2, bf16 rounding, as the forward rounds P) are
+//     at once the A operands of dV += P^T dO and dK += dS^T Q, whose B
+//     (dO, Q) is read MN-major through the transpose flag.  dq: S = Q
+//     K^T and dP = dO V^T, dS in registers, dQ += dS K with K read
+//     MN-major.  Every warpgroup visits only the tiles its own rows see.
+//     Under `causal` the blocks with the most tiles start first: key
+//     tile 0 (which every later query sees) in dkdv, the last query
+//     tile in dq.  D 80, 96 and 112 run the D = 128 layout over maps of
+//     the true D (TMA fills the columns past it with zeros, which add
+//     nothing; they are not stored), as the forward does;
+//   * fp32 (bwd_dkdv, bwd_dq): plain fp32 FMAs through shared memory
+//     (the layout of flash_attention.cu's tiled kernel: 256 threads,
+//     each with 4 rows by 2 columns of a score tile and 4 rows by D / 16
+//     columns of an output), so the fp32 gradients carry no rounding but
+//     the sums' order.
 //
 // No atomics: two runs give the same bits.  Every tensor is addressed by
 // strides (elements; the head dimension contiguous; for bf16, 16-byte
-// aligned rows, which the wrapper checks), so the model's [B, S, N, D]
-// projections, their gradients and the [B, S, H, D] output gradient are
-// read and written in place.  D in {64, 80, 96, 112, 128}.
+// aligned addresses and strides, which TMA needs and the wrapper checks),
+// so the model's [B, S, N, D] projections, their gradients and the [B,
+// S, H, D] output gradient are read and written in place.  D in {64, 80,
+// 96, 112, 128}.
 //
 // Built with nvcc for sm_90a into a shared library with a plain C
 // interface (repro_torch/kernels/flash_attention.py loads it with ctypes).
@@ -66,11 +93,10 @@
 
 namespace {
 
-constexpr float kMasked = -1e30f;  // the forward's masked score
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;  // 16 x 16: ty owns 4 rows, tx 2 columns
-constexpr int kRows = 64;      // query rows (prep, dq) or keys (dkdv) of a block
-constexpr int kCols = 32;      // keys (prep, dq) or query rows (dkdv) of a tile
+constexpr int kRows = 64;      // query rows (dq) or keys (dkdv) of a block
+constexpr int kCols = 32;      // keys (dq) or query rows (dkdv) of a tile
 constexpr int kPP = kCols + 1;
 
 struct View {  // one [B, N, S, D] tensor: base and strides (elements)
@@ -80,9 +106,10 @@ struct View {  // one [B, N, S, D] tensor: base and strides (elements)
 
 struct Args {
   View q, k, v, o, dout, dq, dk, dv;
-  float* lse;    // [B, H, S]
-  float* delta;  // [B, H, S]
-  int H, KV, S;
+  const float* lse;  // [B, H, ls]: the forward's
+  float* delta;      // [B, H, ls]
+  int H, KV, S, D;
+  int ls;  // the row stride of lse and delta: S rounded up to 64
   float scale;
   float softcap;  // <= 0: none
   int causal;
@@ -128,101 +155,49 @@ __device__ __forceinline__ void key_range(const Args& a, int qa, int qb, int* lo
   *hi = (a.causal && qb < a.S - 1) ? qb : a.S - 1;
 }
 
-// the sum over the 16 lanes of a half-warp (the lanes of one ty)
-__device__ __forceinline__ float half_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
+// The query rows [lo, hi] that can see keys [ka, kb] (kb < S)
+__device__ __forceinline__ void query_range(const Args& a, int ka, int kb, int* lo, int* hi) {
+  *lo = a.causal ? ka : 0;
+  *hi = (a.window > 0 && kb + a.window - 1 < a.S - 1) ? kb + a.window - 1 : a.S - 1;
 }
 
-__device__ __forceinline__ float half_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
-  return v;
-}
+// ----------------------------------------------------------------- delta
+constexpr int kDeltaThreads = 256;  // 8 lanes a row, 32 rows a block
 
-// ------------------------------------------------------------------ prep
-template <int D>
-constexpr int prep_floats() {
-  return kRows * (D + 1) + kCols * (D + 1);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) bwd_prep(const Args a) {
-  constexpr int DP = D + 1;
-  extern __shared__ float smem[];
-  float* sQ = smem;           // [kRows][DP]
-  float* sK = sQ + kRows * DP;  // [kCols][DP]
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kRows;
-  const int kvh = h / (a.H / a.KV);
-  const float* Q = row0<float>(a.q, b, h);
-  const float* K = row0<float>(a.k, b, kvh);
-  const float* O = row0<float>(a.o, b, h);
-  const float* dO = row0<float>(a.dout, b, h);
-  const long long stat = (static_cast<long long>(b) * a.H + h) * a.S;
-
-  // delta = rowsum(dO * O), a row's columns over its 16 lanes
+// delta[(b H + h) ls + i] = rowsum(dO_i * O_i) for i < S, 0 for S <= i < ls
+template <typename T>
+__global__ void __launch_bounds__(kDeltaThreads) bwd_delta(const Args a) {
+  const int sub = threadIdx.x % 8;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int i = blockIdx.x * (kDeltaThreads / 8) + threadIdx.x / 8;
+  float part = 0.0f;
+  if (i < a.S) {
+    const T* O = row0<T>(a.o, b, h) + i * a.o.ss;
+    const T* dO = row0<T>(a.dout, b, h) + i * a.dout.ss;
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      // 16-byte pieces (the wrapper checks bf16 rows' alignment)
+      for (int c = 8 * sub; c < a.D; c += 64) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(O + c);
+        const uint4 dv = *reinterpret_cast<const uint4*>(dO + c);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    float part = 0.0f;
-    if (row < a.S)
-      for (int c = tx; c < D; c += 16)
-        part = fmaf(dO[row * a.dout.ss + c], O[row * a.o.ss + c], part);
-    part = half_sum(part);
-    if (tx == 0 && row < a.S) a.delta[stat + row] = part;
-  }
-
-  load_rows<D>(sQ, DP, Q, a.q.ss, q0, kRows, a.S);
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kMasked;
-    l[i] = 0.0f;
-  }
-  const int q_last = (q0 + kRows < a.S ? q0 + kRows : a.S) - 1;
-  int lo, hi;
-  key_range(a, q0, q_last, &lo, &hi);
-  for (int k0 = (lo / kCols) * kCols; k0 <= hi; k0 += kCols) {
-    __syncthreads();  // the previous tile's readers are done
-    load_rows<D>(sK, DP, K, a.k.ss, k0, kCols, a.S);
-    __syncthreads();
-    float s[4][2] = {};
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float k0v = sK[tx * DP + d], k1v = sK[(tx + 16) * DP + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float qv = sQ[(ty * 4 + i) * DP + d];
-        s[i][0] = fmaf(qv, k0v, s[i][0]);
-        s[i][1] = fmaf(qv, k1v, s[i][1]);
+        for (int u = 0; u < 4; ++u) {
+          const float2 of = __bfloat1622float2(o2[u]), df = __bfloat1622float2(d2[u]);
+          part = fmaf(df.x, of.x, part);
+          part = fmaf(df.y, of.y, part);
+        }
       }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty * 4 + i;
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int kp = k0 + tx + 16 * jj;
-        float unused;
-        // a key past S is no key: -inf gives it weight exactly 0
-        s[i][jj] = kp >= a.S ? -INFINITY
-                   : visible(a, qp, kp) ? capped(a, s[i][jj], &unused) : kMasked;
-      }
-      const float m_new = fmaxf(m[i], half_max(fmaxf(s[i][0], s[i][1])));
-      const float rs = half_sum(expf(s[i][0] - m_new) + expf(s[i][1] - m_new));
-      l[i] = l[i] * expf(m[i] - m_new) + rs;
-      m[i] = m_new;
+    } else {
+      for (int c = sub; c < a.D; c += 8) part = fmaf(dO[c], O[c], part);
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (tx == 0 && row < a.S) a.lse[stat + row] = m[i] + logf(l[i]);
-  }
+  for (int off = 4; off > 0; off >>= 1) part += __shfl_xor_sync(kFull, part, off);
+  if (sub == 0 && i < a.ls) a.delta[static_cast<long long>(bh) * a.ls + i] = part;
 }
 
+// ------------------------------------------------------------------ fp32
 // P and dS of one score tile entry
 __device__ __forceinline__ void p_ds(const Args& a, bool vis, float dot, float dp, float lse,
                                      float delta, float* p_out, float* ds_out) {
@@ -280,7 +255,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv(const Args a) {
     const int h = kvh * G + g;
     const float* Q = row0<float>(a.q, b, h);
     const float* dO = row0<float>(a.dout, b, h);
-    const long long stat = (static_cast<long long>(b) * a.H + h) * a.S;
+    const long long stat = (static_cast<long long>(b) * a.H + h) * a.ls;
     for (int t0 = (q_lo / kCols) * kCols; t0 <= q_hi; t0 += kCols) {
       __syncthreads();  // the previous tile's readers are done
       load_rows<D>(sQ, DP, Q, a.q.ss, t0, kCols, a.S);
@@ -377,7 +352,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq(const Args a) {
   const int kvh = h / (a.H / a.KV);
   const float* K = row0<float>(a.k, b, kvh);
   const float* V = row0<float>(a.v, b, kvh);
-  const long long stat = (static_cast<long long>(b) * a.H + h) * a.S;
+  const long long stat = (static_cast<long long>(b) * a.H + h) * a.ls;
 
   load_rows<D>(sQ, DP, row0<float>(a.q, b, h), a.q.ss, q0, kRows, a.S);
   load_rows<D>(sdO, DP, row0<float>(a.dout, b, h), a.dout.ss, q0, kRows, a.S);
@@ -452,340 +427,460 @@ __global__ void __launch_bounds__(kThreads) bwd_dq(const Args a) {
 }
 
 
-// ------------------------------------------------------- bf16: mma.sync
-// The same three kernels for bf16 on the tensor cores: 4 warps a block,
-// each warp 16 rows of the block's 64 (queries for prep and dq, keys for
-// dkdv); the tiles sit in shared memory as bf16 (rows padded by 16
-// bytes, so ldmatrix reads them without bank conflicts), loaded with
-// cp.async; every product is mma.sync m16n8k16 with fp32 sums.  A score
-// tile's accumulator becomes the A operand of the next product in
-// registers (P^T or dS^T against dO or Q; dS against K), rounded to bf16
-// as the products take it.
-constexpr int kMmaThreads = 128;
-constexpr int kMmaRows = 64;  // rows of a block and of a tile of the other side
-using bf16 = __nv_bfloat16;
 
-template <int D>
-__host__ __device__ constexpr int mma_ld() {
-  return D + 8;
+// ------------------------------------------------------------ bf16: wgmma
+using bf16 = __nv_bfloat16;
+constexpr int kGRows = 64;                 // rows of a consumer warpgroup
+constexpr int kGroups = 2;                 // consumer warpgroups of a block
+constexpr int kBRows = kGRows * kGroups;   // the block's own rows
+constexpr int kTile = 64;                  // rows of a ring tile
+constexpr int kStages = 3;                 // ring tiles in flight
+constexpr int kWThreads = 128 * (kGroups + 1);  // and a producer warpgroup
+// registers a thread: a block's 384 threads launch with 168 each; the
+// producer warpgroup gives back all but 40, which lifts the consumers to
+// 232 (dK and dV's 128 fp32 accumulators and two 64 x 64 score tiles)
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special-function unit (ex2.approx: relative error ~2^-22;
+// 2^-inf = 0), as the forward's softmax
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// rows [r0, r0 + 64) of one head (row stride ss) into s[64][LD] with
-// cp.async, zeros past S
+// Shared memory of the two kernels (D the layout's: 64 or 128): the
+// block's own two operands ([halves][kBRows][64] each), then the ring;
+// every tile 1024-byte aligned for the 128-byte swizzle.  A dkdv stage is
+// Q and dO tiles and the tile's lse and delta (512 bytes, padded to
+// 1024); a dq stage K and V tiles.
 template <int D>
-__device__ __forceinline__ void async_rows(bf16* s, const bf16* t, long long ss, int r0, int S) {
-  constexpr int LD = mma_ld<D>(), CH = D / 8;  // 16-byte chunks a row
-  for (int e = threadIdx.x; e < kMmaRows * CH; e += kMmaThreads) {
-    const int r = e / CH, c = e % CH, i = r0 + r;
-    const bool in = i < S;
-    sm90::cp_async16(s + r * LD + c * 8, t + (in ? i : 0) * ss + c * 8, in ? 16 : 0);
+struct BLayout {
+  static constexpr int kHalves = D / 64;
+  static constexpr int kOwnBytes = kBRows * D * 2;
+  static constexpr int kTileBytes = kTile * D * 2;
+  static constexpr int kDkdvStage = 2 * kTileBytes + 1024;
+  static constexpr int kDqStage = 2 * kTileBytes;
+  static constexpr int kDkdvBar = 2 * kOwnBytes + kStages * kDkdvStage;
+  static constexpr int kDqBar = 2 * kOwnBytes + kStages * kDqStage;
+  // and 1024 bytes of room to align the tiles
+  static constexpr int kDkdvBytes = 1024 + kDkdvBar + (1 + 2 * kStages) * 8;
+  static constexpr int kDqBytes = 1024 + kDqBar + (1 + 2 * kStages) * 8;
+};
+
+// P (or P^T) and dS (or dS^T) of one 64 x 64 score tile in the
+// accumulator layout of sm90.cuh, in place: sc holds the raw dot products
+// and becomes P, dp holds dO . v and becomes dS.  l2 and dl give the
+// logsumexp (log2 domain) and delta of element i's query.
+template <bool CAP, typename LSE, typename DELTA>
+__device__ __forceinline__ void tile_p_ds(const Args& a, float (&sc)[32], float (&dp)[32],
+                                     LSE l2, DELTA dl) {
+  const float scale2 = a.scale * kLog2e;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    float s2, dsdx = 1.0f;
+    if constexpr (CAP) {
+      const float t = tanhf(sc[i] * a.scale / a.softcap);
+      s2 = a.softcap * kLog2e * t;
+      dsdx = 1.0f - t * t;
+    } else {
+      s2 = sc[i] * scale2;
+    }
+    const float p = ex2(s2 - l2(i));
+    sc[i] = p;
+    dp[i] = p * (dp[i] - dl(i)) * dsdx;
   }
 }
 
-// the A fragment of the 16 x 16 block at (r0, c0) of a row-major tile
-template <int LD>
-__device__ __forceinline__ void frag_a(uint32_t (&f)[4], const bf16* s, int r0, int c0) {
-  const int l = threadIdx.x & 31, mi = l >> 3;
-  sm90::ldmatrix_x4(f, s + (r0 + (l & 7) + 8 * (mi & 1)) * LD + c0 + 8 * (mi >> 1));
+// the A operands of 4 k16 steps (64 columns of an accumulator) in bf16
+__device__ __forceinline__ void pack_a(uint32_t (&f)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) f[kk][q] = sm90::pack_bf16(x[8 * kk + 2 * q], x[8 * kk + 2 * q + 1]);
 }
 
-// B fragments of the n8 tiles n0 and n0 + 8 at k0, from an [n][k] tile:
-// f[0], f[1] for the first, f[2], f[3] for the second
-template <int LD>
-__device__ __forceinline__ void frag_b(uint32_t (&f)[4], const bf16* s, int n0, int k0) {
-  const int l = threadIdx.x & 31, mi = l >> 3;
-  sm90::ldmatrix_x4(f, s + (n0 + (l & 7) + 8 * (mi >> 1)) * LD + k0 + 8 * (mi & 1));
-}
-
-// the same from a [k][n] tile (a transposed load)
-template <int LD>
-__device__ __forceinline__ void frag_bt(uint32_t (&f)[4], const bf16* s, int k0, int n0) {
-  const int l = threadIdx.x & 31, mi = l >> 3;
-  sm90::ldmatrix_x4_trans(f, s + (k0 + (l & 7) + 8 * (mi & 1)) * LD + n0 + 8 * (mi >> 1));
-}
-
-// acc[NT][4] (+)= A rows (r0, 16 of them) of sa . B^T over k = D, where
-// B's rows (n) are n0 .. n0 + 8 NT of sb: both tiles [rows][D]
-template <int D, int NT>
-__device__ __forceinline__ void mma_rows(float (&acc)[NT][4], const bf16* sa, int r0,
-                                         const bf16* sb, int n0) {
-  constexpr int LD = mma_ld<D>();
+// acc (+)= A . B over D for two 64-row operands in shared memory, both
+// K-major ([halves][rows][64]): A's halves a_rows rows apart, B's b_rows
+template <int D>
+__device__ __forceinline__ void scores(float (&acc)[32], const uint8_t* sa, int a_rows,
+                                       const uint8_t* sb, int b_rows) {
+  using sm90::kAtomBytes;
+  using sm90::kRowBytes;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t af[4];
-    frag_a<LD>(af, sa, r0, 16 * kk);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t bf[4];
-      frag_b<LD>(bf, sb, n0 + 16 * np, 16 * kk);
-      sm90::mma_bf16_16816(acc[2 * np], af, bf[0], bf[1]);
-      sm90::mma_bf16_16816(acc[2 * np + 1], af, bf[2], bf[3]);
-    }
+    const int step = (kk % 4) * 32;  // k16 inside a 64-column half
+    sm90::wgmma_ss_n64<0>(acc, sm90::desc(sa + (kk / 4) * a_rows * kRowBytes + step, 16, kAtomBytes),
+                          sm90::desc(sb + (kk / 4) * b_rows * kRowBytes + step, 16, kAtomBytes),
+                          kk > 0);
   }
 }
 
-// acc[D / 8][4] += A (registers: 2 k-steps over 32 rows of sb) . sb rows
-// k0 .. k0 + 31, all D columns
+// acc += A (registers: 4 k16 steps over 64 tile rows) . B, B a 64-row
+// tile in shared memory read MN-major ([halves][64][64], D contiguous)
 template <int D>
-__device__ __forceinline__ void mma_acc(float (&acc)[D / 8][4], const uint32_t (&a)[2][4],
-                                        const bf16* sb, int k0) {
-  constexpr int LD = mma_ld<D>();
+__device__ __forceinline__ void accumulate(float (&acc)[D / 2], const uint32_t (&a)[4][4],
+                                           const uint8_t* sb) {
 #pragma unroll
-  for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
-      uint32_t bf[4];
-      frag_bt<LD>(bf, sb, k0 + 16 * kk, 16 * np);
-      sm90::mma_bf16_16816(acc[2 * np], a[kk], bf[0], bf[1]);
-      sm90::mma_bf16_16816(acc[2 * np + 1], a[kk], bf[2], bf[3]);
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = sm90::desc(sb + kk * 16 * sm90::kRowBytes, kTile * sm90::kRowBytes,
+                                   sm90::kAtomBytes);
+    if constexpr (D == 64) {
+      sm90::wgmma_rs_n64<1>(acc, a[kk], db, 1);
+    } else {
+      sm90::wgmma_rs_n128<1>(acc, a[kk], db, 1);
     }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(kFull, v, 1));
-  return fmaxf(v, __shfl_xor_sync(kFull, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(kFull, v, 1);
-  return v + __shfl_xor_sync(kFull, v, 2);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
-
-// delta = rowsum(dO * O) of rows [q0, q0 + 64): each warp 16 rows
-__device__ __forceinline__ void delta_rows(const Args& a, const bf16* O, const bf16* dO,
-                                           long long stat, int q0, int D) {
-  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  for (int r = 0; r < 16; ++r) {
-    const int row = q0 + 16 * w + r;
-    float part = 0.0f;
-    if (row < a.S)
-      for (int c = l; c < D; c += 32)
-        part = fmaf(__bfloat162float(dO[row * a.dout.ss + c]),
-                    __bfloat162float(O[row * a.o.ss + c]), part);
-    part = warp_sum(part);
-    if (l == 0 && row < a.S) a.delta[stat + row] = part;
   }
 }
 
+// rows (r0, r0 + 8) of a warpgroup's accumulator [64 x D], times scale,
+// as bf16 pairs into one head of t (rows past S and columns past the true
+// D not stored)
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads) bwd_prep_mma(const Args a) {
-  constexpr int LD = mma_ld<D>();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [64][LD]
-  bf16* sK = sQ + kMmaRows * LD;                  // [64][LD]
-  const int w = threadIdx.x >> 5, l = threadIdx.x & 31, g = l >> 2, tq = l & 3;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kMmaRows;
-  const int kvh = h / (a.H / a.KV);
-  const long long stat = (static_cast<long long>(b) * a.H + h) * a.S;
-  async_rows<D>(sQ, row0<bf16>(a.q, b, h), a.q.ss, q0, a.S);
-  sm90::cp_async_commit();
-  delta_rows(a, row0<bf16>(a.o, b, h), row0<bf16>(a.dout, b, h), stat, q0, D);
-  const bf16* K = row0<bf16>(a.k, b, kvh);
-
-  float m[2] = {kMasked, kMasked}, lsum[2] = {0.0f, 0.0f};
-  const int q_last = (q0 + kMmaRows < a.S ? q0 + kMmaRows : a.S) - 1;
-  int lo, hi;
-  key_range(a, q0, q_last, &lo, &hi);
-  for (int k0 = (lo / kMmaRows) * kMmaRows; k0 <= hi; k0 += kMmaRows) {
-    __syncthreads();  // the previous tile's readers are done
-    async_rows<D>(sK, K, a.k.ss, k0, a.S);
-    sm90::cp_async_commit();
-    sm90::cp_async_wait<0>();
-    __syncthreads();
-    float s[8][4] = {};
-    mma_rows<D, 8>(s, sQ, 16 * w, sK, 0);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int qp = q0 + 16 * w + g + 8 * i;
-      float t = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kp = k0 + 8 * j + 2 * tq + e;
-          float unused, v = s[j][2 * i + e];
-          v = kp >= a.S ? -INFINITY : visible(a, qp, kp) ? capped(a, v, &unused) : kMasked;
-          s[j][2 * i + e] = v;
-          t = fmaxf(t, v);
-        }
-      const float m_new = fmaxf(m[i], quad_max(t));
-      float rs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) rs += expf(s[j][2 * i] - m_new) + expf(s[j][2 * i + 1] - m_new);
-      lsum[i] = lsum[i] * expf(m[i] - m_new) + quad_sum(rs);
-      m[i] = m_new;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + 16 * w + g + 8 * i;
-    if (tq == 0 && row < a.S) a.lse[stat + row] = m[i] + logf(lsum[i]);
-  }
-}
-
-// P and dS of a 16 x 32 score tile (rows r, columns c), packed as the A
-// fragments of two k-steps over its 32 columns: s and dp are the tile's
-// scores and dO . v products in accumulator layout; qpos/kpos give the
-// query and key position of (row half i, column); lse and delta come
-// from shared memory by the query's index in its tile
-template <bool KEY_ROWS>
-__device__ __forceinline__ void p_ds_frags(const Args& a, const float (&s)[4][4],
-                                           const float (&dp)[4][4], int row0, int col0,
-                                           const float* sL, const float* sD, int stat_row0,
-                                           int stat_col0, uint32_t (&pa)[2][4],
-                                           uint32_t (&sa)[2][4]) {
-  const int l = threadIdx.x & 31, g = l >> 2, tq = l & 3;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float p[2], ds[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int r = row0 + g + 8 * i, c = col0 + 8 * j + 2 * tq + e;
-        // KEY_ROWS: rows are keys and columns queries (dk, dv); else the
-        // rows are queries (dq)
-        const int qp = KEY_ROWS ? c : r, kp = KEY_ROWS ? r : c;
-        const int qi = KEY_ROWS ? stat_col0 + 8 * j + 2 * tq + e : stat_row0 + g + 8 * i;
-        if (visible(a, qp, kp)) {
-          float dsdx;
-          const float sc = capped(a, s[j][2 * i + e], &dsdx);
-          p[e] = expf(sc - sL[qi]);
-          ds[e] = p[e] * (dp[j][2 * i + e] - sD[qi]) * dsdx;
-        } else {
-          p[e] = ds[e] = 0.0f;
-        }
-      }
-      pa[j >> 1][(j & 1) * 2 + i] = sm90::pack_bf16(p[0], p[1]);
-      sa[j >> 1][(j & 1) * 2 + i] = sm90::pack_bf16(ds[0], ds[1]);
-    }
-}
-
-// rows (r0 + g, + 8) of acc [16 x D] scaled, as bf16 pairs into t
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], const View& t, int b,
-                                           int n, int r0, int S, float scale) {
-  const int l = threadIdx.x & 31, g = l >> 2, tq = l & 3;
+__device__ __forceinline__ void store_acc(const float (&acc)[D / 2], const View& t, int b, int n,
+                                          int row0, int S, int true_d, float scale) {
+  const int lane = threadIdx.x % 32, r0 = 16 * ((threadIdx.x % 128) / 32) + lane / 4;
+  const int c2 = 2 * (lane % 4);
   bf16* base = static_cast<bf16*>(const_cast<void*>(t.p)) + b * t.sb + n * t.sh;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r0 + g + 8 * i;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r0 + 8 * r;
     if (row >= S) continue;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(base + row * t.ss + 8 * j + 2 * tq) =
-          __floats2bfloat162_rn(acc[j][2 * i] * scale, acc[j][2 * i + 1] * scale);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads) bwd_dkdv_mma(const Args a) {
-  constexpr int LD = mma_ld<D>(), NT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // [64][LD]: this block's keys
-  bf16* sV = sK + kMmaRows * LD;
-  bf16* sQ = sV + kMmaRows * LD;                  // a query tile
-  bf16* sdO = sQ + kMmaRows * LD;
-  float* sL = reinterpret_cast<float*>(sdO + kMmaRows * LD);  // [64]
-  float* sD = sL + kMmaRows;                                  // [64]
-  const int w = threadIdx.x >> 5;
-  const int b = blockIdx.z, kvh = blockIdx.y, k0 = blockIdx.x * kMmaRows;
-  const int G = a.H / a.KV, kr = 16 * w;
-  async_rows<D>(sK, row0<bf16>(a.k, b, kvh), a.k.ss, k0, a.S);
-  async_rows<D>(sV, row0<bf16>(a.v, b, kvh), a.v.ss, k0, a.S);
-  sm90::cp_async_commit();
-
-  float dk[NT][4] = {}, dv[NT][4] = {};
-  const int k_last = (k0 + kMmaRows < a.S ? k0 + kMmaRows : a.S) - 1;
-  const int q_lo = a.causal ? k0 : 0;
-  int q_hi = a.S - 1;
-  if (a.window > 0 && k_last + a.window - 1 < q_hi) q_hi = k_last + a.window - 1;
-  for (int gh = 0; gh < G; ++gh) {
-    const int h = kvh * G + gh;
-    const long long stat = (static_cast<long long>(b) * a.H + h) * a.S;
-    for (int t0 = (q_lo / kMmaRows) * kMmaRows; t0 <= q_hi; t0 += kMmaRows) {
-      __syncthreads();  // the previous tile's readers are done
-      async_rows<D>(sQ, row0<bf16>(a.q, b, h), a.q.ss, t0, a.S);
-      async_rows<D>(sdO, row0<bf16>(a.dout, b, h), a.dout.ss, t0, a.S);
-      sm90::cp_async_commit();
-      if (threadIdx.x < kMmaRows) {
-        const int r = t0 + threadIdx.x;
-        sL[threadIdx.x] = r < a.S ? a.lse[stat + r] : 0.0f;
-        sD[threadIdx.x] = r < a.S ? a.delta[stat + r] : 0.0f;
-      }
-      sm90::cp_async_wait<0>();
-      __syncthreads();
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int c0 = 32 * half;
-        float s[4][4] = {}, dp[4][4] = {};
-        mma_rows<D, 4>(s, sK, kr, sQ, c0);
-        mma_rows<D, 4>(dp, sV, kr, sdO, c0);
-        uint32_t pa[2][4], sa[2][4];
-        p_ds_frags<true>(a, s, dp, k0 + kr, t0 + c0, sL, sD, 0, c0, pa, sa);
-        mma_acc<D>(dv, pa, sdO, c0);
-        mma_acc<D>(dk, sa, sQ, c0);
-      }
+    for (int j = 0; j < D / 8; ++j) {
+      if (8 * j >= true_d) break;
+      *reinterpret_cast<__nv_bfloat162*>(base + row * t.ss + 8 * j + c2) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
     }
   }
-  store_rows<D>(dk, a.dk, b, kvh, k0 + kr, a.S, a.scale);
-  store_rows<D>(dv, a.dv, b, kvh, k0 + kr, a.S, 1.0f);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads) bwd_dq_mma(const Args a) {
-  constexpr int LD = mma_ld<D>(), NT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [64][LD]: this block's queries
-  bf16* sdO = sQ + kMmaRows * LD;
-  bf16* sK = sdO + kMmaRows * LD;                 // a key tile
-  bf16* sV = sK + kMmaRows * LD;
-  float* sL = reinterpret_cast<float*>(sV + kMmaRows * LD);  // [64]
-  float* sD = sL + kMmaRows;                                 // [64]
-  const int w = threadIdx.x >> 5;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kMmaRows;
-  const int kvh = h / (a.H / a.KV), qr = 16 * w;
-  const long long stat = (static_cast<long long>(b) * a.H + h) * a.S;
-  async_rows<D>(sQ, row0<bf16>(a.q, b, h), a.q.ss, q0, a.S);
-  async_rows<D>(sdO, row0<bf16>(a.dout, b, h), a.dout.ss, q0, a.S);
-  sm90::cp_async_commit();
-  if (threadIdx.x < kMmaRows) {
-    const int r = q0 + threadIdx.x;
-    sL[threadIdx.x] = r < a.S ? a.lse[stat + r] : 0.0f;
-    sD[threadIdx.x] = r < a.S ? a.delta[stat + r] : 0.0f;
-  }
-  const bf16* K = row0<bf16>(a.k, b, kvh);
-  const bf16* V = row0<bf16>(a.v, b, kvh);
+__global__ void __launch_bounds__(kWThreads, 1)
+    bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const __grid_constant__ CUtensorMap dmap, const Args a, int n_key_tiles) {
+  using L = BLayout<D>;
+  using sm90::kRowBytes;
+  constexpr int kStageBytes = L::kDkdvStage;
+  extern __shared__ uint8_t raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* sK = base;  // [halves][kBRows][64]: this block's keys
+  uint8_t* sV = sK + L::kOwnBytes;
+  uint8_t* ring = sV + L::kOwnBytes;  // stages: Q, dO tiles, then lse and delta
+  uint64_t* own_full = reinterpret_cast<uint64_t*>(base + L::kDkdvBar);
+  uint64_t* full = own_full + 1;
+  uint64_t* empty = full + kStages;
 
-  float dq[NT][4] = {};
-  const int q_last = (q0 + kMmaRows < a.S ? q0 + kMmaRows : a.S) - 1;
+  const int tid = threadIdx.x;
+  // key tile slowest: under `causal` tile 0 (seen by every later query)
+  // and the other long ones start first
+  const int per_tile = gridDim.x / n_key_tiles;
+  const int k0 = (blockIdx.x / per_tile) * kBRows;
+  const int kvh = (blockIdx.x % per_tile) % a.KV, b = (blockIdx.x % per_tile) / a.KV;
+  const int G = a.H / a.KV;
+  int q_lo, q_hi;
+  query_range(a, k0, min(k0 + kBRows, a.S) - 1, &q_lo, &q_hi);
+  const int t_first = q_lo / kTile, n_t = q_hi / kTile - t_first + 1;
+  const int n_iter = G * n_t;
+
+  if (tid == 0) {
+    sm90::mbar_init(own_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 128 * kGroups);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= 128 * kGroups) {  // the producer warpgroup: its thread 0 starts every load
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (tid == 128 * kGroups) {
+      sm90::mbar_expect_tx(own_full, 2 * L::kOwnBytes);
+      for (int c = 0; c < L::kHalves; ++c) {
+        sm90::tma_load_4d(sK + c * kBRows * kRowBytes, &kmap, own_full, 64 * c, k0, kvh, b);
+        sm90::tma_load_4d(sV + c * kBRows * kRowBytes, &vmap, own_full, 64 * c, k0, kvh, b);
+      }
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % kStages;
+        if (it >= kStages) sm90::mbar_wait(&empty[s], (it / kStages + 1) & 1);
+        const int h = kvh * G + it / n_t, t0 = (t_first + it % n_t) * kTile;
+        uint8_t* st = ring + s * kStageBytes;
+        sm90::mbar_expect_tx(&full[s], 2 * L::kTileBytes + 2 * kTile * 4);
+        for (int c = 0; c < L::kHalves; ++c) {
+          sm90::tma_load_4d(st + c * kTile * kRowBytes, &qmap, &full[s], 64 * c, t0, h, b);
+          sm90::tma_load_4d(st + L::kTileBytes + c * kTile * kRowBytes, &dmap, &full[s], 64 * c,
+                            t0, h, b);
+        }
+        const long long stat = (static_cast<long long>(b) * a.H + h) * a.ls + t0;
+        float* sst = reinterpret_cast<float*>(st + 2 * L::kTileBytes);
+        sm90::bulk_load(sst, a.lse + stat, kTile * 4, &full[s]);
+        sm90::bulk_load(sst + kTile, a.delta + stat, kTile * 4, &full[s]);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup g: keys kg0.. of the block; thread rows r0 and r0 +
+  // 8, columns 8 j + c2 and + 1 of each accumulator (see sm90.cuh)
+  sm90::setmaxnreg_inc<kConsumerRegs>();
+  const int g = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int r0 = 16 * warp + lane / 4, c2 = 2 * (lane % 4);
+  const int kg0 = k0 + g * kGRows;
+  // the query tiles this warpgroup visits: those its own keys are seen by
+  int g_first = t_first + n_t, g_last = -1;
+  if (kg0 < a.S) {
+    int lo, hi;
+    query_range(a, kg0, min(kg0 + kGRows, a.S) - 1, &lo, &hi);
+    g_first = lo / kTile;
+    g_last = hi / kTile;
+  }
+  const uint8_t* sKg = sK + g * kGRows * kRowBytes;
+  const uint8_t* sVg = sV + g * kGRows * kRowBytes;
+  constexpr int NO = D / 2;
+  float dk[NO], dv[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dk[i] = dv[i] = 0.0f;
+  sm90::mbar_wait(own_full, 0);
+
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % kStages;
+    const int ti = t_first + it % n_t, t0 = ti * kTile;
+    sm90::mbar_wait(&full[s], (it / kStages) & 1);
+    if (ti < g_first || ti > g_last) {
+      sm90::mbar_arrive(&empty[s]);
+      continue;
+    }
+    const uint8_t* tQ = ring + s * kStageBytes;
+    const uint8_t* tdO = tQ + L::kTileBytes;
+    const float* sL = reinterpret_cast<const float*>(tdO + L::kTileBytes);
+    const float* sD = sL + kTile;
+
+    // S^T = K Q^T and dP^T = V dO^T: keys are the rows, queries the columns
+    float st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.0f;
+    sm90::fence_regs(st);
+    sm90::fence_regs(dpt);
+    sm90::wgmma_fence();
+    scores<D>(st, sKg, kBRows, tQ, kTile);
+    sm90::wgmma_commit();
+    scores<D>(dpt, sVg, kBRows, tdO, kTile);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(st);
+    sm90::fence_regs(dpt);
+
+    // element i's query is column 8 (i / 4) + c2 + i % 2 of the tile
+    auto l2 = [&](int i) { return sL[8 * (i / 4) + c2 + i % 2] * kLog2e; };
+    auto dl = [&](int i) { return sD[8 * (i / 4) + c2 + i % 2]; };
+    if (a.softcap > 0.0f) {
+      tile_p_ds<true>(a, st, dpt, l2, dl);
+    } else {
+      tile_p_ds<false>(a, st, dpt, l2, dl);
+    }
+    // masked element by element only where some pair of the tile is
+    // masked: the diagonal, the window's edge, rows past S
+    const bool edge = t0 + kTile > a.S || kg0 + kGRows > a.S ||
+                      (a.causal && kg0 + kGRows - 1 > t0) ||
+                      (a.window > 0 && kg0 <= t0 + kTile - 1 - a.window);
+    if (edge) {
+      const bool causal = a.causal != 0, windowed = a.window > 0;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int kp = kg0 + r0 + 8 * ((i / 2) % 2);
+        const int qp = t0 + 8 * (i / 4) + c2 + i % 2;
+        const bool valid = (kp < a.S) & (qp < a.S) & (!causal | (kp <= qp)) &
+                           (!windowed | (kp > qp - a.window));
+        st[i] = valid ? st[i] : 0.0f;
+        dpt[i] = valid ? dpt[i] : 0.0f;
+      }
+    }
+    uint32_t pa[4][4], sa[4][4];
+    pack_a(pa, st);
+    pack_a(sa, dpt);
+
+    // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major
+    sm90::fence_regs(dv);
+    sm90::fence_regs(dk);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      sm90::fence_regs(pa[kk]);
+      sm90::fence_regs(sa[kk]);
+    }
+    sm90::wgmma_fence();
+    accumulate<D>(dv, pa, tdO);
+    sm90::wgmma_commit();
+    accumulate<D>(dk, sa, tQ);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dv);
+    sm90::fence_regs(dk);
+    sm90::mbar_arrive(&empty[s]);
+  }
+  store_acc<D>(dk, a.dk, b, kvh, kg0, a.S, a.D, a.scale);
+  store_acc<D>(dv, a.dv, b, kvh, kg0, a.S, a.D, 1.0f);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWThreads, 1)
+    bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap,
+                 const __grid_constant__ CUtensorMap dmap, const Args a, int n_q_tiles) {
+  using L = BLayout<D>;
+  using sm90::kRowBytes;
+  constexpr int kStageBytes = L::kDqStage;
+  extern __shared__ uint8_t raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* sQ = base;  // [halves][kBRows][64]: this block's queries
+  uint8_t* sdO = sQ + L::kOwnBytes;
+  uint8_t* ring = sdO + L::kOwnBytes;  // stages: K, V tiles
+  uint64_t* own_full = reinterpret_cast<uint64_t*>(base + L::kDqBar);
+  uint64_t* full = own_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int tid = threadIdx.x;
+  // query tile slowest and backwards: under `causal` the last tiles (which
+  // see the most keys) start first
+  const int per_tile = gridDim.x / n_q_tiles;
+  const int q0 = (n_q_tiles - 1 - blockIdx.x / per_tile) * kBRows;
+  const int h = (blockIdx.x % per_tile) % a.H, b = (blockIdx.x % per_tile) / a.H;
+  const int kvh = h / (a.H / a.KV);
   int lo, hi;
-  key_range(a, q0, q_last, &lo, &hi);
-  for (int k0 = (lo / kMmaRows) * kMmaRows; k0 <= hi; k0 += kMmaRows) {
-    __syncthreads();  // the previous tile's readers are done
-    async_rows<D>(sK, K, a.k.ss, k0, a.S);
-    async_rows<D>(sV, V, a.v.ss, k0, a.S);
-    sm90::cp_async_commit();
-    sm90::cp_async_wait<0>();
-    __syncthreads();
+  key_range(a, q0, min(q0 + kBRows, a.S) - 1, &lo, &hi);
+  const int t_first = lo / kTile, n_t = hi / kTile - t_first + 1;
+
+  if (tid == 0) {
+    sm90::mbar_init(own_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 128 * kGroups);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= 128 * kGroups) {  // the producer warpgroup: its thread 0 starts every load
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (tid == 128 * kGroups) {
+      sm90::mbar_expect_tx(own_full, 2 * L::kOwnBytes);
+      for (int c = 0; c < L::kHalves; ++c) {
+        sm90::tma_load_4d(sQ + c * kBRows * kRowBytes, &qmap, own_full, 64 * c, q0, h, b);
+        sm90::tma_load_4d(sdO + c * kBRows * kRowBytes, &dmap, own_full, 64 * c, q0, h, b);
+      }
+      for (int t = 0; t < n_t; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) sm90::mbar_wait(&empty[s], (t / kStages + 1) & 1);
+        const int k0 = (t_first + t) * kTile;
+        uint8_t* st = ring + s * kStageBytes;
+        sm90::mbar_expect_tx(&full[s], 2 * L::kTileBytes);
+        for (int c = 0; c < L::kHalves; ++c) {
+          sm90::tma_load_4d(st + c * kTile * kRowBytes, &kmap, &full[s], 64 * c, k0, kvh, b);
+          sm90::tma_load_4d(st + L::kTileBytes + c * kTile * kRowBytes, &vmap, &full[s], 64 * c,
+                            k0, kvh, b);
+        }
+      }
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<kConsumerRegs>();
+  const int g = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int r0 = 16 * warp + lane / 4, c2 = 2 * (lane % 4);
+  const int qg0 = q0 + g * kGRows, qmax = qg0 + kGRows - 1;
+  int g_first = t_first + n_t, g_last = -1;
+  float l2r[2] = {0.0f, 0.0f}, dlr[2] = {0.0f, 0.0f};
+  if (qg0 < a.S) {
+    int glo, ghi;
+    key_range(a, qg0, min(qg0 + kGRows, a.S) - 1, &glo, &ghi);
+    g_first = glo / kTile;
+    g_last = ghi / kTile;
+    // rows past S read lse's and delta's padding (ls >= qg0 + 64): their
+    // dQ rows are not stored
+    const long long stat = (static_cast<long long>(b) * a.H + h) * a.ls + qg0 + r0;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c0 = 32 * half;
-      float s[4][4] = {}, dp[4][4] = {};
-      mma_rows<D, 4>(s, sQ, qr, sK, c0);
-      mma_rows<D, 4>(dp, sdO, qr, sV, c0);
-      uint32_t pa[2][4], sa[2][4];
-      p_ds_frags<false>(a, s, dp, q0 + qr, k0 + c0, sL, sD, qr, 0, pa, sa);
-      mma_acc<D>(dq, sa, sK, c0);
+    for (int r = 0; r < 2; ++r) {
+      l2r[r] = a.lse[stat + 8 * r] * kLog2e;
+      dlr[r] = a.delta[stat + 8 * r];
     }
   }
-  store_rows<D>(dq, a.dq, b, h, q0 + qr, a.S, a.scale);
+  const uint8_t* sQg = sQ + g * kGRows * kRowBytes;
+  const uint8_t* sdOg = sdO + g * kGRows * kRowBytes;
+  constexpr int NO = D / 2;
+  float dq[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dq[i] = 0.0f;
+  sm90::mbar_wait(own_full, 0);
+
+  for (int t = 0; t < n_t; ++t) {
+    const int s = t % kStages;
+    const int tile = t_first + t, k0 = tile * kTile;
+    sm90::mbar_wait(&full[s], (t / kStages) & 1);
+    if (tile < g_first || tile > g_last) {
+      sm90::mbar_arrive(&empty[s]);
+      continue;
+    }
+    const uint8_t* tK = ring + s * kStageBytes;
+    const uint8_t* tV = tK + L::kTileBytes;
+
+    // S = Q K^T and dP = dO V^T: queries are the rows, keys the columns
+    float sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.0f;
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dp);
+    sm90::wgmma_fence();
+    scores<D>(sc, sQg, kBRows, tK, kTile);
+    sm90::wgmma_commit();
+    scores<D>(dp, sdOg, kBRows, tV, kTile);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dp);
+
+    // element i's query is row r0 + 8 ((i / 2) % 2)
+    auto l2 = [&](int i) { return l2r[(i / 2) % 2]; };
+    auto dl = [&](int i) { return dlr[(i / 2) % 2]; };
+    if (a.softcap > 0.0f) {
+      tile_p_ds<true>(a, sc, dp, l2, dl);
+    } else {
+      tile_p_ds<false>(a, sc, dp, l2, dl);
+    }
+    const bool edge = k0 + kTile > a.S || (a.causal && k0 + kTile - 1 > qg0) ||
+                      (a.window > 0 && k0 <= qmax - a.window);
+    if (edge) {
+      const bool causal = a.causal != 0, windowed = a.window > 0;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int qp = qg0 + r0 + 8 * ((i / 2) % 2);
+        const int kp = k0 + 8 * (i / 4) + c2 + i % 2;
+        const bool valid = (kp < a.S) & (!causal | (kp <= qp)) &
+                           (!windowed | (kp > qp - a.window));
+        dp[i] = valid ? dp[i] : 0.0f;
+      }
+    }
+    uint32_t sa[4][4];
+    pack_a(sa, dp);
+
+    // dQ += dS K, K read MN-major
+    sm90::fence_regs(dq);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) sm90::fence_regs(sa[kk]);
+    sm90::wgmma_fence();
+    accumulate<D>(dq, sa, tK);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dq);
+    sm90::mbar_arrive(&empty[s]);
+  }
+  store_acc<D>(dq, a.dq, b, h, qg0, a.S, a.D, a.scale);
 }
 
 // ------------------------------------------------------------- dispatch
@@ -796,19 +891,21 @@ cudaError_t smem_opt_in(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+template <typename T>
+cudaError_t launch_delta(const Args& a, int B, cudaStream_t stream) {
+  bwd_delta<T><<<dim3(a.ls / (kDeltaThreads / 8), B * a.H), kDeltaThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <int D>
 int launch_fma(const Args& a, int B, cudaStream_t stream) {
-  constexpr int prep_bytes = prep_floats<D>() * static_cast<int>(sizeof(float));
   constexpr int dkdv_bytes = dkdv_floats<D>() * static_cast<int>(sizeof(float));
   constexpr int dq_bytes = dq_floats<D>() * static_cast<int>(sizeof(float));
-  cudaError_t err = smem_opt_in(bwd_prep<D>, prep_bytes);
-  if (err == cudaSuccess) err = smem_opt_in(bwd_dkdv<D>, dkdv_bytes);
+  cudaError_t err = smem_opt_in(bwd_dkdv<D>, dkdv_bytes);
   if (err == cudaSuccess) err = smem_opt_in(bwd_dq<D>, dq_bytes);
+  if (err == cudaSuccess) err = launch_delta<float>(a, B, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (a.S + kRows - 1) / kRows;
-  bwd_prep<D><<<dim3(tiles, a.H, B), kThreads, prep_bytes, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
   bwd_dkdv<D><<<dim3(tiles, a.KV, B), kThreads, dkdv_bytes, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -816,44 +913,72 @@ int launch_fma(const Args& a, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_mma(const Args& a, int B, cudaStream_t stream) {
-  constexpr int tile = kMmaRows * mma_ld<D>() * static_cast<int>(sizeof(bf16));
-  constexpr int prep_bytes = 2 * tile;
-  constexpr int bytes = 4 * tile + 2 * kMmaRows * static_cast<int>(sizeof(float));
-  cudaError_t err = smem_opt_in(bwd_dkdv_mma<D>, bytes);
-  if (err == cudaSuccess) err = smem_opt_in(bwd_dq_mma<D>, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = (a.S + kMmaRows - 1) / kMmaRows;
-  bwd_prep_mma<D><<<dim3(tiles, a.H, B), kMmaThreads, prep_bytes, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_dkdv_mma<D><<<dim3(tiles, a.KV, B), kMmaThreads, bytes, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_dq_mma<D><<<dim3(tiles, a.H, B), kMmaThreads, bytes, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+// one [B, N, S, D] bf16 tensor as a 4-D tensor map (innermost first: the
+// true D, rows, heads, batch) with its own strides, a box of 64 columns
+// of `rows` rows of one head; a dimension of size 1 gets a packed stride
+// (its coordinate is always 0)
+int view_map(CUtensorMap* map, const View& t, int D, int S, int N, int B, int rows) {
+  uint64_t dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(S),
+                      static_cast<uint64_t>(N), static_cast<uint64_t>(B)};
+  uint64_t strides[3] = {static_cast<uint64_t>(t.ss) * 2, static_cast<uint64_t>(t.sh) * 2,
+                         static_cast<uint64_t>(t.sb) * 2};
+  for (int i = 1; i < 4; ++i)
+    if (dims[i] == 1) strides[i - 1] = i == 1 ? dims[0] * 2 : strides[i - 2] * dims[i - 1];
+  const uint32_t box[4] = {64, static_cast<uint32_t>(rows), 1, 1};
+  return sm90_host::make_map(map, t.p, 4, dims, strides, box);
 }
 
-// fp32 on the FMA kernels; bf16 on mma.sync
-template <typename T, int D>
-int launch(const Args& a, int B, cudaStream_t stream) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    return launch_mma<D>(a, B, stream);
-  } else {
-    return launch_fma<D>(a, B, stream);
-  }
+// D is the layout's (64 or 128); the maps cover the true a.D
+template <int D>
+int launch_wgmma(const Args& a, int B, cudaStream_t stream) {
+  using L = BLayout<D>;
+  // dkdv: K and V 128-row boxes, Q and dO 64-row tiles; dq the other way
+  CUtensorMap qt, dt, kb, vb, qb, db, kt, vt;
+  int err = view_map(&qt, a.q, a.D, a.S, a.H, B, kTile);
+  if (err == 0) err = view_map(&dt, a.dout, a.D, a.S, a.H, B, kTile);
+  if (err == 0) err = view_map(&kb, a.k, a.D, a.S, a.KV, B, kBRows);
+  if (err == 0) err = view_map(&vb, a.v, a.D, a.S, a.KV, B, kBRows);
+  if (err == 0) err = view_map(&qb, a.q, a.D, a.S, a.H, B, kBRows);
+  if (err == 0) err = view_map(&db, a.dout, a.D, a.S, a.H, B, kBRows);
+  if (err == 0) err = view_map(&kt, a.k, a.D, a.S, a.KV, B, kTile);
+  if (err == 0) err = view_map(&vt, a.v, a.D, a.S, a.KV, B, kTile);
+  if (err != 0) return err;
+  constexpr int dkdv_bytes = L::kDkdvBytes;
+  constexpr int dq_bytes = L::kDqBytes;
+  cudaError_t e = smem_opt_in(bwd_dkdv_wgmma<D>, dkdv_bytes);
+  if (e == cudaSuccess) e = smem_opt_in(bwd_dq_wgmma<D>, dq_bytes);
+  if (e == cudaSuccess) e = launch_delta<bf16>(a, B, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles = (a.S + kBRows - 1) / kBRows;
+  bwd_dkdv_wgmma<D><<<tiles * a.KV * B, kWThreads, dkdv_bytes, stream>>>(qt, kb, vb, dt, a,
+                                                                         tiles);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  bwd_dq_wgmma<D><<<tiles * a.H * B, kWThreads, dq_bytes, stream>>>(qb, kt, vt, db, a, tiles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(const Args& a, int B, int D, cudaStream_t stream) {
-  switch (D) {
-    case 64: return launch<T, 64>(a, B, stream);
-    case 80: return launch<T, 80>(a, B, stream);
-    case 96: return launch<T, 96>(a, B, stream);
-    case 112: return launch<T, 112>(a, B, stream);
-    case 128: return launch<T, 128>(a, B, stream);
-    default: return -2;
+  if constexpr (std::is_same<T, bf16>::value) {
+    // D 80, 96 and 112 run the 128-column layout over maps of the true D
+    switch (D) {
+      case 64: return launch_wgmma<64>(a, B, stream);
+      case 80:
+      case 96:
+      case 112:
+      case 128: return launch_wgmma<128>(a, B, stream);
+      default: return -2;
+    }
+  } else {
+    switch (D) {
+      case 64: return launch_fma<64>(a, B, stream);
+      case 80: return launch_fma<80>(a, B, stream);
+      case 96: return launch_fma<96>(a, B, stream);
+      case 112: return launch_fma<112>(a, B, stream);
+      case 128: return launch_fma<128>(a, B, stream);
+      default: return -2;
+    }
   }
 }
 
@@ -861,17 +986,19 @@ int dispatch(const Args& a, int B, int D, cudaStream_t stream) {
 
 extern "C" {
 
-// Launches the three backward kernels on `stream`; returns
-// cudaGetLastError() (0 = ok), -1 for a dtype other than 0 = float32 or
-// 1 = bfloat16 and -2 for a head dimension other than 64, 80, 96, 112 or
-// 128.  q, o, dout and dq are [B, H, S, D], k, v, dk and dv [B, KV, S, D]
-// (H % KV == 0), device pointers addressed by the strides given
-// (elements; the last dimension contiguous), all of one dtype; lse and
-// delta are fp32 scratch of B * H * S values each.  softcap <= 0 and
-// window <= 0 mean none.
+// Launches the backward kernels on `stream`; returns cudaGetLastError()
+// (0 = ok), -1 for a dtype other than 0 = float32 or 1 = bfloat16, -2 for
+// a head dimension other than 64, 80, 96, 112 or 128 or an lse stride
+// that is not S rounded up to 64, and -3 or -4 when a TMA tensor map
+// cannot be made (bf16).  q, o, dout and dq are [B, H, S, D], k, v, dk
+// and dv [B, KV, S, D] (H % KV == 0), device pointers addressed by the
+// strides given (elements; the last dimension contiguous), all of one
+// dtype; lse is the forward's logsumexp and delta fp32 scratch, both [B,
+// H, ls] with ls = S rounded up to 64.  softcap <= 0 and window <= 0 mean
+// none.
 int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
-    void* dq, void* dk, void* dv, void* lse, void* delta,
+    void* dq, void* dk, void* dv, const void* lse, void* delta, int ls,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
@@ -883,12 +1010,13 @@ int repro_flash_attention_bwd(
     int B, int H, int KV, int S, int D,
     float scale, float softcap, int causal, int window, int dtype, void* stream) {
   if (B == 0 || S == 0) return 0;
+  if (ls != (S + 63) / 64 * 64) return -2;
   const Args a{{q, q_sb, q_sh, q_ss},     {k, k_sb, k_sh, k_ss},
                {v, v_sb, v_sh, v_ss},     {o, o_sb, o_sh, o_ss},
                {dout, do_sb, do_sh, do_ss}, {dq, dq_sb, dq_sh, dq_ss},
                {dk, dk_sb, dk_sh, dk_ss}, {dv, dv_sb, dv_sh, dv_ss},
-               static_cast<float*>(lse),  static_cast<float*>(delta),
-               H, KV, S, scale, softcap, causal, window};
+               static_cast<const float*>(lse), static_cast<float*>(delta),
+               H, KV, S, D, ls, scale, softcap, causal, window};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(a, B, D, s);
   if (dtype == 1) return dispatch<__nv_bfloat16>(a, B, D, s);

@@ -24,24 +24,32 @@
 //     transposed in shared memory.  The forward's decode route has no
 //     counterpart: a backward at T <= 4 E takes these routes too (its
 //     tiles have few rows, and rows past a segment are masked).
-//   * dw: one block per (F tile, D tile, expert) output tile; the block
-//     finds its segment's first row from a scan of the group sizes on the
-//     card and walks the segment's rows in order, 32 at a time, so every
-//     sum has one order: no atomics, the same bits on every run.  bf16:
-//     moe_dw_mma, 128 x 128 tiles, 8 warps of 32 x 64, x^T and dy both
-//     read through ldmatrix.trans from rows staged with cp.async (double
-//     buffered), products on mma.sync m16n8k16 with fp32 sums.  fp32:
-//     moe_dw_fma, 64 x 64 tiles, 4 x 4 outputs a thread.
+//   * dw: every sum walks its expert's segment in row order, so it has
+//     one order: no atomics, the same bits on every run.  bf16:
+//     moe_wgmma_dw, a persistent grid (one block an SM) over the static
+//     list of (expert, D tile of 128, F tile of 256) output tiles, F
+//     fastest: the blocks running at one time work on one expert, whose
+//     x and dy rows (a few MB at llama4's shape) stay in L2.  Each block
+//     scans the group sizes once into shared memory; its producer warp
+//     streams 64-row boxes of x and dy through a ring of 4 TMA stages,
+//     running into the next tile while the warpgroups store this one;
+//     two consumer warpgroups run dw_tile += x_box^T dy_box on wgmma with
+//     both operands MN-major (the transpose flags: no copy in memory).
+//     fp32: moe_dw_fma, one block per (F tile, D tile, expert), 64 x 64
+//     tiles, 4 x 4 outputs a thread.
 //
 // Bound.  At llama4-scout's gate/up shape in training (T = 4096 routed
 // rows, D 5120, F 8192, 16 experts) dx and dw each do the forward's 2 T D
 // F = 344 GFLOP: 0.35 ms each at the 989 TFLOP/s bf16 tensor-core rate;
 // dw also writes all E D F weights (1.34 GB, 0.40 ms at 3.35 TB/s), so
-// dw is bound by its bytes.  mma.sync reaches a part of the wgmma rate:
-// a first design, to be measured.
+// dw is bound by its bytes.  Its tiles re-read x once per F tile and dy
+// once per D tile: from L2, which the tile order keeps them in, and the
+// 128 x 256 tile halves those reads against a 128 x 128 one.
 //
 // Built with nvcc for sm_90a into a shared library with a plain C
 // interface (repro_torch/kernels/moe_gemm.py loads it with ctypes).
+
+#include <algorithm>
 
 #include "sm90.cuh"
 
@@ -416,110 +424,222 @@ int launch_wgmma_dx(const Args& a, cudaStream_t stream) {
 }
 
 // ------------------------------------------------------------ dw, bf16
-constexpr int kWTile = 128;            // D rows and F columns of an output tile
-constexpr int kWK = 32;                // segment rows a step
-constexpr int kWPitch = kWTile + 8;    // bf16 row pitch in shared memory
-constexpr int kWThreads = 256;         // 8 warps: 4 along D x 2 along F
-constexpr int kWStage = 2 * kWK * kWPitch;  // bf16 values of one stage (x and dy)
+constexpr int kDwRows = 64;      // segment rows of a ring stage (one box)
+constexpr int kDwM = 128;        // D rows of an output tile: two warpgroups of 64
+constexpr int kDwN = 256;        // F columns of an output tile: two n128 products
+constexpr int kDwStages = 4;
+constexpr int kDwThreads = 288;  // two warpgroups and the producer warp
+constexpr int kDwXBytes = kDwRows * kDwM * 2;  // x box: [2 halves][64 rows][64 D]
+constexpr int kDwYBytes = kDwRows * kDwN * 2;  // dy box: [4 halves][64 rows][64 F]
+constexpr int kDwStageBytes = kDwXBytes + kDwYBytes;
+constexpr int kDwBarOffset = kDwStages * kDwStageBytes;
+constexpr int kDwSegOffset = kDwBarOffset + 2 * kDwStages * 8;
+constexpr int kMaxSmem = 232448;  // an H100 block's shared memory, opted in
+
+__host__ __device__ constexpr int dw_smem(int E) { return 1024 + kDwSegOffset + 8 * E; }
+
+// 16 bytes of a bf16 row from the 4 lanes of a quad: lane t holds v[u] =
+// columns 8 u + 2 t, + 1 of four 8-column blocks; returns block t's 8
+// columns (a 4 x 4 transpose inside the quad, by shuffles)
+__device__ __forceinline__ uint4 quad_row(const uint32_t (&v)[4], int t) {
+  uint32_t w[4] = {v[0], v[1], v[2], v[3]};
+  // w[t] = v[t] already; lane t ^ k sends its v[t] (its w-index t ^ k ^ k)
+#pragma unroll
+  for (int k = 1; k < 4; ++k) {
+    const int want = t ^ k;  // the block lane t ^ k needs
+    const uint32_t send = want == 0 ? v[0] : want == 1 ? v[1] : want == 2 ? v[2] : v[3];
+    const uint32_t got = __shfl_xor_sync(kFull, send, k);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) w[u] = u == want ? got : w[u];
+  }
+  const uint32_t own = t == 0 ? v[0] : t == 1 ? v[1] : t == 2 ? v[2] : v[3];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) w[u] = u == t ? own : w[u];
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
 
 // dw[e][d][f] = sum_r x[r][d] dy[r][f] over expert e's rows, in row order.
-// Warp (wm, wn) owns D rows 32 wm.. and F columns 64 wn..: 2 m16 x 8 n8
-// accumulators.  A = x^T (ldmatrix.trans of the [r][d] rows), B = dy
-// (ldmatrix.trans of the [r][f] rows), as ssd_scan.cu's ssd_states.
-__global__ void __launch_bounds__(kWThreads) moe_dw_mma(const Args a) {
-  __shared__ __align__(16) bf16 sm[2 * kWStage];
-  __shared__ int seg[2];
-  const int f0 = blockIdx.x * kWTile, d0 = blockIdx.y * kWTile, e = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int wm = w % 4, wn = w / 4;
-  const int mi = lane / 8, gq = lane / 4, tq = lane % 4;
-  if (tid < 32) segment(a, e, lane, seg);
-  __syncthreads();
-  const int start = seg[0], rows = seg[1];
-  const bf16* X = static_cast<const bf16*>(a.x);
-  const bf16* DY = static_cast<const bf16*>(a.dy);
+// A persistent grid: block i walks output tiles i, i + gridDim.x, ... of
+// the static list (expert, D tile of 128, F tile of 256), F fastest, so
+// the blocks running at one time share one expert's x and dy rows in L2.
+// The producer warp's lane 0 streams each tile's segment in boxes of 64
+// rows (x [64][128 D] and dy [64][256 F], TMA, 128-byte swizzle) through
+// a ring of 4 stages, running ahead into the block's next tile while the
+// warpgroups store this one; warpgroup g forms D rows 64 g.. of the tile,
+// A = x^T (its x half, MN-major: the transpose flag, no copy) and B = dy
+// (MN-major), two m64n128k16 products a k16 step.  A box reaching past
+// the segment has the foreign rows of x zeroed in shared memory before
+// its products (a row's 128 bytes stay in place under the swizzle); TMA
+// gives zeros past T.  The fp32 sums go to bf16 and leave in 16-byte
+// stores (quad_row).  An expert without rows stores zeros.
+__global__ void __launch_bounds__(kDwThreads, 1)
+    moe_wgmma_dw(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap ymap,
+                 const Args a, int n_d, int n_f) {
+  using sm90::kAtomBytes;
+  using sm90::kRowBytes;
+  extern __shared__ uint8_t raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + kDwBarOffset);
+  uint64_t* empty = full + kDwStages;
+  int* seg = reinterpret_cast<int*>(base + kDwSegOffset);  // [E][2]: first row, rows
+  const int tid = threadIdx.x, lane = tid % 32;
 
-  // rows k0.. of the segment into stage s: 32 rows x 128 columns of x and
-  // of dy, 16-byte pieces (zeros past the segment, D or F)
-  auto load = [&](int s, int k0) {
-    bf16* xs = sm + s * kWStage;
-    bf16* ys = xs + kWK * kWPitch;
-    for (int i = tid; i < 2 * kWK * (kWTile / 8); i += kWThreads) {
-      const int which = i / (kWK * (kWTile / 8));
-      const int rem = i % (kWK * (kWTile / 8));
-      const int r = rem / (kWTile / 8), pc = rem % (kWTile / 8);
-      const int col = 8 * pc;
-      const bool row_ok = k0 + r < rows;
-      const long long row = start + (row_ok ? k0 + r : 0);
-      if (which == 0) {
-        const bool ok = row_ok && d0 + col < a.D;
-        sm90::cp_async16(xs + r * kWPitch + col, X + row * a.D + (ok ? d0 + col : 0), ok ? 16 : 0);
-      } else {
-        const bool ok = row_ok && f0 + col < a.F;
-        sm90::cp_async16(ys + r * kWPitch + col, DY + row * a.F + (ok ? f0 + col : 0), ok ? 16 : 0);
+  if (tid == 0) {
+    for (int s = 0; s < kDwStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 256);
+    }
+    sm90::fence_barrier_init();
+  }
+  if (tid < 32) {  // the segments, once: min(sum_{e' < e} max(g, 0), T), clamped sizes
+    int run = 0;
+    for (int e0 = 0; e0 < a.E; e0 += 32) {
+      const int e = e0 + lane;
+      const int g = e < a.E ? max(a.gs[e], 0) : 0;
+      int inc = g;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int v = __shfl_up_sync(kFull, inc, off);
+        if (lane >= off) inc += v;
       }
+      if (e < a.E) {
+        const int start = min(run + inc - g, a.T);
+        seg[2 * e] = start;
+        seg[2 * e + 1] = max(min(g, a.T - start), 0);
+      }
+      run += __shfl_sync(kFull, inc, 31);
     }
-    sm90::cp_async_commit();
-  };
+  }
+  __syncthreads();
+  const int per_e = n_d * n_f, n_tiles = a.E * per_e;
 
-  float acc[2][8][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[m][nt][i] = 0.f;
-
-  const int nsteps = (rows + kWK - 1) / kWK;
-  if (nsteps > 0) load(0, 0);
-  for (int st = 0; st < nsteps; ++st) {
-    if (st + 1 < nsteps) {
-      load((st + 1) % 2, (st + 1) * kWK);
-      sm90::cp_async_wait<1>();
-    } else {
-      sm90::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* xs = sm + (st % 2) * kWStage;
-    const bf16* ys = xs + kWK * kWPitch;
-#pragma unroll
-    for (int kk = 0; kk < kWK / 16; ++kk) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-        sm90::ldmatrix_x4_trans(af[m], xs + (16 * kk + 8 * (mi / 2) + lane % 8) * kWPitch +
-                                           32 * wm + 16 * m + 8 * (mi % 2));
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        uint32_t bfr[4];
-        sm90::ldmatrix_x4_trans(bfr, ys + (16 * kk + 8 * (mi % 2) + lane % 8) * kWPitch +
-                                         64 * wn + 16 * jj + 8 * (mi / 2));
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          sm90::mma_bf16_16816(acc[m][2 * jj], af[m], bfr[0], bfr[1]);
-          sm90::mma_bf16_16816(acc[m][2 * jj + 1], af[m], bfr[2], bfr[3]);
+  if (tid >= 256) {  // the producer warp: its lane 0 starts every load
+    if (tid == 256) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int e = tile / per_e, rem = tile % per_e;
+        const int d0 = (rem / n_f) * kDwM, f0 = (rem % n_f) * kDwN;
+        const int start = seg[2 * e], rows = seg[2 * e + 1];
+        for (int r = 0; r < rows; r += kDwRows, ++it) {
+          const int s = it % kDwStages;
+          if (it >= kDwStages) sm90::mbar_wait(&empty[s], (it / kDwStages + 1) & 1);
+          uint8_t* sx = base + s * kDwStageBytes;
+          uint8_t* sy = sx + kDwXBytes;
+          sm90::mbar_expect_tx(&full[s], kDwStageBytes);
+          for (int c = 0; c < kDwM / 64; ++c)
+            sm90::tma_load_2d(sx + c * kDwRows * kRowBytes, &xmap, &full[s], d0 + 64 * c,
+                              start + r);
+          for (int c = 0; c < kDwN / 64; ++c)
+            sm90::tma_load_2d(sy + c * kDwRows * kRowBytes, &ymap, &full[s], f0 + 64 * c,
+                              start + r);
         }
       }
     }
-    __syncthreads();  // the stage is consumed before it is loaded again
+    return;
   }
 
-  bf16* DW = static_cast<bf16*>(a.dw) + static_cast<long long>(e) * a.D * a.F;
+  const int g = tid / 128, warp = (tid % 128) / 32, t = lane % 4;
+  int it = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int e = tile / per_e, rem = tile % per_e;
+    const int d0 = (rem / n_f) * kDwM, f0 = (rem % n_f) * kDwN;
+    const int rows = seg[2 * e + 1];
+    float acc[2][64];
 #pragma unroll
-  for (int m = 0; m < 2; ++m) {
+    for (int n = 0; n < 2; ++n)
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int col = f0 + 64 * wn + 8 * nt + 2 * tq;
-      if (col >= a.F) continue;
+      for (int i = 0; i < 64; ++i) acc[n][i] = 0.f;
+    int prev = -1;  // the stage of the product group still in flight
+    for (int r = 0; r < rows; r += kDwRows, ++it) {
+      const int s = it % kDwStages;
+      uint8_t* sx = base + s * kDwStageBytes + g * kDwRows * kRowBytes;  // this warpgroup's x half
+      const uint8_t* sy = base + s * kDwStageBytes + kDwXBytes;
+      sm90::mbar_wait(&full[s], (it / kDwStages) & 1);
+      const int valid = rows - r;
+      if (valid < kDwRows) {  // the rows past the segment: zeros
+        for (int i = tid % 128; i < (kDwRows - valid) * 8; i += 128)
+          *reinterpret_cast<uint4*>(sx + (valid + i / 8) * kRowBytes + 16 * (i % 8)) =
+              make_uint4(0, 0, 0, 0);
+        sm90::fence_proxy_async();
+        sm90::named_barrier(1 + g, 128);
+      }
+      sm90::fence_regs(acc[0]);
+      sm90::fence_regs(acc[1]);
+      sm90::wgmma_fence();
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = d0 + 32 * wm + 16 * m + gq + 8 * h;
-        if (row < a.D)
-          *reinterpret_cast<__nv_bfloat162*>(DW + static_cast<long long>(row) * a.F + col) =
-              __floats2bfloat162_rn(acc[m][nt][2 * h], acc[m][nt][2 * h + 1]);
+      for (int kk = 0; kk < kDwRows / 16; ++kk) {
+        // A = x^T: [16 rows][64 D] of the half, MN-major (a k16 step: 16 rows)
+        const uint64_t da = sm90::desc(sx + kk * 16 * kRowBytes, kDwRows * kRowBytes, kAtomBytes);
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          // B = dy: F columns 128 n.., two halves kDwRows rows apart, MN-major
+          const uint64_t db = sm90::desc(sy + 2 * n * kDwRows * kRowBytes + kk * 16 * kRowBytes,
+                                         kDwRows * kRowBytes, kAtomBytes);
+          sm90::wgmma_ss_n128<1, 1>(acc[n], da, db, 1);
+        }
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();  // the previous box's products are done: release its stage
+      sm90::fence_regs(acc[0]);
+      sm90::fence_regs(acc[1]);
+      if (prev >= 0) sm90::mbar_arrive(&empty[prev]);
+      prev = s;
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc[0]);
+    sm90::fence_regs(acc[1]);
+    if (prev >= 0) sm90::mbar_arrive(&empty[prev]);
+
+    // rows 16 warp + lane / 4 (+ 8) of the warpgroup's 64; 16-byte stores
+    bf16* DW = static_cast<bf16*>(a.dw) + static_cast<long long>(e) * a.D * a.F;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = d0 + 64 * g + 16 * warp + lane / 4 + 8 * hr;
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int jb = 0; jb < 4; ++jb) {
+          uint32_t v[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int j = 4 * jb + u;
+            v[u] = sm90::pack_bf16(acc[n][4 * j + 2 * hr], acc[n][4 * j + 2 * hr + 1]);
+          }
+          const uint4 w = quad_row(v, t);  // every lane of the warp shuffles
+          const int col = f0 + 128 * n + 8 * (4 * jb + t);
+          if (row < a.D && col < a.F)
+            *reinterpret_cast<uint4*>(DW + static_cast<long long>(row) * a.F + col) = w;
+        }
       }
     }
   }
+}
+
+// x [T, D] and dy [T, F] as 2-D maps with [64 columns][64 rows] boxes;
+// a persistent grid of one block per SM (or fewer tiles)
+int launch_wgmma_dw(const Args& a, cudaStream_t stream) {
+  const int bytes = dw_smem(a.E);
+  if (bytes > kMaxSmem) return -2;
+  CUtensorMap xm, ym;
+  const uint64_t xdims[2] = {static_cast<uint64_t>(a.D), static_cast<uint64_t>(a.T)};
+  const uint64_t xstrides[1] = {static_cast<uint64_t>(a.D) * 2};
+  const uint64_t ydims[2] = {static_cast<uint64_t>(a.F), static_cast<uint64_t>(a.T)};
+  const uint64_t ystrides[1] = {static_cast<uint64_t>(a.F) * 2};
+  const uint32_t box[2] = {64, kDwRows};
+  int err = sm90_host::make_map(&xm, a.x, 2, xdims, xstrides, box);
+  if (err == 0) err = sm90_host::make_map(&ym, a.dy, 2, ydims, ystrides, box);
+  if (err != 0) return err;
+  cudaError_t e =
+      cudaFuncSetAttribute(moe_wgmma_dw, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  int device = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_d = (a.D + kDwM - 1) / kDwM, n_f = (a.F + kDwN - 1) / kDwN;
+  const int n_tiles = a.E * n_d * n_f;
+  moe_wgmma_dw<<<std::min(sms, n_tiles), kDwThreads, bytes, stream>>>(xm, ym, a, n_d, n_f);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ------------------------------------------------------------ dw, fp32
@@ -602,11 +722,7 @@ int launch_bf16(const Args& a, cudaStream_t s) {
     const int err = launch_wgmma_dx(a, s);
     if (err != 0) return err;
   }
-  if (a.dw != nullptr) {
-    const dim3 grid((a.F + kWTile - 1) / kWTile, (a.D + kWTile - 1) / kWTile, a.E);
-    moe_dw_mma<<<grid, kWThreads, 0, s>>>(a);
-    return static_cast<int>(cudaGetLastError());
-  }
+  if (a.dw != nullptr) return launch_wgmma_dw(a, s);
   return 0;
 }
 
@@ -619,8 +735,9 @@ extern "C" {
 // -4 when a TMA tensor map cannot be made.  x [T, D], w [E, D, F], dy [T,
 // F] and the outputs dx [T, D] and dw [E, D, F] are contiguous, 16-byte
 // aligned device pointers, group_sizes [E] int32; dx or dw may be null
-// (not computed).  dtype 0 = float32 (FMA kernels), 1 = bfloat16 (dx on
-// wgmma, dw on mma.sync).
+// (not computed).  dtype 0 = float32 (FMA kernels), 1 = bfloat16 (dx and
+// dw on wgmma; -2 also when E is too large for dw's table of segments in
+// shared memory: E > 4344).
 int repro_moe_gemm_bwd(const void* x, const void* w, const void* group_sizes, const void* dy,
                        void* dx, void* dw, int T, int D, int F, int E, int dtype, void* stream) {
   if (D % 8 != 0 || F % 8 != 0) return -2;

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) helpers shared by the port's kernels (flash_attention.cu's
-// prefill and decode, moe_gemm.cu's prefill path) and the row-gather
+// prefill and decode, flash_attention_bwd.cu's bf16 backward, moe_gemm.cu's
+// prefill path, moe_gemm_bwd.cu's bf16 dx and dw) and the row-gather
 // ablations of sage_gather_probes.cu: shared memory addresses, mbarriers,
-// TMA tile loads and 1-D bulk copies, wgmma descriptors and products,
-// cp.async with L2 policies, ldmatrix and mma.sync, and the host-side TMA
-// tensor maps.
+// the async-proxy fence, named barriers, register moves between
+// warpgroups (setmaxnreg), TMA tile loads and 1-D bulk copies, wgmma
+// descriptors and products (either operand MN-major), cp.async with L2
+// policies, ldmatrix and mma.sync, and the host-side TMA tensor maps.
 //
 // Shared-memory tiles are bf16 with the 128-byte swizzle: a tile row is
 // 64 values (128 bytes), and 8 rows form a 1024-byte atom in which the
@@ -18,7 +20,8 @@
 //     descriptor's stride byte offset is 1024 (the next 8 rows), and a
 //     k16 step inside the half adds 32 bytes to the start address.
 //   * MN-major operand (the output dimension contiguous: V, and w of the
-//     grouped GEMM, both read as B with the transpose flag): a [k rows]
+//     grouped GEMM, both read as B with the transpose flag; x of the
+//     grouped GEMM's dw read as A with A's transpose flag): a [k rows]
 //     [64 columns] half per 64 output columns; the stride byte offset is
 //     1024 (the next 8 k rows), the leading byte offset the distance
 //     between two 64-column halves, and a k16 step adds 16 rows (2048
@@ -80,6 +83,30 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
       "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
       "r"(parity)
       : "memory");
+}
+
+// makes this thread's generic writes to shared memory visible to the async
+// proxy (wgmma's and TMA's reads of the same bytes)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// a barrier of `count` threads (a multiple of 32) on hardware barrier `id`
+// (1-15: 0 is __syncthreads')
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// moves registers between the warpgroups of a block: a producer
+// warpgroup gives some back (dec), the consumers take them (inc); every
+// thread of the warpgroup executes it, N a multiple of 8 in [24, 256]
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // ------------------------------------------------------------------ TMA
@@ -168,9 +195,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// TB is the transpose flag of B: 0 for a K-major B, 1 for an MN-major B.
+// TB is the transpose flag of B: 0 for a K-major B, 1 for an MN-major B;
+// TA the same for an A in shared memory (1: A's M dimension contiguous,
+// the MN-major layout above with M for N).
 // d[32] (+)= A . B for m64n64k16: A and B in shared memory (descriptors)
-template <int TB>
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
                                           int scale_d) {
   asm volatile(
@@ -178,14 +207,14 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
 }
 
 // d[32] (+)= A . B for m64n64k16: A in registers (4 x bf16x2), B in shared memory
@@ -208,7 +237,7 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
 }
 
 // d[64] (+)= A . B for m64n128k16: A and B in shared memory (descriptors)
-template <int TB>
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
                                           int scale_d) {
   asm volatile(
@@ -218,7 +247,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -230,7 +259,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
 }
 
 // d[64] (+)= A . B for m64n128k16: A in registers (4 x bf16x2), B in shared memory

@@ -9,7 +9,10 @@
 //   mode 1: out [64, 128] = a [64, 128] . b, b [128, 128] (MN-major B),
 //           m64n128k16 with both operands in shared memory (the grouped
 //           GEMM);
-//   mode 2: as mode 1 with a taken from registers (attention's P . V).
+//   mode 2: as mode 1 with a taken from registers (attention's P . V);
+//   mode 3: out [64, 128] = a^T . b, a [128, 64] (MN-major A: the
+//           transpose flag of A) and b as in mode 1 (the grouped GEMM's
+//           dw = x^T dy).
 //
 // The MN-major B descriptor takes the leading and stride byte offsets
 // given (the layout's are 16384, between the two 64-column halves, and
@@ -42,7 +45,9 @@ __global__ void __launch_bounds__(128) wgmma_probe(const __grid_constant__ CUten
   if (tid == 0) {
     sm90::mbar_expect_tx(&bar, kABytes + 2 * brows * sm90::kRowBytes);
     for (int h = 0; h < 2; ++h) {
-      sm90::tma_load_2d(sA + h * 64 * sm90::kRowBytes, &amap, &bar, 64 * h, 0);
+      // mode 3: a is one [128 k rows][64 m] box
+      if (mode != 3 || h == 0)
+        sm90::tma_load_2d(sA + h * 64 * sm90::kRowBytes, &amap, &bar, 64 * h, 0);
       sm90::tma_load_2d(sB + h * brows * sm90::kRowBytes, &bmap, &bar, 64 * h, 0);
     }
   }
@@ -69,13 +74,15 @@ __global__ void __launch_bounds__(128) wgmma_probe(const __grid_constant__ CUten
       out[(r0 + 8 * ((i / 2) % 2)) * 64 + 8 * (i / 4) + c2 + i % 2] = d[i];
     return;
   }
-  uint32_t af[8][4];
+  uint32_t af[8][4] = {};
+  if (mode == 2) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < 8; ++kk) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {  // rows r0, r0 + 8; columns c2, c2 + 8
-      const __nv_bfloat16* p = a + (r0 + 8 * (q % 2)) * 128 + 16 * kk + 8 * (q / 2) + c2;
-      af[kk][q] = *reinterpret_cast<const uint32_t*>(p);
+      for (int q = 0; q < 4; ++q) {  // rows r0, r0 + 8; columns c2, c2 + 8
+        const __nv_bfloat16* p = a + (r0 + 8 * (q % 2)) * 128 + 16 * kk + 8 * (q / 2) + c2;
+        af[kk][q] = *reinterpret_cast<const uint32_t*>(p);
+      }
     }
   }
   float d[64];
@@ -91,6 +98,9 @@ __global__ void __launch_bounds__(128) wgmma_probe(const __grid_constant__ CUten
     if (mode == 1) {
       const int off = (kk / 4) * 64 * sm90::kRowBytes + (kk % 4) * 32;
       sm90::wgmma_ss_n128<1>(d, sm90::desc(sA + off, 16, sm90::kAtomBytes), db, 1);
+    } else if (mode == 3) {  // a k16 step: 16 rows of a's [k][m] tile
+      const uint64_t da = sm90::desc(sA + kk * 16 * sm90::kRowBytes, lbo, sbo);
+      sm90::wgmma_ss_n128<1, 1>(d, da, db, 1);
     } else {
       sm90::wgmma_rs_n128<1>(d, af[kk], db, 1);
     }
@@ -107,16 +117,18 @@ __global__ void __launch_bounds__(128) wgmma_probe(const __grid_constant__ CUten
 
 extern "C" {
 
-// a [64, 128] and b ([64, 128] for mode 0, else [128, 128]) contiguous
-// bf16, out fp32 [64, 64 or 128], all device pointers; returns 0 or an
-// error code (sm90_host's, or cudaGetLastError()).
+// a [64, 128] (mode 3: [128, 64]) and b ([64, 128] for mode 0, else
+// [128, 128]) contiguous bf16, out fp32 [64, 64 or 128], all device
+// pointers; returns 0 or an error code (sm90_host's, or
+// cudaGetLastError()).
 int repro_wgmma_probe(const void* a, const void* b, void* out, int mode, int lbo, int sbo,
                       void* stream) {
   CUtensorMap amap, bmap;
-  const uint64_t adims[2] = {128, 64}, bdims[2] = {128, mode == 0 ? 64u : 128u};
-  const uint64_t stride[1] = {256};
-  const uint32_t abox[2] = {64, 64}, bbox[2] = {64, mode == 0 ? 64u : 128u};
-  int err = sm90_host::make_map(&amap, a, 2, adims, stride, abox);
+  const uint64_t adims[2] = {mode == 3 ? 64u : 128u, mode == 3 ? 128u : 64u};
+  const uint64_t bdims[2] = {128, mode == 0 ? 64u : 128u};
+  const uint64_t stride[1] = {256}, astride[1] = {mode == 3 ? 128u : 256u};
+  const uint32_t abox[2] = {64, mode == 3 ? 128u : 64u}, bbox[2] = {64, mode == 0 ? 64u : 128u};
+  int err = sm90_host::make_map(&amap, a, 2, adims, astride, abox);
   if (err == 0) err = sm90_host::make_map(&bmap, b, 2, bdims, stride, bbox);
   if (err != 0) return err;
   const cudaError_t attr =

@@ -35,16 +35,21 @@ one launch of the wrapper: the kernel and its merge).
 Gradients.  On CPU tensors autograd differentiates the plain version.
 On CUDA tensors, when q, k or v requires a gradient (and grad mode is
 on), the forward launch above runs inside a ``torch.autograd.Function``
-that saves q, k, v and the output, and its backward launches the three
-kernels of ``csrc/flash_attention_bwd.cu`` (built beside the forward's
-library): one recomputes each row's logsumexp and delta = rowsum(dO * O),
-one accumulates dK and dV a key tile at a time over the group's query
-heads, one accumulates dQ a query tile at a time; bf16 on mma.sync, fp32
-on FMAs, no atomics, so two runs give the same bits.  It takes self-attention over a whole
+that also has the forward kernel write each row's logsumexp (natural
+domain, fp32, [B, H, S rounded up to 64]: ``lse_stride``) and saves q, k,
+v, the output and it.  Its backward launches the kernels of
+``csrc/flash_attention_bwd.cu`` (built beside the forward's library): one
+forms delta = rowsum(dO * O), one accumulates dK and dV a key tile at a
+time over the group's query heads, one accumulates dQ a query tile at a
+time; ``backward_route(dtype)``: ``"wgmma"`` for bf16 (TMA rings and
+wgmma, as the forward), ``"fma"`` for fp32; no atomics, so two runs give
+the same bits.  ``flash_attention_backward_plain`` is the same function
+written out plainly from (o, lse).  It takes self-attention over a whole
 sequence (Sq == Sk > 1, ``q_offset`` 0) with any mask, softcap and
 grouping, D in ``WGMMA_HEAD_DIMS``, fp32 or bf16; anything else that
-needs a gradient on a card raises (there is no fallback).  Each backward
-adds one to ``flash_attention.backward_launches``.
+needs a gradient on a card raises before the forward (there is no
+fallback).  Each backward adds one to ``flash_attention.backward_launches``
+and to its route's count in ``flash_attention.backward_launches_by_route``.
 """
 from __future__ import annotations
 
@@ -63,6 +68,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 80, 96, 112, 128)
 # the kernels of the C interface, by route code
 ROUTES = {"fma": 0, "decode": 1, "wgmma": 2}
+BWD_ROUTES = ("wgmma", "fma")  # the backward's kernels: bf16, fp32
+LSE_ROWS = 64  # the logsumexp's rows of a head are padded to a multiple of this
 DECODE_HEAD_DIMS = (64, 80, 96, 112, 128)
 WGMMA_HEAD_DIMS = (64, 80, 96, 112, 128)
 NEG_INF = -1e30  # the masked score of the TPU kernel and of the oracle
@@ -91,7 +98,7 @@ def load(path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     vp, ci, ll, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.repro_flash_attention.argtypes = (
-        [vp] * 4 + [ll] * 12 + [ci] * 6 + [cf, cf] + [ci] * 9 + [vp, vp]
+        [vp] * 4 + [ll] * 12 + [ci] * 6 + [cf, cf] + [ci] * 9 + [vp, vp, ci, vp]
     )
     lib.repro_flash_attention.restype = ci
     return lib
@@ -109,7 +116,7 @@ def load_backward(path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     vp, ci, ll, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.repro_flash_attention_bwd.argtypes = (
-        [vp] * 10 + [ll] * 24 + [ci] * 5 + [cf, cf] + [ci] * 3 + [vp]
+        [vp] * 10 + [ci] + [ll] * 24 + [ci] * 5 + [cf, cf] + [ci] * 3 + [vp]
     )
     lib.repro_flash_attention_bwd.restype = ci
     return lib
@@ -135,6 +142,19 @@ def route(dtype: torch.dtype, sq: int, d: int) -> str:
     return "fma"
 
 
+def backward_route(dtype: torch.dtype) -> str:
+    """The backward's kernels for q's dtype: ``"wgmma"`` for bf16, ``"fma"``
+    for fp32."""
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
+
+
+def lse_stride(s: int) -> int:
+    """The row stride of a head's logsumexp (and delta): S rounded up to
+    ``LSE_ROWS``, so that the backward copies a tile's 64 values as one
+    aligned piece and never reads past the buffer."""
+    return -(-s // LSE_ROWS) * LSE_ROWS
+
+
 def _misaligned(t: torch.Tensor) -> bool:
     """Whether t's address or an outer stride (of a dimension larger than
     1) is not a multiple of 16 bytes."""
@@ -144,8 +164,8 @@ def _misaligned(t: torch.Tensor) -> bool:
 
 
 def _check_aligned(r: str, **tensors: torch.Tensor) -> None:
-    """TMA (the wgmma route), 16-byte vector loads (the decode route) and
-    cp.async (the bf16 backward) read a tensor whose address and outer
+    """TMA (the wgmma routes, forward and backward) and 16-byte vector
+    loads (the decode route) read a tensor whose address and outer
     strides are multiples of 16 bytes."""
     for name, t in tensors.items():
         if _misaligned(t):
@@ -210,28 +230,75 @@ def causal_mask(sq: int, sk: int, window: Optional[int], offset: int = 0,
     return m
 
 
+def _scores(q, k, causal, window, softcap, scale, q_offset, want_dsdx=False):
+    """fp32 scores [B, H, Sq, Sk] over grouped KV heads: scaled, capped,
+    masked entries at ``NEG_INF``; the mask; with ``want_dsdx`` the cap's
+    d s / d x (None without a softcap)."""
+    kr = k.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr.float()) * scale
+    dsdx = None
+    if softcap:
+        s = torch.tanh(s / softcap)
+        if want_dsdx:
+            dsdx = 1 - s * s
+        s = softcap * s
+    mask = causal_mask(q.shape[2], k.shape[2], window, q_offset, causal,
+                       device=q.device)
+    return torch.where(mask, s, torch.full_like(s, NEG_INF)), mask, dsdx
+
+
 def flash_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, window: Optional[int] = None,
     softcap: Optional[float] = None, scale: Optional[float] = None,
-    q_offset: int = 0,
-) -> torch.Tensor:
+    q_offset: int = 0, return_lse: bool = False,
+):
     """The same function as the kernel, written out plainly, for tensors
-    on any device (the oracle's formula, with grouped KV heads)."""
-    d = q.shape[-1]
-    group = q.shape[1] // k.shape[1]
-    scale = scale if scale is not None else d**-0.5
-    kr = k.repeat_interleave(group, dim=1)
-    vr = v.repeat_interleave(group, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr.float()) * scale
-    if softcap:
-        s = softcap * torch.tanh(s / softcap)
-    mask = causal_mask(q.shape[2], k.shape[2], window, q_offset, causal,
-                       device=q.device)
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    on any device (the oracle's formula, with grouped KV heads).  With
+    ``return_lse`` also each row's logsumexp of its scores (fp32 [B, H,
+    Sq], natural domain, masked keys at -1e30): ``(out, lse)``, what the
+    forward kernel writes for the backward."""
+    scale = scale if scale is not None else q.shape[-1]**-0.5
+    s, _, _ = _scores(q, k, causal, window, softcap, scale, q_offset)
+    vr = v.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), vr.float())
+    if return_lse:
+        return out.to(q.dtype), torch.logsumexp(s, dim=-1)
     return out.to(q.dtype)
+
+
+def flash_attention_backward_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
+    window: Optional[int] = None, softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' function written out plainly, from the
+    forward's output ``o`` and logsumexp ``lse`` ([B, H, S], natural
+    domain): delta = rowsum(dO * O), P = exp(s - lse) (0 where masked),
+    dV = P^T dO (P rounded to v's dtype, as the forward rounds it), dS = P
+    (dO v^T - delta) times the softcap's 1 - tanh^2, dQ = scale dS K and
+    dK = scale dS^T Q, K's and V's summed over each group of query heads;
+    fp32 sums, cast to q's, k's and v's dtypes."""
+    scale = scale if scale is not None else q.shape[-1]**-0.5
+    b, h, sq, d = q.shape
+    kv, g = k.shape[1], h // k.shape[1]
+    s, mask, dsdx = _scores(q, k, causal, window, softcap, scale, 0, want_dsdx=True)
+    p = torch.where(mask, torch.exp(s - lse.float()[..., None]), torch.zeros_like(s))
+    dof = do.float()
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    vr = v.repeat_interleave(g, dim=1).float()
+    ds = p * (dof @ vr.transpose(-1, -2) - delta)
+    if dsdx is not None:
+        ds = ds * dsdx
+    dv = p.to(v.dtype).float().transpose(-1, -2) @ dof
+    dk = ds.transpose(-1, -2) @ q.float() * scale
+    dq = ds @ k.repeat_interleave(g, dim=1).float() * scale
+    sk = k.shape[2]
+    dk = dk.reshape(b, kv, g, sk, d).sum(2)
+    dv = dv.reshape(b, kv, g, sk, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -262,7 +329,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
 
 
-def _launch(q, k, v, causal, window, softcap, scale, q_offset) -> torch.Tensor:
+def _launch(q, k, v, causal, window, softcap, scale, q_offset, want_lse=False):
+    """The forward launch: o, or (o, lse) with ``want_lse`` (the prefill
+    routes' logsumexp, [B, H, lse_stride(Sq)] of which the first Sq rows
+    of a head are written)."""
     B, H, Sq, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     if D not in HEAD_DIMS:
@@ -285,6 +355,11 @@ def _launch(q, k, v, causal, window, softcap, scale, q_offset) -> torch.Tensor:
     n_scratch = decode_scratch_floats(B, H, D, n_chunks)
     scratch = (torch.empty(n_scratch, dtype=torch.float32, device=q.device)
                if n_scratch else None)
+    lse = None
+    if want_lse:
+        if r == "decode":
+            raise ValueError("the decode route writes no logsumexp")
+        lse = torch.empty((B, H, lse_stride(Sq)), dtype=torch.float32, device=q.device)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -294,13 +369,13 @@ def _launch(q, k, v, causal, window, softcap, scale, q_offset) -> torch.Tensor:
             B, H, KV, Sq, Sk, D, float(scale), float(softcap or 0.0),
             int(causal), int(win), int(q_offset), _DTYPES[q.dtype], ROUTES[r],
             lo, hi, chunk, n_chunks, scratch.data_ptr() if scratch is not None else None,
-            stream,
+            lse.data_ptr() if lse is not None else None, lse_stride(Sq), stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed ({r} route): error {err}")
     flash_attention.launches += 1
     flash_attention.launches_by_route[r] += 1
-    return o
+    return (o, lse) if want_lse else o
 
 
 def flash_attention(
@@ -341,7 +416,7 @@ def _check_backward(q: torch.Tensor, k: torch.Tensor, q_offset: int) -> None:
             f"Sq {sq}, Sk {sk}, q_offset {q_offset}, D {d}")
 
 
-def _launch_backward(q, k, v, o, do, causal, window, softcap,
+def _launch_backward(q, k, v, o, lse, do, causal, window, softcap,
                      scale) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     B, H, S, D = q.shape
     KV = k.shape[1]
@@ -353,12 +428,14 @@ def _launch_backward(q, k, v, o, do, causal, window, softcap,
         return g if g.stride(3) == 1 else torch.empty(t.shape, dtype=t.dtype,
                                                       device=t.device)
 
-    if q.dtype == torch.bfloat16:  # cp.async reads 16-byte chunks of rows
+    r = backward_route(q.dtype)
+    if r == "wgmma":  # TMA reads rows in place; delta reads 16-byte pieces of o and dO
         if _misaligned(do):
             do = do.contiguous()
         _check_aligned("backward", q=q, k=k, v=v, o=o, do=do)
     dq, dk, dv = like(q), like(k), like(v)
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    if tuple(lse.shape) != (B, H, lse_stride(S)) or not lse.is_contiguous():
+        raise ValueError(f"lse {tuple(lse.shape)} is not the forward's [B, H, lse_stride(S)]")
     delta = torch.empty_like(lse)
     win = window if window is not None and window <= S else 0
     lib = _backward_library()
@@ -366,34 +443,37 @@ def _launch_backward(q, k, v, o, do, causal, window, softcap,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_flash_attention_bwd(
-            *(t.data_ptr() for t in tensors), lse.data_ptr(), delta.data_ptr(),
+            *(t.data_ptr() for t in tensors), lse.data_ptr(), delta.data_ptr(), lse.shape[2],
             *(s for t in tensors for s in t.stride()[:3]),
             B, H, KV, S, D, float(scale), float(softcap or 0.0), int(causal),
             int(win), _DTYPES[q.dtype], stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash_attention backward launch failed: error {err}")
+        raise RuntimeError(f"flash_attention backward launch failed ({r} route): error {err}")
     flash_attention.backward_launches += 1
+    flash_attention.backward_launches_by_route[r] += 1
     return dq, dk, dv
 
 
 class _Attention(torch.autograd.Function):
-    """The forward kernel, with the backward kernels as its gradient."""
+    """The forward kernel (writing the logsumexp), with the backward
+    kernels as its gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, scale):
-        o = _launch(q, k, v, causal, window, softcap, scale, 0)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = _launch(q, k, v, causal, window, softcap, scale, 0, want_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.mask = (causal, window, softcap, scale)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = _launch_backward(q, k, v, o, do, *ctx.mask)
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _launch_backward(q, k, v, o, lse, do, *ctx.mask)
         return dq, dk, dv, None, None, None, None
 
 
 flash_attention.launches = 0  # type: ignore[attr-defined]
 flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)  # type: ignore[attr-defined]
 flash_attention.backward_launches = 0  # type: ignore[attr-defined]
+flash_attention.backward_launches_by_route = dict.fromkeys(BWD_ROUTES, 0)  # type: ignore[attr-defined]

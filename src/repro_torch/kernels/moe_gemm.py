@@ -43,15 +43,17 @@ is on), the forward launch above runs inside a
 ``torch.autograd.Function`` that saves x, w and the group sizes, and its
 backward launches ``csrc/moe_gemm_bwd.cu`` (built beside the forward's
 library): dx = dy w[e]^T per segment, the forward's grouped GEMM with
-each expert's weights read K-major (bf16 on the wgmma route's tiling,
-fp32 on FMAs, whatever route the forward took), and dw[e] = x[seg]^T
-dy[seg], one block per (expert, D tile, F tile) walking the segment's
-rows in order (bf16 on mma.sync, fp32 on FMAs).  No atomics: two runs
-give the same bits.  ``moe_grouped_gemm_backward_plain`` is the same
-function written out plainly.  The backward takes D a multiple of 8 (it
-stores dx and reads x in 16-byte pieces); a call that needs a gradient
-on a card at another D raises before the forward.  Each backward adds
-one to ``moe_grouped_gemm.backward_launches``.
+each expert's weights read K-major, and dw[e] = x[seg]^T dy[seg], each
+output tile walking the segment's rows in order; ``backward_route(dtype)``:
+``"wgmma"`` for bf16 (dx on the forward's wgmma tiling, dw on a
+persistent TMA + wgmma grid), ``"fma"`` for fp32, whatever route the
+forward took.  No atomics: two runs give the same bits.
+``moe_grouped_gemm_backward_plain`` is the same function written out
+plainly.  The backward takes D a multiple of 8 (it stores dx and reads x
+in 16-byte pieces); a call that needs a gradient on a card at another D
+raises before the forward.  Each backward adds one to
+``moe_grouped_gemm.backward_launches`` and to its route's count in
+``moe_grouped_gemm.backward_launches_by_route``.
 """
 from __future__ import annotations
 
@@ -72,6 +74,7 @@ STREAM_ROWS = 4  # the most rows of a tile that streams its expert's weights
 # the route names, and the kernel of the C interface each launches
 ROUTES = ("wgmma", "fma", "stream")
 _ROUTE_CODES = {"wgmma": 1, "fma": 0, "stream": 2}
+BWD_ROUTES = ("wgmma", "fma")  # the backward's kernels: bf16, fp32
 # the streaming route reads D in slices of at most STREAM_SLICE rows, each
 # a multiple of STREAM_SLICE_STEP (a block step of its unrolled loads)
 STREAM_SLICE = 512
@@ -116,6 +119,12 @@ def route(dtype: torch.dtype, t: int, e: int) -> str:
     most 4 rows), else ``"wgmma"`` for bf16 and ``"fma"`` for fp32."""
     if t <= STREAM_ROWS * e:
         return "stream"
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
+
+
+def backward_route(dtype: torch.dtype) -> str:
+    """The backward's kernels for x's dtype: ``"wgmma"`` for bf16, ``"fma"``
+    for fp32."""
     return "wgmma" if dtype == torch.bfloat16 else "fma"
 
 
@@ -273,8 +282,10 @@ def _launch_backward(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor
             T, D, F, E, _DTYPES[x.dtype], stream,
         )
     if err != 0:
-        raise RuntimeError(f"moe_gemm backward launch failed: error {err}")
+        raise RuntimeError(f"moe_gemm backward launch failed "
+                           f"({backward_route(x.dtype)} route): error {err}")
     moe_grouped_gemm.backward_launches += 1
+    moe_grouped_gemm.backward_launches_by_route[backward_route(x.dtype)] += 1
     return dx, dw
 
 
@@ -297,3 +308,4 @@ class _GroupedGemm(torch.autograd.Function):
 moe_grouped_gemm.launches = 0  # type: ignore[attr-defined]
 moe_grouped_gemm.launches_by_route = dict.fromkeys(ROUTES, 0)  # type: ignore[attr-defined]
 moe_grouped_gemm.backward_launches = 0  # type: ignore[attr-defined]
+moe_grouped_gemm.backward_launches_by_route = dict.fromkeys(BWD_ROUTES, 0)  # type: ignore[attr-defined]

@@ -572,18 +572,21 @@ def _probe():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
 def test_wgmma_probe_matches_matmul(cuda, mode):
     """One m64nNk16 chain over K = 128 (two 64-column halves of the
     128-byte swizzle) on TMA-loaded bf16 tiles: mode 0 with a K-major B
     (attention's scores), 1 with an MN-major B (the grouped GEMM), 2 with
-    A from registers and an MN-major B (attention's P V).  Products of
-    bf16 values are exact in fp32; only the order of the sums differs."""
+    A from registers and an MN-major B (attention's P V), 3 with an
+    MN-major A (the transpose flag of A: the grouped GEMM's dw = x^T dy).
+    Products of bf16 values are exact in fp32; only the order of the sums
+    differs."""
     rng = np.random.default_rng(mode)
-    a = torch.from_numpy(rng.standard_normal((64, 128))).to(cuda, torch.bfloat16)
+    a = torch.from_numpy(rng.standard_normal((128, 64) if mode == 3 else (64, 128))).to(
+        cuda, torch.bfloat16)
     b = torch.from_numpy(rng.standard_normal((64 if mode == 0 else 128, 128))).to(
         cuda, torch.bfloat16)
-    want = a.float() @ (b.float().T if mode == 0 else b.float())
+    want = (a.float().T if mode == 3 else a.float()) @ (b.float().T if mode == 0 else b.float())
     out = torch.full(want.shape, float("nan"), device=cuda)
     err = _probe()(a.data_ptr(), b.data_ptr(), out.data_ptr(), mode, PROBE_LBO, PROBE_SBO,
                    torch.cuda.current_stream().cuda_stream)

@@ -30,8 +30,15 @@
 
   * gradients: on the CPU the wrapper's inputs that need a gradient get
     autograd through the plain version, equal to ``jax.grad`` of the
-    oracle (K and V's gradients summed over each group); marked ``cuda``,
-    the backward kernels (``csrc/flash_attention_bwd.cu``) against
+    oracle (K and V's gradients summed over each group); the plain
+    forward's logsumexp (``return_lse``) against JAX's logsumexp of the
+    oracle's masked, softcapped scores, and the explicit plain backward
+    from (o, lse) against autograd and ``jax.grad`` (fp32, 1e-5 of the
+    largest gradient), over the backward's cases; the backward's route
+    by dtype and the logsumexp's padded stride.  Marked ``cuda``: the
+    forward kernels' logsumexp against the plain one, serving's output
+    the same bits with and without it; the backward kernels
+    (``csrc/flash_attention_bwd.cu``, bf16 on the "wgmma" route) against
     autograd through the plain version on the card over causal, window,
     softcap, non-causal, 1:1, 2:1 and 5:1 grouping, D 64, 80, 96, 112 and
     128, ragged lengths, fp32 within 1e-4 and bf16 within 2e-2 of the
@@ -56,9 +63,13 @@ from repro_torch.kernels.flash_attention import (
     causal_mask,
     decode_plan,
     decode_scratch_floats,
+    LSE_ROWS,
+    backward_route,
     flash_attention,
+    flash_attention_backward_plain,
     flash_attention_plain,
     key_range,
+    lse_stride,
     route,
 )
 
@@ -506,10 +517,13 @@ def test_backward_kernel_matches_plain_autograd(cuda, case, dtype):
     q, k, v, w = _bwd_inputs(cuda, dt, b, h, kv, s, d)
     kw = dict(causal=causal, window=window, softcap=softcap)
     before = flash_attention.backward_launches
+    by_route = dict(flash_attention.backward_launches_by_route)
     got = _grads(lambda *t: flash_attention(*t, **kw), q, k, v, w)
     again = _grads(lambda *t: flash_attention(*t, **kw), q, k, v, w)
     torch.cuda.synchronize()
     assert flash_attention.backward_launches == before + 2
+    r = "wgmma" if dtype == "bfloat16" else "fma"
+    assert flash_attention.backward_launches_by_route[r] == by_route[r] + 2
     want = _grads(lambda *t: flash_attention_plain(*t, **kw), q, k, v, w)
     for name, g, g2, wt in zip("qkv", got, again, want):
         assert g.dtype == dt and g.shape == wt.shape, name
@@ -535,3 +549,107 @@ def test_backward_refuses_what_it_does_not_compute(cuda):
     # without grad mode the same forward runs
     with torch.no_grad():
         flash_attention(q, k, k, q_offset=3)
+
+
+def _jax_lse(jnp, q, k, causal, window, softcap):
+    """JAX's logsumexp over keys of the oracle's scores (its formula:
+    scaled, softcapped, masked to -1e30), K repeated to H heads."""
+    import jax
+
+    g = q.shape[1] // k.shape[1]
+    s = jnp.einsum("bhqd,bhkd->bhqk", jnp.asarray(q), jnp.asarray(np.repeat(k, g, 1)),
+                   preferred_element_type=jnp.float32) * q.shape[-1] ** -0.5
+    if softcap:
+        s = softcap * jnp.tanh(s / softcap)
+    iq = jnp.arange(q.shape[2])[:, None]
+    jk = jnp.arange(k.shape[2])[None, :]
+    mask = jnp.ones((q.shape[2], k.shape[2]), bool)
+    if causal:
+        mask &= jk <= iq
+    if window is not None:
+        mask &= jk > iq - window
+    return np.asarray(jax.nn.logsumexp(jnp.where(mask[None, None], s, -1e30), axis=-1))
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_plain_lse_matches_jax_logsumexp(jx, case):
+    """``flash_attention_plain(..., return_lse=True)``'s logsumexp, what the
+    forward kernels keep for the backward, against JAX's over the oracle's
+    scores; its output is the plain output."""
+    jnp = jx[0]
+    b, h, kv, s, d, causal, window, softcap = BWD_CASES[case]
+    q, k, v = _inputs(5, b, h, kv, s, s, d)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v)),
+                                   return_lse=True, **kw)
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    assert torch.equal(o, _plain(q, k, v, "float32", causal, window, softcap, 0))
+    want = _jax_lse(jnp, q, k, causal, window, softcap)
+    assert np.abs(lse.numpy() - want).max() <= 1e-5 * max(np.abs(want).max(), 1.0)
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_plain_backward_matches_autograd_and_jax_grad(jx, case):
+    """The explicit plain backward from (o, lse), the backward kernels'
+    plain version, against autograd through ``flash_attention_plain`` and
+    ``jax.grad`` of the oracle, fp32 within 1e-5 of the largest
+    gradient."""
+    import jax
+
+    jnp, _, ref = jx
+    b, h, kv, s, d, causal, window, softcap = BWD_CASES[case]
+    q, k, v = _inputs(7, b, h, kv, s, s, d)
+    w = np.random.default_rng(8).standard_normal((b, h, s, d)).astype(np.float32)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    qt, kt, vt, wt = (torch.from_numpy(a) for a in (q, k, v, w))
+    o, lse = flash_attention_plain(qt, kt, vt, return_lse=True, **kw)
+    got = flash_attention_backward_plain(qt, kt, vt, o, lse, wt, **kw)
+    auto = _grads(lambda *t: flash_attention_plain(*t, **kw), qt, kt, vt, wt)
+
+    def loss(qj, kj, vj):
+        return (ref(qj, kj, vj, **kw).astype(jnp.float32) * w).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*_jax_side(jnp, q, k, v, "float32"))
+    g = h // kv
+    want = [np.asarray(want[0])] + [np.asarray(x).reshape(b, kv, g, s, d).sum(2)
+                                    for x in want[1:]]
+    for name, gt, at, jt in zip("qkv", got, auto, want):
+        assert gt.shape == jt.shape and gt.dtype == torch.float32, name
+        tol = 1e-5 * np.abs(jt).max()
+        assert np.abs(gt.numpy() - at.numpy()).max() <= tol, name
+        assert np.abs(gt.numpy() - jt).max() <= tol, name
+
+
+def test_backward_route_and_lse_stride():
+    """bf16 takes the wgmma backward, fp32 the FMA one; a head's logsumexp
+    rows are padded to a multiple of 64."""
+    assert backward_route(torch.bfloat16) == "wgmma"
+    assert backward_route(torch.float32) == "fma"
+    assert LSE_ROWS == 64
+    assert [lse_stride(s) for s in (2, 64, 65, 77, 1500, 2048)] == [64, 64, 128, 128, 1536, 2048]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_forward_kernel_lse_matches_plain(cuda, case, dtype):
+    """The forward kernel's logsumexp (the fp32 tiled kernel's and the
+    bf16 wgmma kernel's) against the plain version's on the same inputs;
+    asked for or not, the output has the same bits, so serving, which
+    does not ask, is unchanged."""
+    from repro_torch.kernels.flash_attention import _launch
+
+    b, h, kv, s, d, causal, window, softcap = BWD_CASES[case]
+    dt = getattr(torch, dtype)
+    q, k, v, _ = _bwd_inputs(cuda, dt, b, h, kv, s, d, seed=9)
+    scale = d ** -0.5
+    win = window if window is not None and window <= s else 0
+    o, lse = _launch(q, k, v, causal, win, softcap, scale, 0, want_lse=True)
+    o2 = _launch(q, k, v, causal, win, softcap, scale, 0)
+    torch.cuda.synchronize()
+    assert lse.shape == (b, h, lse_stride(s))
+    assert torch.equal(o, o2)
+    _, want = flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap,
+                                    return_lse=True)
+    err = (lse[..., :s] - want).abs().max().item()
+    assert err <= 1e-5 * max(want.abs().max().item(), 1.0), err

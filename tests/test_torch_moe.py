@@ -34,11 +34,14 @@ grouped GEMM's CUDA kernel.
     the plain backward ``moe_grouped_gemm_backward_plain`` against
     autograd through the plain version and against ``jax.grad`` of
     ``ragged_dot`` (fp32 within 1e-5 of the largest gradient) with empty
-    experts, rows past the sum and T not a multiple of any tile; marked
-    ``cuda``: the backward kernels against the plain backward (fp32
+    experts, rows past the sum, T not a multiple of any tile, and D and F
+    not multiples of the card's tiles; the backward's route by dtype;
+    marked ``cuda``: the backward kernels against the plain backward (fp32
     within 1e-4, bf16 within 2e-2 of the largest gradient; the same bits
-    on two runs) at the sweep shapes, skewed routings, decode-sized T
-    (the forward on its streaming route) and ragged D and F, and a call
+    on two runs; bf16 on the "wgmma" route) at the sweep shapes, skewed
+    routings, decode-sized T (the forward on its streaming route), ragged
+    D and F, an expert of one row starting one row past a box edge and
+    40 experts, and a call
     whose gradient the kernels do not compute (D not a multiple of 8)
     refused before the forward's launch.
 
@@ -408,6 +411,8 @@ BWD_CASES = [
     (77, 24, 40, 5, [30, 0, 0, 41, 2]),  # T a multiple of no tile, two empty experts
     (50, 16, 24, 3, [0, 0, 0]),  # no rows at all: dx and dw zero
     (40, 16, 8, 3, [25, 30, 10]),  # group sizes past T: the segments clamp
+    (300, 72, 136, 6, [0, 130, 0, 0, 101, 0]),  # D and F not multiples of the tiles
+    (1000, 200, 264, 5, [900, 0, 1, 2, 0]),  # one expert holds most rows, rows past the sum
 ]
 
 
@@ -449,6 +454,15 @@ def test_plain_backward_matches_autograd_and_jax_grad(jx, case):
     for e, n in enumerate(gs):
         if n <= 0:
             assert not dw[e].any()
+
+
+def test_backward_route_by_dtype():
+    """bf16 takes the wgmma backward (dx and dw), fp32 the FMA one."""
+    from repro_torch.kernels.moe_gemm import BWD_ROUTES, backward_route
+
+    assert backward_route(torch.bfloat16) == "wgmma"
+    assert backward_route(torch.float32) == "fma"
+    assert set(moe_grouped_gemm.backward_launches_by_route) == set(BWD_ROUTES)
 
 
 def test_backward_refusal_before_the_forward():
@@ -496,6 +510,9 @@ def test_kernel_refuses_gradients(cuda):
     (300, 72, 136, 6, [0, 130, 0, 0, 101, 0]),  # D and F not multiples of the tiles
     (1000, 200, 264, 5, [900, 0, 1, 2, 0]),  # one expert holds most rows, rows past the sum
     (4096, 512, 384, 16, "routed"),  # top-1 routing, sum = T
+    # an expert of one row, starting one row past a 64-row box edge
+    (600, 128, 256, 4, [65, 1, 300, 100]),
+    (512, 64, 128, 40, "routed"),  # more experts than a warp scans at once
 ])
 def test_backward_kernel_matches_plain(cuda, case, dtype):
     """The backward kernels (through autograd) against the plain backward:
@@ -514,9 +531,12 @@ def test_backward_kernel_matches_plain(cuda, case, dtype):
         return xa.grad, wa.grad
 
     before = moe_grouped_gemm.backward_launches
+    by_route = dict(moe_grouped_gemm.backward_launches_by_route)
     got, again = run(), run()
     torch.cuda.synchronize()
     assert moe_grouped_gemm.backward_launches == before + 2
+    r = "wgmma" if dtype == "bfloat16" else "fma"
+    assert moe_grouped_gemm.backward_launches_by_route[r] == by_route[r] + 2
     want = moe_grouped_gemm_backward_plain(xt, wt, gt, dyt)
     tol = 1e-4 if dtype == "float32" else 2e-2
     for a, b, c in zip(got, again, want):
