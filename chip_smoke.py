@@ -226,12 +226,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
  17. mamba_train (mamba2-1.3b, bf16, full width and depth): the SSD scan's
      backward kernels against the plain backward at mamba2-1.3b's training
      shape (x [4, 2048, 64, 64], d_state 128, chunk 256) and zamba2's (x
-     [4, 2048, 112, 64], d_state 64) on the mma route and a small fp32
+     [4, 2048, 112, 64], d_state 64) on the wgmma route and a small fp32
      case with two groups on the FMA route (against the plain backward in
      fp64), the mamba2 backward timed beside its bound and the plain
-     backward; 4 AdamW steps on the stream's first 2 batches of 4 x 2048
-     tokens in turn (2 forward and 1 backward scan launches a layer and
-     step), step wall, tokens/s, peak memory and one profiled step; two
+     backward, and its device time by kernel; 4 AdamW steps on the
+     stream's first 2 batches of 4 x 2048 tokens in turn (2 forward and 1
+     backward scan launches a layer and step, the backwards on "wgmma"),
+     step wall, tokens/s, peak memory and one profiled step; two
      fp32 steps of a narrow mamba2 and of a narrow zamba2 on the card
      against the CPU;
  18. the kernel table's JSON line (the flash and moe_gemm records also
@@ -4241,7 +4242,7 @@ def _train_grads_vs_plain(fa):
 _TRAIN_SPLIT = ("ssd backward", "flash backward", "moe backward", "moe forward",
                 "ssd forward", "flash forward")
 _TRAIN_SPLIT_WORDS = (("bwd_states", "bwd_pass", "bwd_keys", "bwd_queries", "bwd_finalize",
-                       "bwd_reduce"),
+                       "bwd_reduce", "bwd_seg", "bwd_scan", "bwd_cb"),
                       ("bwd_delta", "bwd_dkdv", "bwd_dq"),
                       ("moe_wgmma_dx", "moe_dx_fma", "moe_dw_", "moe_wgmma_dw"),
                       ("moe_",), ("ssd_",), ("flash_",))
@@ -4578,7 +4579,7 @@ def phase_ssd_backward(ss):
     """The SSD scan's backward kernels (through autograd) against the plain
     backward at mamba2-1.3b's training shape (x [4, 2048, 64, 64], d_state
     128, chunk 256) and zamba2's (x [4, 2048, 112, 64], d_state 64) in bf16
-    on the mma route, and a small fp32 case with two groups on the FMA
+    on the wgmma route, and a small fp32 case with two groups on the FMA
     route (against the plain backward in fp64): each gradient within
     BWD_TOL of its largest, the same bits on two runs; mamba2's backward
     timed beside its bound and the plain backward, and its device time by
@@ -4593,12 +4594,15 @@ def phase_ssd_backward(ss):
         c = get_config(arch)
         sp = c.ssm
         checks.append((label, (4, 2048, sp.n_heads(c.d_model), sp.head_dim, sp.d_state,
-                               sp.chunk, sp.n_groups), "bfloat16"))
-    checks.append(("small fp32", (2, 512, 4, 64, 128, 256, 2), "float32"))
+                               sp.chunk, sp.n_groups), "bfloat16", "wgmma"))
+    checks.append(("small fp32", (2, 512, 4, 64, 128, 256, 2), "float32", "fma"))
     worst, out = 0.0, {}
-    for seed, (label, (b, s, h, hd, ds, q, g), dtype) in enumerate(checks):
+    for seed, (label, (b, s, h, hd, ds, q, g), dtype, want_route) in enumerate(checks):
         leaves, dy = _ssd_bwd_inputs(50 + seed, b, s, h, hd, ds, g, getattr(torch, dtype))
-        want_route = ss.backward_route(leaves[0].dtype, hd, ds, q)
+        if ss.backward_route(leaves[0].dtype, hd, ds, q) != want_route:
+            raise AssertionError(f"ssd backward at {label}: route "
+                                 f"{ss.backward_route(leaves[0].dtype, hd, ds, q)}, want "
+                                 f"{want_route}")
         y = ss.ssd_scan(*leaves, chunk=q)
         kernel = lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)
         before = dict(ss.ssd_scan.backward_launches_by_route)
@@ -4804,9 +4808,11 @@ def phase_mamba_train(ss, fa):
     opt = AdamWSettings(lr=LM_TRAIN_LR, warmup_steps=LM_TRAIN_WARMUP,
                         total_steps=LM_TRAIN_TOTAL)
     sp, bf16 = cfg.ssm, torch.bfloat16
+    ssd_route = ss.backward_route(bf16, sp.head_dim, sp.d_state, sp.chunk)
+    if ssd_route != "wgmma":
+        raise AssertionError(f"mamba train: the scan's backward route is {ssd_route}, want wgmma")
     counts = _train_path("mamba train", cfg, opt, MAMBA_TRAIN_BATCH, MAMBA_TRAIN_SEQ,
-                         {"ssd_scan": (ss.ssd_scan,
-                                       ss.backward_route(bf16, sp.head_dim, sp.d_state, sp.chunk)),
+                         {"ssd_scan": (ss.ssd_scan, ssd_route),
                           "flash_attention": (fa.flash_attention, fa.backward_route(bf16))})
     L, n = cfg.n_layers, TRAIN_STEPS
     if counts != {"ssd_scan": (2 * L * n, L * n), "flash_attention": (0, 0)}:

@@ -1,9 +1,10 @@
 // The Mamba2 SSD chunked scan, backward.
 //
-// Replaces no TPU kernel: the JAX package trains through its XLA scan
-// (repro.models.ssm.ssd_chunked), whose gradient XLA forms; the forward's
-// Pallas kernel, repro.kernels.ssd_scan.ssd_scan, has no backward.  This
-// is the gradient of csrc/ssd_scan.cu.  Per batch row b and head h, over
+// The gradient of csrc/ssd_scan.cu, the port of the TPU kernel
+// repro.kernels.ssd_scan.ssd_scan (src/repro/kernels/ssd_scan.py:83).  It
+// replaces no TPU kernel: that Pallas kernel has no backward, and the JAX
+// package trains through its XLA scan (repro.models.ssm.ssd_chunked),
+// whose gradient XLA forms.  Per batch row b and head h, over
 // chunks of q rows, with seg the chunk's cumulative sum of A dt, tot =
 // seg[q-1], h_c the fp32 state entering chunk c and dy the output
 // gradient:
@@ -27,57 +28,108 @@
 // is applied before the exp.  ssd_scan.py's ssd_scan_backward_plain is the
 // same computation in torch.
 //
-// Kernels, in launch order (one wrapper call):
+// Two routes, chosen on the host (ssd_scan.py's backward_route), both
+// launched by one wrapper call and both ending in the same two passes:
 //
-//   1. states, one block per (chunk, head, batch row): seg (stored), the
-//      chunk's own state contribution sum_j exp(tot - seg_j) dt_j x_j^T B_j
-//      and its share of the state gradient sum_i exp(seg_i) dy_i^T C_i,
-//      [hd, ds] each, in fp32 scratch (recomputed: the forward's bf16
-//      chunk states are not kept);
-//   2. pass, sequential over the chunks, one thread per state element:
-//      forward for h_c, in reverse for G_c, in place, fp32;
-//   3. keys, one block per (key tile, chunk, head, batch row): dx, the
-//      head's dB rows (fp32 scratch [b, s, h, ds]) and e1, e2, walking the
-//      query tiles i >= j;
-//   4. queries, one block per (query tile, chunk, head, batch row): the
-//      head's dC rows and r, walking the key tiles j <= i;
-//   5. finalize, one block per (chunk, head, batch row): d(seg), its
-//      reverse cumulative sum, ddt and the chunk's part of dA, in fp64
-//      (they cancel heavily: the row sums of M from the query tiles and its
-//      column sums from the key tiles, which the FMA route forms from the
-//      same fp32 values of M and adds in fp64, so that they cancel to
-//      fp64's rounding);
-//   6. reduce: dB and dC summed over a group's heads in head order (cast
-//      to x's dtype), dA over batch rows and chunks in order.
+//   finalize, one block per (chunk, head, batch row): d(seg), its reverse
+//   cumulative sum, ddt and the chunk's part of dA, in fp64 (they cancel
+//   heavily: the row sums of M from the query tiles and its column sums
+//   from the key tiles, which the FMA route forms from the same fp32
+//   values of M and adds in fp64, so that they cancel to fp64's rounding;
+//   the wgmma route forms exp(seg_i - seg_j) from the difference, whose
+//   rounding would otherwise reach dA);
+//   reduce: dB and dC summed over a group's heads in head order (cast to
+//   x's dtype; "wgmma": over its head slices, in slice order), dA over
+//   batch rows and chunks in order.
 //
-// Two routes for 1, 3 and 4, chosen on the host (ssd_scan.py's
-// backward_route):
+// "wgmma" (bf16, hd 64, ds 64 or 128, q a multiple of 64 up to 256,
+// 16-byte aligned rows and strides: mamba2-1.3b's and zamba2's training
+// shapes).  Bound: at mamba2-1.3b's training shape (x [4, 2048, 64, 64]
+// bf16, ds 128, chunk 256, one group of 64 heads) the function's least
+// work is C B^T once a group, four causal products a head (dy x^T, W^T
+// dy, V^T C, V B) and five [hd, ds] state products a head (the chunk
+// state, the state gradient's share, G_c B, x G_c, h_c^T dy): 94.96
+// GFLOP, 0.096 ms at the 989 TFLOP/s bf16 rate; its bytes (x, dy, B, C,
+// dt read once, dx, dB, dC, ddt written once) are 0.21 GB, 0.064 ms.  So
+// operations bound it.  The kernels:
 //
-// "mma" (bf16, hd <= 64, ds <= 128 and a multiple of 16, q a multiple of
-// 16, 16-byte aligned rows): 64-row tiles staged with cp.async in padded
-// shared-memory rows; every product on mma.sync m16n8k16 (bf16 operands,
-// fp32 sums) with ldmatrix, in the layouts ssd_scan.cu's forward kernels
-// use (K-major pairs for C B^T and dy x^T, MN-major through ldmatrix.trans
-// for the products with the weights).  Warp w owns 16 rows of the block's
-// tile; the score tiles' weights are scaled, masked and packed into A
-// fragments in registers.  G_c and h_c are rounded to bf16 as operands;
-// every sum, seg and the states stay fp32.
+//   1. seg, one warp per (batch row, head, chunk): seg (and the chunk's dt,
+//      contiguous) into scratch;
+//   2. scan, one block per (head, batch row): the chunk states h_c forward
+//      and the state gradients G_c in reverse, the state in a warpgroup's
+//      wgmma accumulator [64 x ds] across the chunks; each chunk's own term
+//      ((exp(tot - seg_j) dt_j x_j)^T B_j, or (exp(seg_i) dy_i)^T C_i, the
+//      rows scaled in shared memory) added by wgmma onto the state scaled
+//      by exp(tot); h_c written in fp32 and bf16, G_c in bf16, and
+//      sum(G_c * h_c) in fp64 for the finalize.  The chunk contributions
+//      never leave the chip; the states go out staged through shared
+//      memory, 16 bytes a store;
+//   3. C B^T, one block per (query tile, chunk, group, batch row): the
+//      causal 64 x 64 tiles of C B^T once per (batch row, group, chunk),
+//      fp32 on mma.sync, written in both tile kernels' fragment orders
+//      (8.4 MB each at mamba2's shape: they stay in L2);
+//   4. keys, one block per (key tile j of 64 rows, head slice, group,
+//      chunk, batch row): B_j, the query tiles' C_i and their C B^T tiles
+//      stay in shared memory across the slice's heads, read once; a
+//      producer warp brings each head's x_j, G_c (bf16), seg and dt into
+//      one of two head stages and its dy_i tiles through a ring of three
+//      (TMA, 128-byte swizzle; bulk copies), while one consumer warpgroup
+//      runs every product on wgmma: S^T = x_j dy_i^T (both K-major); the
+//      weights W^T = C B^T dec dt_j and V^T = S^T dec dt_j (dec = exp(seg_i
+//      - seg_j), masked before the exp) scaled, masked and packed in
+//      registers as the A operands of dx += W^T dy_i and dB += V^T C_i
+//      (dy_i, C_i MN-major); then G_c B_j (K-major), e2, dx's carried term
+//      and dB += (exp(tot - seg_j) dt_j x_j) G_c (the scaled x_j a register
+//      A operand, G_c MN-major).  dx is staged through the consumed x tile
+//      and written per head with e1, e2 and the column sums of M; dB is
+//      summed over the slice's heads in registers, in head order;
+//   5. queries, one block per (query tile i, head slice, group, chunk,
+//      batch row), the mirror image: C_i, the key tiles' B_j and C B^T
+//      resident; per head dy_i, h_c (bf16), seg, dt, and x_j through the
+//      ring; S = dy_i x_j^T, V = S dec dt_j, the row sums of M, dC += V B_j;
+//      then h_c^T dy_i (dy_i a register A operand, h_c MN-major), scaled by
+//      exp(seg_i) into dC and dotted with C_i for d(seg); dC summed over
+//      the slice's heads in registers.
 //
-// "fma" (fp32, and every other shape the forward takes): the same
-// kernels on 32-row fp32 tiles in shared memory with plain fp32 FMA
-// loops, accumulators in shared memory owned by one thread each.
+// A head slice (the host's choice: ssd_scan.py's backward_head_slice)
+// takes ~4 blocks an SM's worth of heads (at least 8):
+// mamba2-1.3b's 64 heads are 5 slices of 13 (the last of 12), zamba2's
+// 112 are 5 of 23 (the last of 20); each slice's dB and dC go to fp32
+// scratch [slices, B, S, G, ds] (5/64 of per-head scratch), summed in
+// slice order by the reduce (none with one slice).  What the three costs
+// of the earlier design became: C B^T is formed once per (batch row,
+// group, chunk), not once a head in each tile kernel (43 GFLOP then,
+// 0.34 now); dB and dC are summed over a slice's heads on chip, not
+// through 2 x [B, S, H, ds] fp32 scratch (2 x 268 MB, 1.07 GB of traffic
+// for 4.2 MB of output); every tile comes through a TMA ring whose loads
+// overlap the products, and the products run on wgmma, not mma.sync.  The
+// work these kernels do at mamba2's shape: ~116 GFLOP against the bound's
+// 95: full 64 x 64 tiles on the diagonal (1.25x the causal pairs), dy x^T
+// formed in both tile kernels (21.5 GFLOP against the bound's 8.6), the
+// scan's 14 chunk products a head against 16.  A consumer warpgroup
+// takes all 255 registers a thread may have (the key kernel spills 12
+// bytes), so a block is one consumer warpgroup and one producer warp
+// (160 threads, no setmaxnreg: the producer is not a warpgroup), with
+// ~221 KB of shared memory: one block an SM.
 //
-// No atomics: every sum has one order, so two runs give the same bits.
+// "fma" (fp32, and every shape "wgmma" does not take: bf16 at another
+// head dim or d_state, chunks not a multiple of 64 or past 256, rows not
+// 16-byte aligned): 1. states, one block per (chunk, head, batch row): seg
+// (stored), the chunk's own state contribution sum_j exp(tot - seg_j)
+// dt_j x_j^T B_j and its share of the state gradient sum_i exp(seg_i)
+// dy_i^T C_i, [hd, ds] each, in fp32 scratch; 2. pass, sequential over
+// the chunks, one thread per state element: forward for h_c, in reverse
+// for G_c, in place, fp32; 3. keys, one block per (key tile of 32 rows,
+// chunk, head, batch row): dx, the head's dB rows (fp32 scratch [b, s, h,
+// ds]) and e1, e2, walking the query tiles i >= j; 4. queries, one block
+// per (query tile, chunk, head, batch row): the head's dC rows and r,
+// walking the key tiles j <= i.  Tiles are fp32 in shared memory, the
+// products plain fp32 FMA loops, accumulators in shared memory owned by
+// one thread each; the reduce sums the per-head dB and dC in head order.
 //
-// Bound.  At mamba2-1.3b's training shape (x [4, 2048, 64, 64] bf16, ds
-// 128, chunk 256) the function's least work is C B^T once a group, four
-// causal products a head (dy x^T, W^T dy, V^T C, V B) and five [hd, ds]
-// state products a head (the chunk state, the state gradient's share,
-// G_c B, x G_c, h_c^T dy): ~95 GFLOP, 0.096 ms at the bf16 tensor-core
-// rate.  These kernels do more: C B^T per head and dy x^T in both tile
-// kernels, and they move ~0.7 GB (x, dy, B, C read, dx, dB, dC written,
-// the fp32 scratch of the states and the per-head dB, dC), 0.2 ms at
-// 3.35 TB/s.
+// On the wgmma route G_c and h_c are rounded to bf16 as operands, and so
+// are the scaled weights; every sum, seg and the states stay fp32.  No
+// atomics: every sum has one order, so two runs give the same bits.
 //
 // Built with nvcc for sm_90a into a shared library with a plain C
 // interface (repro_torch/kernels/ssd_scan.py loads it with ctypes).
@@ -92,7 +144,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kRows = 64;       // mma route: rows of a tile
+constexpr int kRows = 64;       // the C B^T kernel: rows of a tile
 constexpr int kMmaThreads = 128;
 constexpr int kFRows = 32;      // fma route: rows of a tile
 constexpr int kFThreads = 256;
@@ -124,9 +176,18 @@ struct Args {
   float* gst;       // [B, H, nc, hd, ds]: G_c
   float* segs;      // [B, H, nc, q]
   double* aux;      // [B, H, nc, q, 4]: e1, e2, r, the column sums of M
-  float* dBp;       // [B, S, H, ds]: per-head dB
-  float* dCp;       // [B, S, H, ds]: per-head dC
+  // "fma": [B, S, H, ds], per-head dB and dC; "wgmma": [slices,
+  // B, S, G, ds], each head slice's sums (unused with one slice)
+  float* dBp;
+  float* dCp;
   double* dA_part;  // [B, H, nc]
+  // "wgmma" only (null otherwise)
+  bf16* hb;         // [B, H, nc, hd, ds]: h_c in bf16 (the query kernel's operand)
+  bf16* gb;         // [B, H, nc, hd, ds]: G_c in bf16 (the key kernel's)
+  float* dts;       // [B, H, nc, q]: each chunk's dt, contiguous
+  float* cb;        // [B, G, nc, 2, q / 64, q / 64, 64 * 64]: C B^T tiles, fragment order
+  double* gh;       // [B, H, nc]: sum(G_c * h_c), fp64 (the finalize's)
+  int hs;           // heads of a tile kernel's slice
 };
 
 // the block's (chunk, head, batch row) pointers
@@ -174,13 +235,8 @@ __device__ __forceinline__ void chunk_cumsum(const float* dtc, float A, float* s
   for (int i = lo; i < hi; ++i) seg[i] += base;
 }
 
-// bytes of dynamic shared memory of the route's largest kernel
-__host__ __device__ inline long long smem_bytes(int hd, int ds, int q, bool mma) {
-  if (mma) {
-    const long long states = 2LL * q * (hd + 8) + 2LL * q * (ds + 8);
-    const long long tiles = 4LL * kRows * (ds + 8) + 4LL * kRows * (hd + 8);
-    return 8LL * q + (states > tiles ? states : tiles);
-  }
+// bytes of dynamic shared memory of the fma route's tile kernels
+__host__ __device__ inline long long fma_smem_bytes(int hd, int ds, int q) {
   const long long r = kFRows;
   return 8LL * q + 4LL * (3 * r * ds + 3 * r * hd + 4 * r * r + 2 * r) + 8LL * r;
 }
@@ -253,17 +309,22 @@ __global__ void __launch_bounds__(256) bwd_finalize(const Args a) {
   const float* DT = ch.dt(a);
   for (int i = tid; i < 4 * q; i += 256) aux[i] = src[i];
   for (int i = tid; i < q; i += 256) dtv[i] = DT[i * a.dt_ss];
-  // sum(G_c * h_c), in a fixed order
-  const long long n = static_cast<long long>(a.hd) * a.ds;
-  const float* G = a.gst + ch.bhc * n;
-  const float* Hc = a.hst + ch.bhc * n;
-  double p = 0.0;
-  for (long long e = tid; e < n; e += 256) p += static_cast<double>(G[e]) * Hc[e];
-  red[tid] = p;
-  __syncthreads();
-  for (int s = 128; s > 0; s >>= 1) {
-    if (tid < s) red[tid] += red[tid + s];
+  // sum(G_c * h_c), in a fixed order (the wgmma route's scan gives it)
+  if (a.gh != nullptr) {
+    if (tid == 0) red[0] = a.gh[ch.bhc];
     __syncthreads();
+  } else {
+    const long long n = static_cast<long long>(a.hd) * a.ds;
+    const float* G = a.gst + ch.bhc * n;
+    const float* Hc = a.hst + ch.bhc * n;
+    double p = 0.0;
+    for (long long e = tid; e < n; e += 256) p += static_cast<double>(G[e]) * Hc[e];
+    red[tid] = p;
+    __syncthreads();
+    for (int s = 128; s > 0; s >>= 1) {
+      if (tid < s) red[tid] += red[tid + s];
+      __syncthreads();
+    }
   }
   if (tid == 0) {
     const double tot = a.segs[ch.bhc * q + q - 1];
@@ -289,23 +350,24 @@ __global__ void __launch_bounds__(256) bwd_finalize(const Args a) {
 }
 
 // ================================================================ pass 6
+// dB and dC [B, S, G, ds] as the sums of `parts` fp32 partials in order:
+// element (bs, g, k)'s part r at bs sbs + g sg + k + r sp (the fma
+// route's per-head sums: sbs = H ds, sg = (H / G) ds, sp = ds; the wgmma
+// route's head slices': sbs = G ds, sg = ds, sp = B S G ds)
 template <typename T>
-__global__ void bwd_reduce_heads(const Args a) {
+__global__ void bwd_reduce_parts(const Args a, int parts, long long sbs, long long sg,
+                                 long long sp) {
   const long long n = static_cast<long long>(a.Bn) * a.S * a.G * a.ds;
-  const int rep = a.H / a.G;
   T* dB = static_cast<T*>(a.dB);
   T* dC = static_cast<T*>(a.dC);
   for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; e < n;
        e += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int k = static_cast<int>(e % a.ds);
     const long long bsg = e / a.ds;
-    const int g = static_cast<int>(bsg % a.G);
-    const long long bs = bsg / a.G;
-    const long long base = (bs * a.H + static_cast<long long>(g) * rep) * a.ds + k;
+    const long long base = (bsg / a.G) * sbs + (bsg % a.G) * sg + e % a.ds;
     float sb = 0.f, sc = 0.f;
-    for (int r = 0; r < rep; ++r) {
-      sb += a.dBp[base + static_cast<long long>(r) * a.ds];
-      sc += a.dCp[base + static_cast<long long>(r) * a.ds];
+    for (int r = 0; r < parts; ++r) {
+      sb += a.dBp[base + r * sp];
+      sc += a.dCp[base + r * sp];
     }
     store(sb, dB + e);
     store(sc, dC + e);
@@ -586,9 +648,10 @@ __global__ void __launch_bounds__(kFThreads) bwd_queries_fma(const Args a) {
   }
 }
 
-// ================================================================ "mma"
-// n rows of `cols` bf16 (row stride ld, 16-byte aligned) into shared
-// memory at pitch cols + 8 with cp.async, zeros at or past `valid`
+// ================================================================ "wgmma"
+// The C B^T kernel's helpers (mma.sync, as ssd_scan.cu's ssd_cb): n rows
+// of `cols` bf16 (row stride ld, 16-byte aligned) into shared memory at
+// pitch cols + 8 with cp.async, zeros at or past `valid`
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long ld, int n,
                                           int cols, int valid, int tid) {
   const int pieces = cols / 8;
@@ -602,17 +665,6 @@ __device__ __forceinline__ void wait_rows() {
   sm90::cp_async_commit();
   sm90::cp_async_wait<0>();
   __syncthreads();
-}
-
-// fp32 [rows][cols] from global into bf16 shared rows of pitch cols + 8
-__device__ __forceinline__ void load_state(bf16* dst, const float* src, int rows, int cols,
-                                           int tid) {
-  const int half = cols / 2;
-  for (int e = tid; e < rows * half; e += kMmaThreads) {
-    const int r = e / half, k = 2 * (e % half);
-    const float2 v = *reinterpret_cast<const float2*>(src + r * cols + k);
-    *reinterpret_cast<uint32_t*>(dst + r * (cols + 8) + k) = sm90::pack_bf16(v.x, v.y);
-  }
 }
 
 // acc[2 NG][4] += A . B^T for a warp's 16 rows r0..: A [rows][K] and B
@@ -637,47 +689,6 @@ __device__ __forceinline__ void mma_nt(float (&acc)[2 * NG][4], const bf16* As, 
   }
 }
 
-// acc[2 NG][4] += A . B for one k16 step: A a fragment (16 rows, k
-// k0..k0+15), B [k rows][n] MN-major in shared memory (ldmatrix.trans),
-// its 16-column groups g < ng
-template <int NG>
-__device__ __forceinline__ void mma_pn(float (&acc)[2 * NG][4], const uint32_t (&pa)[4],
-                                       const bf16* Bs, int bp, int k0, int ng, int lane) {
-  const int mi = lane / 8;
-#pragma unroll
-  for (int g = 0; g < NG; ++g) {
-    if (g < ng) {
-      uint32_t vb[4];
-      sm90::ldmatrix_x4_trans(vb, Bs + (k0 + 8 * (mi % 2) + lane % 8) * bp + 16 * g + 8 * (mi / 2));
-      sm90::mma_bf16_16816(acc[2 * g], pa, vb[0], vb[1]);
-      sm90::mma_bf16_16816(acc[2 * g + 1], pa, vb[2], vb[3]);
-    }
-  }
-}
-
-// acc += A . B with A [16 rows r0..][K] K-major in shared memory and B [K
-// rows][n] MN-major
-template <int NG>
-__device__ __forceinline__ void mma_sn(float (&acc)[2 * NG][4], const bf16* As, int ap, int r0,
-                                       int K, const bf16* Bs, int bp, int ng, int lane) {
-  const int mi = lane / 8;
-  for (int kk = 0; kk < K / 16; ++kk) {
-    uint32_t af[4];
-    sm90::ldmatrix_x4(af, As + (r0 + 8 * (mi % 2) + lane % 8) * ap + 16 * kk + 8 * (mi / 2));
-    mma_pn<NG>(acc, af, Bs, bp, 16 * kk, ng, lane);
-  }
-}
-
-// the A fragment of a 16-column group of an accumulator tile (the
-// accumulator's layout is the fragment's, pairwise)
-__device__ __forceinline__ void pack_frag(uint32_t (&pa)[4], const float (&lo)[4],
-                                          const float (&hi)[4]) {
-  pa[0] = sm90::pack_bf16(lo[0], lo[1]);
-  pa[1] = sm90::pack_bf16(lo[2], lo[3]);
-  pa[2] = sm90::pack_bf16(hi[0], hi[1]);
-  pa[3] = sm90::pack_bf16(hi[2], hi[3]);
-}
-
 template <int NT>
 __device__ __forceinline__ void zero(float (&acc)[NT][4]) {
 #pragma unroll
@@ -686,361 +697,899 @@ __device__ __forceinline__ void zero(float (&acc)[NT][4]) {
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 }
 
-// out[p][n] = sum_j Xs[j][p] Bs[j][n] over the chunk's q rows ([hd, ds],
-// fp32), cut into warp tiles of 16 x 64 (ssd_scan.cu's ssd_states)
-__device__ __forceinline__ void rows_outer(const bf16* Xs, int xp, const bf16* Bs, int bp,
-                                           float* out, int hd, int ds, int q, int w, int lane) {
-  const int gq = lane / 4, tq = lane % 4, mi = lane / 8;
-  const int nN = (ds + 63) / 64, nwt = (hd / 16) * nN;
-  for (int wt = w; wt < nwt; wt += kMmaThreads / 32) {
-    const int m0 = 16 * (wt / nN), n0 = 64 * (wt % nN);
-    const int ng = min(4, (ds - n0) / 16);
-    float acc[8][4];
-    zero(acc);
-    for (int kk = 0; kk < q / 16; ++kk) {
-      uint32_t af[4];
-      sm90::ldmatrix_x4_trans(af, Xs + (16 * kk + 8 * (mi / 2) + lane % 8) * xp + m0 + 8 * (mi % 2));
+constexpr int kWT = 64;                  // rows of a tile and of the consumer warpgroup
+constexpr int kWStages = 3;              // ring tiles in flight
+constexpr int kWThreads = 160;           // a consumer warpgroup and a producer warp
+constexpr int kTileBytes = kWT * 128;    // a [64][64] bf16 tile: 128-byte rows
+constexpr int kCbFloats = kWT * kWT;     // a C B^T tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory of the key and query kernels (bytes from a 1024-aligned
+// base; every tile 1024-aligned for the 128-byte swizzle): the block's own
+// 64 rows of B (keys) or C (queries), the other side's tiles (C or B,
+// [q / 64][ds / 64][64][64]), their C B^T tiles (fp32, fragment order),
+// two head stages (x_j and G_c, or dy_i and h_c), the ring (dy_i or x_j
+// tiles), the head stages' seg and dt, and the mbarriers.
+struct TileSmem {
+  int own, others, cbt, heads, ring, vecs, bars, total;
+};
+__host__ __device__ inline TileSmem tile_smem(int ds, int q) {
+  const int nqt = q / kWT, tile = ds * 128;
+  TileSmem m;
+  m.own = 0;
+  m.others = m.own + tile;
+  m.cbt = m.others + nqt * tile;
+  m.heads = m.cbt + nqt * kCbFloats * 4;
+  m.ring = m.heads + 2 * (kTileBytes + tile);
+  m.vecs = m.ring + kWStages * kTileBytes;
+  m.bars = m.vecs + 2 * 2 * q * 4;
+  m.total = 1024 + m.bars + (1 + 2 * 2 + 2 * kWStages) * 8;
+  return m;
+}
+
+// the C B^T kernel's: a C and a B tile (padded rows) and a fp32 tile
+__host__ __device__ inline int cb_smem(int ds) {
+  return 2 * 2 * kRows * (ds + 8) + 4 * kRows * (kRows + 1);
+}
+
+__device__ __forceinline__ uint8_t* align1024(unsigned char* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                    ~static_cast<uintptr_t>(1023));
+}
+
+// 2^x on the special-function unit (ex2.approx: relative error ~2^-22;
+// 2^-inf = 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// byte offset of element (r, c) (c < 64) of a [rows][64] bf16 tile in the
+// 128-byte swizzle: the 16-byte chunk c / 8 of row r sits at chunk
+// (c / 8) ^ (r % 8) (sm90.cuh)
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * 128 + (((c >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
+}
+
+// the bf16 pair (r, c), (r, c + 1) (c even) of a swizzled 64-row tile
+// ([c / 64 halves][64][64])
+__device__ __forceinline__ float2 pair(const uint8_t* t, int r, int c) {
+  return __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(t + (c >> 6) * kTileBytes + swz(r, c & 63)));
+}
+
+// a barrier of the consumer warpgroup alone (the producer warp has left)
+__device__ __forceinline__ void named_barrier_consumers() { sm90::named_barrier(1, 128); }
+
+template <int R>
+__device__ __forceinline__ void zero1(float (&d)[R]) {
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        if (jj < ng) {
-          uint32_t bfr[4];
-          sm90::ldmatrix_x4_trans(
-              bfr, Bs + (16 * kk + 8 * (mi % 2) + lane % 8) * bp + n0 + 16 * jj + 8 * (mi / 2));
-          sm90::mma_bf16_16816(acc[2 * jj], af, bfr[0], bfr[1]);
-          sm90::mma_bf16_16816(acc[2 * jj + 1], af, bfr[2], bfr[3]);
-        }
-      }
-    }
+  for (int i = 0; i < R; ++i) d[i] = 0.f;
+}
+
+template <int N, int TB, int TA>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (N == 64) {
+    sm90::wgmma_ss_n64<TB, TA>(d, da, db, scale_d);
+  } else {
+    sm90::wgmma_ss_n128<TB, TA>(d, da, db, scale_d);
+  }
+}
+
+// acc = A . B^T over K for two 64-row operands in shared memory, both
+// K-major ([K / 64 halves][64 rows][64])
+template <int K>
+__device__ __forceinline__ void scores(float (&acc)[32], const uint8_t* sa, const uint8_t* sb) {
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      if (nt < 2 * ng) {
-        const int col = n0 + 8 * nt + 2 * tq;
-        *reinterpret_cast<float2*>(out + (m0 + gq) * ds + col) = make_float2(acc[nt][0], acc[nt][1]);
-        *reinterpret_cast<float2*>(out + (m0 + gq + 8) * ds + col) =
-            make_float2(acc[nt][2], acc[nt][3]);
-      }
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const int off = (kk / 4) * kTileBytes + (kk % 4) * 32;  // the half, then k16 inside it
+    sm90::wgmma_ss_n64<0>(acc, sm90::desc(sa + off, 16, sm90::kAtomBytes),
+                          sm90::desc(sb + off, 16, sm90::kAtomBytes), kk > 0);
+  }
+}
+
+// acc += A . B: A in registers (4 k16 steps over the 64 rows of a tile),
+// B a 64-row tile read MN-major ([N / 64 halves][64 rows][64])
+template <int N>
+__device__ __forceinline__ void accumulate(float (&acc)[N / 2], const uint32_t (&a)[4][4],
+                                           const uint8_t* sb) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = sm90::desc(sb + kk * 16 * 128, kTileBytes, sm90::kAtomBytes);
+    if constexpr (N == 64) {
+      sm90::wgmma_rs_n64<1>(acc, a[kk], db, 1);
+    } else {
+      sm90::wgmma_rs_n128<1>(acc, a[kk], db, 1);
     }
   }
 }
 
-// the rows of Xs (q of them, hd values) scaled by w[r] in place
-__device__ __forceinline__ void scale_rows(bf16* Xs, int xp, const float* w, int q, int hd,
-                                           int tid) {
-  const int pieces = hd / 8;
-  for (int e = tid; e < q * pieces; e += kMmaThreads) {
-    const int r = e / pieces, pc = e % pieces;
-    const uint4 v = *reinterpret_cast<const uint4*>(Xs + r * xp + 8 * pc);
+template <int R>
+__device__ __forceinline__ void fence_frags(uint32_t (&f)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) sm90::fence_regs(f[i]);
+}
+
+// the scaled rows of a warpgroup's 64 x 64 bf16 tile as the A operand of
+// 4 k16 steps: rows r0 (times sa) and r0 + 8 (times sb), the thread's
+// columns (sm90.cuh's register map)
+__device__ __forceinline__ void scaled_frags(uint32_t (&f)[4][4], const uint8_t* t, int r0, int c2,
+                                             float sa, float sb) {
+#pragma unroll
+  for (int grp = 0; grp < 8; ++grp) {
+    const float2 u = pair(t, r0, 8 * grp + c2), v = pair(t, r0 + 8, 8 * grp + c2);
+    f[grp / 2][2 * (grp % 2)] = sm90::pack_bf16(u.x * sa, u.y * sa);
+    f[grp / 2][2 * (grp % 2) + 1] = sm90::pack_bf16(v.x * sb, v.y * sb);
+  }
+}
+
+// the rows (r0, r0 + 8) of a warpgroup's accumulator [64 x N] at row_a and
+// row_b: fp32 pairs, or bf16 pairs
+template <int N>
+__device__ __forceinline__ void store_rows(const float (&acc)[N / 2], float* row_a, float* row_b,
+                                           int c2) {
+#pragma unroll
+  for (int i = 0; i < N / 2; i += 4) {
+    const int col = 8 * (i / 4) + c2;
+    *reinterpret_cast<float2*>(row_a + col) = make_float2(acc[i], acc[i + 1]);
+    *reinterpret_cast<float2*>(row_b + col) = make_float2(acc[i + 2], acc[i + 3]);
+  }
+}
+template <int N>
+__device__ __forceinline__ void store_rows(const float (&acc)[N / 2], bf16* row_a, bf16* row_b,
+                                           int c2) {
+#pragma unroll
+  for (int i = 0; i < N / 2; i += 4) {
+    const int col = 8 * (i / 4) + c2;
+    *reinterpret_cast<uint32_t*>(row_a + col) = sm90::pack_bf16(acc[i], acc[i + 1]);
+    *reinterpret_cast<uint32_t*>(row_b + col) = sm90::pack_bf16(acc[i + 2], acc[i + 3]);
+  }
+}
+
+// the rows of a [rows][64] swizzled bf16 tile times w[row], in place (a
+// row's chunks stay in the row: the swizzle does not matter)
+__device__ __forceinline__ void scale_tile(uint8_t* t, const float* w, int rows, int tid) {
+  for (int k = tid; k < rows * 8; k += 128) {
+    uint4* p = reinterpret_cast<uint4*>(t + 16 * k);
+    const uint4 v = *p;
     const __nv_bfloat162* in = reinterpret_cast<const __nv_bfloat162*>(&v);
-    const float wr = w[r];
+    const float wr = w[k / 8];
     uint4 o;
     uint32_t* op = reinterpret_cast<uint32_t*>(&o);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 f = __bfloat1622float2(in[k]);
-      op[k] = sm90::pack_bf16(f.x * wr, f.y * wr);
+    for (int u = 0; u < 4; ++u) {
+      const float2 f = __bfloat1622float2(in[u]);
+      op[u] = sm90::pack_bf16(f.x * wr, f.y * wr);
     }
-    *reinterpret_cast<uint4*>(Xs + r * xp + 8 * pc) = o;
+    *p = o;
   }
 }
 
-// pass 1, "mma": one block per (chunk, head, batch row)
-__global__ void __launch_bounds__(kMmaThreads) bwd_states_mma(const Args a) {
-  extern __shared__ __align__(16) unsigned char dsm[];
-  const Chunk ch(a, blockIdx.x, blockIdx.y, blockIdx.z);
-  const int q = a.q, ds = a.ds, hd = a.hd, XP = hd + 8, BP = ds + 8;
-  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  float* wts = reinterpret_cast<float*>(dsm);    // [q] dt, then the row weights
-  float* seg = wts + q;                          // [q]
-  bf16* Xs = reinterpret_cast<bf16*>(seg + q);   // [q][hd + 8]
-  bf16* Bs = Xs + q * XP;                        // [q][ds + 8]
-  load_rows(Bs, ch.B<bf16>(a), a.b_ss, q, ds, q, tid);
-  load_rows(Xs, ch.x<bf16>(a), a.x_ss, q, hd, q, tid);
-  const float* DT = ch.dt(a);
-  for (int i = tid; i < q; i += kMmaThreads) wts[i] = DT[i * a.dt_ss];
-  __syncthreads();
-  if (w == 0) chunk_cumsum(wts, a.A[ch.h], seg, q, lane);
-  wait_rows();
-  const float tot = seg[q - 1];
-  for (int i = tid; i < q; i += kMmaThreads) {
-    a.segs[ch.bhc * q + i] = seg[i];
-    wts[i] = expf(tot - seg[i]) * wts[i];
-  }
-  __syncthreads();
-  scale_rows(Xs, XP, wts, q, hd, tid);
-  __syncthreads();
-  rows_outer(Xs, XP, Bs, BP, a.hst + ch.bhc * hd * ds, hd, ds, q, w, lane);
-  __syncthreads();  // Xs and Bs are consumed
-  const bf16* Y = static_cast<const bf16*>(a.dy) + ch.row(a, 0) * hd;
-  load_rows(Bs, ch.C<bf16>(a), a.c_ss, q, ds, q, tid);
-  load_rows(Xs, Y, static_cast<long long>(a.H) * hd, q, hd, q, tid);
-  for (int i = tid; i < q; i += kMmaThreads) wts[i] = expf(seg[i]);
-  wait_rows();
-  scale_rows(Xs, XP, wts, q, hd, tid);
-  __syncthreads();
-  rows_outer(Xs, XP, Bs, BP, a.gst + ch.bhc * hd * ds, hd, ds, q, w, lane);
+// C B^T tile (query tile ti, key tile tj) of a (batch row, group, chunk)
+// in one of the two fragment orders: 0 = the query kernel's (rows i,
+// columns j), 1 = the key kernel's (rows j, columns i)
+__device__ __forceinline__ long long cb_tile(long long bgc, int nqt, int order, int ti, int tj) {
+  return (((bgc * 2 + order) * nqt + ti) * nqt + tj) * static_cast<long long>(kCbFloats);
 }
 
-constexpr int kDsGroups = 8;  // the mma route's d_state: up to 128 (8 groups of 16)
-
-// pass 3, "mma": one block per (key tile of 64 rows, chunk, head, batch
-// row); warp w owns the key rows j0 + 16 w ..
-template <int HD>
-__global__ void __launch_bounds__(kMmaThreads) bwd_keys_mma(const Args a) {
+// "wgmma" 3, C B^T: one block per (query tile, chunk, group, batch row):
+// the tile's C rows against the key tiles up to it, C B^T in fp32 on
+// mma.sync (as ssd_scan.cu's ssd_cb), written in both fragment orders:
+// float e of the tile's thread t (sm90.cuh's accumulator map) at [e / 4]
+// [t][e % 4], so that a consumer thread reads its 32 values as 8 float4s
+// with no bank conflict.
+__global__ void __launch_bounds__(kMmaThreads) bwd_cb(const Args a) {
   extern __shared__ __align__(16) unsigned char dsm[];
-  constexpr int HG = HD / 16, XP = HD + 8;
-  const int q = a.q, ds = a.ds, BP = ds + 8, dg = ds / 16;
-  const int nqt = (q + kRows - 1) / kRows;
-  const Chunk ch(a, blockIdx.x / nqt, blockIdx.y, blockIdx.z);
-  const int j0 = (blockIdx.x % nqt) * kRows;
+  const int q = a.q, ds = a.ds, BP = ds + 8, nqt = q / kWT, nc = a.S / q;
+  const int ti = blockIdx.x % nqt, c = blockIdx.x / nqt, g = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int gq = lane / 4, tq = lane % 4;
-  float* seg = reinterpret_cast<float*>(dsm);   // [q]
-  float* dts = seg + q;                          // [q]
-  bf16* Bj = reinterpret_cast<bf16*>(dts + q);   // [64][ds + 8] the key rows of B
-  bf16* Ci = Bj + kRows * BP;                    // [64][ds + 8] a query tile's C (then G_c)
-  bf16* Xj = Ci + kRows * BP;                    // [64][HD + 8] the key rows of x
-  bf16* Yi = Xj + kRows * XP;                    // [64][HD + 8] a query tile's dy
-  const float* DT = ch.dt(a);
-  for (int i = tid; i < q; i += kMmaThreads) {
-    seg[i] = a.segs[ch.bhc * q + i];
-    dts[i] = DT[i * a.dt_ss];
-  }
-  const bf16* Cp = ch.C<bf16>(a);
-  const bf16* Y = static_cast<const bf16*>(a.dy) + ch.row(a, 0) * HD;
-  const long long y_ss = static_cast<long long>(a.H) * HD;
-  load_rows(Bj, ch.B<bf16>(a) + j0 * a.b_ss, a.b_ss, kRows, ds, q - j0, tid);
-  load_rows(Xj, ch.x<bf16>(a) + j0 * a.x_ss, a.x_ss, kRows, HD, q - j0, tid);
-  wait_rows();
-
-  const int r0 = 16 * w, ja = j0 + r0 + gq, jb = ja + 8;
-  const float sja = ja < q ? seg[ja] : 0.f, sjb = jb < q ? seg[jb] : 0.f;
-  const float dta = ja < q ? dts[ja] : 0.f, dtb = jb < q ? dts[jb] : 0.f;
-  float ax[2 * HG][4], ab[2 * kDsGroups][4];
-  zero(ax);
-  zero(ab);
-  float e1a = 0.f, e1b = 0.f;
-  for (int i0 = j0; i0 < q; i0 += kRows) {
-    __syncthreads();  // the previous query tile is consumed
-    load_rows(Ci, Cp + i0 * a.c_ss, a.c_ss, kRows, ds, q - i0, tid);
-    load_rows(Yi, Y + i0 * y_ss, y_ss, kRows, HD, q - i0, tid);
+  bf16* Cs = reinterpret_cast<bf16*>(dsm);  // [64][ds + 8]
+  bf16* Bs = Cs + kRows * BP;               // [64][ds + 8]
+  float* T = reinterpret_cast<float*>(Bs + kRows * BP);  // [64][65]: C_i . B_j
+  const long long c0 = static_cast<long long>(c) * q;
+  const bf16* Bp = static_cast<const bf16*>(a.Bm) + b * a.b_sb + g * a.b_sg + c0 * a.b_ss;
+  const bf16* Cp = static_cast<const bf16*>(a.Cm) + b * a.c_sb + g * a.c_sg + c0 * a.c_ss;
+  const long long bgc = (static_cast<long long>(b) * a.G + g) * nc + c;
+  load_rows(Cs, Cp + ti * kWT * a.c_ss, a.c_ss, kRows, ds, kRows, tid);
+  for (int tj = 0; tj <= ti; ++tj) {
+    __syncthreads();  // the previous tile is written out
+    load_rows(Bs, Bp + tj * kWT * a.b_ss, a.b_ss, kRows, ds, kRows, tid);
     wait_rows();
-    float sc[8][4], sx[8][4];
+    float sc[8][4];
     zero(sc);
-    zero(sx);
-    mma_nt<4>(sc, Bj, BP, r0, Ci, BP, ds, 4, lane);  // B_j . C_i
-    mma_nt<4>(sx, Xj, XP, r0, Yi, XP, HD, 4, lane);  // x_j . dy_i
+    mma_nt<4>(sc, Cs, BP, 16 * w, Bs, BP, ds, 4, lane);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = i0 + 8 * nt + 2 * tq + (e & 1);
-        const int j = e < 2 ? ja : jb;
-        const bool ok = j <= i && i < q && j < q;
-        const float dec = ok ? expf(seg[i < q ? i : q - 1] - (e < 2 ? sja : sjb)) : 0.f;
-        const float dtj = e < 2 ? dta : dtb;
-        const float cbd = sc[nt][e] * dec;
-        if (e < 2) e1a += cbd * sx[nt][e]; else e1b += cbd * sx[nt][e];
-        sc[nt][e] = cbd * dtj;               // W
-        sx[nt][e] = sx[nt][e] * dec * dtj;   // V
-      }
-    const int kg0 = i0 == j0 ? w : 0;  // on the diagonal tile, earlier queries are masked
-#pragma unroll
-    for (int kg = 0; kg < 4; ++kg) {
-      if (kg < kg0) continue;
-      uint32_t pa[4];
-      pack_frag(pa, sc[2 * kg], sc[2 * kg + 1]);
-      mma_pn<HG>(ax, pa, Yi, XP, 16 * kg, HG, lane);          // dx += W dy
-      pack_frag(pa, sx[2 * kg], sx[2 * kg + 1]);
-      mma_pn<kDsGroups>(ab, pa, Ci, BP, 16 * kg, dg, lane);   // dB += V C
+    for (int nt = 0; nt < 8; ++nt) {
+      float* ra = T + (16 * w + gq) * (kRows + 1) + 8 * nt + 2 * tq;
+      float* rb = ra + 8 * (kRows + 1);
+      ra[0] = sc[nt][0];
+      ra[1] = sc[nt][1];
+      rb[0] = sc[nt][2];
+      rb[1] = sc[nt][3];
     }
-  }
-  // the carried state's terms: G_c (bf16 operand) over the C tile's room
-  __syncthreads();
-  load_state(Ci, a.gst + ch.bhc * HD * ds, HD, ds, tid);
-  __syncthreads();
-  const float tot = seg[q - 1];
-  const float eta = ja < q ? expf(tot - sja) : 0.f, etb = jb < q ? expf(tot - sjb) : 0.f;
-  float xa = 0.f, xb = 0.f;
-  {
-    float gb[2 * HG][4];
-    zero(gb);
-    mma_nt<HG>(gb, Bj, BP, r0, Ci, BP, ds, HG, lane);  // (G_c B_j)[p]
-#pragma unroll
-    for (int nt = 0; nt < 2 * HG; ++nt) {
-      const int p = 8 * nt + 2 * tq;
-      const float2 u = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(Xj + (r0 + gq) * XP + p));
-      const float2 v = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(Xj + (r0 + gq + 8) * XP + p));
-      xa += u.x * gb[nt][0] + u.y * gb[nt][1];
-      xb += v.x * gb[nt][2] + v.y * gb[nt][3];
-      ax[nt][0] += dta * eta * gb[nt][0];
-      ax[nt][1] += dta * eta * gb[nt][1];
-      ax[nt][2] += dtb * etb * gb[nt][2];
-      ax[nt][3] += dtb * etb * gb[nt][3];
-    }
-  }
-  {
-    float xg[2 * kDsGroups][4];
-    zero(xg);
-    mma_sn<kDsGroups>(xg, Xj, XP, r0, HD, Ci, BP, dg, lane);  // (G_c^T x_j)[n]
-#pragma unroll
-    for (int nt = 0; nt < 2 * kDsGroups; ++nt) {
-      ab[nt][0] += eta * dta * xg[nt][0];
-      ab[nt][1] += eta * dta * xg[nt][1];
-      ab[nt][2] += etb * dtb * xg[nt][2];
-      ab[nt][3] += etb * dtb * xg[nt][3];
-    }
-  }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    xa += __shfl_xor_sync(kFull, xa, off);
-    xb += __shfl_xor_sync(kFull, xb, off);
-    e1a += __shfl_xor_sync(kFull, e1a, off);
-    e1b += __shfl_xor_sync(kFull, e1b, off);
-  }
-  bf16* DX = static_cast<bf16*>(a.dx);
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int j = hh == 0 ? ja : jb;
-    if (j >= q) continue;
-    bf16* o = DX + ch.row(a, j) * HD;
-#pragma unroll
-    for (int nt = 0; nt < 2 * HG; ++nt)
-      *reinterpret_cast<uint32_t*>(o + 8 * nt + 2 * tq) =
-          sm90::pack_bf16(ax[nt][2 * hh], ax[nt][2 * hh + 1]);
-    float* ob = a.dBp + ch.row(a, j) * ds;
-#pragma unroll
-    for (int nt = 0; nt < 2 * kDsGroups; ++nt)
-      if (nt < 2 * dg)
-        *reinterpret_cast<float2*>(ob + 8 * nt + 2 * tq) =
-            make_float2(ab[nt][2 * hh], ab[nt][2 * hh + 1]);
-    if (tq == 0) {
-      double* o4 = a.aux + (ch.bhc * q + j) * 4;
-      const float e1 = hh == 0 ? e1a : e1b;
-      o4[0] = e1;
-      o4[1] = hh == 0 ? eta * xa : etb * xb;
-      o4[3] = static_cast<double>(hh == 0 ? dta : dtb) * e1;
-    }
-  }
-}
-
-// pass 4, "mma": one block per (query tile of 64 rows, chunk, head, batch
-// row); warp w owns the query rows i0 + 16 w ..
-template <int HD>
-__global__ void __launch_bounds__(kMmaThreads) bwd_queries_mma(const Args a) {
-  extern __shared__ __align__(16) unsigned char dsm[];
-  constexpr int XP = HD + 8;
-  const int q = a.q, ds = a.ds, BP = ds + 8, dg = ds / 16;
-  const int nqt = (q + kRows - 1) / kRows;
-  const Chunk ch(a, blockIdx.x / nqt, blockIdx.y, blockIdx.z);
-  const int i0 = (blockIdx.x % nqt) * kRows;
-  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int gq = lane / 4, tq = lane % 4;
-  float* seg = reinterpret_cast<float*>(dsm);   // [q]
-  float* dts = seg + q;                          // [q]
-  bf16* Ci = reinterpret_cast<bf16*>(dts + q);   // [64][ds + 8] the query rows of C
-  bf16* Bj = Ci + kRows * BP;                    // [64][ds + 8] a key tile's B (then h_c)
-  bf16* Yi = Bj + kRows * BP;                    // [64][HD + 8] the query rows of dy
-  bf16* Xj = Yi + kRows * XP;                    // [64][HD + 8] a key tile's x
-  const float* DT = ch.dt(a);
-  for (int i = tid; i < q; i += kMmaThreads) {
-    seg[i] = a.segs[ch.bhc * q + i];
-    dts[i] = DT[i * a.dt_ss];
-  }
-  const bf16* Bp = ch.B<bf16>(a);
-  const bf16* X = ch.x<bf16>(a);
-  const bf16* Y = static_cast<const bf16*>(a.dy) + ch.row(a, 0) * HD;
-  const long long y_ss = static_cast<long long>(a.H) * HD;
-  load_rows(Ci, ch.C<bf16>(a) + i0 * a.c_ss, a.c_ss, kRows, ds, q - i0, tid);
-  load_rows(Yi, Y + i0 * y_ss, y_ss, kRows, HD, q - i0, tid);
-  wait_rows();
-
-  const int r0 = 16 * w, ia = i0 + r0 + gq, ib = ia + 8;
-  const float sia = ia < q ? seg[ia] : 0.f, sib = ib < q ? seg[ib] : 0.f;
-  float ac[2 * kDsGroups][4];
-  zero(ac);
-  float rma = 0.f, rmb = 0.f;
-  for (int j0 = 0; j0 <= i0; j0 += kRows) {
     __syncthreads();
-    load_rows(Bj, Bp + j0 * a.b_ss, a.b_ss, kRows, ds, q - j0, tid);
-    load_rows(Xj, X + j0 * a.x_ss, a.x_ss, kRows, HD, q - j0, tid);
-    wait_rows();
-    float sc[8][4], sx[8][4];
-    zero(sc);
-    zero(sx);
-    mma_nt<4>(sc, Ci, BP, r0, Bj, BP, ds, 4, lane);  // C_i . B_j
-    mma_nt<4>(sx, Yi, XP, r0, Xj, XP, HD, 4, lane);  // dy_i . x_j
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = j0 + 8 * nt + 2 * tq + (e & 1);
-        const int i = e < 2 ? ia : ib;
-        const int jc = j < q ? j : q - 1;
-        const bool ok = j <= i && i < q && j < q;
-        const float dec = ok ? expf((e < 2 ? sia : sib) - seg[jc]) : 0.f;
-        const float v = sx[nt][e] * dec * dts[jc];
-        if (e < 2) rma += sc[nt][e] * v; else rmb += sc[nt][e] * v;
-        sx[nt][e] = v;
-      }
-    const int nkg = j0 == i0 ? w + 1 : 4;  // on the diagonal tile, later keys are masked
-#pragma unroll
-    for (int kg = 0; kg < 4; ++kg) {
-      if (kg < nkg) {
-        uint32_t pa[4];
-        pack_frag(pa, sx[2 * kg], sx[2 * kg + 1]);
-        mma_pn<kDsGroups>(ac, pa, Bj, BP, 16 * kg, dg, lane);  // dC += V B
-      }
+    float* oq = a.cb + cb_tile(bgc, nqt, 0, ti, tj);
+    float* ok = a.cb + cb_tile(bgc, nqt, 1, ti, tj);
+    for (int slot = tid; slot < kCbFloats; slot += kMmaThreads) {
+      const int grp = slot / 512, thr = (slot / 4) % 128, u = slot % 4;
+      const int r = 16 * (thr / 32) + (thr % 32) / 4 + 8 * (u / 2);
+      const int col = 8 * grp + 2 * (thr % 4) + u % 2;
+      oq[slot] = T[r * (kRows + 1) + col];
+      ok[slot] = T[col * (kRows + 1) + r];
     }
   }
-  // the carried state's terms: h_c (bf16 operand) over the B tile's room
+}
+
+// "wgmma" 1, seg: cumsum(A dt) of every (batch row, head, chunk),
+// one warp each, into segs, with the chunk's dt copied contiguous into
+// dts (the scan's and the tile kernels' producers load both with bulk
+// copies)
+__global__ void __launch_bounds__(128) bwd_seg(const Args a) {
+  extern __shared__ float ssm[];
+  const int q = a.q, nc = a.S / q, w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long bhc = static_cast<long long>(blockIdx.x) * 4 + w;
+  if (bhc >= static_cast<long long>(a.Bn) * a.H * nc) return;
+  const int c = static_cast<int>(bhc % nc), h = static_cast<int>((bhc / nc) % a.H);
+  const int b = static_cast<int>(bhc / (static_cast<long long>(nc) * a.H));
+  float* dtv = ssm + w * 2 * q;
+  float* seg = dtv + q;
+  const float* DT = a.dt + b * a.dt_sb + h * a.dt_sh + static_cast<long long>(c) * q * a.dt_ss;
+  for (int i = lane; i < q; i += 32) dtv[i] = DT[i * a.dt_ss];
+  __syncwarp();
+  chunk_cumsum(dtv, a.A[h], seg, q, lane);
+  __syncwarp();
+  for (int i = lane; i < q; i += 32) {
+    a.segs[bhc * q + i] = seg[i];
+    a.dts[bhc * q + i] = dtv[i];
+  }
+}
+
+// Shared memory of the scan: two stages of a chunk's x (or dy) rows
+// ([q][64]), its B (or C) rows ([ds / 64][q][64]) and its seg and dt (a
+// stage also stages the new state, [64][ds + 8] fp32, once consumed), the
+// row weights, four warps' fp64 sums, the mbarriers.
+struct ScanSmem {
+  int stage, tile, rows, vecs, w, red, bars, total;
+};
+__host__ __device__ inline ScanSmem scan_smem(int ds, int q) {
+  ScanSmem m;
+  m.tile = 0;
+  m.rows = q * 128;
+  m.vecs = m.rows + q * ds * 2;
+  m.stage = m.vecs + 8 * q;
+  const int staged = kWT * (ds + 8) * 4;
+  m.stage = ((m.stage > staged ? m.stage : staged) + 1023) / 1024 * 1024;
+  m.w = 2 * m.stage;
+  m.red = m.w + 4 * q;
+  m.bars = m.red + 4 * 8;
+  m.total = 1024 + m.bars + 4 * 8;
+  return m;
+}
+
+// "wgmma" 2, the scan: the chunk states and the state gradients, one block
+// per (head, batch row), walking the chunks forward (h_c) and then in
+// reverse (G_c) with the state in a warpgroup's wgmma accumulator [64 x
+// ds] (fp32).  At each chunk the state is scaled by exp(tot) and the
+// chunk's own term added by wgmma: forward (exp(tot - seg_j) dt_j x_j)^T
+// B_j, reverse (exp(seg_i) dy_i)^T C_i, the rows scaled in shared memory
+// in place, A = x^T (or dy^T) read MN-major, B (or C) MN-major.  The new
+// state is staged through the consumed stage and written with 16-byte
+// stores: h_c in fp32 (read back by the reverse sweep) and bf16, G_c in
+// bf16 (the tile kernels' operands), and sum(G_c * h_c) in fp64 (the
+// finalize's) from the accumulator and h_c.  The producer warp streams
+// each chunk's rows and seg, dt through a ring of two stages (TMA boxes of
+// the chunk's q rows, bulk copies).  The chunk contributions never leave
+// the chip.
+template <int DS>
+__global__ void __launch_bounds__(kWThreads, 1)
+    bwd_scan_wgmma(const __grid_constant__ CUtensorMap xmap,
+                   const __grid_constant__ CUtensorMap ymap,
+                   const __grid_constant__ CUtensorMap bmap,
+                   const __grid_constant__ CUtensorMap cmap, const Args a) {
+  extern __shared__ __align__(16) unsigned char dsm[];
+  uint8_t* base = align1024(dsm);
+  const int q = a.q, nc = a.S / q, steps = 2 * (nc - 1);
+  const ScanSmem L = scan_smem(DS, q);
+  const int bh = blockIdx.x, h = bh % a.H, b = bh / a.H, g = h / (a.H / a.G);
+  const long long bh0 = static_cast<long long>(bh) * nc;  // the head's first chunk
+  float* wts = reinterpret_cast<float*>(base + L.w);
+  double* red = reinterpret_cast<double*>(base + L.red);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L.bars);
+  uint64_t* empty = full + 2;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < 2; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 128);
+    }
+    sm90::fence_barrier_init();
+  }
   __syncthreads();
-  load_state(Bj, a.hst + ch.bhc * HD * ds, HD, ds, tid);
-  __syncthreads();
-  const float esa = ia < q ? expf(sia) : 0.f, esb = ib < q ? expf(sib) : 0.f;
-  // dC's carried term e^seg_i (h_c^T dy_i), and d(seg)'s, its dot with C_i
-  float na = 0.f, nb = 0.f;
+
+  // step k < nc - 1: forward over chunk k; then reverse over chunk
+  // nc - 1 - (k - (nc - 1)) (the states past the last chunk and before
+  // the first are not needed)
+  if (tid >= 128) {  // the producer warp: its lane 0 starts every load
+    if (tid == 128) {
+      for (int k = 0; k < steps; ++k) {
+        const bool rev = k >= nc - 1;
+        const int s = k % 2, c = rev ? 2 * (nc - 1) - k : k;
+        if (k >= 2) sm90::mbar_wait(&empty[s], (k / 2 + 1) & 1);
+        uint8_t* st = base + s * L.stage;
+        sm90::mbar_expect_tx(&full[s], q * 128 + q * DS * 2 + 8 * q);
+        sm90::tma_load_4d(st + L.tile, rev ? &ymap : &xmap, &full[s], 0, c * q, h, b);
+        for (int hf = 0; hf < DS / 64; ++hf)
+          sm90::tma_load_4d(st + L.rows + hf * q * 128, rev ? &cmap : &bmap, &full[s], 64 * hf,
+                            c * q, g, b);
+        float* v = reinterpret_cast<float*>(st + L.vecs);
+        sm90::bulk_load(v, a.segs + (bh0 + c) * q, 4 * q, &full[s]);
+        sm90::bulk_load(v + q, a.dts + (bh0 + c) * q, 4 * q, &full[s]);
+      }
+    }
+    return;
+  }
+
+  const int lane = tid % 32, warp = tid / 32;
+  const int r0 = 16 * warp + lane / 4, c2 = 2 * (lane % 4);
+  // h_0 = 0 (fp32 and bf16), G_{nc-1} = 0 (bf16) and its sum 0
   {
-    float hy[2 * kDsGroups][4];
-    zero(hy);
-    mma_sn<kDsGroups>(hy, Yi, XP, r0, HD, Bj, BP, dg, lane);  // (h_c^T dy_i)[n]
+    float* h32 = a.hst + bh0 * kWT * DS;
+    bf16* h16 = a.hb + bh0 * kWT * DS;
+    bf16* g16 = a.gb + (bh0 + nc - 1) * kWT * DS;
+    for (int e = tid; e < kWT * DS / 8; e += 128) {
+      reinterpret_cast<float4*>(h32)[2 * e] = make_float4(0.f, 0.f, 0.f, 0.f);
+      reinterpret_cast<float4*>(h32)[2 * e + 1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      reinterpret_cast<uint4*>(h16)[e] = make_uint4(0, 0, 0, 0);
+      reinterpret_cast<uint4*>(g16)[e] = make_uint4(0, 0, 0, 0);
+    }
+    if (tid == 0) a.gh[bh0 + nc - 1] = 0.0;
+  }
+  float acc[DS / 2];
+  zero1(acc);
+  for (int k = 0; k < steps; ++k) {
+    const bool rev = k >= nc - 1;
+    const int s = k % 2, c = rev ? 2 * (nc - 1) - k : k;
+    if (k == nc - 1) {
+      zero1(acc);
+      named_barrier_consumers();  // every h_c is written: the reverse sweep reads them
+    }
+    const long long o = (bh0 + (rev ? c - 1 : c + 1)) * kWT * DS;  // the new state's chunk
+    float* h32 = a.hst + o;
+    if (rev) {  // h_{c-1} (fp32, written long ago) into L2 while the chunk is scaled and multiplied
+      for (int e = tid; e < kWT * DS / 32; e += 128)
+        asm volatile("prefetch.global.L2 [%0];\n" ::"l"(h32 + 32 * e));
+    }
+    uint8_t* st = base + s * L.stage;
+    const float* seg = reinterpret_cast<const float*>(st + L.vecs);
+    const float* dtv = seg + q;
+    sm90::mbar_wait(&full[s], (k / 2) & 1);
+    const float tot = seg[q - 1];
+    for (int i = tid; i < q; i += 128)
+      wts[i] = rev ? expf(seg[i]) : expf(tot - seg[i]) * dtv[i];
+    named_barrier_consumers();
+    scale_tile(st + L.tile, wts, q, tid);
+    sm90::fence_proxy_async();
+    named_barrier_consumers();
+    const float et = expf(tot);
 #pragma unroll
-    for (int nt = 0; nt < 2 * kDsGroups; ++nt) {
-      if (nt < 2 * dg) {
-        const int n = 8 * nt + 2 * tq;
-        const float2 u = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(Ci + (r0 + gq) * BP + n));
-        const float2 v = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(Ci + (r0 + gq + 8) * BP + n));
-        na += u.x * hy[nt][0] + u.y * hy[nt][1];
-        nb += v.x * hy[nt][2] + v.y * hy[nt][3];
+    for (int i = 0; i < DS / 2; ++i) acc[i] *= et;
+    sm90::fence_regs(acc);
+    sm90::wgmma_fence();
+    for (int kk = 0; kk < q / 16; ++kk)
+      mma_ss<DS, 1, 1>(acc, sm90::desc(st + L.tile + kk * 16 * 128, q * 128, sm90::kAtomBytes),
+                       sm90::desc(st + L.rows + kk * 16 * 128, q * 128, sm90::kAtomBytes), 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    // the state entering the next chunk (forward) or the gradient leaving
+    // the previous one (reverse): staged through the consumed stage
+    // ([64][ds + 8] fp32: no bank conflict), written 16 bytes a store
+    float* stage = reinterpret_cast<float*>(st);
+    store_rows<DS>(acc, stage + r0 * (DS + 8), stage + (r0 + 8) * (DS + 8), c2);
+    named_barrier_consumers();
+    bf16* b16 = (rev ? a.gb : a.hb) + o;
+    double p = 0.0;  // reverse: sum(G_{c-1} * h_{c-1}), the thread's pieces in order
+#pragma unroll 4
+    for (int e = tid; e < kWT * DS / 8; e += 128) {
+      const int row = e / (DS / 8), col = 8 * (e % (DS / 8));
+      const float4 u = *reinterpret_cast<const float4*>(stage + row * (DS + 8) + col);
+      const float4 v = *reinterpret_cast<const float4*>(stage + row * (DS + 8) + col + 4);
+      float4* hp = reinterpret_cast<float4*>(h32 + row * DS + col);
+      if (rev) {
+        const float4 hu = hp[0], hv = hp[1];
+        // a tree over the 8 products: a short dependent chain
+        const double d0 = static_cast<double>(u.x) * hu.x + static_cast<double>(u.y) * hu.y;
+        const double d1 = static_cast<double>(u.z) * hu.z + static_cast<double>(u.w) * hu.w;
+        const double d2 = static_cast<double>(v.x) * hv.x + static_cast<double>(v.y) * hv.y;
+        const double d3 = static_cast<double>(v.z) * hv.z + static_cast<double>(v.w) * hv.w;
+        p += (d0 + d1) + (d2 + d3);
+      } else {
+        hp[0] = u;
+        hp[1] = v;
       }
-      ac[nt][0] += esa * hy[nt][0];
-      ac[nt][1] += esa * hy[nt][1];
-      ac[nt][2] += esb * hy[nt][2];
-      ac[nt][3] += esb * hy[nt][3];
+      *reinterpret_cast<uint4*>(b16 + row * DS + col) =
+          make_uint4(sm90::pack_bf16(u.x, u.y), sm90::pack_bf16(u.z, u.w),
+                     sm90::pack_bf16(v.x, v.y), sm90::pack_bf16(v.z, v.w));
+    }
+    sm90::fence_proxy_async();  // the stage's generic accesses before TMA's next
+    sm90::mbar_arrive(&empty[s]);
+    if (rev) {
+      // the warp's and then the four warps' sums, in a fixed order
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) p += __shfl_xor_sync(kFull, p, off);
+      if (lane == 0) red[warp] = p;
+      named_barrier_consumers();
+      if (tid == 0) a.gh[bh0 + c - 1] = ((red[0] + red[1]) + red[2]) + red[3];
     }
   }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    na += __shfl_xor_sync(kFull, na, off);
-    nb += __shfl_xor_sync(kFull, nb, off);
-    rma += __shfl_xor_sync(kFull, rma, off);
-    rmb += __shfl_xor_sync(kFull, rmb, off);
+}
+
+// the block of a tile kernel: its tile (t, from the longest first), head
+// slice, group, chunk and batch row
+struct TileBlock {
+  int t, n_sl, sl, g, c, b, h0, nh;
+  __device__ TileBlock(const Args& a, bool keys) {
+    const int nqt = a.q / kWT, nc = a.S / a.q, rep = a.H / a.G;
+    const int per_tile = gridDim.x / nqt;
+    n_sl = (rep + a.hs - 1) / a.hs;
+    // keys: tile 0 sees every query tile; queries: the last sees every key tile
+    t = keys ? blockIdx.x / per_tile : nqt - 1 - blockIdx.x / per_tile;
+    int rem = blockIdx.x % per_tile;
+    sl = rem % n_sl;
+    rem /= n_sl;
+    g = rem % a.G;
+    rem /= a.G;
+    c = rem % nc;
+    b = rem / nc;
+    h0 = g * rep + sl * a.hs;
+    nh = min(a.hs, rep - sl * a.hs);
   }
+};
+
+// "wgmma" 4, keys: one block per (key tile of 64 rows, head slice, group,
+// chunk, batch row).  B_j, the query tiles' C_i (i >= j) and their C B^T
+// tiles stay in shared memory across the slice's heads; the producer warp
+// loads each head's x_j, G_c (bf16), seg and dt into one of two head
+// stages and its dy_i tiles through a ring of kWStages.  Per head and
+// query tile: S^T = x_j dy_i^T (both K-major), then W^T = C B^T dec dt_j
+// and V^T = S^T dec dt_j (dec = exp(seg_i - seg_j), masked before the
+// exp), e1; dx += W^T dy_i and dB += V^T C_i with the weights as register
+// A operands and dy_i, C_i read MN-major.  Per head: G_c B_j (K-major),
+// e2, dx's carried term, dB += (exp(tot - seg_j) dt_j x_j) G_c (G_c
+// MN-major); dx (bf16) and e1, e2, the column sums of M are written per
+// head, dB summed over the slice's heads in registers.
+template <int DS>
+__global__ void __launch_bounds__(kWThreads, 1)
+    bwd_keys_wgmma(const __grid_constant__ CUtensorMap xmap,
+                   const __grid_constant__ CUtensorMap ymap,
+                   const __grid_constant__ CUtensorMap bmap,
+                   const __grid_constant__ CUtensorMap cmap,
+                   const __grid_constant__ CUtensorMap gmap, const Args a) {
+  constexpr int T = DS * 128;  // a [ds / 64][64][64] tile
+  extern __shared__ __align__(16) unsigned char dsm[];
+  uint8_t* base = align1024(dsm);
+  const int q = a.q, nqt = q / kWT, nc = a.S / q;
+  const TileSmem L = tile_smem(DS, q);
+  const TileBlock blk(a, true);
+  const int t = blk.t, g = blk.g, c = blk.c, b = blk.b;
+  const int nI = nqt - t, j0 = t * kWT, c0 = c * q;
+  const long long bgc = (static_cast<long long>(b) * a.G + g) * nc + c;
+  uint8_t* sB = base + L.own;
+  uint8_t* sC = base + L.others;  // query tiles t.. ([nI][ds / 64][64][64])
+  const float* sCB = reinterpret_cast<const float*>(base + L.cbt);
+  uint8_t* ring = base + L.ring;
+  float* vec = reinterpret_cast<float*>(base + L.vecs);
+  uint64_t* own = reinterpret_cast<uint64_t*>(base + L.bars);
+  uint64_t* hfull = own + 1;
+  uint64_t* hempty = hfull + 2;
+  uint64_t* full = hempty + 2;
+  uint64_t* empty = full + kWStages;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    sm90::mbar_init(own, 1);
+    for (int s = 0; s < 2; ++s) {
+      sm90::mbar_init(&hfull[s], 1);
+      sm90::mbar_init(&hempty[s], 128);
+    }
+    for (int s = 0; s < kWStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 128);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= 128) {  // the producer warp: its lane 0 starts every load
+    if (tid == 128) {
+      sm90::mbar_expect_tx(own, T + nI * (T + kCbFloats * 4));
+      for (int hf = 0; hf < DS / 64; ++hf)
+        sm90::tma_load_4d(sB + hf * kTileBytes, &bmap, own, 64 * hf, c0 + j0, g, b);
+      for (int k = 0; k < nI; ++k) {
+        for (int hf = 0; hf < DS / 64; ++hf)
+          sm90::tma_load_4d(sC + k * T + hf * kTileBytes, &cmap, own, 64 * hf,
+                            c0 + (t + k) * kWT, g, b);
+        sm90::bulk_load(base + L.cbt + k * kCbFloats * 4, a.cb + cb_tile(bgc, nqt, 1, t + k, t),
+                        kCbFloats * 4, own);
+      }
+      int it = 0;
+      for (int k = 0; k < blk.nh; ++k) {
+        const int h = blk.h0 + k, st = k % 2;
+        if (k >= 2) sm90::mbar_wait(&hempty[st], (k / 2 + 1) & 1);
+        uint8_t* hx = base + L.heads + st * (kTileBytes + T);
+        float* hv = vec + st * 2 * q;
+        const long long bhc = (static_cast<long long>(b) * a.H + h) * nc + c;
+        sm90::mbar_expect_tx(&hfull[st], kTileBytes + T + 8 * q);
+        sm90::tma_load_4d(hx, &xmap, &hfull[st], 0, c0 + j0, h, b);
+        for (int hf = 0; hf < DS / 64; ++hf)
+          sm90::tma_load_2d(hx + kTileBytes + hf * kTileBytes, &gmap, &hfull[st], 64 * hf,
+                            static_cast<int>(bhc * kWT));
+        sm90::bulk_load(hv, a.segs + bhc * q, 4 * q, &hfull[st]);
+        sm90::bulk_load(hv + q, a.dts + bhc * q, 4 * q, &hfull[st]);
+        for (int k2 = 0; k2 < nI; ++k2, ++it) {
+          const int s = it % kWStages;
+          if (it >= kWStages) sm90::mbar_wait(&empty[s], (it / kWStages + 1) & 1);
+          sm90::mbar_expect_tx(&full[s], kTileBytes);
+          sm90::tma_load_4d(ring + s * kTileBytes, &ymap, &full[s], 0, c0 + (t + k2) * kWT, h, b);
+        }
+      }
+    }
+    return;
+  }
+
+  const int lane = tid % 32, warp = tid / 32;
+  const int r0 = 16 * warp + lane / 4, c2 = 2 * (lane % 4);
+  const int ja = j0 + r0, jb = ja + 8;  // the thread's key rows in the chunk
+  float dB[DS / 2];
+  zero1(dB);
+  sm90::mbar_wait(own, 0);
+  int it = 0;
+  for (int k = 0; k < blk.nh; ++k) {
+    const int h = blk.h0 + k, st = k % 2;
+    sm90::mbar_wait(&hfull[st], (k / 2) & 1);
+    const uint8_t* sX = base + L.heads + st * (kTileBytes + T);
+    const uint8_t* sG = sX + kTileBytes;
+    const float* seg = vec + st * 2 * q;
+    const float* dtv = seg + q;
+    const float sja = seg[ja], sjb = seg[jb];
+    const float dta = dtv[ja], dtb = dtv[jb];
+    float dx[32];
+    zero1(dx);
+    float e1a = 0.f, e1b = 0.f;
+    for (int k2 = 0; k2 < nI; ++k2, ++it) {
+      const int s = it % kWStages, ti = t + k2;
+      const uint8_t* sY = ring + s * kTileBytes;
+      sm90::mbar_wait(&full[s], (it / kWStages) & 1);
+      float sc[32];
+      zero1(sc);
+      sm90::fence_regs(sc);
+      sm90::wgmma_fence();
+      scores<64>(sc, sX, sY);  // x_j . dy_i: keys the rows, queries the columns
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+      const float* cbt = sCB + k2 * kCbFloats;
+      const bool diag = k2 == 0;
+      uint32_t wa[4][4], va[4][4];
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int i = hh == 0 ? ia : ib;
-    if (i >= q) continue;
-    float* oc = a.dCp + ch.row(a, i) * ds;
+      for (int grp = 0; grp < 8; ++grp) {
+        const float4 cb4 = *reinterpret_cast<const float4*>(cbt + grp * 512 + tid * 4);
+        const float cbv[4] = {cb4.x, cb4.y, cb4.z, cb4.w};
+        const int i = ti * kWT + 8 * grp + c2;  // columns i, i + 1
+        const float2 si = *reinterpret_cast<const float2*>(seg + i);
+        float wv[4], vv[4];
 #pragma unroll
-    for (int nt = 0; nt < 2 * kDsGroups; ++nt)
-      if (nt < 2 * dg)
-        *reinterpret_cast<float2*>(oc + 8 * nt + 2 * tq) =
-            make_float2(ac[nt][2 * hh], ac[nt][2 * hh + 1]);
-    if (tq == 0)
-      a.aux[(ch.bhc * q + i) * 4 + 2] = hh == 0 ? rma + esa * na : rmb + esb * nb;
+        for (int u = 0; u < 4; ++u) {
+          const bool lo = u < 2;  // row ja, else jb
+          const int e = 4 * grp + u;
+          const bool ok = !diag || i + (u & 1) >= (lo ? ja : jb);
+          // seg_i - seg_j first: seg reaches -1e3 and beyond, where scaling
+          // each by log2(e) first costs ~1e-4 of dec, which d(seg)'s
+          // cancellations carry into dA
+          const float dec = ok ? ex2(((u & 1 ? si.y : si.x) - (lo ? sja : sjb)) * kLog2e) : 0.f;
+          const float cbd = cbv[u] * dec;
+          if (lo) e1a += cbd * sc[e]; else e1b += cbd * sc[e];
+          const float dtj = lo ? dta : dtb;
+          wv[u] = cbd * dtj;
+          vv[u] = sc[e] * dec * dtj;
+        }
+        wa[grp / 2][2 * (grp % 2)] = sm90::pack_bf16(wv[0], wv[1]);
+        wa[grp / 2][2 * (grp % 2) + 1] = sm90::pack_bf16(wv[2], wv[3]);
+        va[grp / 2][2 * (grp % 2)] = sm90::pack_bf16(vv[0], vv[1]);
+        va[grp / 2][2 * (grp % 2) + 1] = sm90::pack_bf16(vv[2], vv[3]);
+      }
+      sm90::fence_regs(dx);
+      sm90::fence_regs(dB);
+      fence_frags(wa);
+      fence_frags(va);
+      sm90::wgmma_fence();
+      accumulate<64>(dx, wa, sY);              // dx += W^T dy_i
+      accumulate<DS>(dB, va, sC + k2 * T);     // dB += V^T C_i
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dx);
+      sm90::fence_regs(dB);
+      sm90::mbar_arrive(&empty[s]);
+    }
+    // the carried state's terms
+    const float tot = seg[q - 1];
+    const float eta = expf(tot - sja), etb = expf(tot - sjb);
+    const float sa = eta * dta, sb = etb * dtb;
+    float gb[32];
+    zero1(gb);
+    sm90::fence_regs(gb);
+    sm90::wgmma_fence();
+    scores<DS>(gb, sB, sG);  // (G_c B_j)[p]
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(gb);
+    float xa = 0.f, xb = 0.f;
+#pragma unroll
+    for (int grp = 0; grp < 8; ++grp) {
+      const float2 u = pair(sX, r0, 8 * grp + c2), v = pair(sX, r0 + 8, 8 * grp + c2);
+      xa += u.x * gb[4 * grp] + u.y * gb[4 * grp + 1];
+      xb += v.x * gb[4 * grp + 2] + v.y * gb[4 * grp + 3];
+      dx[4 * grp] += sa * gb[4 * grp];
+      dx[4 * grp + 1] += sa * gb[4 * grp + 1];
+      dx[4 * grp + 2] += sb * gb[4 * grp + 2];
+      dx[4 * grp + 3] += sb * gb[4 * grp + 3];
+    }
+    uint32_t xf[4][4];
+    scaled_frags(xf, sX, r0, c2, sa, sb);
+    sm90::fence_regs(dB);
+    fence_frags(xf);
+    sm90::wgmma_fence();
+    accumulate<DS>(dB, xf, sG);  // dB += (exp(tot - seg_j) dt_j x_j) G_c
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dB);
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      xa += __shfl_xor_sync(kFull, xa, off);
+      xb += __shfl_xor_sync(kFull, xb, off);
+      e1a += __shfl_xor_sync(kFull, e1a, off);
+      e1b += __shfl_xor_sync(kFull, e1b, off);
+    }
+    // dx staged through the consumed x tile (bf16 pairs at their swizzled
+    // places: no bank conflict), then written a 16-byte piece a thread
+    named_barrier_consumers();  // every thread's reads of sX are done
+    uint8_t* sDX = base + L.heads + st * (kTileBytes + T);
+#pragma unroll
+    for (int i = 0; i < 32; i += 4) {
+      const int p = 8 * (i / 4) + c2;
+      *reinterpret_cast<uint32_t*>(sDX + swz(r0, p)) = sm90::pack_bf16(dx[i], dx[i + 1]);
+      *reinterpret_cast<uint32_t*>(sDX + swz(r0 + 8, p)) = sm90::pack_bf16(dx[i + 2], dx[i + 3]);
+    }
+    named_barrier_consumers();
+    bf16* DX = static_cast<bf16*>(a.dx);
+    for (int e = tid; e < kWT * 8; e += 128) {
+      const int row = e / 8, p = 8 * (e % 8);
+      const long long o = ((static_cast<long long>(b) * a.S + c0 + j0 + row) * a.H + h) * kWT + p;
+      *reinterpret_cast<uint4*>(DX + o) = *reinterpret_cast<const uint4*>(sDX + swz(row, p));
+    }
+    sm90::fence_proxy_async();  // the stage's generic accesses before TMA's next
+    sm90::mbar_arrive(&hempty[st]);
+    if (lane % 4 == 0) {
+      const long long bhc = (static_cast<long long>(b) * a.H + h) * nc + c;
+      double* oa = a.aux + (bhc * q + ja) * 4;
+      double* ob = a.aux + (bhc * q + jb) * 4;
+      oa[0] = e1a;
+      oa[1] = eta * xa;
+      oa[3] = static_cast<double>(dta) * e1a;
+      ob[0] = e1b;
+      ob[1] = etb * xb;
+      ob[3] = static_cast<double>(dtb) * e1b;
+    }
+  }
+  // the slice's sum of dB over its heads
+  const long long ra = (static_cast<long long>(b) * a.S + c0 + ja) * a.G + g;
+  const long long rb = ra + 8LL * a.G;
+  if (blk.n_sl == 1) {
+    bf16* out = static_cast<bf16*>(a.dB);
+    store_rows<DS>(dB, out + ra * DS, out + rb * DS, c2);
+  } else {
+    float* out = a.dBp + static_cast<long long>(blk.sl) * a.Bn * a.S * a.G * DS;
+    store_rows<DS>(dB, out + ra * DS, out + rb * DS, c2);
+  }
+}
+
+// "wgmma" 5, queries: one block per (query tile of 64 rows, head slice,
+// group, chunk, batch row).  C_i, the key tiles' B_j (j <= i) and their
+// C B^T tiles stay in shared memory across the slice's heads; the
+// producer warp loads each head's dy_i, h_c (bf16), seg and dt into one
+// of two head stages and its x_j tiles through a ring.  Per head and key
+// tile: S = dy_i x_j^T, V = S dec dt_j, the row sums of M = C B^T V; dC
+// += V B_j (V a register A operand, B_j MN-major).  Per head: the carried
+// term exp(seg_i) h_c^T dy_i (the scaled dy_i a register A operand, h_c
+// MN-major), added to dC and dotted with C_i for d(seg); r is written per
+// head, dC summed over the slice's heads in registers.
+template <int DS>
+__global__ void __launch_bounds__(kWThreads, 1)
+    bwd_queries_wgmma(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap ymap,
+                      const __grid_constant__ CUtensorMap bmap,
+                      const __grid_constant__ CUtensorMap cmap,
+                      const __grid_constant__ CUtensorMap hmap, const Args a) {
+  constexpr int T = DS * 128;
+  extern __shared__ __align__(16) unsigned char dsm[];
+  uint8_t* base = align1024(dsm);
+  const int q = a.q, nqt = q / kWT, nc = a.S / q;
+  const TileSmem L = tile_smem(DS, q);
+  const TileBlock blk(a, false);
+  const int t = blk.t, g = blk.g, c = blk.c, b = blk.b;
+  const int nJ = t + 1, i0 = t * kWT, c0 = c * q;
+  const long long bgc = (static_cast<long long>(b) * a.G + g) * nc + c;
+  uint8_t* sC = base + L.own;
+  uint8_t* sB = base + L.others;  // key tiles 0..t ([nJ][ds / 64][64][64])
+  const float* sCB = reinterpret_cast<const float*>(base + L.cbt);
+  uint8_t* ring = base + L.ring;
+  float* vec = reinterpret_cast<float*>(base + L.vecs);
+  uint64_t* own = reinterpret_cast<uint64_t*>(base + L.bars);
+  uint64_t* hfull = own + 1;
+  uint64_t* hempty = hfull + 2;
+  uint64_t* full = hempty + 2;
+  uint64_t* empty = full + kWStages;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    sm90::mbar_init(own, 1);
+    for (int s = 0; s < 2; ++s) {
+      sm90::mbar_init(&hfull[s], 1);
+      sm90::mbar_init(&hempty[s], 128);
+    }
+    for (int s = 0; s < kWStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 128);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= 128) {  // the producer warp: its lane 0 starts every load
+    if (tid == 128) {
+      sm90::mbar_expect_tx(own, T + nJ * (T + kCbFloats * 4));
+      for (int hf = 0; hf < DS / 64; ++hf)
+        sm90::tma_load_4d(sC + hf * kTileBytes, &cmap, own, 64 * hf, c0 + i0, g, b);
+      for (int k = 0; k < nJ; ++k) {
+        for (int hf = 0; hf < DS / 64; ++hf)
+          sm90::tma_load_4d(sB + k * T + hf * kTileBytes, &bmap, own, 64 * hf, c0 + k * kWT, g, b);
+        sm90::bulk_load(base + L.cbt + k * kCbFloats * 4, a.cb + cb_tile(bgc, nqt, 0, t, k),
+                        kCbFloats * 4, own);
+      }
+      int it = 0;
+      for (int k = 0; k < blk.nh; ++k) {
+        const int h = blk.h0 + k, st = k % 2;
+        if (k >= 2) sm90::mbar_wait(&hempty[st], (k / 2 + 1) & 1);
+        uint8_t* hy = base + L.heads + st * (kTileBytes + T);
+        float* hv = vec + st * 2 * q;
+        const long long bhc = (static_cast<long long>(b) * a.H + h) * nc + c;
+        sm90::mbar_expect_tx(&hfull[st], kTileBytes + T + 8 * q);
+        sm90::tma_load_4d(hy, &ymap, &hfull[st], 0, c0 + i0, h, b);
+        for (int hf = 0; hf < DS / 64; ++hf)
+          sm90::tma_load_2d(hy + kTileBytes + hf * kTileBytes, &hmap, &hfull[st], 64 * hf,
+                            static_cast<int>(bhc * kWT));
+        sm90::bulk_load(hv, a.segs + bhc * q, 4 * q, &hfull[st]);
+        sm90::bulk_load(hv + q, a.dts + bhc * q, 4 * q, &hfull[st]);
+        for (int k2 = 0; k2 < nJ; ++k2, ++it) {
+          const int s = it % kWStages;
+          if (it >= kWStages) sm90::mbar_wait(&empty[s], (it / kWStages + 1) & 1);
+          sm90::mbar_expect_tx(&full[s], kTileBytes);
+          sm90::tma_load_4d(ring + s * kTileBytes, &xmap, &full[s], 0, c0 + k2 * kWT, h, b);
+        }
+      }
+    }
+    return;
+  }
+
+  const int lane = tid % 32, warp = tid / 32;
+  const int r0 = 16 * warp + lane / 4, c2 = 2 * (lane % 4);
+  const int ia = i0 + r0, ib = ia + 8;  // the thread's query rows in the chunk
+  float dC[DS / 2];
+  zero1(dC);
+  sm90::mbar_wait(own, 0);
+  int it = 0;
+  for (int k = 0; k < blk.nh; ++k) {
+    const int h = blk.h0 + k, st = k % 2;
+    sm90::mbar_wait(&hfull[st], (k / 2) & 1);
+    const uint8_t* sY = base + L.heads + st * (kTileBytes + T);
+    const uint8_t* sH = sY + kTileBytes;
+    const float* seg = vec + st * 2 * q;
+    const float* dtv = seg + q;
+    const float sia = seg[ia], sib = seg[ib];
+    float rma = 0.f, rmb = 0.f;
+    for (int k2 = 0; k2 < nJ; ++k2, ++it) {
+      const int s = it % kWStages;
+      const uint8_t* sX = ring + s * kTileBytes;
+      sm90::mbar_wait(&full[s], (it / kWStages) & 1);
+      float sc[32];
+      zero1(sc);
+      sm90::fence_regs(sc);
+      sm90::wgmma_fence();
+      scores<64>(sc, sY, sX);  // dy_i . x_j: queries the rows, keys the columns
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+      const float* cbt = sCB + k2 * kCbFloats;
+      const bool diag = k2 == t;
+      uint32_t va[4][4];
+#pragma unroll
+      for (int grp = 0; grp < 8; ++grp) {
+        const float4 cb4 = *reinterpret_cast<const float4*>(cbt + grp * 512 + tid * 4);
+        const float cbv[4] = {cb4.x, cb4.y, cb4.z, cb4.w};
+        const int j = k2 * kWT + 8 * grp + c2;  // columns j, j + 1
+        const float2 sj = *reinterpret_cast<const float2*>(seg + j);
+        const float2 dj = *reinterpret_cast<const float2*>(dtv + j);
+        float vv[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const bool lo = u < 2;  // row ia, else ib
+          const int e = 4 * grp + u;
+          const bool ok = !diag || j + (u & 1) <= (lo ? ia : ib);
+          const float dec = ok ? ex2(((lo ? sia : sib) - (u & 1 ? sj.y : sj.x)) * kLog2e) : 0.f;
+          const float v = sc[e] * dec * (u & 1 ? dj.y : dj.x);
+          if (lo) rma += cbv[u] * v; else rmb += cbv[u] * v;
+          vv[u] = v;
+        }
+        va[grp / 2][2 * (grp % 2)] = sm90::pack_bf16(vv[0], vv[1]);
+        va[grp / 2][2 * (grp % 2) + 1] = sm90::pack_bf16(vv[2], vv[3]);
+      }
+      sm90::fence_regs(dC);
+      fence_frags(va);
+      sm90::wgmma_fence();
+      accumulate<DS>(dC, va, sB + k2 * T);  // dC += V B_j
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dC);
+      sm90::mbar_arrive(&empty[s]);
+    }
+    // dC's carried term exp(seg_i) h_c^T dy_i, and d(seg)'s, its dot with
+    // C_i: the product from dy_i as it is (exact in bf16), scaled after
+    const float esa = expf(sia), esb = expf(sib);
+    uint32_t yf[4][4];
+    scaled_frags(yf, sY, r0, c2, 1.f, 1.f);
+    float hy[DS / 2];
+    zero1(hy);
+    sm90::fence_regs(hy);
+    fence_frags(yf);
+    sm90::wgmma_fence();
+    accumulate<DS>(hy, yf, sH);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(hy);
+    sm90::mbar_arrive(&hempty[st]);  // sY, sH, seg and dt are read
+    float na = 0.f, nb = 0.f;
+#pragma unroll
+    for (int i = 0; i < DS / 2; i += 4) {
+      const int n = 8 * (i / 4) + c2;
+      const float2 u = pair(sC, r0, n), v = pair(sC, r0 + 8, n);
+      na += u.x * hy[i] + u.y * hy[i + 1];
+      nb += v.x * hy[i + 2] + v.y * hy[i + 3];
+      dC[i] += esa * hy[i];
+      dC[i + 1] += esa * hy[i + 1];
+      dC[i + 2] += esb * hy[i + 2];
+      dC[i + 3] += esb * hy[i + 3];
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      na += __shfl_xor_sync(kFull, na, off);
+      nb += __shfl_xor_sync(kFull, nb, off);
+      rma += __shfl_xor_sync(kFull, rma, off);
+      rmb += __shfl_xor_sync(kFull, rmb, off);
+    }
+    if (lane % 4 == 0) {
+      const long long bhc = (static_cast<long long>(b) * a.H + h) * nc + c;
+      a.aux[(bhc * q + ia) * 4 + 2] = rma + esa * na;
+      a.aux[(bhc * q + ib) * 4 + 2] = rmb + esb * nb;
+    }
+  }
+  const long long ra = (static_cast<long long>(b) * a.S + c0 + ia) * a.G + g;
+  const long long rb = ra + 8LL * a.G;
+  if (blk.n_sl == 1) {
+    bf16* out = static_cast<bf16*>(a.dC);
+    store_rows<DS>(dC, out + ra * DS, out + rb * DS, c2);
+  } else {
+    float* out = a.dCp + static_cast<long long>(blk.sl) * a.Bn * a.S * a.G * DS;
+    store_rows<DS>(dC, out + ra * DS, out + rb * DS, c2);
   }
 }
 
@@ -1052,24 +1601,10 @@ int set_smem(K kernel, long long bytes) {
 
 int after(cudaError_t) { return static_cast<int>(cudaGetLastError()); }
 
-template <int HD>
-int launch_mma_tiles(const Args& a, cudaStream_t s) {
-  const int nc = a.S / a.q, nqt = (a.q + kRows - 1) / kRows;
-  const long long tiles = 8LL * a.q + 4LL * kRows * (a.ds + 8) + 4LL * kRows * (HD + 8);
-  int err = set_smem(bwd_keys_mma<HD>, tiles);
-  if (err == 0) err = set_smem(bwd_queries_mma<HD>, tiles);
-  if (err != 0) return err;
-  const dim3 grid(nc * nqt, a.H, a.Bn);
-  bwd_keys_mma<HD><<<grid, kMmaThreads, tiles, s>>>(a);
-  if ((err = after(cudaSuccess)) != 0) return err;
-  bwd_queries_mma<HD><<<grid, kMmaThreads, tiles, s>>>(a);
-  return after(cudaSuccess);
-}
-
 template <typename T>
 int launch_fma_tiles(const Args& a, cudaStream_t s) {
   const int nc = a.S / a.q, nt = (a.q + kFRows - 1) / kFRows;
-  const long long bytes = smem_bytes(a.hd, a.ds, a.q, false);
+  const long long bytes = fma_smem_bytes(a.hd, a.ds, a.q);
   int err = set_smem(bwd_keys_fma<T>, bytes);
   if (err == 0) err = set_smem(bwd_queries_fma<T>, bytes);
   if (err != 0) return err;
@@ -1080,74 +1615,160 @@ int launch_fma_tiles(const Args& a, cudaStream_t s) {
   return after(cudaSuccess);
 }
 
+// one [B, S, N, D] bf16 tensor (strides in elements) as a 4-D tensor map
+// (innermost first: D, rows, N, B) with a box of 64 columns of `rows`
+// rows of one head or group; a dimension of size 1 gets a packed stride
+// (its coordinate is always 0)
+int view_map(CUtensorMap* map, const void* p, long long sb, long long ss, long long sn, int D,
+             int S, int N, int B, int rows) {
+  uint64_t dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(S),
+                      static_cast<uint64_t>(N), static_cast<uint64_t>(B)};
+  uint64_t strides[3] = {static_cast<uint64_t>(ss) * 2, static_cast<uint64_t>(sn) * 2,
+                         static_cast<uint64_t>(sb) * 2};
+  for (int i = 1; i < 4; ++i)
+    if (dims[i] == 1) strides[i - 1] = i == 1 ? dims[0] * 2 : strides[i - 2] * dims[i - 1];
+  const uint32_t box[4] = {64, static_cast<uint32_t>(rows), 1, 1};
+  return sm90_host::make_map(map, p, 4, dims, strides, box);
+}
+
+// the bf16 states [rows of 64][ds] as a 2-D map with a box of 64 x 64
+int state_map(CUtensorMap* map, const void* p, int ds, long long rows) {
+  const uint64_t dims[2] = {static_cast<uint64_t>(ds), static_cast<uint64_t>(rows)};
+  const uint64_t strides[1] = {static_cast<uint64_t>(ds) * 2};
+  const uint32_t box[2] = {64, 64};
+  return sm90_host::make_map(map, p, 2, dims, strides, box);
+}
+
+// kernels 1-5 of the wgmma route: seg, the scan (chunk states and state
+// gradients), C B^T and the key and query tiles
+template <int DS>
+int launch_wgmma(const Args& a, cudaStream_t s) {
+  const int q = a.q, nc = a.S / q, nqt = q / kWT, rep = a.H / a.G;
+  const long long dy_ss = static_cast<long long>(a.H) * kWT;
+  const long long dy_sb = static_cast<long long>(a.S) * dy_ss;
+  // boxes of the chunk's q rows (states) and of 64 rows (tiles)
+  CUtensorMap xq, yq, bq, cq, xt, yt, bt, ct, gm, hm;
+  int err = view_map(&xq, a.x, a.x_sb, a.x_ss, a.x_sh, kWT, a.S, a.H, a.Bn, q);
+  if (err == 0) err = view_map(&yq, a.dy, dy_sb, dy_ss, kWT, kWT, a.S, a.H, a.Bn, q);
+  if (err == 0) err = view_map(&bq, a.Bm, a.b_sb, a.b_ss, a.b_sg, DS, a.S, a.G, a.Bn, q);
+  if (err == 0) err = view_map(&cq, a.Cm, a.c_sb, a.c_ss, a.c_sg, DS, a.S, a.G, a.Bn, q);
+  if (err == 0) err = view_map(&xt, a.x, a.x_sb, a.x_ss, a.x_sh, kWT, a.S, a.H, a.Bn, kWT);
+  if (err == 0) err = view_map(&yt, a.dy, dy_sb, dy_ss, kWT, kWT, a.S, a.H, a.Bn, kWT);
+  if (err == 0) err = view_map(&bt, a.Bm, a.b_sb, a.b_ss, a.b_sg, DS, a.S, a.G, a.Bn, kWT);
+  if (err == 0) err = view_map(&ct, a.Cm, a.c_sb, a.c_ss, a.c_sg, DS, a.S, a.G, a.Bn, kWT);
+  const long long state_rows = static_cast<long long>(a.Bn) * a.H * nc * kWT;
+  if (err == 0) err = state_map(&gm, a.gb, DS, state_rows);
+  if (err == 0) err = state_map(&hm, a.hb, DS, state_rows);
+  if (err != 0) return err;
+  // 1, 2. seg and dt of every chunk; the chunk states and the state
+  // gradients in one scan
+  const long long n_chunks = static_cast<long long>(a.Bn) * a.H * nc;
+  bwd_seg<<<static_cast<int>((n_chunks + 3) / 4), 128, 4 * 2 * q * 4, s>>>(a);
+  if ((err = after(cudaSuccess)) != 0) return err;
+  const int sbytes = scan_smem(DS, q).total;
+  if ((err = set_smem(bwd_scan_wgmma<DS>, sbytes)) != 0) return err;
+  bwd_scan_wgmma<DS><<<a.Bn * a.H, kWThreads, sbytes, s>>>(xq, yq, bq, cq, a);
+  if ((err = after(cudaSuccess)) != 0) return err;
+  // 3. C B^T once a (batch row, group, chunk)
+  const int cbytes = cb_smem(DS);
+  if ((err = set_smem(bwd_cb, cbytes)) != 0) return err;
+  bwd_cb<<<dim3(nc * nqt, a.G, a.Bn), kMmaThreads, cbytes, s>>>(a);
+  if ((err = after(cudaSuccess)) != 0) return err;
+  // 4, 5. the key and query tiles over the heads of a slice
+  const int n_sl = (rep + a.hs - 1) / a.hs;
+  const int tbytes = tile_smem(DS, q).total;
+  if ((err = set_smem(bwd_keys_wgmma<DS>, tbytes)) != 0) return err;
+  if ((err = set_smem(bwd_queries_wgmma<DS>, tbytes)) != 0) return err;
+  const int blocks = nqt * n_sl * a.G * nc * a.Bn;
+  bwd_keys_wgmma<DS><<<blocks, kWThreads, tbytes, s>>>(xt, yt, bt, ct, gm, a);
+  if ((err = after(cudaSuccess)) != 0) return err;
+  bwd_queries_wgmma<DS><<<blocks, kWThreads, tbytes, s>>>(xt, yt, bt, ct, hm, a);
+  return after(cudaSuccess);
+}
+
+// wgmma: the wgmma route's kernels, else the fma route's
 template <typename T>
-int launch_all(const Args& a, bool mma, cudaStream_t s) {
+int launch_all(const Args& a, bool wgmma, cudaStream_t s) {
   const int nc = a.S / a.q;
   const dim3 chunks(nc, a.H, a.Bn);
   int err = 0;
-  // 1. the chunk states and the state gradients' shares
-  if (mma) {
-    const long long bytes = 8LL * a.q + 2LL * a.q * (a.hd + 8) + 2LL * a.q * (a.ds + 8);
-    if ((err = set_smem(bwd_states_mma, bytes)) != 0) return err;
-    bwd_states_mma<<<chunks, kMmaThreads, bytes, s>>>(a);
+  if (wgmma) {
+    // kernels 1-5
+    err = a.ds == 128 ? launch_wgmma<128>(a, s) : launch_wgmma<64>(a, s);
+    if (err != 0) return err;
   } else {
+    // 1. the chunk states and the state gradients' shares
     const long long bytes = 8LL * a.q;
     if ((err = set_smem(bwd_states_fma<T>, bytes)) != 0) return err;
     bwd_states_fma<T><<<chunks, kFThreads, bytes, s>>>(a);
+    if ((err = after(cudaSuccess)) != 0) return err;
+    // 2. h_c forward, G_c in reverse
+    const int n = a.hd * a.ds;
+    bwd_pass<<<dim3((n + 255) / 256, a.H, a.Bn), 256, 0, s>>>(a, n);
+    if ((err = after(cudaSuccess)) != 0) return err;
+    // 3, 4. the key and query tiles
+    if ((err = launch_fma_tiles<T>(a, s)) != 0) return err;
   }
-  if ((err = after(cudaSuccess)) != 0) return err;
-  // 2. h_c forward, G_c in reverse
-  const int n = a.hd * a.ds;
-  bwd_pass<<<dim3((n + 255) / 256, a.H, a.Bn), 256, 0, s>>>(a, n);
-  if ((err = after(cudaSuccess)) != 0) return err;
-  // 3, 4. the key and query tiles
-  if (mma) {
-    switch (a.hd) {
-      case 16: err = launch_mma_tiles<16>(a, s); break;
-      case 32: err = launch_mma_tiles<32>(a, s); break;
-      case 64: err = launch_mma_tiles<64>(a, s); break;
-      default: return -2;
-    }
-  } else {
-    err = launch_fma_tiles<T>(a, s);
-  }
-  if (err != 0) return err;
   // 5. d(seg), ddt, dA's parts
   const long long fbytes = 8LL * (4 * a.q + 256) + 4LL * a.q;
   if ((err = set_smem(bwd_finalize, fbytes)) != 0) return err;
   bwd_finalize<<<chunks, 256, fbytes, s>>>(a);
   if ((err = after(cudaSuccess)) != 0) return err;
-  // 6. the sums over heads, batch rows and chunks
+  // 6. the sums over heads (wgmma: over head slices, when there are
+  // several), batch rows and chunks
   const long long m = static_cast<long long>(a.Bn) * a.S * a.G * a.ds;
   const long long want = (m + 255) / 256;
-  bwd_reduce_heads<T><<<static_cast<int>(want < 4096 ? want : 4096), 256, 0, s>>>(a);
+  const int grid = static_cast<int>(want < 4096 ? want : 4096);
+  const long long ds = a.ds, rep = a.H / a.G;
+  if (!wgmma) {
+    bwd_reduce_parts<T><<<grid, 256, 0, s>>>(a, static_cast<int>(rep), a.H * ds, rep * ds, ds);
+  } else {
+    const int n_sl = static_cast<int>((rep + a.hs - 1) / a.hs);
+    if (n_sl > 1) bwd_reduce_parts<T><<<grid, 256, 0, s>>>(a, n_sl, a.G * ds, ds, m);
+  }
   if ((err = after(cudaSuccess)) != 0) return err;
   bwd_reduce_dA<<<1, 256, 0, s>>>(a);
   return after(cudaSuccess);
+}
+
+// bytes of dynamic shared memory of a route's largest kernel
+long long route_smem_bytes(int hd, int ds, int q, bool wgmma) {
+  if (!wgmma) return fma_smem_bytes(hd, ds, q);
+  const long long tiles = tile_smem(ds, q).total, states = scan_smem(ds, q).total;
+  const long long cb = cb_smem(ds);
+  const long long m = tiles > states ? tiles : states;
+  return m > cb ? m : cb;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory of the route's largest kernel (mma: 1 or
-// 0), so that the host's checks can be held against the source.
-long long repro_ssd_bwd_smem_bytes(int hd, int ds, int q, int mma) {
-  return smem_bytes(hd, ds, q, mma != 0);
+// Bytes of dynamic shared memory of the route's largest kernel (0 =
+// "fma", 1 = "wgmma"), so that the host's checks can be held against the
+// source.
+long long repro_ssd_bwd_smem_bytes(int hd, int ds, int q, int route) {
+  return route_smem_bytes(hd, ds, q, route == 1);
 }
 
-// Launches the backward on `stream` by `route` (0 = "fma", 1 = "mma");
+// Launches the backward on `stream` by `route` (0 = "fma", 1 = "wgmma");
 // returns cudaGetLastError() (0 = ok), -1 for an unsupported dtype, -2
 // for a shape the route does not take, -3 when its tiles do not fit a
-// block's shared memory.  x [B, S, H, hd], dt [B, S, H] (fp32), B and C
+// block's shared memory (or CUDA offers no TMA encoder), -4 when a TMA
+// tensor map is refused.  x [B, S, H, hd], dt [B, S, H] (fp32), B and C
 // [B, S, G, ds] are read through the strides given (elements; last
-// dimensions contiguous; for "mma" 16-byte aligned rows), A [H] fp32; dy,
-// dx [B, S, H, hd], ddt [B, S, H] (fp32), dA [H] (fp32), dB and dC [B, S,
-// G, ds] are contiguous.  dtype 0 = float32, 1 = bfloat16 (x, B, C, dy,
-// dx, dB, dC; "mma" takes bfloat16 only).  Scratch (fp32): hst and gst [B,
-// H, S / q, hd, ds], segs [B, H, S / q, q], aux [B, H, S / q, q, 4]
-// (fp64), part 2 x [B, S, H, ds] (per-head dB, then dC), dA_part [B, H, S /
-// q] (fp64).
+// dimensions contiguous; for "wgmma" 16-byte aligned rows and strides), A
+// [H] fp32; dy, dx [B, S, H, hd], ddt [B, S, H] (fp32), dA [H] (fp32), dB
+// and dC [B, S, G, ds] are contiguous.  dtype 0 = float32, 1 = bfloat16
+// (x, B, C, dy, dx, dB, dC; "wgmma" takes bfloat16 only).  Scratch: hst
+// [B, H, S / q, hd, ds] (fp32), segs [B, H, S / q, q] (fp32), aux [B, H,
+// S / q, q, 4] (fp64), dA_part [B, H, S / q] (fp64); "fma": gst (as hst)
+// and part 2 x [B, S, H, ds] (fp32, per-head dB, then dC); "wgmma": part
+// 2 x [slices, B, S, G, ds] (fp32, each head slice's dB, then dC; none
+// with one slice), hb and gb [B, H, S / q, hd, ds] (bf16), dts [B, H, S /
+// q, q] (fp32), cb [B, G, S / q, 2, q / 64, q / 64, 4096] (fp32), gh [B,
+// H, S / q] (fp64), hs the heads of a slice (ssd_scan.py's
+// backward_head_slice).  A route's unused scratch may be null.
 int repro_ssd_scan_bwd(
     const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
     const void* dy, void* dx, void* ddt, void* dA, void* dB, void* dC,
@@ -1155,29 +1776,37 @@ int repro_ssd_scan_bwd(
     long long dt_sb, long long dt_ss, long long dt_sh,
     long long b_sb, long long b_ss, long long b_sg,
     long long c_sb, long long c_ss, long long c_sg,
-    int B, int S, int H, int hd, int G, int ds, int q, int dtype, int route,
-    void* hst, void* gst, void* segs, void* aux, void* part, void* dA_part, void* stream) {
+    int B, int S, int H, int hd, int G, int ds, int q, int dtype, int route, int hs,
+    void* hst, void* gst, void* hb, void* gb, void* segs, void* dts, void* cb, void* gh,
+    void* aux, void* part, void* dA_part, void* stream) {
   if (H == 0) return 0;
   if (B == 0 || S == 0) return static_cast<int>(cudaMemsetAsync(
       dA, 0, sizeof(float) * H, static_cast<cudaStream_t>(stream)));
   if (q < 1 || S % q != 0 || H % G != 0 || hd % 2 != 0 || ds % 2 != 0) return -2;
-  const bool mma = route == 1;
-  if (mma && (dtype != 1 || (hd != 16 && hd != 32 && hd != 64) || ds % 16 != 0 ||
-              ds > 16 * kDsGroups || q % 16 != 0))
-    return -2;
   if (route != 0 && route != 1) return -2;
-  if (smem_bytes(hd, ds, q, mma) > kMaxSmem) return -3;
+  const bool wgmma = route == 1;
+  if (wgmma && (dtype != 1 || hd != kWT || (ds != 64 && ds != 128) || q % kWT != 0 ||
+                q > 256 || hs < 1 || hb == nullptr || gb == nullptr || dts == nullptr ||
+                cb == nullptr || gh == nullptr))
+    return -2;
+  if (route_smem_bytes(hd, ds, q, wgmma) > kMaxSmem) return -3;
+  // part: the per-head sums ("fma") or the head slices' ("wgmma")
   float* p = static_cast<float*>(part);
-  const long long per_head = static_cast<long long>(B) * S * H * ds;
+  const long long half = wgmma
+      ? static_cast<long long>((H / G + hs - 1) / hs) * B * S * G * ds
+      : static_cast<long long>(B) * S * H * ds;
   const Args a{x, static_cast<const float*>(dt), static_cast<const float*>(A), Bm, Cm, dy, dx,
                static_cast<float*>(ddt), static_cast<float*>(dA), dB, dC,
                x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh, b_sb, b_ss, b_sg, c_sb, c_ss, c_sg,
                B, S, H, G, hd, ds, q,
                static_cast<float*>(hst), static_cast<float*>(gst), static_cast<float*>(segs),
-               static_cast<double*>(aux), p, p + per_head, static_cast<double*>(dA_part)};
+               static_cast<double*>(aux), p, p == nullptr ? nullptr : p + half,
+               static_cast<double*>(dA_part),
+               static_cast<bf16*>(hb), static_cast<bf16*>(gb), static_cast<float*>(dts),
+               static_cast<float*>(cb), static_cast<double*>(gh), hs};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return mma ? -1 : launch_all<float>(a, false, s);
-  if (dtype == 1) return launch_all<bf16>(a, mma, s);
+  if (dtype == 0) return wgmma ? -1 : launch_all<float>(a, false, s);
+  if (dtype == 1) return launch_all<bf16>(a, wgmma, s);
   return -1;
 }
 

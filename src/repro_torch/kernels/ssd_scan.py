@@ -49,12 +49,17 @@ then per chunk the gradients of x, dt, B and C (key tiles: dx, dB and
 dt's direct terms; query tiles: dC and the rows' share of d(seg)), a pass
 that turns d(seg) into d(A dt) by a reverse cumulative sum, and fixed-
 order sums of dB and dC over a group's heads and of dA over the batch
-and chunks.  ``backward_route`` chooses its kernels: ``"mma"`` (bf16 at
-hd up to 64 and d_state up to 128, products on mma.sync) or ``"fma"``
-(fp32 FMA code, every shape the forward takes).  No atomics: two runs
-give the same bits.  ``ssd_scan_backward_plain`` is the same chunked
-backward written out in torch.  Each backward adds one to
-``ssd_scan.backward_launches``.
+and chunks.  ``backward_route`` chooses its kernels: ``"wgmma"`` (bf16
+at hd 64, d_state 64 or 128 and chunks of 64-row tiles up to 256:
+mamba2's and zamba2's shapes; C B^T once a (batch row, group, chunk),
+dB and dC summed over a slice of a group's heads on chip, the products
+on wgmma fed by TMA rings; ``backward_head_slice`` and
+``backward_scratch_sizes`` are its host plan) or ``"fma"`` (fp32 FMA
+code, per-head dB and dC through scratch: fp32, and every other shape
+the forward takes).  No atomics: two runs give the same bits.
+``ssd_scan_backward_plain`` is the same chunked backward written out in
+torch.  Each backward adds one to ``ssd_scan.backward_launches`` and to
+its route's count in ``ssd_scan.backward_launches_by_route``.
 """
 from __future__ import annotations
 
@@ -77,11 +82,17 @@ ROUTES = {"fma": 0, "mma": 1}
 # query rows of an outputs block of the mma route, key rows of its tiles
 MMA_ROWS = 64
 _MAX_SMEM_BYTES = 232_448  # a block's shared memory on Hopper
-# the backward's mma route: head dims and the largest d_state its
-# register tiles hold
-BWD_MMA_HEAD_DIMS = (16, 32, 64)
-BWD_MMA_MAX_STATE = 128
+# the backward's kernels, by route code
+BWD_ROUTES = {"fma": 0, "wgmma": 1}
 BWD_FMA_ROWS = 32  # rows of the backward's FMA tiles
+# the backward's wgmma route: 64-row tiles (a warpgroup's), hd 64 (a TMA
+# box's 128-byte row), d_state 64 or 128 (one or two 64-column halves),
+# chunks of up to 4 tiles (a TMA box of the chunk's rows)
+BWD_WGMMA_ROWS = 64
+BWD_WGMMA_STATES = (64, 128)
+BWD_WGMMA_MAX_CHUNK = 256
+BWD_WGMMA_STAGES = 3  # ring tiles in flight
+SM_COUNT = 132  # an H100's SMs: a head slicing aims at ~4 blocks an SM
 
 _LIB: Optional[ctypes.CDLL] = None
 _BWD_LIB: Optional[ctypes.CDLL] = None
@@ -120,41 +131,99 @@ def _backward_library() -> ctypes.CDLL:
     if _BWD_LIB is None:
         lib = ctypes.CDLL(str(_build.build(BWD_SOURCE)[0][0]))
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.repro_ssd_scan_bwd.argtypes = [vp] * 11 + [ll] * 12 + [ci] * 9 + [vp] * 6 + [vp]
+        lib.repro_ssd_scan_bwd.argtypes = [vp] * 11 + [ll] * 12 + [ci] * 10 + [vp] * 11 + [vp]
         lib.repro_ssd_scan_bwd.restype = ci
         lib.repro_ssd_bwd_smem_bytes.argtypes = [ci] * 4
         lib.repro_ssd_bwd_smem_bytes.restype = ll
-        for args in ((64, 128, 256, 1), (128, 256, 256, 0)):
-            if lib.repro_ssd_bwd_smem_bytes(*args) != backward_smem_bytes(*args[:3], args[3] == 1):
-                raise RuntimeError(f"ssd_scan_bwd.cu's shared memory at {args} differs from "
-                                   "the wrapper's")
+        for args in ((64, 128, 256, "wgmma"), (64, 64, 256, "wgmma"), (128, 256, 256, "fma")):
+            got = lib.repro_ssd_bwd_smem_bytes(*args[:3], BWD_ROUTES[args[3]])
+            if got != backward_smem_bytes(*args):
+                raise RuntimeError(f"ssd_scan_bwd.cu's shared memory at {args} is {got}, the "
+                                   f"wrapper's {backward_smem_bytes(*args)}")
         _BWD_LIB = lib
     return _BWD_LIB
 
 
-def backward_smem_bytes(hd: int, ds: int, q: int, mma: bool) -> int:
+def backward_smem_bytes(hd: int, ds: int, q: int, route: str) -> int:
     """The largest shared memory of the backward's kernels on a route
-    (``smem_bytes`` of the source): dt and seg of the chunk (fp32), then on
-    the mma route the chunk states kernel's x and B rows (bf16, rows of 8
-    more values) and the tile kernels' two 64-row key and query tiles, on
-    the FMA route the tile kernels' fp32 tiles of ``BWD_FMA_ROWS`` rows,
-    their accumulators and fp64 sums of M's columns."""
-    if mma:
-        states = 2 * q * (hd + 8) + 2 * q * (ds + 8)
-        tiles = 2 * 2 * MMA_ROWS * (ds + 8) + 2 * 2 * MMA_ROWS * (hd + 8)
-        return 8 * q + max(states, tiles)
+    (``route_smem_bytes`` of the source).  "fma": dt and seg of the
+    chunk (fp32), then the tile kernels' fp32 tiles of ``BWD_FMA_ROWS``
+    rows, their accumulators and fp64 sums of M's columns.  "wgmma": the key and query kernels' (``tile_smem``: 1024
+    bytes to align the tiles, the block's own 64 rows of B or C and the
+    other side's q / 64 tiles, bf16, ds * 128 bytes each, their C B^T
+    tiles, fp32, 16 KB each, two head stages of an x or dy tile and a G_c
+    or h_c tile, the ring of ``BWD_WGMMA_STAGES`` tiles, the head stages'
+    seg and dt, eleven mbarriers), above the scan's (two stages of a
+    chunk's x or dy rows, its B or C rows and its seg and dt, or a [64][ds
+    + 8] fp32 state if larger, each stage 1024-aligned, the row weights,
+    four fp64 sums) and the C B^T kernel's."""
+    if route == "wgmma":
+        nqt, tile = q // BWD_WGMMA_ROWS, ds * 128
+        tiles = (1024 + tile * (1 + nqt) + nqt * 4 * BWD_WGMMA_ROWS ** 2 + 2 * (8192 + tile)
+                 + BWD_WGMMA_STAGES * 8192 + 16 * q + (1 + 2 * 2 + 2 * BWD_WGMMA_STAGES) * 8)
+        stage = -(-max(q * 128 + q * ds * 2 + 8 * q, 64 * (ds + 8) * 4) // 1024) * 1024
+        scan = 1024 + 2 * stage + 4 * q + 4 * 8 + 4 * 8
+        cb = 2 * 2 * MMA_ROWS * (ds + 8) + 4 * MMA_ROWS * (MMA_ROWS + 1)
+        return max(tiles, scan, cb)
     r = BWD_FMA_ROWS
     return 8 * q + 4 * (3 * r * ds + 3 * r * hd + 4 * r * r + 2 * r) + 8 * r
 
 
+def backward_head_slice(b: int, s: int, h: int, g: int, q: int) -> int:
+    """Heads of a slice of the wgmma route's key and query kernels (a
+    block sums dB or dC over its slice's heads; several slices' sums go
+    through scratch and a small pass): as many slices as give the grid
+    ~4 blocks an SM, but at least 8 heads a slice (so the slices' scratch
+    is at most ~1/8 of per-head scratch), or the group's heads when it has
+    fewer.  The kernels take it as an argument."""
+    rep = h // g
+    units = (q // BWD_WGMMA_ROWS) * (s // q) * g * b
+    want = -(-4 * SM_COUNT // units)
+    n = min(want, rep)
+    return max(-(-rep // n), min(rep, 8))
+
+
+def backward_scratch_sizes(b: int, s: int, h: int, g: int, hd: int, ds: int, q: int,
+                           route: str) -> dict:
+    """Elements of the backward's scratch on a route, by name (dtypes in
+    brackets): the chunk states ``hst`` [b, h, S / q, hd, ds] (fp32),
+    ``segs`` [b, h, S / q, q] (fp32), ``aux`` [b, h, S / q, q, 4] (fp64),
+    ``dA_part`` [b, h, S / q] (fp64); on "fma" the state
+    gradients ``gst`` (as ``hst``) and ``part``, the per-head dB and dC
+    [2, b, S, h, ds] (fp32); on "wgmma" ``part``, the head slices' dB and
+    dC [2, slices, b, S, G, ds] (fp32; none with one slice), and its own
+    ``hb``, ``gb`` (the states and state gradients in bf16, TMA's
+    operands), ``dts`` [b, h, S / q, q] (fp32: dt contiguous per chunk),
+    ``cb`` [b, G, S / q, 2, q / 64, q / 64, 64 * 64] (fp32: C B^T once a
+    (batch row, group, chunk), in both tile kernels' fragment orders) and
+    ``gh`` [b, h, S / q] (fp64: sum(G_c * h_c), the scan's, for the
+    finalize)."""
+    nc = s // q
+    states = b * h * nc * hd * ds
+    sizes = dict(hst=states, gst=states, segs=b * h * nc * q, aux=b * h * nc * q * 4,
+                 dA_part=b * h * nc, hb=0, gb=0, dts=0, cb=0, gh=0)
+    if route != "wgmma":
+        sizes["part"] = 2 * b * s * h * ds
+        return sizes
+    slices = -(-(h // g) // backward_head_slice(b, s, h, g, q))
+    nqt = q // BWD_WGMMA_ROWS
+    sizes.update(gst=0, part=2 * slices * b * s * g * ds if slices > 1 else 0, hb=states,
+                 gb=states, dts=b * h * nc * q,
+                 cb=b * g * nc * 2 * nqt * nqt * BWD_WGMMA_ROWS ** 2, gh=b * h * nc)
+    return sizes
+
+
 def backward_route(dtype: torch.dtype, hd: int, ds: int, q: int, aligned: bool = True) -> str:
     """The backward's kernels, from x's dtype, the head dim, the state
-    size, the chunk and whether x, B and C are 16-byte aligned: ``"mma"``
-    for bf16 when its tiles take the shape, else ``"fma"``."""
-    if (dtype == torch.bfloat16 and aligned and hd in BWD_MMA_HEAD_DIMS and ds % 16 == 0
-            and ds <= BWD_MMA_MAX_STATE and q % 16 == 0
-            and backward_smem_bytes(hd, ds, q, True) <= _MAX_SMEM_BYTES):
-        return "mma"
+    size, the chunk and whether x, B, C and dy are 16-byte aligned:
+    ``"wgmma"`` for bf16 at hd ``BWD_WGMMA_ROWS``, d_state in
+    ``BWD_WGMMA_STATES`` and a chunk of 64-row tiles up to
+    ``BWD_WGMMA_MAX_CHUNK``; else ``"fma"``."""
+    if (dtype == torch.bfloat16 and aligned and hd == BWD_WGMMA_ROWS
+            and ds in BWD_WGMMA_STATES and q % BWD_WGMMA_ROWS == 0
+            and q <= BWD_WGMMA_MAX_CHUNK
+            and backward_smem_bytes(hd, ds, q, "wgmma") <= _MAX_SMEM_BYTES):
+        return "wgmma"
     return "fma"
 
 
@@ -436,7 +505,7 @@ def _check_backward(x: torch.Tensor, Bm: torch.Tensor, q: int) -> None:
     must fit a block's shared memory."""
     hd, ds = x.shape[3], _grouped(Bm).shape[3]
     if (hd not in HEAD_DIMS or ds > MAX_STATE
-            or backward_smem_bytes(hd, ds, q, False) > _MAX_SMEM_BYTES):
+            or backward_smem_bytes(hd, ds, q, "fma") > _MAX_SMEM_BYTES):
         raise NotImplementedError(
             f"ssd_scan's backward kernels take hd in {HEAD_DIMS}, d_state up to "
             f"{MAX_STATE} and tiles within a block's shared memory; got hd {hd}, "
@@ -447,7 +516,6 @@ def _launch_backward(x, dt, A, Bm, Cm, dy, q: int):
     b, s, h, hd = x.shape
     Bg, Cg = _grouped(Bm), _grouped(Cm)
     G, ds = Bg.shape[2], Bg.shape[3]
-    nc = s // q
     dy = dy.contiguous()
     A = A.contiguous()
     r = backward_route(x.dtype, hd, ds, q, _aligned(x, Bg, Cg, dy))
@@ -458,17 +526,19 @@ def _launch_backward(x, dt, A, Bm, Cm, dy, q: int):
     dA = torch.empty((h,), **f32)
     dB = torch.empty((b, s, G, ds), dtype=Bm.dtype, device=dev)
     dC = torch.empty((b, s, G, ds), dtype=Cm.dtype, device=dev)
-    # scratch: the states entering each chunk and the state gradients
-    # leaving it [b, h, nc, hd, ds], seg [b, h, nc, q], four per-row terms
-    # [b, h, nc, q, 4] (fp64: d(seg)'s row and column sums cancel), the
-    # per-head dB and dC [b, s, h, ds] and dA's per-chunk parts [b, h, nc]
-    # (fp64)
-    hst = torch.empty(b * h * nc * hd * ds, **f32)
-    gst = torch.empty_like(hst)
-    segs = torch.empty(b * h * nc * q, **f32)
-    aux = torch.empty(b * h * nc * q * 4, dtype=torch.float64, device=dev)
-    part = torch.empty(2 * b * s * h * ds, **f32)
-    dA_part = torch.empty(b * h * nc, dtype=torch.float64, device=dev)
+    # scratch (``backward_scratch_sizes``): fp64 for aux (d(seg)'s row and
+    # column sums cancel) and dA's per-chunk parts, bf16 for the wgmma
+    # route's copies of the states, fp32 otherwise
+    hs = backward_head_slice(b, s, h, G, q) if r == "wgmma" else 0
+    n = backward_scratch_sizes(b, s, h, G, hd, ds, q, r)
+    dtypes = dict(aux=torch.float64, dA_part=torch.float64, gh=torch.float64,
+                  hb=torch.bfloat16, gb=torch.bfloat16)
+    scratch = {k: torch.empty(v, dtype=dtypes.get(k, torch.float32), device=dev)
+               for k, v in n.items()}
+
+    def ptr(name):
+        return scratch[name].data_ptr() if n[name] else None
+
     lib = _backward_library()
     outs = (dy, dx, ddt, dA, dB, dC)
     with torch.cuda.device(dev):
@@ -477,9 +547,10 @@ def _launch_backward(x, dt, A, Bm, Cm, dy, q: int):
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bg.data_ptr(), Cg.data_ptr(),
             *(t.data_ptr() for t in outs),
             *x.stride()[:3], *dt.stride(), *Bg.stride()[:3], *Cg.stride()[:3],
-            b, s, h, hd, G, ds, q, _DTYPES[x.dtype], ROUTES[r],
-            hst.data_ptr(), gst.data_ptr(), segs.data_ptr(), aux.data_ptr(),
-            part.data_ptr(), dA_part.data_ptr(), stream,
+            b, s, h, hd, G, ds, q, _DTYPES[x.dtype], BWD_ROUTES[r], hs,
+            *(ptr(k) for k in ("hst", "gst", "hb", "gb", "segs", "dts", "cb", "gh", "aux",
+                               "part", "dA_part")),
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"ssd_scan backward launch failed ({r} route): error {err}")
@@ -507,4 +578,4 @@ class _Scan(torch.autograd.Function):
 ssd_scan.launches = 0  # type: ignore[attr-defined]
 ssd_scan.launches_by_route = dict.fromkeys(ROUTES, 0)  # type: ignore[attr-defined]
 ssd_scan.backward_launches = 0  # type: ignore[attr-defined]
-ssd_scan.backward_launches_by_route = dict.fromkeys(ROUTES, 0)  # type: ignore[attr-defined]
+ssd_scan.backward_launches_by_route = dict.fromkeys(BWD_ROUTES, 0)  # type: ignore[attr-defined]

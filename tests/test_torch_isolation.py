@@ -2,7 +2,7 @@
 
   * an AST scan of every module under ``src/repro_torch/`` and of the
     scripts ``chip_smoke.py``, ``engine_probe.py``, ``flash_ablate.py``,
-    ``sage_ablate.py``, ``profiler_probe.py``,
+    ``sage_ablate.py``, ``ssd_ablate.py``, ``profiler_probe.py``,
     ``examples/train_graphsage_torch.py``,
     ``examples/dynamic_replan_torch.py``, ``examples/arrivals_torch.py``
     and ``examples/cache_sweep_torch.py`` finds no import of ``jax`` or of
@@ -49,7 +49,8 @@ def _imports(path):
 def test_no_jax_or_reference_imports_in_source():
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "engine_probe.py",
-        ROOT / "flash_ablate.py", ROOT / "sage_ablate.py", ROOT / "profiler_probe.py",
+        ROOT / "flash_ablate.py", ROOT / "sage_ablate.py", ROOT / "ssd_ablate.py",
+        ROOT / "profiler_probe.py",
         ROOT / "examples" / "train_graphsage_torch.py",
         ROOT / "examples" / "dynamic_replan_torch.py",
         ROOT / "examples" / "arrivals_torch.py",

@@ -33,11 +33,14 @@
     gradient's largest magnitude) and against ``jax.grad`` of
     ``ssd_chunked`` (1e-4), for S of one chunk and of several, B and C
     shared by all heads and in groups (G < H); the backward's route
-    choice and shared memory; marked ``cuda``: the backward kernels
-    against the plain backward (fp32 within 1e-4, bf16 within 2e-2 of
-    each gradient's largest magnitude; the same bits on two runs) on both
-    routes, and a call whose gradient the kernels do not compute refused
-    before the forward's launch.
+    choice, shared memory, head slices and scratch sizes; marked
+    ``cuda``: the backward kernels against the plain backward (fp32
+    within 1e-4, bf16 within 2e-2 of each gradient's largest magnitude;
+    the same bits on two runs) on both routes, the wgmma route with up to
+    112 heads to a group and a last head slice shorter than the others,
+    mamba2's strong decay on both routes in bf16, and a call whose
+    gradient the kernels do not compute refused before the forward's
+    launch.
 
 JAX is imported only by the tests that compare with it.
 """
@@ -47,8 +50,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.ssd_scan import (
-    HEAD_DIMS, MAX_STATE, backward_route, backward_smem_bytes, mma_smem_bytes, route,
-    scratch_sizes, ssd_scan, ssd_scan_backward_plain, ssd_scan_plain)
+    HEAD_DIMS, MAX_STATE, SM_COUNT, backward_head_slice, backward_route,
+    backward_scratch_sizes, backward_smem_bytes, mma_smem_bytes, route, scratch_sizes,
+    ssd_scan, ssd_scan_backward_plain, ssd_scan_plain)
 
 TOL = {"float32": 5e-4, "bfloat16": 5e-2}
 SWEEP = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 64, 64)]  # b, s, h, hd, ds, chunk
@@ -398,11 +402,17 @@ def test_plain_sums_in_fp64_for_fp64_inputs():
 
 
 @pytest.mark.parametrize("dtype,hd,ds,q,aligned,want", [
-    ("bfloat16", 64, 128, 256, True, "mma"),  # mamba2-1.3b
-    ("bfloat16", 64, 64, 256, True, "mma"),  # zamba2
-    ("bfloat16", 16, 16, 32, True, "mma"),
-    ("bfloat16", 128, 128, 256, True, "fma"),  # hd past the register tiles
-    ("bfloat16", 64, 256, 256, True, "fma"),  # d_state past the register tiles
+    ("bfloat16", 64, 128, 256, True, "wgmma"),  # mamba2-1.3b
+    ("bfloat16", 64, 64, 256, True, "wgmma"),  # zamba2
+    ("bfloat16", 64, 128, 64, True, "wgmma"),  # one tile a chunk
+    ("bfloat16", 64, 64, 128, True, "wgmma"),
+    ("bfloat16", 16, 16, 32, True, "fma"),
+    ("bfloat16", 32, 64, 64, True, "fma"),  # hd below a TMA box's 64 columns
+    ("bfloat16", 64, 32, 256, True, "fma"),  # d_state not 64 or 128
+    ("bfloat16", 64, 128, 48, True, "fma"),  # chunk not a multiple of 64
+    ("bfloat16", 64, 128, 512, True, "fma"),  # chunk past the wgmma route's 256
+    ("bfloat16", 128, 128, 256, True, "fma"),  # hd past a TMA box's 64 columns
+    ("bfloat16", 64, 256, 256, True, "fma"),  # d_state past two 64-column halves
     ("bfloat16", 64, 24, 256, True, "fma"),  # d_state not a multiple of 16
     ("bfloat16", 64, 128, 40, True, "fma"),  # chunk not a multiple of 16
     ("bfloat16", 64, 128, 256, False, "fma"),  # unaligned rows
@@ -414,13 +424,67 @@ def test_backward_route_by_dtype_and_shape(dtype, hd, ds, q, aligned, want):
 
 def test_backward_smem_fits_every_forward_shape():
     """The FMA route's tiles fit a block at every head dim and d_state
-    the forward takes (chunks up to 256), and the mma route's at
-    mamba2-1.3b's and zamba2's shapes."""
+    the forward takes (chunks up to 256), and the wgmma route's at every
+    shape it takes, its key and query kernels being its largest
+    (mamba2-1.3b's: 16 KB of B_j, 64 KB of C tiles, 64 KB of C B^T tiles,
+    two 24 KB head stages, a 24 KB ring, seg and dt, mbarriers, 1 KB of
+    alignment)."""
     for hd in HEAD_DIMS:
         for ds in (16, 64, 128, MAX_STATE):
-            assert backward_smem_bytes(hd, ds, 256, False) <= 232_448
-    assert backward_smem_bytes(64, 128, 256, True) == 8 * 256 + 2 * 256 * 72 + 2 * 256 * 136
-    assert backward_smem_bytes(64, 64, 256, True) <= 232_448
+            assert backward_smem_bytes(hd, ds, 256, "fma") <= 232_448
+    assert backward_smem_bytes(64, 128, 256, "fma") == (
+        8 * 256 + 4 * (3 * 32 * 128 + 3 * 32 * 64 + 4 * 32 * 32 + 2 * 32) + 8 * 32)
+    for ds in (64, 128):
+        for q in (64, 128, 192, 256):
+            assert backward_smem_bytes(64, ds, q, "wgmma") <= 232_448
+    assert backward_smem_bytes(64, 128, 256, "wgmma") == (
+        1024 + 16384 + 4 * 16384 + 4 * 16384 + 2 * (8192 + 16384) + 3 * 8192 + 16 * 256 + 88)
+
+
+@pytest.mark.parametrize("b,s,h,g,q,want", [
+    (4, 2048, 64, 1, 256, 13),  # mamba2-1.3b: 5 slices, the last of 12 heads
+    (4, 2048, 112, 1, 256, 23),  # zamba2: 5 slices, the last of 20 heads
+    (1, 256, 64, 1, 256, 8),  # a small grid: at least 8 heads a slice
+    (1, 256, 4, 1, 256, 4),  # fewer heads than 8: one slice
+    (2, 512, 12, 3, 64, 4),  # groups of 4 heads
+])
+def test_backward_head_slice(b, s, h, g, q, want):
+    """The wgmma route's head slices: ~4 blocks an SM (``SM_COUNT``) over
+    (tile, slice, group, chunk, batch row), at least 8 heads a slice."""
+    hs = backward_head_slice(b, s, h, g, q)
+    assert hs == want
+    rep, units = h // g, (q // 64) * (s // q) * g * b
+    slices = -(-rep // hs)
+    assert slices * hs >= rep and (slices - 1) * hs < rep
+    if hs > min(rep, 8):
+        assert units * (slices - 1) < 4 * SM_COUNT  # no more slices than the aim needs
+
+
+def test_backward_scratch_sizes_drop_the_per_head_sums():
+    """At mamba2-1.3b's training shape the wgmma route keeps no per-head
+    [B, S, H, ds] fp32 dB and dC: its head slices' sums are 5/64 of them
+    (5 slices of [B, S, G, ds], at most 1/8), and C B^T is once a (batch
+    row, group, chunk), 8.4 MB in each of two fragment orders."""
+    b, s, h, g, hd, ds, q = 4, 2048, 64, 1, 64, 128, 256
+    old = backward_scratch_sizes(b, s, h, g, hd, ds, q, "fma")
+    new = backward_scratch_sizes(b, s, h, g, hd, ds, q, "wgmma")
+    per_head = 2 * b * s * h * ds
+    assert old["part"] == per_head
+    assert new["part"] == 2 * 5 * b * s * g * ds and 8 * new["part"] <= per_head
+    assert new["cb"] == b * g * (s // q) * 2 * 16 * 64 * 64
+    assert 4 * new["cb"] // 2 == 8_388_608  # bytes an order
+    assert new["hb"] == new["gb"] == new["hst"] == b * h * (s // q) * hd * ds
+    assert new["gst"] == 0 and new["gh"] == b * h * (s // q)  # G_c in bf16 alone
+    assert new["dts"] == new["segs"]
+    # one slice (4 heads): no slices' scratch at all
+    assert backward_scratch_sizes(2, 512, 4, 1, 64, 128, 256, "wgmma")["part"] == 0
+
+    def nbytes(n):
+        size = dict(aux=8, dA_part=8, gh=8, hb=2, gb=2)
+        return sum(size.get(k, 4) * v for k, v in n.items())
+
+    # the whole scratch: ~0.5 GB less than the per-head route's
+    assert nbytes(old) - nbytes(new) > 450e6
 
 
 def test_backward_refusal_before_the_forward():
@@ -473,7 +537,14 @@ BWD_CARD_CASES = [(c, dtype) for dtype in ("float32", "bfloat16") for c in BWD_C
     (1, 512, 4, 64, 64, 256, 1),  # zamba2's
     (2, 128, 4, 32, 64, 64, 2),  # grouped, several chunks
     (1, 96, 2, 64, 128, 48, 1),  # a chunk of three 16-row steps: partial 64-row tiles
-]] + [((1, 256, 2, 128, 256, 256, 1), "bfloat16")]  # the backward's FMA route in bf16
+]] + [((1, 256, 2, 128, 256, 256, 1), "bfloat16")] + [  # the backward's FMA route in bf16
+    # the wgmma route with many heads to a group (slices of 8 heads)
+    ((1, 256, 64, 64, 128, 256, 1), "bfloat16"),  # mamba2's hd, d_state, chunk: 64 heads
+    ((1, 256, 112, 64, 64, 256, 1), "bfloat16"),  # zamba2's: 112 heads
+    ((1, 256, 60, 64, 128, 256, 1), "bfloat16"),  # 60 heads: the last slice has 4
+    ((2, 512, 40, 64, 64, 128, 2), "bfloat16"),  # two groups of 20 heads, chunks of 128
+    ((1, 384, 12, 64, 128, 64, 3), "bfloat16"),  # three groups of 4, chunks of one tile
+]
 
 
 @pytest.mark.cuda
@@ -506,3 +577,26 @@ def test_backward_kernel_matches_plain(cuda, case, dtype):
         assert a.dtype == t.dtype and a.shape == w.shape, name
         assert torch.equal(a, a2), name
         assert _rel_err(a, w) < tol, (name, _rel_err(a, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (1, 1024, 16, 64, 128, 256, 1),  # the wgmma route
+    (2, 256, 4, 32, 64, 64, 2),  # the fma route
+])
+def test_backward_kernel_strong_decay(cuda, case):
+    """mamba2's decay, A = -linspace(1, 16, H) (seg falls to ~-3000 over a
+    chunk of 256): the bf16 backward against the plain backward within
+    2e-2 of each gradient's largest magnitude, dA among them (its sum of
+    d(A dt) cancels heavily, so an imprecise exp(seg_i - seg_j) shows
+    there first)."""
+    b, s, h, hd, ds, chunk, groups = case
+    arrays, dy = _bwd_inputs(16, b, s, h, hd, ds, groups)
+    arrays = (arrays[0], arrays[1], -np.linspace(1.0, 16.0, h).astype(np.float32), *arrays[3:])
+    x, dt, A, Bm, Cm = _torch(arrays, "bfloat16", cuda)
+    dyt = torch.from_numpy(dy).to(cuda, x.dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+    torch.autograd.backward(ssd_scan(*leaves, chunk=chunk), dyt)
+    want = _plain_backward((x, dt, A, Bm, Cm), dyt, chunk)
+    for name, leaf, w in zip(("x", "dt", "A", "B", "C"), leaves, want):
+        assert _rel_err(leaf.grad, w) < 2e-2, (name, _rel_err(leaf.grad, w))
