@@ -235,7 +235,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
      step wall, tokens/s, peak memory and one profiled step; two
      fp32 steps of a narrow mamba2 and of a narrow zamba2 on the card
      against the CPU;
- 18. the kernel table's JSON line (the flash and moe_gemm records also
+ 18. mesh: a one-rank NCCL process group (a local ``HashStore``) and
+     ``make_host_mesh()`` (data 1 x model 1); internlm2-1.8b at full width
+     and depth in bf16 (seeded random weights) takes 2 AdamW steps of the
+     mesh train step (``TransformerLM.shard_parameters``) on the stream's
+     first batch of 4 x 2048, and the same 2 steps without the mesh: losses
+     and grad norms equal within MESH_RTOL (1e-6 relative), and each
+     parameter's sum after the steps within MESH_RTOL of its magnitude's
+     sum (the first step's lr is 0), also for the narrow config in fp32; 48 forward and 24 backward flash launches a
+     step, all on wgmma; step walls and peak memory; one more step under
+     ``launch.op_cost.OpCounter``: its matmul FLOPs against 6 N tokens (in
+     [1, 3]), HBM bytes, the roofline's three terms on the H100 constants
+     (``launch.mesh``), the measured step and the step's MFU beside the
+     card's name and power limit; then ``launch.dryrun`` of internlm2-1.8b
+     train_4k on the pod mesh (a fake group of 256 ranks, in a subprocess
+     without the card, started after every timed phase so that it shares
+     the host's CPU with none of them): its memory, FLOPs and collective
+     bytes by kind;
+ 19. the kernel table's JSON line (the flash and moe_gemm records also
      carry their prefill shape's times, ``prefill_ms``,
      ``prefill_bound_ms``, ``prefill_library_ms``, and kimi-k2's decode
      shape's, ``kimi_decode_ms``, ``kimi_decode_plain_ms``,
@@ -256,7 +273,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      records' from phases 16 and 17), the card's name and power limit,
      and the closing status line.
 
-Seventeen main paths, each with the kernel launch counts set to 0 just
+Eighteen main paths, each with the kernel launch counts set to 0 just
 before it and read just after: phases 3-4 (planning), phases 5a-5b (the
 engine's regimes and re-planning), phase 5c (multi-job planning and the
 arrival service), phase 5d (the feature-cache tier), phase 5e (traces
@@ -265,13 +282,14 @@ steps, calibration and baseline plan of phase 6 (GraphSAGE), the
 ``ServeEngine`` run of phase 7 (LM serving), and the prefill followed by
 the ``ServeEngine`` run of phases 8 (mamba2), 9 (MoE), 10 (kimi-k2), 11
 (gemma2), 12 (zamba2) and 13 (llava), the forward to per-frame
-logits of phase 14 (hubert), and the training steps of phases 15, 16
-and 17 (forward and backward counts).
+logits of phase 14 (hubert), the training steps of phases 15, 16
+and 17 (forward and backward counts), and the mesh train steps of phase
+18.
 Each phase's seconds are printed on a ``[time]`` line.  ``--only
 regimes`` (phases 5a-5b), ``tenants`` (5c), ``cache`` (5d), ``obs`` (5e), ``sage``,
 ``lm_serve``, ``mamba_serve``, ``moe_serve``, ``kimi_serve``,
 ``gemma2_serve``, ``zamba2_serve``, ``llava_serve``, ``hubert_encode``,
-``lm_train``, ``moe_train`` or ``mamba_train`` builds the kernels and runs
+``lm_train``, ``moe_train``, ``mamba_train`` or ``mesh`` builds the kernels and runs
 that phase alone (for work on that path; it prints no
 closing status line).
 Imports nothing of JAX or of the ``repro`` package.
@@ -279,6 +297,7 @@ Imports nothing of JAX or of the ``repro`` package.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -315,8 +334,9 @@ CPU_WORKERS = 6
 ENGINE_PAPERS_ITERS = 2
 REGIME_PAPERS_ITERS = 4
 PLAN_BUDGET = 120
-# H100 SXM data sheet: HBM3 bandwidth and the fp64 and fp32 (non-tensor) peaks
-HBM_BYTES_PER_S = 3.35e12
+# H100 SXM data sheet: the fp64 and fp32 (non-tensor) peaks (the HBM rate and
+# the bf16 tensor-core peak are repro_torch.launch.mesh's HBM_BW and
+# PEAK_FLOPS_BF16, which the roofline uses too)
 FP64_FLOP_PER_S = 34e12
 FP32_FLOP_PER_S = 67e12
 # GraphSAGE phase: the ogbn-products widths (core/profiles.py, and the
@@ -343,7 +363,6 @@ FLASH_SWEEP = [  # (b, h, sq, sk, d, causal, window, softcap)
 ]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 DECODE_POSITIONS = (0, 1023, 2047)
-BF16_FLOP_PER_S = 989e12  # H100 SXM, dense tensor cores
 # mamba_serve: mamba2-1.3b at full width and depth, at phase 7's traffic;
 # the scan's sweep shapes of tests/test_kernels.py (b, s, h, hd, ds, chunk)
 MAMBA_ARCH = "mamba2-1.3b"
@@ -540,6 +559,8 @@ def phase_kernel(wf):
     papers job's) shape and the largest difference over all of them."""
     import torch
 
+    from repro_torch.launch.mesh import HBM_BW
+
     rows = []
     for seed, (label, B, EG, M) in enumerate(_kernel_shapes()):
         args = [torch.from_numpy(a).cuda()
@@ -565,7 +586,7 @@ def phase_kernel(wf):
         n_bytes = B * EG * (3 * 4 + 1 + 8) + 2 * B * M * 8
         n_elig = int(args[3].sum().item())
         n_grant = int((want > 0).sum().item())
-        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        bytes_ms = n_bytes / HBM_BW * 1e3
         ops_ms = (2 * n_elig + 2 * n_grant) / FP64_FLOP_PER_S * 1e3
         print(
             f"[kernel] waterfill {label} B={B} EG={EG} M={M}: exact match; "
@@ -1315,6 +1336,8 @@ def phase_sage_kernel(sa, batch, hidden):
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.launch.mesh import HBM_BW
+
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(1)
     for label, x, idx in _sage_x(batch["feats"], batch["blocks"], hidden, 0):
@@ -1375,14 +1398,14 @@ def phase_sage_kernel(sa, batch, hidden):
         n_valid = valid.numel()
         n_rows = int(torch.unique(valid).numel())
         n_bytes = M * K * 4 + n_rows * Fdim * 4 + M * Fdim * 4
-        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        bytes_ms = n_bytes / HBM_BW * 1e3
         ops_ms = (n_valid * Fdim + M * Fdim) / FP32_FLOP_PER_S * 1e3
         bound = max(bytes_ms, ops_ms)
         # the backward's: grad_out, idx, the CSR (N row ends, a position per
         # valid id) and grad_x once each; a divide per grad_out value and
         # an add per gathered value
         bwd_bytes = M * Fdim * 4 + M * K * 4 + (N + n_valid) * 4 + N * Fdim * 4
-        bwd_bound = max(bwd_bytes / HBM_BYTES_PER_S,
+        bwd_bound = max(bwd_bytes / HBM_BW,
                         (M * Fdim + n_valid * Fdim) / FP32_FLOP_PER_S) * 1e3
         print(
             f"[sage kernel] {label}: x {tuple(x.shape)} fp32, idx {tuple(idx.shape)} "
@@ -1629,15 +1652,17 @@ def _flash_qkv(seed, B, H, KV, Sq, Sk, D, dtype):
     return draw(Sq, H), draw(Sk, KV), draw(Sk, KV)
 
 
-def _flash_bound(B, H, KV, Sq, D, n_pairs, n_keys, elt):
-    """Least time on the card: 4 D flops per unmasked (q, k) pair at the
-    bf16 tensor-core peak, against q and o written or read once and the
-    K and V positions the queries see read once, at the HBM rate."""
-    flops = 4 * D * n_pairs
-    n_bytes = elt * (2 * B * H * Sq * D + 2 * B * KV * n_keys * D)
-    ops_ms = flops / BF16_FLOP_PER_S * 1e3
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), flops, n_bytes
+def _bound(flops, n_bytes, elt):
+    """Least time on the card of a kernel that does ``flops`` operations and
+    moves ``n_bytes`` (its wrapper's ``cost`` or ``backward_cost``, which the
+    op counter counts too): the larger of the two times, at the bf16
+    tensor-core peak (fp32 peak for fp32 data, ``elt`` 4) and the HBM rate.
+    Returns (ms, "operations" or "bytes")."""
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+
+    ops_ms = flops / (PEAK_FLOPS_BF16 if elt == 2 else FP32_FLOP_PER_S) * 1e3
+    bytes_ms = n_bytes / HBM_BW * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
 
 
 def _flash_checks(fa, checks, tag):
@@ -1759,12 +1784,9 @@ def _flash_time(fa, tag, label, shape, kw):
         library_ms = _device_ms(lib, reps, flush=True)
         lib_note = (f"scaled_dot_product_attention {library_ms:.4f} ms (max diff to "
                     f"plain {err_lib:.3g})")
-    mask = fa.causal_mask(sq, sk, kw.get("window"), kw.get("q_offset", 0),
-                          kw.get("causal", True), device="cuda")
-    n_pairs = b * h * int(mask.sum().item())
-    n_keys = int(mask.any(0).sum().item())
-    del mask
-    bound, by, flops, n_bytes = _flash_bound(b, h, kv, sq, d, n_pairs, n_keys, 2)
+    flops, n_bytes = fa.cost(q, k, kw.get("causal", True), kw.get("window"),
+                             kw.get("q_offset", 0))
+    bound, by = _bound(flops, n_bytes, 2)
     print(
         f"[{tag}] {label} bf16: device time per call, L2 flushed: "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {lib_note}; bound "
@@ -2109,22 +2131,6 @@ def _ssd_inputs(seed, b, s, h, hd, ds, dtype, wide=False):
     return x, dt, A, Bm, Cm
 
 
-def _ssd_bound(b, s, h, hd, ds, q, elt, g=1):
-    """Least time of the scan on the card: per (batch row, group, chunk)
-    the causal C B^T (q (q + 1) / 2 pairs; B and C are shared by the
-    group's heads, and the mma route forms it once for them), per (batch
-    row, head, chunk) the causal W x product, the carried state's C h and
-    the state update (q hd ds each), 2 flops a product, at the bf16
-    tensor-core peak (fp32 peak for fp32 data); against x, y written or
-    read once, dt, B and C read once, at the HBM rate."""
-    pairs = q * (q + 1) // 2
-    flops = b * (s // q) * (g * 2 * pairs * ds + h * (2 * pairs * hd + 4 * q * hd * ds))
-    n_bytes = elt * (2 * b * s * h * hd + 2 * b * s * ds) + 4 * (b * s * h + h)
-    ops_ms = flops / (BF16_FLOP_PER_S if elt == 2 else FP32_FLOP_PER_S) * 1e3
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), flops, n_bytes
-
-
 def _ssd_checks(ss, tag, checks):
     """Each (label, (b, s, h, hd, ds, chunk), wide) of ``checks`` through
     the SSD kernel against its plain version, fp32 on the FMA route and
@@ -2168,7 +2174,8 @@ def _ssd_time(ss, tag, full):
     _bit_stable(f"ssd_scan mma route, {tag} bf16", kernel)
     ms = _device_ms(kernel, 10, flush=True)
     plain_ms = _device_ms(plain, 2, flush=True)
-    bound, by, flops, n_bytes = _ssd_bound(*full, 2)
+    flops, n_bytes = ss.cost(args[0], args[3], ss.chunk_len(full[1], full[5]))
+    bound, by = _bound(flops, n_bytes, 2)
     print(f"[{tag}] x {list(full[:4])}, d_state {full[4]}, chunk {full[5]}, bf16: "
           f"device time per call, L2 flushed: kernel (mma route) {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, no library call computes it; bound {bound:.6f} ms by "
@@ -2343,19 +2350,6 @@ def _routed_topk(seed, tokens, k, e):
     return np.bincount(hits, minlength=e).tolist()
 
 
-def _moe_bound(t, d, f, e, gs, elt):
-    """Least time of the grouped GEMM on the card: 2 flops per routed row
-    and product at the bf16 tensor-core peak (fp32 peak for fp32), against
-    the routed rows of x, the weights of the experts hit, the output and
-    the group sizes, each moved once, at the HBM rate."""
-    rows, hit = sum(gs), sum(1 for g in gs if g > 0)
-    flops = 2 * rows * d * f
-    n_bytes = elt * (rows * d + hit * d * f + t * f) + 4 * e
-    ops_ms = flops / (BF16_FLOP_PER_S if elt == 2 else FP32_FLOP_PER_S) * 1e3
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), flops, n_bytes
-
-
 def _event_ms(fn, reps):
     """Device time per call from events around each call, L2 flushed
     before it, for a function that waits on the host inside (the plain
@@ -2458,7 +2452,8 @@ def phase_moe_kernel(mg):
         plain_ms = _event_ms(lambda: mg.moe_grouped_gemm_plain(x, w, g), 5)
         lib, note = _grouped_mm(x, w, g, want)
         library_ms = _device_ms(lib, 20 if decode else 5, flush=True) if lib else None
-        bound, by, flops, n_bytes = _moe_bound(t, d, f, e, gs, 2)
+        flops, n_bytes = mg.cost(x, w, gs)
+        bound, by = _bound(flops, n_bytes, 2)
         lib_txt = f"{library_ms:.4f} ms ({note})" if lib else f"none ({note})"
         print(f"[moe kernel] {label} bf16 ({sum(1 for v in gs if v)} experts hit): "
               f"device time per call, L2 flushed: kernel {ms:.4f} ms, plain "
@@ -3954,17 +3949,6 @@ def _bwd_qkv(seed, B, H, KV, S, D, dtype):
     return q, k, v, do
 
 
-def _bwd_bound(B, H, KV, S, D, n_pairs, elt):
-    """Least time of the backward: 2.5 times the forward's 4 D flops per
-    unmasked pair (five products: Q K^T, dO V^T, P^T dO, dS^T Q, dS K) at
-    the bf16 tensor-core peak, against q, k, v, o and dO read and dq, dk
-    and dv written once at the HBM rate."""
-    flops = 10 * D * n_pairs
-    n_bytes = elt * (4 * B * H * S * D + 4 * B * KV * S * D)
-    ops_ms, bytes_ms = flops / BF16_FLOP_PER_S * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
-    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
-
-
 def _sdpa_backward(q, k, v, do, kw):
     """A call computing the backward of ``F.scaled_dot_product_attention``
     (GQA) at the same function, its forward run once beforehand, or None
@@ -4037,11 +4021,9 @@ def phase_flash_backward(fa):
         plain_ms = _device_ms(plain, 1, flush=True)
         lib = _sdpa_backward(q, k, v, do, kw)
         lib_ms = _device_ms(lib, 3, flush=True) if lib is not None else None
-        mask = fa.causal_mask(S, S, kw.get("window"), 0, kw.get("causal", True),
-                              device="cuda")
-        n_pairs = B * H * int(mask.sum().item())
-        del mask, o_k, o_p
-        bound, by = _bwd_bound(B, H, KV, S, D, n_pairs, 2)
+        del o_k, o_p
+        bound, by = _bound(*fa.backward_cost(q, k, kw.get("causal", True), kw.get("window")),
+                           2)
         print(f"{line}; device time per backward, L2 flushed: kernels {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, SDPA's backward "
               f"{'none (no PyTorch call computes a tanh softcap)' if lib_ms is None else f'{lib_ms:.4f} ms'}"
@@ -4387,19 +4369,6 @@ ZAMBA_TRAIN_NARROW = dict(n_layers=7, d_model=256, n_heads=4, n_kv_heads=4, d_ff
                           vocab=1000)
 
 
-def _moe_bwd_bound(t, d, f, e, gs, elt):
-    """Least time of the grouped GEMM's backward: dx and dw, 2 flops per
-    routed row and product each, at the bf16 tensor-core peak (fp32 peak
-    for fp32); against x's routed rows, dy and the hit experts' weights
-    read once, dx and every expert's dw written once, at the HBM rate."""
-    rows, hit = min(sum(gs), t), sum(1 for g in gs if g > 0)
-    flops = 4 * rows * d * f
-    n_bytes = elt * (rows * d + t * f + hit * d * f + t * d + e * d * f) + 4 * e
-    ops_ms = flops / (BF16_FLOP_PER_S if elt == 2 else FP32_FLOP_PER_S) * 1e3
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), flops, n_bytes
-
-
 def _grouped_mm_backward(x, w, gs, dy):
     """The backward of ``torch._grouped_mm`` on the same inputs (autograd
     through one call), the yardstick (the port never calls it): a
@@ -4521,7 +4490,8 @@ def phase_moe_backward(mg):
         plain_ms = _event_ms(plain, 2)
         lib, note = _grouped_mm_backward(x, w, g, dy)
         lib_ms = _device_ms(lib, 3, flush=True) if lib is not None else None
-        bound, by, flops, n_bytes = _moe_bwd_bound(t, d, f, e, gs, 2)
+        flops, n_bytes = mg.backward_cost(x, w, gs)
+        bound, by = _bound(flops, n_bytes, 2)
         print(f"{line}; device time per backward (dx and dw), L2 flushed: kernels "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms (host included: it reads the group "
               f"sizes), torch._grouped_mm's backward "
@@ -4536,25 +4506,6 @@ def phase_moe_backward(mg):
         _free()
     out["bwd_max_abs_err"] = worst
     return out
-
-
-def _ssd_bwd_bound(b, s, h, hd, ds, q, elt, g=1):
-    """Least time of the scan's backward: per (batch row, chunk) the causal
-    C B^T once per group and, per head, the causal dy x^T, W^T dy, V^T C
-    and V B products (q (q + 1) / 2 pairs each) and five [hd, ds] state
-    products over the chunk's rows (the chunk state, the state
-    gradient's share, G B, x G, h^T dy; d(seg)'s carried term is
-    C . (h^T dy), q ds operations, not counted), 2 flops a product, at
-    the bf16 tensor-core peak (fp32 peak for fp32); against x, dy, B, C
-    and dt read once, dx, dB, dC and ddt written once, at the HBM
-    rate."""
-    pairs = q * (q + 1) // 2
-    flops = b * (s // q) * (g * 2 * pairs * ds
-                            + h * (2 * pairs * (2 * hd + 2 * ds) + 10 * q * hd * ds))
-    n_bytes = elt * (3 * b * s * h * hd + 4 * b * s * g * ds) + 4 * (2 * b * s * h + 2 * h)
-    ops_ms = flops / (BF16_FLOP_PER_S if elt == 2 else FP32_FLOP_PER_S) * 1e3
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), flops, n_bytes
 
 
 def _ssd_bwd_inputs(seed, b, s, h, hd, ds, g, dtype):
@@ -4641,7 +4592,8 @@ def phase_ssd_backward(ss):
         ms = _device_ms(kernel, 3, flush=True)
         parts = _kernel_split("ssd backward", kernel)
         plain_ms = _device_ms(plain, 1, flush=True)
-        bound, by, flops, n_bytes = _ssd_bwd_bound(b, s, h, hd, ds, q, 2, g)
+        flops, n_bytes = ss.backward_cost(leaves[0], leaves[3], q)
+        bound, by = _bound(flops, n_bytes, 2)
         print(f"{line}; device time per backward, L2 flushed: kernels {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, no library call computes it; bound {bound:.6f} ms by "
               f"{by} ({flops} flops, {n_bytes} bytes; {100 * bound / ms:.1f}% of the "
@@ -4827,6 +4779,204 @@ def phase_mamba_train(ss, fa):
     return nums, counts
 
 
+# mesh: the mesh train step on one NCCL rank (make_host_mesh: data 1 x model
+# 1; NCCL takes one rank a card), internlm2-1.8b at full width and depth in
+# bf16, against the step without a mesh; the op counter and the roofline on
+# the card's constants over one such step; one dry-run cell on the pod mesh
+# (a fake group of 256 ranks, in a subprocess without the card).  On one
+# rank the mesh step runs the same operations in the same order as the
+# step without one (its collectives are copies), so the losses and grad
+# norms must agree to MESH_RTOL, in bf16 at full width and in fp32 on the
+# narrow config.
+MESH_STEPS = 2
+MESH_RTOL = 1e-6
+MESH_DRYRUN = ("internlm2-1.8b", "train_4k", "pod")
+MESH_DRYRUN_TIMEOUT = 400
+
+
+def _mesh_steps(cfg, ctx, batch, fa, lr=LM_TRAIN_LR):
+    """MESH_STEPS AdamW steps of ``cfg`` (weights from seed 0) on ``batch``
+    each step, on ``ctx``'s mesh when it is given: (losses, grad norms,
+    step walls, the builder and state, the flash counts over the steps)."""
+    import torch
+
+    from repro_torch.models import TransformerLM
+    from repro_torch.train import AdamWSettings, TrainStepBuilder
+
+    model = TransformerLM(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    if ctx is not None:
+        model.shard_parameters(ctx)
+    builder = TrainStepBuilder(model, AdamWSettings(lr=lr, warmup_steps=LM_TRAIN_WARMUP,
+                                                    total_steps=LM_TRAIN_TOTAL))
+    state = builder.init_state()
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = 0
+    fa.flash_attention.backward_launches = 0
+    fa.flash_attention.launches_by_route = dict.fromkeys(fa.ROUTES, 0)
+    fa.flash_attention.backward_launches_by_route = dict.fromkeys(fa.BWD_ROUTES, 0)
+    losses, norms, walls = [], [], []
+    for _ in range(MESH_STEPS):
+        t0 = time.perf_counter()
+        state, met = builder.train_step(state, batch)
+        losses.append(met["loss"].item())  # waits for the step
+        norms.append(met["grad_norm"].item())
+        walls.append(time.perf_counter() - t0)
+    counts = (fa.flash_attention.launches, fa.flash_attention.backward_launches,
+              dict(fa.flash_attention.launches_by_route),
+              dict(fa.flash_attention.backward_launches_by_route))
+    # the weights after the steps (the first step's lr is 0, the second's
+    # not): each parameter's sum and sum of magnitudes
+    sums = []
+    for p in model.parameters():
+        w = (p.detach().to_local() if hasattr(p, "to_local") else p.detach()).double()
+        sums.append((w.sum().item(), w.abs().sum().item()))
+    return losses, norms, walls, builder, state, counts, sums
+
+
+def _mesh_agree(tag, plain, mesh):
+    for name, a, b in (("loss", plain[0], mesh[0]), ("grad norm", plain[1], mesh[1])):
+        if not all(math.isfinite(x) and abs(x - y) <= MESH_RTOL * abs(x) for x, y in zip(a, b)):
+            raise AssertionError(f"{tag}: the mesh step's {name}es {b} != the step's {a} "
+                                 f"(rtol {MESH_RTOL})")
+    off = [i for i, ((s, m), (s2, _)) in enumerate(zip(plain[-1], mesh[-1]))
+           if not abs(s - s2) <= MESH_RTOL * m]
+    if len(plain[-1]) != len(mesh[-1]) or off:
+        raise AssertionError(f"{tag}: the weights after the steps differ on and off the mesh "
+                             f"(parameters {off[:8]}; rtol {MESH_RTOL} of their magnitude)")
+    print(f"[mesh] {tag}: losses {mesh[0]} and grad norms {mesh[1]} on the mesh, {plain[0]} "
+          f"and {plain[1]} without; largest relative difference "
+          f"{max(abs(x - y) / abs(x) for x, y in zip(plain[0] + plain[1], mesh[0] + mesh[1])):.3g}"
+          f" (rtol {MESH_RTOL}); the {len(mesh[-1])} parameters' sums after the steps agree",
+          flush=True)
+
+
+def _start_dryrun():
+    """The dry run of MESH_DRYRUN's cell, started in a process of its own
+    without the card: (the process, its record's path)."""
+    arch, shape, mesh_kind = MESH_DRYRUN
+    out = ROOT / "build" / "dryrun" / f"{arch}__{shape}__{mesh_kind}.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                             "--shape", shape, "--mesh", mesh_kind, "--out", str(out)],
+                            cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())  # a failed run stops it
+    return proc, out
+
+
+def phase_mesh(fa, card):
+    """The mesh phase (see the note above MESH_STEPS): the timed steps
+    first, then the dry-run cell, which runs alone on the host.  Returns
+    the mesh path's flash launches (forward, backward)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import roofline
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.op_cost import OpCounter
+    from repro_torch.sharding import ctx_for_mesh
+
+    t = time.perf_counter()
+    mesh_mod.init_ranks("cuda")
+    ctx = ctx_for_mesh(mesh_mod.make_host_mesh())
+    print(f"[mesh] one NCCL rank, mesh {dict(zip(ctx.mesh.mesh_dim_names, ctx.mesh.shape))}, "
+          f"dp {ctx.dp}, tp {ctx.tp}", flush=True)
+    cfg = get_config(LM_ARCH)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=LM_TRAIN_SEQ, global_batch=LM_TRAIN_BATCH,
+                         seed=0)
+    batch = _pipe_batch(pipe, 0, "cuda")
+    _free()
+    plain = _mesh_steps(cfg, None, batch, fa)
+    plain = plain[:3] + plain[-1:]
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = _mesh_steps(cfg, ctx, batch, fa)
+    peak = torch.cuda.max_memory_allocated()
+    fwd, bwd, by_route, bwd_by_route = mesh[5]
+    n = MESH_STEPS
+    if (fwd, bwd) != (2 * cfg.n_layers * n, cfg.n_layers * n) or by_route["wgmma"] != fwd \
+            or bwd_by_route["wgmma"] != bwd:
+        raise AssertionError(f"mesh: flash launched {fwd} forwards ({by_route}) and {bwd} "
+                             f"backwards ({bwd_by_route}) over {n} steps of {cfg.n_layers} "
+                             f"layers, want all on wgmma")
+    _mesh_agree(f"{cfg.name} bf16 full width", plain, mesh)
+    step_s = mesh[2][-1]
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    print(f"[mesh] {cfg.name} ({cfg.n_layers} layers, bf16), batch {LM_TRAIN_BATCH} x "
+          f"{LM_TRAIN_SEQ}: mesh step walls " + ", ".join(f"{1e3 * w:.1f}" for w in mesh[2])
+          + " ms, without the mesh " + ", ".join(f"{1e3 * w:.1f}" for w in plain[2])
+          + f" ms; flash launches a step: {fwd // n} forward, {bwd // n} backward, all on "
+          f"wgmma; peak device memory {peak} bytes ({card})", flush=True)
+    builder, state = mesh[3], mesh[4]
+    del mesh
+    # the count: one more step under the op counter
+    with OpCounter() as counter:
+        builder.train_step(state, batch)
+    torch.cuda.synchronize()
+    res = counter.result()
+    model_flops = 6.0 * cfg.param_count() * tokens
+    compute_s = res["dot_flops"] / mesh_mod.PEAK_FLOPS_BF16
+    memory_s = res["hbm_bytes"] / mesh_mod.HBM_BW
+    coll_s = res["collective_total_bytes"] / mesh_mod.NVLINK_BW
+    ratio = res["dot_flops"] / model_flops
+    if not 1.0 <= ratio <= 3.0:
+        raise AssertionError(f"mesh: counted {res['dot_flops']:.4g} flops, {ratio:.3f} x 6 N "
+                             f"tokens (want 1 to 3)")
+    print(f"[mesh] op count of one step: {res['dot_flops']:.6g} matmul flops "
+          f"({ratio:.4f} x 6 N tokens = {model_flops:.6g}, N {cfg.param_count()}), "
+          f"{res['hbm_bytes']:.6g} HBM bytes, collectives {res['collective_bytes']} "
+          f"({res['collective_total_bytes']:.6g} bytes), kernels "
+          + ", ".join(f"{k} {v['calls']} calls {v['flops']:.4g} flops" for k, v in
+                      res["kernels"].items()) + f"; roofline terms on the H100 constants "
+          f"(bf16 {mesh_mod.PEAK_FLOPS_BF16:.4g} FLOP/s, HBM {mesh_mod.HBM_BW:.4g} B/s, "
+          f"NVLink {mesh_mod.NVLINK_BW:.4g} B/s): compute {1e3 * compute_s:.3f} ms, memory "
+          f"{1e3 * memory_s:.3f} ms, collective {1e3 * coll_s:.3f} ms; measured step "
+          f"{1e3 * step_s:.1f} ms; MFU {model_flops / step_s / mesh_mod.PEAK_FLOPS_BF16:.4f}; "
+          f"card memory {mesh_mod.card_memory_bytes()} bytes ({card})", flush=True)
+    del builder, state
+    _free()
+    narrow = dataclasses.replace(cfg, name="internlm2-narrow", dtype="float32",
+                                 **LM_TRAIN_NARROW)
+    batch = _pipe_batch(TokenPipeline(vocab=narrow.vocab, seq_len=256, global_batch=2, seed=0),
+                        0, "cuda")
+    plain = _mesh_steps(narrow, None, batch, fa, lr=LM_TRAIN_FP32_LR)
+    mesh = _mesh_steps(narrow, ctx, batch, fa, lr=LM_TRAIN_FP32_LR)
+    plain, mesh = plain[:3] + plain[-1:], mesh[:3] + mesh[-1:]
+    _mesh_agree("narrow fp32", plain, mesh)
+    del plain, mesh
+    _free()
+    dist.destroy_process_group()
+    t = _phase_done("mesh train step (one NCCL rank) and its op count", t)
+    # the dry-run cell, on the CPU in its own process, after the timed steps
+    arch, shape, mesh_kind = MESH_DRYRUN
+    proc, out = _start_dryrun()
+    try:
+        _, err = proc.communicate(timeout=MESH_DRYRUN_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    rec = json.loads(out.read_text()) if out.exists() else {"status": "no record"}
+    if proc.returncode != 0 or rec["status"] != "run":
+        raise AssertionError(f"dry run of {MESH_DRYRUN}: rc {proc.returncode}, status "
+                             f"{rec['status']}: {err[-2000:]}")
+    cell = roofline.cell_roofline(rec, memory_bytes=mesh_mod.card_memory_bytes())
+    print(f"[mesh] dry run {arch} {shape} on the {mesh_kind} mesh ({rec['n_devices']} fake "
+          f"ranks, built in {rec['lower_s']} s, run in {rec['compile_s']} s): memory per "
+          f"device {rec['memory']}; {rec['cost']['flops']:.6g} matmul flops and "
+          f"{rec['cost']['bytes_accessed']:.6g} HBM bytes per device; collective bytes by "
+          f"kind {rec['collectives']['bytes_by_kind']}; roofline compute {cell.compute_s:.4g} s"
+          f", memory {cell.memory_s:.4g} s, collective {cell.collective_s:.4g} s "
+          f"({cell.dominant}), MODEL_FLOPS / counted {cell.useful_ratio:.3f}, fits "
+          f"{cell.fits}", flush=True)
+    _phase_done("dry run of one cell on the pod mesh (CPU, fake group)", t)
+    return fwd, bwd
+
+
 def _phase_done(name, t0):
     print(f"[time] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
     return time.perf_counter()
@@ -4860,6 +5010,15 @@ def _flash_entry(flash, launches):
                   "src/repro/kernels/flash_attention.py:102", flash, launches)
 
 
+def _card():
+    """The card's name and power limit, as nvidia-smi reports them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return smi.stdout.strip().splitlines()[0]
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -4867,7 +5026,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=("regimes", "tenants", "cache", "obs", "sage",
                                        "lm_serve", "mamba_serve", "moe_serve",
                                        "kimi_serve", *FAMILY_PHASES, "lm_train",
-                                       "moe_train", "mamba_train"),
+                                       "moe_train", "mamba_train", "mesh"),
                     default=None, help="build the kernels and run this phase alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -4937,6 +5096,11 @@ def main(argv=None) -> int:
             print(json.dumps({"backward": nums, "train_launches": counts}))
             print(f"[done] {time.perf_counter() - t_start:.1f} s ({args.only} only)")
             return 0
+        elif args.only == "mesh":
+            fwd, bwd = phase_mesh(fa, _card())
+            print(json.dumps({"mesh_flash_launches": [fwd, bwd]}))
+            print(f"[done] {time.perf_counter() - t_start:.1f} s ({args.only} only)")
+            return 0
         elif args.only in FAMILY_PHASES:
             fams, t = phase_families(fa, ss, mg, t, (args.only,))
             print(json.dumps(fams[args.only]))
@@ -4989,6 +5153,7 @@ def main(argv=None) -> int:
     flash["max_abs_err"] = max(flash["max_abs_err"], train_nums["bwd_max_abs_err"])
     moe_bwd, moe_counts = phase_moe_train(mg, fa)
     ssd_bwd, ssd_counts = phase_mamba_train(ss, fa)
+    mesh_fwd, mesh_bwd = phase_mesh(fa, _card())
     t = time.perf_counter()
     moe_serve_launches = moe_entry["launches"]
     moe_entry["launches"] += moe_counts["moe_gemm"][0]
@@ -4999,8 +5164,8 @@ def main(argv=None) -> int:
     ssd_entry.update({k: v for k, v in ssd_bwd.items() if k != "bwd_max_abs_err"})
     ssd_entry["bwd_launches"] = ssd_counts["ssd_scan"][1]
     ssd_entry["max_abs_err"] = max(ssd_entry["max_abs_err"], ssd_bwd["bwd_max_abs_err"])
-    train_flash_launches += moe_counts["flash_attention"][0]
-    flash["bwd_launches"] += moe_counts["flash_attention"][1]
+    train_flash_launches += moe_counts["flash_attention"][0] + mesh_fwd
+    flash["bwd_launches"] += moe_counts["flash_attention"][1] + mesh_bwd
 
     line = {
         "kernels": [
@@ -5028,14 +5193,11 @@ def main(argv=None) -> int:
           f"{flash['bwd_launches']} backward (internlm2 and llama4-scout); MoE training "
           f"path: moe_gemm {moe_counts['moe_gemm'][0]} forward, {moe_counts['moe_gemm'][1]} "
           f"backward; mamba2 training path: ssd_scan {ssd_counts['ssd_scan'][0]} forward, "
-          f"{ssd_counts['ssd_scan'][1]} backward", flush=True)
+          f"{ssd_counts['ssd_scan'][1]} backward; mesh training path: flash_attention "
+          f"{mesh_fwd} forward, {mesh_bwd} backward", flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(line))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    print(smi.stdout.strip().splitlines()[0])
+    print(_card())
     print(json.dumps({
         "ok": True,
         "device": {

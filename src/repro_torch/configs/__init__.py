@@ -47,3 +47,23 @@ def get_config(arch_id: str) -> LMConfig:
 
 def get_smoke_config(arch_id: str) -> LMConfig:
     return _mod(arch_id).smoke_config()
+
+
+# The shape grid of the dry run and the roofline (every arch; the skips of
+# ``cell_status``), as the reference's.
+SHAPES = {
+    "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
+    "prefill_32k": dict(kind="prefill", seq_len=32768, global_batch=32),
+    "decode_32k": dict(kind="decode", seq_len=32768, global_batch=128),
+    "long_500k": dict(kind="decode", seq_len=524288, global_batch=1),
+}
+
+
+def cell_status(cfg: LMConfig, shape_name: str) -> str:
+    """``"run"`` or the reason the (arch, shape) cell is skipped."""
+    sh = SHAPES[shape_name]
+    if cfg.is_encoder and sh["kind"] == "decode":
+        return "skip: encoder-only arch has no decode step"
+    if shape_name == "long_500k" and cfg.full_attention:
+        return "skip: full-attention arch is quadratic/KV-infeasible at 500k"
+    return "run"

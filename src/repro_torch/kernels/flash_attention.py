@@ -30,7 +30,10 @@ There is no fallback between the routes: a CUDA tensor launches the
 kernel of its route or raises.  Each launch adds one to
 ``flash_attention.launches`` and to its route's count in
 ``flash_attention.launches_by_route`` (a decode over several chunks is
-one launch of the wrapper: the kernel and its merge).
+one launch of the wrapper: the kernel and its merge).  Under an op
+counter (``launch.op_cost``) a CPU call is counted at ``cost`` and its
+backward at ``backward_cost``, the bounds ``chip_smoke.py`` times the
+kernels against (``_cost``).
 
 Gradients.  On CPU tensors autograd differentiates the plain version.
 On CUDA tensors, when q, k or v requires a gradient (and grad mode is
@@ -57,9 +60,10 @@ import ctypes
 from pathlib import Path
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
-from . import _build
+from . import _build, _cost
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
@@ -230,6 +234,69 @@ def causal_mask(sq: int, sk: int, window: Optional[int], offset: int = 0,
     return m
 
 
+def mask_counts(sq: int, sk: int, causal: bool, window: Optional[int],
+                offset: int = 0) -> Tuple[int, int]:
+    """(unmasked (query, key) pairs, keys some query sees) of
+    ``causal_mask(sq, sk, window, offset, causal)``, counted without
+    forming it."""
+    i = np.arange(sq, dtype=np.int64) + offset
+    hi = np.minimum(sk - 1, i) if causal else np.full(sq, sk - 1, dtype=np.int64)
+    lo = np.maximum(0, i - window + 1) if window is not None else np.zeros(sq, dtype=np.int64)
+    n = np.clip(hi - lo + 1, 0, None)
+    seen = n > 0
+    keys = int(hi[seen].max() - lo[seen].min() + 1) if seen.any() else 0
+    return int(n.sum()), keys
+
+
+def cost(q: torch.Tensor, k: torch.Tensor, causal: bool, window: Optional[int],
+         q_offset: int = 0) -> Tuple[float, float]:
+    """(flops, bytes) of one forward: 4 D flops per unmasked pair; q and o
+    moved once and the K and V positions the queries see read once."""
+    B, H, Sq, D = q.shape
+    pairs, keys = mask_counts(Sq, k.shape[2], causal, window, q_offset)
+    return 4.0 * D * B * H * pairs, q.element_size() * (2 * B * H * Sq * D
+                                                          + 2 * B * k.shape[1] * keys * D)
+
+
+def backward_cost(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                  window: Optional[int]) -> Tuple[float, float]:
+    """(flops, bytes) of one backward: five products per unmasked pair (10
+    D flops); q, k, v, o and dO read and dq, dk, dv written once."""
+    B, H, S, D = q.shape
+    pairs, _ = mask_counts(S, k.shape[2], causal, window)
+    return 10.0 * D * B * H * pairs, q.element_size() * (4 * B * H * S * D
+                                                           + 4 * B * k.shape[1] * S * D)
+
+
+class _Counted:
+    """A CPU call under an op counter (``_cost.CountedCall``)."""
+
+    name = "flash_attention"
+
+    def __init__(self, causal, window, softcap, scale, q_offset):
+        self.mask = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+        self.q_offset = q_offset
+
+    def cost(self, q, k, v):
+        return cost(q, k, self.mask["causal"], self.mask["window"], self.q_offset)
+
+    def backward_cost(self, q, k, v):
+        return backward_cost(q, k, self.mask["causal"], self.mask["window"])
+
+    def run(self, q, k, v):
+        o, lse = flash_attention_plain(q, k, v, q_offset=self.q_offset, return_lse=True,
+                                       **self.mask)
+        return (o,), (o, lse)
+
+    def empty(self, q, k, v):
+        o = torch.empty_like(q)
+        return (o,), (o, q.new_empty((*q.shape[:2], lse_stride(q.shape[2])),
+                                     dtype=torch.float32))
+
+    def grad(self, inputs, saved, grads):
+        return flash_attention_backward_plain(*inputs, *saved, grads[0], **self.mask)
+
+
 def _scores(q, k, causal, window, softcap, scale, q_offset, want_dsdx=False):
     """fp32 scores [B, H, Sq, Sk] over grouped KV heads: scaled, capped,
     masked entries at ``NEG_INF``; the mask; with ``want_dsdx`` the cap's
@@ -329,6 +396,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
 
 
+@_cost.reports("flash_attention", lambda q, k, v, causal, window, softcap, scale, q_offset,
+               *_, **__: cost(q, k, causal, window, q_offset))
 def _launch(q, k, v, causal, window, softcap, scale, q_offset, want_lse=False):
     """The forward launch: o, or (o, lse) with ``want_lse`` (the prefill
     routes' logsumexp, [B, H, lse_stride(Sq)] of which the first Sq rows
@@ -394,6 +463,8 @@ def flash_attention(
     _check(q, k, v, window, softcap, q_offset)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":
+        if _cost.counting():
+            return _cost.counted(_Counted(causal, window, softcap, scale, q_offset), q, k, v)
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale,
                                      q_offset=q_offset)
@@ -416,6 +487,8 @@ def _check_backward(q: torch.Tensor, k: torch.Tensor, q_offset: int) -> None:
             f"Sq {sq}, Sk {sk}, q_offset {q_offset}, D {d}")
 
 
+@_cost.reports("flash_attention backward", lambda q, k, v, o, lse, do, causal, window,
+               *_, **__: backward_cost(q, k, causal, window))
 def _launch_backward(q, k, v, o, lse, do, causal, window, softcap,
                      scale) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     B, H, S, D = q.shape

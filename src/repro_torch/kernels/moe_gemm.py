@@ -59,11 +59,11 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
-from . import _build
+from . import _build, _cost
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "moe_gemm.cu"
 BWD_SOURCE = SOURCE.with_name("moe_gemm_bwd.cu")
@@ -182,6 +182,58 @@ def moe_grouped_gemm_backward_plain(
     return dx, dw
 
 
+def _routed(x: torch.Tensor, w: torch.Tensor,
+            group_sizes: Optional[Sequence[int]]) -> Tuple[int, int]:
+    """(rows routed, experts hit): every row of x and every expert without
+    the group sizes (they are data; the model's rows are its routed rows),
+    else as the sizes say."""
+    if group_sizes is None:
+        return x.shape[0], w.shape[0]
+    return min(sum(group_sizes), x.shape[0]), sum(1 for g in group_sizes if g > 0)
+
+
+def cost(x: torch.Tensor, w: torch.Tensor,
+         group_sizes: Optional[Sequence[int]] = None) -> Tuple[float, float]:
+    """(flops, bytes) of one forward (rows and experts as ``_routed``): 2
+    flops per routed row and product; the routed rows of x, the hit
+    experts' weights, the output and the group sizes moved once."""
+    (T, D), (E, _, F) = x.shape, w.shape
+    rows, hit = _routed(x, w, group_sizes)
+    return 2.0 * rows * D * F, x.element_size() * (rows * D + hit * D * F + T * F) + 4 * E
+
+
+def backward_cost(x: torch.Tensor, w: torch.Tensor,
+                  group_sizes: Optional[Sequence[int]] = None) -> Tuple[float, float]:
+    """(flops, bytes) of one backward (dx and dw, 2 flops per routed row
+    and product each): x's routed rows, dy and the hit experts' weights
+    read, dx and every expert's dw written once."""
+    (T, D), (E, _, F) = x.shape, w.shape
+    rows, hit = _routed(x, w, group_sizes)
+    return 4.0 * rows * D * F, x.element_size() * (
+        rows * D + T * F + hit * D * F + T * D + E * D * F) + 4 * E
+
+
+class _Counted:
+    """A CPU call under an op counter (``_cost.CountedCall``)."""
+
+    name = "moe_grouped_gemm"
+
+    def cost(self, x, w, gs):
+        return cost(x, w)
+
+    def backward_cost(self, x, w, gs):
+        return backward_cost(x, w)
+
+    def run(self, x, w, gs):
+        return (moe_grouped_gemm_plain(x, w, gs),), ()
+
+    def empty(self, x, w, gs):
+        return (x.new_empty((x.shape[0], w.shape[2])),), ()
+
+    def grad(self, inputs, saved, grads):
+        return (*moe_grouped_gemm_backward_plain(*inputs, grads[0]), None)
+
+
 def _check(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> None:
     for name, t in (("w", w), ("group_sizes", group_sizes)):
         if t.device != x.device:
@@ -200,6 +252,7 @@ def _check(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> None:
                          f"{w.shape[0]} experts")
 
 
+@_cost.reports("moe_grouped_gemm", lambda x, w, *_, **__: cost(x, w))
 def _launch(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
     T, D = x.shape
     E, _, F = w.shape
@@ -240,9 +293,12 @@ def moe_grouped_gemm(x: torch.Tensor, w: torch.Tensor,
     x's dtype, rows past the sum zero.  x and w float32 or bfloat16.  CPU
     tensors take the plain version; CUDA tensors launch the kernel of
     ``route`` (F a multiple of 8, w contiguous), without reading the group
-    sizes on the host."""
+    sizes on the host.  Under an op counter a CPU call is counted at ``cost``
+    and its backward at ``backward_cost`` (``_cost``)."""
     _check(x, w, group_sizes)
     if x.device.type == "cpu":
+        if _cost.counting():
+            return _cost.counted(_Counted(), x, w, group_sizes)
         return moe_grouped_gemm_plain(x, w, group_sizes)
     if x.device.type == "cuda":
         if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
@@ -261,6 +317,7 @@ def _check_backward(x: torch.Tensor) -> None:
             f"D = {x.shape[1]}")
 
 
+@_cost.reports("moe_grouped_gemm backward", lambda x, w, *_, **__: backward_cost(x, w))
 def _launch_backward(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
                      dy: torch.Tensor, want_dx: bool,
                      want_dw: bool) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:

@@ -40,7 +40,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, _cost
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "sage_aggregate.cu"
 # dtype codes of the C interface
@@ -136,6 +136,22 @@ def sage_aggregate_backward_plain(grad_out: torch.Tensor, idx: torch.Tensor,
     return grad_x
 
 
+def cost(x: torch.Tensor, idx: torch.Tensor) -> Tuple[float, float]:
+    """(flops, bytes) of one forward: an add per gathered value; every
+    gathered row, the ids and the output moved once (all ids counted as
+    valid: they are data)."""
+    (M, K), F = idx.shape, x.shape[1]
+    return float(M * K * F), x.element_size() * (M * K * F + M * F) + 4 * M * K
+
+
+def backward_cost(grad_out: torch.Tensor, idx: torch.Tensor,
+                  n_rows: int) -> Tuple[float, float]:
+    """(flops, bytes) of one backward: a divide per grad_out value and an
+    add per scattered value; grad_out, the ids and grad_x moved once."""
+    (M, K), F = idx.shape, grad_out.shape[1]
+    return float(M * F + M * K * F), 4.0 * (M * F + M * K + n_rows * F)
+
+
 def _check_idx(idx: torch.Tensor) -> None:
     if idx.dim() != 2:
         raise ValueError(f"idx must be 2-D, got {tuple(idx.shape)}")
@@ -166,6 +182,7 @@ def _raise(err: int, what: str) -> None:
         raise RuntimeError(f"sage_aggregate {what} launch failed: CUDA error {err}")
 
 
+@_cost.reports("sage_aggregate", lambda x, idx, *_, **__: cost(x, idx))
 def _launch(x: torch.Tensor, idx: torch.Tensor, probe: bool = False) -> torch.Tensor:
     """The kernel's forward on a CUDA tensor (no autograd); ``probe``
     issues the loads alone and returns the unwritten output (the gather
@@ -211,6 +228,7 @@ def long_plan(F: int, MK: int) -> Tuple[int, bool]:
     return D, -(-MK // 32) * 4 <= LONG_BITMAP_BYTES
 
 
+@_cost.reports("sage_aggregate backward", backward_cost)
 def _backward_launch(grad_out: torch.Tensor, idx: torch.Tensor,
                      n_rows: int) -> torch.Tensor:
     """The backward's kernels on a CUDA tensor: fp32 [n_rows, F]."""
@@ -259,6 +277,9 @@ def sage_aggregate_backward(grad_out: torch.Tensor, idx: torch.Tensor,
     if max(n_rows, grad_out.shape[1]) >= 2**31:
         raise ValueError("dimensions too large for the kernels' int32 sizes")
     if grad_out.device.type == "cpu":
+        if _cost.counting():
+            with _cost.kernel("sage_aggregate backward", *backward_cost(grad_out, idx, n_rows)):
+                return sage_aggregate_backward_plain(grad_out, idx, n_rows)
         return sage_aggregate_backward_plain(grad_out, idx, n_rows)
     if grad_out.device.type == "cuda":
         return _backward_launch(grad_out, idx, n_rows)
@@ -268,7 +289,10 @@ def sage_aggregate_backward(grad_out: torch.Tensor, idx: torch.Tensor,
 class _SageAggregate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-        if x.device.type == "cpu":
+        if x.device.type == "cpu" and _cost.counting():
+            with _cost.kernel("sage_aggregate", *cost(x, idx)):
+                out = sage_aggregate_plain(x, idx)
+        elif x.device.type == "cpu":
             out = sage_aggregate_plain(x, idx)
         elif x.device.type == "cuda":
             out = _launch(x, idx)

@@ -69,7 +69,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, _cost
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 BWD_SOURCE = SOURCE.with_name("ssd_scan_bwd.cu")
@@ -290,6 +290,57 @@ def chunk_len(s: int, chunk: int) -> int:
     return q
 
 
+def cost(x: torch.Tensor, Bm: torch.Tensor, q: int) -> Tuple[float, float]:
+    """(flops, bytes) of one forward: per (batch row, group, chunk) the
+    causal C B^T, per (batch row, head, chunk) the causal W x product, the
+    carried state's C h and the state update, 2 flops a product; x and y
+    moved once, dt, B and C read once."""
+    b, s, h, hd = x.shape
+    g, ds = _grouped(Bm).shape[2:]
+    pairs = q * (q + 1) // 2
+    flops = b * (s // q) * (g * 2 * pairs * ds + h * (2 * pairs * hd + 4 * q * hd * ds))
+    return float(flops), x.element_size() * (2 * b * s * h * hd + 2 * b * s * g * ds) + 4 * (
+        b * s * h + h)
+
+
+def backward_cost(x: torch.Tensor, Bm: torch.Tensor, q: int) -> Tuple[float, float]:
+    """(flops, bytes) of one backward: per (batch row, group, chunk) C B^T,
+    per head the causal dy x^T, W^T dy, V^T C and V B products and five
+    state products over the chunk's rows; x, dy, B, C and dt read and dx,
+    dB, dC and ddt written once."""
+    b, s, h, hd = x.shape
+    g, ds = _grouped(Bm).shape[2:]
+    pairs = q * (q + 1) // 2
+    flops = b * (s // q) * (g * 2 * pairs * ds
+                            + h * (2 * pairs * (2 * hd + 2 * ds) + 10 * q * hd * ds))
+    return float(flops), x.element_size() * (3 * b * s * h * hd + 4 * b * s * g * ds) + 4 * (
+        2 * b * s * h + 2 * h)
+
+
+class _Counted:
+    """A CPU call under an op counter (``_cost.CountedCall``)."""
+
+    name = "ssd_scan"
+
+    def __init__(self, q: int) -> None:
+        self.q = q
+
+    def cost(self, x, dt, A, Bm, Cm):
+        return cost(x, Bm, self.q)
+
+    def backward_cost(self, x, dt, A, Bm, Cm):
+        return backward_cost(x, Bm, self.q)
+
+    def run(self, *tensors):
+        return (ssd_scan_plain(*tensors, chunk=self.q)[0],), ()
+
+    def empty(self, x, *rest):
+        return (torch.empty_like(x),), ()
+
+    def grad(self, inputs, saved, grads):
+        return ssd_scan_backward_plain(*inputs, grads[0], chunk=self.q)
+
+
 def ssd_scan_plain(
     x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     Cm: torch.Tensor, *, chunk: int = 128, h0: Optional[torch.Tensor] = None,
@@ -441,6 +492,7 @@ def _check(x, dt, A, Bm, Cm) -> None:
         raise ValueError(f"{h} heads do not group over {Bg.shape[2]} B/C groups")
 
 
+@_cost.reports("ssd_scan", lambda x, dt, A, Bm, Cm, q: cost(x, Bm, q))
 def _launch(x, dt, A, Bm, Cm, q: int) -> torch.Tensor:
     b, s, h, hd = x.shape
     Bg, Cg = _grouped(Bm), _grouped(Cm)
@@ -486,10 +538,14 @@ def ssd_scan(
     x fp32 or bf16, B and C in x's dtype, dt and A fp32; any strides with
     the last dimension contiguous.  Raises when S is not a multiple of
     ``min(chunk, S)``.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel (hd in ``HEAD_DIMS``, d_state up to ``MAX_STATE``)."""
+    launch the kernel (hd in ``HEAD_DIMS``, d_state up to ``MAX_STATE``).
+    Under an op counter a CPU call is counted at ``cost`` and its backward
+    at ``backward_cost`` (``_cost``)."""
     _check(x, dt, A, Bm, Cm)
     q = chunk_len(x.shape[1], chunk)
     if x.device.type == "cpu":
+        if _cost.counting():
+            return _cost.counted(_Counted(q), x, dt, A, Bm, Cm)
         return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=q)[0]
     if x.device.type == "cuda":
         if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, Bm, Cm)):
@@ -512,6 +568,7 @@ def _check_backward(x: torch.Tensor, Bm: torch.Tensor, q: int) -> None:
             f"d_state {ds}, chunk {q}")
 
 
+@_cost.reports("ssd_scan backward", lambda x, dt, A, Bm, Cm, dy, q: backward_cost(x, Bm, q))
 def _launch_backward(x, dt, A, Bm, Cm, dy, q: int):
     b, s, h, hd = x.shape
     Bg, Cg = _grouped(Bm), _grouped(Cm)

@@ -29,7 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, _cost
 
 # grants at or below EPS are dropped; equal to repro_torch.core.engine.EPS
 # (kept here so the kernels package imports nothing of core)
@@ -205,9 +205,25 @@ def waterfill_fill(
     the kernel."""
     _check(order, src, dst, elig, cap_in, cap_out)
     if order.device.type == "cpu":
+        if _cost.counting():
+            with _cost.kernel("waterfill_fill", *cost(order, src, dst, elig, cap_in, cap_out)):
+                return waterfill_fill_plain(order, src, dst, elig, cap_in, cap_out)
         return waterfill_fill_plain(order, src, dst, elig, cap_in, cap_out)
     if order.device.type != "cuda":
         raise ValueError(f"no waterfill kernel for device {order.device}")
+    return _launch(order, src, dst, elig, cap_in, cap_out)
+
+
+def cost(*tensors: torch.Tensor) -> Tuple[float, float]:
+    """(flops, bytes) of one call: a pass over the flows, the inputs read
+    and the rates (float64) written once; no products."""
+    return 0.0, float(sum(t.numel() * t.element_size() for t in tensors)
+                      + 8 * tensors[0].numel())
+
+
+@_cost.reports("waterfill_fill", cost)
+def _launch(order: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, elig: torch.Tensor,
+            cap_in: torch.Tensor, cap_out: torch.Tensor) -> torch.Tensor:
     B, EG = order.shape
     M = cap_in.shape[1]
     out = torch.empty((B, EG), dtype=torch.float64, device=order.device)

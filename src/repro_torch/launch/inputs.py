@@ -1,11 +1,13 @@
-"""Training inputs: the shapes of one batch and concrete random batches.
+"""Training inputs: the shapes of one batch, concrete random batches, and
+stand-ins and specs for the dry run and the mesh.
 
-The port of the JAX package's ``repro.launch.inputs`` for one device:
-``train_shapes`` gives the same names, shapes and dtypes as the
-reference's, and ``train_batch`` draws a batch of them from a
-``torch.Generator``.  The reference's ``ShapeDtypeStruct`` and
-``PartitionSpec`` helpers serve its dry-run and mesh, which wait for
-ROADMAP Queue 1 item 14.
+The port of the JAX package's ``repro.launch.inputs``: ``train_shapes``
+gives the same names, shapes and dtypes as the reference's,
+``train_batch`` draws a batch of them from a ``torch.Generator``;
+``train_structs`` and ``decode_inputs_structs`` are uninitialised
+tensors of those shapes (meta tensors by default; fake ones when made
+under ``FakeTensorMode``), the reference's ``ShapeDtypeStruct``s, and
+``batch_specs`` their specs on a mesh (``sharding``'s tuples).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 
 from ..core.engine import DeviceLike, resolve_device
 from ..models.config import LMConfig
+from ..sharding import MeshContext, Spec
 
 
 def train_shapes(cfg: LMConfig, batch: int, seq: int) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
@@ -58,3 +61,22 @@ def train_batch(cfg: LMConfig, batch: int, seq: int, generator: torch.Generator,
             out[name] = (torch.randn(shape, generator=generator, device=dev)
                          * 0.02).to(dt)
     return out
+
+
+def train_structs(cfg: LMConfig, batch: int, seq: int, *,
+                  device: DeviceLike = "meta") -> Dict[str, torch.Tensor]:
+    """Uninitialised tensors of ``train_shapes`` on ``device``."""
+    return {k: torch.empty(shape, dtype=dt, device=device)
+            for k, (shape, dt) in train_shapes(cfg, batch, seq).items()}
+
+
+def batch_specs(cfg: LMConfig, ctx: MeshContext, batch: int) -> Dict[str, Spec]:
+    """Each batch tensor's spec: its batch axis over dp where it divides."""
+    shapes = train_shapes(cfg, batch, cfg.n_patches + 8)  # the length is not read
+    return {k: ctx.batch_spec(batch, len(shape) - 1) for k, (shape, _) in shapes.items()}
+
+
+def decode_inputs_structs(batch: int, *, device: DeviceLike = "meta") -> Dict[str, torch.Tensor]:
+    """A decode step's inputs: ``token`` [B] and ``pos`` (a scalar)."""
+    return {"token": torch.empty((batch,), dtype=torch.int32, device=device),
+            "pos": torch.empty((), dtype=torch.int32, device=device)}

@@ -2,12 +2,14 @@
 reference and its two frontends.
 
 The port of the JAX package's ``repro.models.config``, with every field
-the port reads.  The tensor-parallel ``attn_mode`` belongs to the mesh
-(ROADMAP Queue 1 item 14), and the MoE ``router_jitter`` is read by no
-code of the reference either; both are left out.
+the port reads: ``attn_mode`` picks the tensor-parallel head layout on a
+mesh (``models.layers.attn_shard_mode``).  The MoE ``router_jitter`` and
+``max_seq`` are read by no code of the reference either; both are left
+out.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -89,6 +91,11 @@ class LMConfig:
     moe: Optional[MoESpec] = None
     ssm: Optional[SSMSpec] = None
     hybrid_every: int = 6  # zamba2: the shared block after every k-th mamba block
+    # the attention's tensor-parallel layout where the heads do not divide
+    # the model axis: "head_dim" shards each head's dimensions (q, k and v
+    # are gathered whole before the kernel), "pad" pads the query heads of
+    # each KV group with zero queries to a divisible count
+    attn_mode: str = "head_dim"
     frontend: Optional[str] = None  # None | "frames" | "patches"
     n_patches: int = 0  # patches: the patch prefix's length
     dtype: str = "bfloat16"
@@ -101,8 +108,22 @@ class LMConfig:
     def is_encoder(self) -> bool:
         return self.block_pattern == "encoder"
 
+    @property
+    def full_attention(self) -> bool:
+        """True if some layer attends over the whole sequence without a
+        window (every pattern but mamba2 and zamba2, whose shared block
+        keeps a small KV budget): such archs skip the 500k cell."""
+        return self.block_pattern not in ("mamba2", "zamba2")
+
     def q_scaling(self) -> float:
         return self.q_scale if self.q_scale is not None else self.hd**-0.5
+
+    def kv_repeat_for(self, tp: int) -> int:
+        """How many times each KV head is repeated so that the KV heads
+        shard over ``tp`` (Megatron-style KV replication where kv < tp)."""
+        if self.n_kv_heads >= tp:
+            return 1
+        return tp // math.gcd(self.n_kv_heads, tp)
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding + blocks + head), as the

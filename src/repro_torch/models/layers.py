@@ -1,10 +1,9 @@
 """Transformer building blocks on PyTorch: norms, RoPE, GQA attention, MLPs.
 
-The port of the JAX package's ``repro.models.layers`` on one device: the
-attention + MLP blocks of the ``dense``, ``gemma2`` (with its sandwich
-norms), ``encoder`` (bidirectional, without rope) and ``zamba2`` (its
-shared block) patterns, and the attention of the ``moe`` pattern.
-Conventions:
+The port of the JAX package's ``repro.models.layers``: the attention +
+MLP blocks of the ``dense``, ``gemma2`` (with its sandwich norms),
+``encoder`` (bidirectional, without rope) and ``zamba2`` (its shared
+block) patterns, and the attention of the ``moe`` pattern.  Conventions:
 
   * a layer's parameters are a mapping of tensors (one layer's slice of
     the reference's stacked ``[L, ...]`` arrays, in the same layout: wq
@@ -12,25 +11,127 @@ Conventions:
     biases are fp32, the other weights in the model's dtype;
   * every attention call goes to ``kernels.flash_attention``, prefill and
     decode alike: the reference's ``_attend`` and ``_attend_chunked``
-    compute the same function, and on one device KV heads are never
-    repeated (the reference's shard modes, head padding and
-    ``CHUNKED_ATTN_THRESHOLD`` only serve its tensor-parallel mesh, which
-    is why ``repro.sharding`` has no counterpart here);
+    compute the same function, so ``CHUNKED_ATTN_THRESHOLD`` has no
+    counterpart;
   * attention scores and softmax run in fp32 (inside the kernel), norms
     and RoPE in fp32, matrix products in the weights' dtype.
+
+On a mesh (``ctx``, a ``sharding.MeshContext`` over ranks, with tp > 1)
+the functions take each rank's local weight shards (``*_specs``: the
+reference's specs, stacked over the layers) and run tensor-parallel,
+Megatron-style: ``attn_shard_mode`` picks the reference's layout.
+"heads": each rank holds Nh / tp query heads and its KV heads (the KV
+heads repeated ``kv_repeat_for(tp)`` times where they do not divide tp);
+"head_dim": each rank holds a slice of every head's dimensions, and q, k
+and v are gathered whole before rope and the kernel (which takes whole
+heads; the reference lets GSPMD sum partial scores instead), the
+attention runs on every rank, and each rank's slice of the output meets
+its slice of wo; "pad_heads" (``attn_mode="pad"``): stored as head_dim,
+then the query heads of each KV group are padded with zero queries to a
+count that divides tp and the kernel runs on each rank's heads.  The
+output and MLP down projections are summed over tp.  Without a mesh
+nothing of this runs and KV heads are never repeated.
 """
 from __future__ import annotations
 
 import math
-from typing import Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ..kernels.flash_attention import flash_attention
+from .. import sharding as sh
+from ..kernels import _cost
+from ..kernels.flash_attention import cost as flash_cost, flash_attention
+from ..sharding import MeshContext, Spec
 from .config import LMConfig
 
 Params = Mapping[str, torch.Tensor]
+Ctx = Optional[MeshContext]
+
+
+def _tp(ctx: Ctx) -> bool:
+    return ctx is not None and ctx.has_ranks and ctx.tp_size > 1
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel layout
+# ---------------------------------------------------------------------------
+def attn_shard_mode(cfg: LMConfig, ctx: Ctx) -> str:
+    """"heads" when the (repeated) head axes divide tp; otherwise
+    "head_dim", or "pad_heads" for ``attn_mode="pad"``."""
+    tp = ctx.tp_size if ctx is not None else 1
+    if tp <= 1:
+        return "heads"
+    kv_eff = cfg.n_kv_heads * cfg.kv_repeat_for(tp)
+    if cfg.n_heads % tp == 0 and kv_eff % tp == 0 and cfg.n_heads % kv_eff == 0:
+        return "heads"
+    if cfg.attn_mode == "pad":
+        return "pad_heads"
+    if cfg.hd % tp:
+        raise ValueError(f"{cfg.name}: neither heads ({cfg.n_heads}) nor head_dim "
+                         f"({cfg.hd}) shard over tp={tp}")
+    return "head_dim"
+
+
+def padded_head_layout(cfg: LMConfig, tp: int) -> Tuple[int, int, int]:
+    """(query heads a KV group, padded to, effective KV heads) of the
+    "pad_heads" mode: each group's query heads padded so that the group
+    splits evenly over its repeated KV heads."""
+    nkv = cfg.n_kv_heads
+    qpg = cfg.n_heads // nkv
+    step = tp // math.gcd(nkv, tp)
+    qpg_pad = -(-qpg // step) * step
+    kv_eff = nkv * cfg.kv_repeat_for(tp)
+    if (nkv * qpg_pad) % tp or (nkv * qpg_pad) % kv_eff:
+        raise ValueError(f"{cfg.name}: no padded head layout over tp={tp}")
+    return qpg, qpg_pad, kv_eff
+
+
+def kv_eff_heads(cfg: LMConfig, ctx: Ctx) -> int:
+    """The KV heads a decode cache holds on a mesh."""
+    mode = attn_shard_mode(cfg, ctx)
+    if mode == "heads":
+        return cfg.n_kv_heads * cfg.kv_repeat_for(ctx.tp_size if ctx is not None else 1)
+    if mode == "pad_heads":
+        return padded_head_layout(cfg, ctx.tp_size)[2]
+    return cfg.n_kv_heads
+
+
+def _kv_sharded(cfg: LMConfig, ctx: MeshContext) -> bool:
+    return cfg.n_kv_heads % max(ctx.tp_size, 1) == 0
+
+
+def norm_specs(cfg: LMConfig, ctx: MeshContext) -> Dict[str, Spec]:
+    return {n: (None, None) for n in (("scale", "bias") if cfg.norm == "layernorm"
+                                       else ("scale",))}
+
+
+def attn_specs(cfg: LMConfig, ctx: MeshContext) -> Dict[str, Spec]:
+    fsdp, tp = ctx.fsdp_axis(), ctx.tp_axis()
+    if attn_shard_mode(cfg, ctx) == "heads":
+        kv_tp = tp if _kv_sharded(cfg, ctx) else None
+        return {"wq": (None, fsdp, tp, None), "wk": (None, fsdp, kv_tp, None),
+                "wv": (None, fsdp, kv_tp, None), "wo": (None, tp, None, fsdp)}
+    return {"wq": (None, fsdp, None, tp), "wk": (None, fsdp, None, tp),
+            "wv": (None, fsdp, None, tp), "wo": (None, None, tp, fsdp)}
+
+
+def mlp_specs(cfg: LMConfig, ctx: MeshContext) -> Dict[str, Spec]:
+    fsdp, tp = ctx.fsdp_axis(), ctx.tp_axis()
+    out = {"w_up": (None, fsdp, tp), "w_down": (None, tp, fsdp)}
+    if cfg.mlp in ("swiglu", "geglu"):
+        out["w_gate"] = (None, fsdp, tp)
+    return out
+
+
+def dense_block_specs(cfg: LMConfig, ctx: MeshContext) -> Dict[str, Dict[str, Spec]]:
+    p = {"attn": attn_specs(cfg, ctx), "mlp": mlp_specs(cfg, ctx),
+         "ln_attn": norm_specs(cfg, ctx), "ln_mlp": norm_specs(cfg, ctx)}
+    if cfg.block_pattern == "gemma2":
+        p["ln_attn_post"] = norm_specs(cfg, ctx)
+        p["ln_mlp_post"] = norm_specs(cfg, ctx)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -110,6 +211,36 @@ def _qkv(p: Params, x: torch.Tensor, cos: Optional[torch.Tensor],
     return q, k, v
 
 
+def _qkv_tp(p: Params, x: torch.Tensor, cos: Optional[torch.Tensor],
+            sin: Optional[torch.Tensor], cfg: LMConfig,
+            ctx: MeshContext) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k, v on a mesh ([B, S, heads, hd]): each rank's heads in "heads"
+    and "pad_heads" mode (the KV heads repeated, the padded query heads
+    zero), every head whole in "head_dim" mode."""
+    mode = attn_shard_mode(cfg, ctx)
+    xf = sh.copy_to_tp(x, ctx)
+    rope = (lambda t: apply_rope(t, cos, sin)) if uses_rope(cfg) else (lambda t: t)
+    if mode == "heads":
+        q = rope(_project(xf, p["wq"]))
+        if _kv_sharded(cfg, ctx):
+            return q, rope(_project(xf, p["wk"])), _project(xf, p["wv"])
+        rep = cfg.kv_repeat_for(ctx.tp_size)
+        k, v = (t.repeat_interleave(rep, dim=2) for t in
+                (rope(_project(x, p["wk"])), _project(x, p["wv"])))
+        return q, sh.scatter_to_tp(k, 2, ctx), sh.scatter_to_tp(v, 2, ctx)
+    q, k, v = (sh.gather_from_tp(_project(xf, p[w]), -1, ctx) for w in ("wq", "wk", "wv"))
+    q, k = rope(q), rope(k)
+    if mode == "head_dim":
+        return q, k, v
+    qpg, qpg_pad, kv_eff = padded_head_layout(cfg, ctx.tp_size)
+    b, s = q.shape[:2]
+    q = F.pad(q.reshape(b, s, cfg.n_kv_heads, qpg, cfg.hd), (0, 0, 0, qpg_pad - qpg))
+    q = q.reshape(b, s, cfg.n_kv_heads * qpg_pad, cfg.hd)
+    rep = kv_eff // cfg.n_kv_heads
+    k, v = (t.repeat_interleave(rep, dim=2) for t in (k, v))
+    return tuple(sh.scatter_to_tp(t, 2, ctx) for t in (q, k, v))
+
+
 def _out(p: Params, o: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """o [B, H, S, hd] (the kernel's output) -> [B, S, d] in x's dtype."""
     b, h, s, hd = o.shape
@@ -118,38 +249,136 @@ def _out(p: Params, o: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return y.reshape(b, s, -1).to(x.dtype)
 
 
+def _out_tp(p: Params, o: torch.Tensor, x: torch.Tensor, cfg: LMConfig,
+            ctx: MeshContext) -> torch.Tensor:
+    """The output projection on a mesh, from the kernel's o over this
+    rank's heads ("heads", "pad_heads") or every head ("head_dim"): summed
+    over tp."""
+    mode = attn_shard_mode(cfg, ctx)
+    if mode == "pad_heads":  # every rank's heads, the padding dropped
+        qpg, qpg_pad, _ = padded_head_layout(cfg, ctx.tp_size)
+        o = sh.gather_from_tp(o, 1, ctx)
+        b, _, s, hd = o.shape
+        o = o.reshape(b, cfg.n_kv_heads, qpg_pad, s, hd)[:, :, :qpg].reshape(
+            b, cfg.n_heads, s, hd)
+    if mode != "heads":  # this rank's slice of each head's dimensions
+        o = sh.scatter_to_tp(o, -1, ctx)
+    return sh.reduce_from_tp(_out(p, o, x), ctx)
+
+
 def apply_attn(p: Params, x: torch.Tensor, cos: Optional[torch.Tensor],
                sin: Optional[torch.Tensor], cfg: LMConfig,
-               window: Optional[int]) -> torch.Tensor:
+               window: Optional[int], ctx: Ctx = None) -> torch.Tensor:
     """Full-sequence attention (prefill). x: [B, S, D].  Causal unless the
     config says otherwise or the model is an encoder (bidirectional)."""
-    q, k, v = _qkv(p, x, cos, sin, cfg)
+    tp = _tp(ctx)
+    q, k, v = _qkv_tp(p, x, cos, sin, cfg, ctx) if tp else _qkv(p, x, cos, sin, cfg)
     o = flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         causal=cfg.causal and not cfg.is_encoder, window=window, softcap=cfg.attn_softcap,
         scale=cfg.q_scaling(),
     )
-    return _out(p, o, x)
+    return _out_tp(p, o, x, cfg, ctx) if tp else _out(p, o, x)
+
+
+def _seq_sharded_decode(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
+                        pos: int, cfg: LMConfig, window: Optional[int],
+                        ctx: MeshContext) -> torch.Tensor:
+    """One query per row against a cache whose positions are sharded over
+    dp (this rank's ``Smax / dp`` of them): each rank's (max, sum, weighted
+    values) over its keys, merged over dp by one max and two sum
+    all-reduces.  q [B, 1, H, hd] -> o [B, H, 1, hd].
+
+    The local part is the plain version, on CPU tensors only (the decode
+    kernel writes no logsumexp to merge, so CUDA tensors raise; fake ones
+    get its outputs' shapes), counted under an op counter at the flash
+    kernel's formula."""
+    if q.device.type != "cpu":
+        raise NotImplementedError(
+            "decode with the cache's positions sharded over dp (batch not divisible "
+            f"by dp {ctx.dp_size}) has no kernel: flash_attention's decode route "
+            "writes no logsumexp for the ranks' outputs to be merged")
+    index, _ = ctx.coordinate(ctx.dp)
+    sl = cache_k.shape[1]
+    local = pos - index * sl
+
+    def part() -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        b, _, h, hd = q.shape
+        if _cost.is_fake(q):  # the dry run: the kernel's outputs, nothing computed
+            return (q.new_empty((b, h, 1, 1), dtype=torch.float32),
+                    q.new_empty((b, h, 1, 1), dtype=torch.float32),
+                    q.new_empty((b, h, 1, hd), dtype=torch.float32))
+        g = h // cache_k.shape[2]
+        kk = cache_k.repeat_interleave(g, dim=2).float()
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) * cfg.q_scaling()
+        if cfg.attn_softcap:
+            s = cfg.attn_softcap * torch.tanh(s / cfg.attn_softcap)
+        key = torch.arange(sl, device=q.device)
+        seen = key <= local
+        if window is not None:
+            seen &= key > local - window
+        s = torch.where(seen, s, torch.full_like(s, -1e30))
+        m = s.amax(-1, keepdim=True)
+        w = torch.exp(s - m)
+        return m, w.sum(-1, keepdim=True), torch.einsum(
+            "bhqk,bkhd->bhqd", w, cache_v.repeat_interleave(g, dim=2).float())
+
+    if _cost.counting():
+        with _cost.kernel("flash_attention", *flash_cost(
+                q.transpose(1, 2), cache_k.transpose(1, 2), True, window, local)):
+            m, l, o = part()
+    else:
+        m, l, o = part()
+    groups = [ctx.group(a) for a in ctx.dp]
+    top = m
+    for grp in groups:
+        top = sh.all_reduce(top, grp, "max")
+    scale = torch.exp(m - top)  # 0 on a rank that sees none of the keys
+    l, o = l * scale, o * scale
+    for grp in groups:
+        l, o = sh.all_reduce(l, grp), sh.all_reduce(o, grp)
+    return (o / l).to(q.dtype)
 
 
 def decode_attn(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
                 cache_v: torch.Tensor, pos: int, cos: torch.Tensor,
                 sin: torch.Tensor, cfg: LMConfig,
-                window: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                window: Optional[int],
+                ctx: Ctx = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token decode against a KV cache [B, Smax, KV, hd]; returns
     (y, cache_k, cache_v).  The new token's k and v are written into the
     cache at ``pos`` in place (the reference returns updated copies); the
     attention reads positions 0..pos of the cache, causally, with cos and
-    sin of position ``pos``."""
-    q, k, v = _qkv(p, x, cos, sin, cfg)
-    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
-    o = flash_attention(
-        q.transpose(1, 2), cache_k.transpose(1, 2), cache_v.transpose(1, 2),
-        causal=True, window=window, softcap=cfg.attn_softcap,
-        scale=cfg.q_scaling(), q_offset=pos,
-    )
-    return _out(p, o, x), cache_k, cache_v
+    sin of position ``pos``.  On a mesh the cache is this rank's shard
+    (``TransformerLM.cache_specs``): its KV heads in "heads" mode, every
+    repeated KV head otherwise; positions sharded over dp where the batch
+    is not (``seq_shard_ok``), which the attention then sums over dp."""
+    tp = _tp(ctx)
+    q, k, v = _qkv_tp(p, x, cos, sin, cfg, ctx) if tp else _qkv(p, x, cos, sin, cfg)
+    mode = attn_shard_mode(cfg, ctx) if tp else "heads"
+    if mode == "pad_heads":  # the cache holds every repeated KV head
+        k, v = (sh.gather_from_tp(t, 2, ctx) for t in (k, v))
+    seq = ctx is not None and ctx.has_ranks and ctx.seq_shard_ok(x.shape[0])
+    at = pos
+    if seq:
+        index, _ = ctx.coordinate(ctx.dp)
+        at = pos - index * cache_k.shape[1]
+    if 0 <= at < cache_k.shape[1]:
+        cache_k[:, at] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, at] = v[:, 0].to(cache_v.dtype)
+    ck, cv = cache_k, cache_v
+    if mode == "pad_heads":  # this rank's repeated KV heads
+        ck, cv = (sh.scatter_to_tp(t, 2, ctx) for t in (cache_k, cache_v))
+    if seq:
+        o = _seq_sharded_decode(q, ck, cv, pos, cfg, window, ctx)
+    else:
+        o = flash_attention(
+            q.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2),
+            causal=True, window=window, softcap=cfg.attn_softcap,
+            scale=cfg.q_scaling(), q_offset=pos,
+        )
+    y = _out_tp(p, o, x, cfg, ctx) if tp else _out(p, o, x)
+    return y, cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------
@@ -167,8 +396,11 @@ def mlp_scales(cfg: LMConfig, n_layers: Optional[int] = None) -> Mapping[str, fl
     return {"w_up": s_in, "w_down": s_out}
 
 
-def apply_mlp(p: Params, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
-    """SwiGLU, GeGLU or GELU (tanh approximation, as ``jax.nn.gelu``)."""
+def apply_mlp(p: Params, x: torch.Tensor, cfg: LMConfig, ctx: Ctx = None) -> torch.Tensor:
+    """SwiGLU, GeGLU or GELU (tanh approximation, as ``jax.nn.gelu``); on a
+    mesh over this rank's columns of d_ff, summed over tp."""
+    if _tp(ctx):
+        return sh.reduce_from_tp(apply_mlp(p, sh.copy_to_tp(x, ctx), cfg), ctx)
     if cfg.mlp in ("swiglu", "geglu"):
         g = x @ p["w_gate"]
         u = x @ p["w_up"]
@@ -191,23 +423,23 @@ def _sandwich(p: Mapping[str, Params], name: str, h: torch.Tensor,
 
 def apply_dense_block(p: Mapping[str, Params], x: torch.Tensor,
                       cos: Optional[torch.Tensor], sin: Optional[torch.Tensor],
-                      cfg: LMConfig, window: Optional[int]) -> torch.Tensor:
+                      cfg: LMConfig, window: Optional[int], ctx: Ctx = None) -> torch.Tensor:
     """Pre-norm block: x + attn(norm(x)), then + mlp(norm(.)); gemma2 also
     norms each sublayer's output (``ln_attn_post``, ``ln_mlp_post``)."""
-    h = apply_attn(p["attn"], apply_norm(p["ln_attn"], x, cfg), cos, sin, cfg, window)
+    h = apply_attn(p["attn"], apply_norm(p["ln_attn"], x, cfg), cos, sin, cfg, window, ctx)
     x = x + _sandwich(p, "ln_attn_post", h, cfg)
-    h = apply_mlp(p["mlp"], apply_norm(p["ln_mlp"], x, cfg), cfg)
+    h = apply_mlp(p["mlp"], apply_norm(p["ln_mlp"], x, cfg), cfg, ctx)
     return x + _sandwich(p, "ln_mlp_post", h, cfg)
 
 
 def decode_dense_block(
     p: Mapping[str, Params], x: torch.Tensor, cache_k: torch.Tensor,
     cache_v: torch.Tensor, pos: int, cos: Optional[torch.Tensor],
-    sin: Optional[torch.Tensor], cfg: LMConfig, window: Optional[int],
+    sin: Optional[torch.Tensor], cfg: LMConfig, window: Optional[int], ctx: Ctx = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     h = apply_norm(p["ln_attn"], x, cfg)
     h, cache_k, cache_v = decode_attn(p["attn"], h, cache_k, cache_v, pos, cos,
-                                      sin, cfg, window)
+                                      sin, cfg, window, ctx)
     x = x + _sandwich(p, "ln_attn_post", h, cfg)
-    h = apply_mlp(p["mlp"], apply_norm(p["ln_mlp"], x, cfg), cfg)
+    h = apply_mlp(p["mlp"], apply_norm(p["ln_mlp"], x, cfg), cfg, ctx)
     return x + _sandwich(p, "ln_mlp_post", h, cfg), cache_k, cache_v

@@ -34,6 +34,18 @@ to a multiple of ``VOCAB_PAD`` and the padded logits are pushed to
                                -> (hidden states, aux): differentiable
   loss_fn(batch)               -> (total loss, metrics)     [train]
 
+On a mesh (``shard_parameters(ctx)``, ``ctx`` a ``sharding.MeshContext``
+over ranks) every parameter becomes a DTensor placed by ``param_specs``
+(the reference's ``PartitionSpec`` tree, stacked over the layers): FSDP
+over the dp axes and tensor parallelism over tp.  A layer gathers its
+weights over dp when it runs (inside its rematerialised region, so they
+are gathered again for the backward and freed between) and takes its tp
+shards as plain tensors, which the kernels see; the gradients come back
+summed over dp into the shards (DTensor's reduce-scatter).  The
+embedding and the head are vocab-parallel where tp divides the padded
+vocabulary, and the loss's logsumexp is then summed over tp.  The batch
+is each rank's dp shard.
+
 As in the reference, ``prefill`` returns logits only: it hands no state
 to ``decode_step``, which takes token ids (a patch prefix is not
 decoded), and an encoder has neither a cache nor a decode step.  The
@@ -58,7 +70,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import sharding as sh
 from ..core.engine import DeviceLike, resolve_device
+from ..sharding import MeshContext, Spec, single_device_ctx
 from . import layers as ly
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -123,9 +137,22 @@ class DenseBlock(nn.Module):
         return getattr(self, name)
 
 
+def _dtensor(p: Any) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(p, DTensor)
+
+
+def _tree_get(tree: Mapping[str, Any], path: Tuple[str, ...]) -> Any:
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 class TransformerLM(nn.Module):
     def __init__(self, cfg: LMConfig, *, device: DeviceLike = None) -> None:
         super().__init__()
+        self.ctx: MeshContext = single_device_ctx()
         if cfg.block_pattern not in BLOCK_PATTERNS:
             raise ValueError(f"{cfg.name}: unknown block pattern {cfg.block_pattern!r} "
                              f"(known: {BLOCK_PATTERNS})")
@@ -137,7 +164,9 @@ class TransformerLM(nn.Module):
         if cfg.mlp not in ("swiglu", "geglu", "gelu"):
             raise ValueError(f"unknown mlp {cfg.mlp!r}")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        # "meta" builds the shapes alone (the specs' and counts' tests)
+        self.device = (torch.device("meta") if str(device) == "meta"
+                       else resolve_device(device))
         self.dtype = getattr(torch, cfg.dtype)
         self.vp = padded_vocab(cfg.vocab)
         dev, dt = self.device, self.dtype
@@ -210,7 +239,15 @@ class TransformerLM(nn.Module):
 
     # ------------------------------------------------------------- embedding
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embed[tokens.long()].to(self.dtype)
+        table = self._local(self.embed)
+        if self._vocab_tp:  # this rank's rows of the table; the rows summed over tp
+            off, n = self._vocab_offset(table.shape[0]), table.shape[0]
+            ids = tokens.long() - off
+            hit = (ids >= 0) & (ids < n)
+            x = table[ids.clamp(0, n - 1)] * hit[..., None].to(table.dtype)
+            x = sh.reduce_from_tp(x, self.ctx).to(self.dtype)
+        else:
+            x = table[tokens.long()].to(self.dtype)
         if self.cfg.embed_scale:
             x = x * math.sqrt(self.cfg.d_model)
         return x
@@ -256,10 +293,12 @@ class TransformerLM(nn.Module):
                    window: Optional[int], aux: bool):
         """One moe-pattern layer: (x after it, its load-balance loss or
         None)."""
-        cfg = self.cfg
-        x = x + ly.apply_attn(blk.attn, ly.apply_norm(blk.ln_attn, x, cfg), cos, sin,
-                              cfg, window)
-        m, lb = moe_mod.apply_moe(blk.moe, ly.apply_norm(blk.ln_mlp, x, cfg), cfg, aux=aux)
+        cfg, ctx = self.cfg, self.ctx
+        blk = self._local(blk)
+        x = x + ly.apply_attn(blk["attn"], ly.apply_norm(blk["ln_attn"], x, cfg), cos, sin,
+                              cfg, window, ctx)
+        m, lb = moe_mod.apply_moe(blk["moe"], ly.apply_norm(blk["ln_mlp"], x, cfg), cfg,
+                                  aux=aux, ctx=ctx)
         return x + m, lb
 
     def _apply_stack(self, x: torch.Tensor,
@@ -270,7 +309,7 @@ class TransformerLM(nn.Module):
         mamba layer and each application of the shared block) is
         rematerialised in the backward, as the reference's scan body under
         ``jax.checkpoint``."""
-        cfg = self.cfg
+        cfg, ctx, loc = self.cfg, self.ctx, self._local
         cos, sin = (None, None) if cfg.block_pattern == "mamba2" else self._rope(
             torch.arange(x.shape[1], device=x.device))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -282,10 +321,10 @@ class TransformerLM(nn.Module):
             # zamba2: the shared block after each full group of
             # hybrid_every mamba blocks; the trailing ones run alone
             for idx, blk in enumerate(self.blocks):
-                x = run(lambda h, blk=blk: ssm_mod.apply_mamba_block(blk, h, cfg), x)
+                x = run(lambda h, blk=blk: ssm_mod.apply_mamba_block(loc(blk), h, cfg, ctx), x)
                 if self.shared is not None and (idx + 1) % cfg.hybrid_every == 0:
-                    x = run(lambda h: ly.apply_dense_block(self.shared, h, cos, sin, cfg,
-                                                           None), x)
+                    x = run(lambda h: ly.apply_dense_block(loc(self.shared), h, cos, sin, cfg,
+                                                           None, ctx), x)
             return x, aux
         for idx, blk in enumerate(self.blocks):
             w = self._window_for(idx)
@@ -295,8 +334,8 @@ class TransformerLM(nn.Module):
                 if lb is not None:
                     aux = aux + lb
             else:
-                x = run(lambda h, blk=blk, w=w: ly.apply_dense_block(blk, h, cos, sin,
-                                                                     cfg, w), x)
+                x = run(lambda h, blk=blk, w=w: ly.apply_dense_block(loc(blk), h, cos, sin,
+                                                                     cfg, w, ctx), x)
         return x, aux
 
     def _head_logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -305,16 +344,22 @@ class TransformerLM(nn.Module):
         reference's ``preferred_element_type=float32``), then the softcap
         and the padded entries' -1e30."""
         cfg = self.cfg
-        head = self.embed if self.head is None else self.head
+        head = self._local(self.embed if self.head is None else self.head)
+        bias = self.vocab_bias
+        if self._vocab_tp:  # this rank's columns of the vocabulary
+            x = sh.copy_to_tp(x, self.ctx)
+            bias = bias[self._vocab_offset(head.shape[0]):][:head.shape[0]]
         logits = F.linear(x.float(), head.float())
         if cfg.logit_softcap:
             logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-        return logits + self.vocab_bias
+        return logits + bias
 
     @torch.no_grad()
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        """``_head_logits`` for serving (no autograd)."""
-        return self._head_logits(x)
+        """``_head_logits`` for serving (no autograd), over the whole
+        vocabulary."""
+        logits = self._head_logits(x)
+        return sh.gather_from_tp(logits, -1, self.ctx) if self._vocab_tp else logits
 
     @torch.no_grad()
     def forward(self, tokens: Optional[torch.Tensor] = None, *,
@@ -325,7 +370,7 @@ class TransformerLM(nn.Module):
         ``patches`` model also takes ``patches`` [B, P, d] (P may be 0),
         and returns [B, P + S, d]."""
         x, _ = self._apply_stack(self._inputs(tokens, frames, patches))
-        return ly.apply_norm(self.final_norm, x, self.cfg)
+        return ly.apply_norm(self._local(self.final_norm), x, self.cfg)
 
     @torch.no_grad()
     def prefill(self, tokens: Optional[torch.Tensor] = None, *,
@@ -369,6 +414,93 @@ class TransformerLM(nn.Module):
             stacked("shared", [self.shared])
         return sorted(out, key=lambda item: item[0])
 
+    # ------------------------------------------------------------------ mesh
+    def param_specs(self, ctx: Optional[MeshContext] = None) -> Dict[str, Any]:
+        """The reference's ``param_specs`` over ``ctx`` (default the
+        model's): a spec per reference leaf, stacked leaves with their
+        leading layer axis (None), the vocabulary on tp where tp divides
+        the padded vocabulary."""
+        cfg, ctx = self.cfg, ctx or self.ctx
+        fsdp, tp = ctx.fsdp_axis(), ctx.tp_axis()
+        vocab_tp = tp if self.vp % max(ctx.tp_size, 1) == 0 else None
+        p: Dict[str, Any] = {}
+        if cfg.frontend != "frames":
+            p["embed"] = (vocab_tp, fsdp)
+        if cfg.block_pattern in ("mamba2", "zamba2"):
+            p["blocks"] = ssm_mod.mamba_block_specs(cfg, ctx)
+        elif cfg.block_pattern == "moe":
+            p["blocks"] = {"attn": ly.attn_specs(cfg, ctx), "ln_attn": ly.norm_specs(cfg, ctx),
+                           "ln_mlp": ly.norm_specs(cfg, ctx),
+                           "moe": moe_mod.moe_specs(cfg, ctx)}
+        else:
+            p["blocks"] = ly.dense_block_specs(cfg, ctx)
+        if cfg.block_pattern == "zamba2":
+            p["shared"] = ly.dense_block_specs(cfg, ctx)
+        p["final_norm"] = ly.norm_specs(cfg, ctx)
+        if not cfg.tie_embeddings:
+            p["head"] = (vocab_tp, fsdp)
+        return p
+
+    def parameter_specs(self, ctx: Optional[MeshContext] = None
+                        ) -> List[Tuple[str, nn.Parameter, Spec]]:
+        """(name, parameter, its own spec) for every parameter: a stacked
+        leaf's spec without its layer axis."""
+        specs = self.param_specs(ctx)
+        out = []
+        for name, param in self.named_parameters():
+            path = tuple(k for k in name.split(".") if not k.isdigit())
+            spec = _tree_get(specs, path)
+            out.append((name, param, spec[1:] if path[0] in ("blocks", "shared",
+                                                             "final_norm") else spec))
+        return out
+
+    def shard_parameters(self, ctx: MeshContext) -> "TransformerLM":
+        """Place every parameter on ``ctx``'s mesh of ranks as a DTensor by
+        its spec (each rank keeps its shard of the whole value it holds)."""
+        from torch.distributed.tensor import DTensor
+
+        names = ctx.mesh.mesh_dim_names
+        for name, param, spec in self.parameter_specs(ctx):
+            local = ctx.shard(param.detach(), spec).clone()
+            new = nn.Parameter(DTensor.from_local(local, ctx.mesh, sh.placements(spec, names),
+                                                  run_check=False, shape=param.shape,
+                                                  stride=param.stride()))
+            owner, _, leaf = name.rpartition(".")
+            mod = self.get_submodule(owner) if owner else self
+            if isinstance(mod, nn.ParameterDict):
+                mod[leaf] = new
+            else:
+                setattr(mod, leaf, new)
+        self.ctx = ctx
+        return self
+
+    def _local(self, p: Any) -> Any:
+        """A parameter (or a layer's nested mapping of them) as the plain
+        tensors the layer runs on: a DTensor gathered over the dp axes
+        (its gradient summed back over dp into the shard), this rank's tp
+        shard; anything else as it is (everything, without ranks)."""
+        if not self.ctx.has_ranks:
+            return p
+        if isinstance(p, (nn.ParameterDict, dict)):
+            return {k: self._local(v) for k, v in p.items()}
+        if isinstance(p, DenseBlock):
+            return {k: self._local(v) for k, v in p.named_children()}
+        if not _dtensor(p):
+            return p
+        from torch.distributed.tensor import Partial, Replicate
+
+        dp = [n in self.ctx.dp for n in p.device_mesh.mesh_dim_names]
+        gathered = [Replicate() if d else pl for d, pl in zip(dp, p.placements)]
+        grads = [Partial() if d else pl for d, pl in zip(dp, p.placements)]
+        return p.redistribute(p.device_mesh, gathered).to_local(grad_placements=grads)
+
+    @property
+    def _vocab_tp(self) -> bool:
+        return self.ctx.has_ranks and self.ctx.tp_size > 1 and self.vp % self.ctx.tp_size == 0
+
+    def _vocab_offset(self, n_local: int) -> int:
+        return self.ctx.tp_rank() * n_local if self._vocab_tp else 0
+
     def forward_train(self, tokens: Optional[torch.Tensor] = None, *,
                       frames: Optional[torch.Tensor] = None,
                       patches: Optional[torch.Tensor] = None
@@ -378,7 +510,7 @@ class TransformerLM(nn.Module):
         MoE layers' summed load-balance loss (the reference's
         ``forward``)."""
         x, aux = self._apply_stack(self._inputs(tokens, frames, patches), train=True)
-        return ly.apply_norm(self.final_norm, x, self.cfg), aux
+        return ly.apply_norm(self._local(self.final_norm), x, self.cfg), aux
 
     def loss_fn(self, batch: Mapping[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -400,19 +532,74 @@ class TransformerLM(nn.Module):
                              dtype=labels.dtype, device=labels.device)
             labels = torch.cat([pad, labels], dim=1)
         mask = labels >= 0
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+        if self._vocab_tp:  # the logsumexp and the gold logit summed over tp
+            ctx, n = self.ctx, logits.shape[-1]
+            m = sh.tp_max(logits.amax(-1), ctx)
+            lse = m + torch.log(sh.reduce_from_tp(torch.exp(logits - m[..., None]).sum(-1), ctx))
+            ids = labels.clamp(min=0) - self._vocab_offset(n)
+            hit = (ids >= 0) & (ids < n)
+            gold = torch.gather(logits, -1, ids.clamp(0, n - 1)[..., None])[..., 0]
+            gold = sh.reduce_from_tp(torch.where(hit, gold, torch.zeros_like(gold)), ctx)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
         per_tok = torch.where(mask, lse - gold, torch.zeros_like(lse))
+        aux = aux / max(cfg.n_layers, 1)
+        if self.ctx.has_ranks and self.ctx.dp_size > 1:
+            # this dp shard's share: its token losses over the whole batch's
+            # count and its aux over dp; the gradients sum over dp
+            ntok = self._dp_sum(mask.sum().float()).clamp(min=1)
+            loss, aux = per_tok.sum() / ntok, aux / self.ctx.dp_size
+            metrics = {"loss": self._dp_sum(loss.detach()),
+                       "aux_loss": self._dp_sum(aux.detach()), "tokens": ntok}
+            return loss + 0.01 * aux, metrics
         ntok = mask.sum().clamp(min=1)
         loss = per_tok.sum() / ntok
-        metrics = {"loss": loss, "aux_loss": aux / max(cfg.n_layers, 1), "tokens": ntok}
+        metrics = {"loss": loss, "aux_loss": aux, "tokens": ntok}
         return loss + 0.01 * metrics["aux_loss"], metrics
 
+    def _dp_sum(self, x: torch.Tensor) -> torch.Tensor:
+        for a in self.ctx.dp:
+            x = sh.all_reduce(x, self.ctx.group(a))
+        return x
+
     # --------------------------------------------------------------- serving
-    def _kv_cache(self, n: int, batch: int, smax: int) -> Cache:
-        shape = (n, batch, smax, self.cfg.n_kv_heads, self.cfg.hd)
-        return {name: torch.zeros(shape, dtype=self.dtype, device=self.device)
-                for name in ("k", "v")}
+    def cache_specs(self, batch: int, ctx: Optional[MeshContext] = None) -> Dict[str, Any]:
+        """The reference's decode cache specs over ``ctx`` (default the
+        model's): the KV entries' batch over dp, or where the batch does
+        not divide dp (long-context decode at batch 1) their positions;
+        their KV heads over tp in "heads" mode; the mamba state's heads
+        over tp."""
+        cfg, ctx = self.cfg, ctx or self.ctx
+        bspec = ctx.batch_spec(batch, 0)[0]
+        seq_ax = ctx.dp_axis() if (bspec is None and ctx.dp) else None
+        kv_tp = ctx.tp_axis() if ly.attn_shard_mode(cfg, ctx) == "heads" else None
+        kv = (None, bspec, seq_ax, kv_tp, None)
+        if cfg.block_pattern in ("mamba2", "zamba2"):
+            mamba = ssm_mod.mamba_cache_specs(cfg, ctx, batch)
+            return mamba if cfg.block_pattern == "mamba2" else {
+                "mamba": mamba, "attn": {"k": kv, "v": kv}}
+        return {"k": kv, "v": kv}
+
+    def cache_shapes(self, batch: int, smax: int) -> Dict[str, Any]:
+        """The whole decode cache's shapes and dtypes, as ``cache_struct``
+        lays it out (on a mesh with every repeated KV head,
+        ``layers.kv_eff_heads``)."""
+        cfg = self.cfg
+        kv = ((batch, smax, ly.kv_eff_heads(cfg, self.ctx), cfg.hd), self.dtype)
+        if cfg.block_pattern in ("mamba2", "zamba2"):
+            k, G, ds = cfg.ssm.d_conv - 1, cfg.ssm.n_groups, cfg.ssm.d_state
+            di, nh = cfg.ssm.d_inner(cfg.d_model), cfg.ssm.n_heads(cfg.d_model)
+            L = cfg.n_layers
+            mamba = {"conv_x": ((L, batch, k, di), self.dtype),
+                     "conv_B": ((L, batch, k, G * ds), self.dtype),
+                     "conv_C": ((L, batch, k, G * ds), self.dtype),
+                     "h": ((L, batch, nh, cfg.ssm.head_dim, ds), torch.float32)}
+            if cfg.block_pattern == "mamba2":
+                return mamba
+            n_apps = cfg.n_layers // cfg.hybrid_every
+            return {"mamba": mamba, "attn": {n: ((n_apps,) + kv[0], kv[1]) for n in "kv"}}
+        return {n: ((cfg.n_layers,) + kv[0], kv[1]) for n in "kv"}
 
     def cache_struct(self, batch: int, smax: int) -> Cache:
         """A zeroed decode cache on the model's device, in the reference's
@@ -421,18 +608,23 @@ class TransformerLM(nn.Module):
         ``conv_C`` [L, B, K-1, C] in the model's dtype and ``h`` [L, B, nh,
         hd, ds] in fp32; for zamba2 ``{"mamba": those, "attn": {"k", "v"}}``
         with one KV entry per application of the shared block, [L //
-        hybrid_every, B, Smax, KV, hd].  An encoder has no cache."""
+        hybrid_every, B, Smax, KV, hd].  An encoder has no cache.  On a
+        mesh each tensor is this rank's shard by ``cache_specs``."""
         cfg = self.cfg
         if cfg.is_encoder:
             raise ValueError(f"{cfg.name}: an encoder has no decode cache")
-        if cfg.block_pattern in ("mamba2", "zamba2"):
-            mamba = ssm_mod.init_mamba_cache(cfg, cfg.n_layers, batch, self.dtype,
-                                             self.device)
-            if cfg.block_pattern == "mamba2":
-                return mamba
-            n_apps = cfg.n_layers // cfg.hybrid_every
-            return {"mamba": mamba, "attn": self._kv_cache(n_apps, batch, smax)}
-        return self._kv_cache(cfg.n_layers, batch, smax)
+        specs = self.cache_specs(batch)
+        sizes = sh.mesh_shape(self.ctx.mesh) if self.ctx.mesh is not None else {}
+
+        def zeros(shape_dt, spec):
+            if isinstance(shape_dt, dict):
+                return {n: zeros(shape_dt[n], spec[n]) for n in shape_dt}
+            shape, dt = shape_dt
+            if sizes:
+                shape = sh.local_shape(shape, spec, sizes)
+            return torch.zeros(shape, dtype=dt, device=self.device)
+
+        return zeros(self.cache_shapes(batch, smax), specs)
 
     @torch.no_grad()
     def decode_step(self, cache: Cache, token: torch.Tensor,
@@ -448,28 +640,30 @@ class TransformerLM(nn.Module):
         x = self._embed(token[:, None])
         cos, sin = (None, None) if cfg.block_pattern == "mamba2" else self._rope(
             torch.full((1,), pos, dtype=torch.int64, device=x.device))
+        ctx, loc = self.ctx, self._local
         if cfg.block_pattern in ("mamba2", "zamba2"):
             mamba = cache if cfg.block_pattern == "mamba2" else cache["mamba"]
             for idx, blk in enumerate(self.blocks):
                 x = ssm_mod.decode_mamba_block(
-                    blk, x, {n: c[idx] for n, c in mamba.items()}, cfg)
+                    loc(blk), x, {n: c[idx] for n, c in mamba.items()}, cfg, ctx)
                 if self.shared is not None and (idx + 1) % cfg.hybrid_every == 0:
                     app = idx // cfg.hybrid_every  # the shared block's application
                     x, _, _ = ly.decode_dense_block(
-                        self.shared, x, cache["attn"]["k"][app], cache["attn"]["v"][app],
-                        pos, cos, sin, cfg, None)
+                        loc(self.shared), x, cache["attn"]["k"][app],
+                        cache["attn"]["v"][app], pos, cos, sin, cfg, None, ctx)
         else:
             for idx, blk in enumerate(self.blocks):
                 w = self._window_for(idx)
+                p = loc(blk)
                 if cfg.block_pattern == "moe":
                     a, _, _ = ly.decode_attn(
-                        blk.attn, ly.apply_norm(blk.ln_attn, x, cfg), cache["k"][idx],
-                        cache["v"][idx], pos, cos, sin, cfg, w)
+                        p["attn"], ly.apply_norm(p["ln_attn"], x, cfg), cache["k"][idx],
+                        cache["v"][idx], pos, cos, sin, cfg, w, ctx)
                     x = x + a
-                    x = x + moe_mod.apply_moe(blk.moe, ly.apply_norm(blk.ln_mlp, x, cfg),
-                                              cfg, aux=False)[0]
+                    x = x + moe_mod.apply_moe(p["moe"], ly.apply_norm(p["ln_mlp"], x, cfg),
+                                              cfg, aux=False, ctx=ctx)[0]
                 else:
                     x, _, _ = ly.decode_dense_block(
-                        blk, x, cache["k"][idx], cache["v"][idx], pos, cos, sin, cfg, w)
-        x = ly.apply_norm(self.final_norm, x, cfg)
+                        p, x, cache["k"][idx], cache["v"][idx], pos, cos, sin, cfg, w, ctx)
+        x = ly.apply_norm(self._local(self.final_norm), x, cfg)
         return cache, self._logits(x)[:, 0]

@@ -24,8 +24,17 @@ w_down [E, f, d] in the model's dtype.  ``apply_moe`` returns ``(y,
 aux)`` as the reference's does: aux is the Switch-style
 ``load_balance_loss`` of the layer's routing, which training adds to the
 loss; the serving paths ask for none (``aux=False``: the reference's jit
-drops the unused value).  Expert parallelism over a mesh waits for
-ROADMAP Queue 1 item 14.
+drops the unused value).
+
+Expert parallelism (a mesh with tp > 1, the reference's ``shard_map``
+branch): the experts shard over tp (``moe_specs``), every tp rank routes
+the same tokens of its dp shard with the whole router, and computes only
+its experts' rows: the (token, slot) pairs sorted by expert, the rank's
+segment rotated to row 0 and cut to a static ``capacity`` (GShard-style:
+``CAPACITY_FACTOR`` times its even share of the rows, rounded up to 128),
+pairs past it dropped in the sorted order; the outputs are summed over tp.
+The layout is static, so a fake-tensor dry run takes it too.  Without a
+mesh (or at tp 1) the path above is the dropless one.
 """
 from __future__ import annotations
 
@@ -35,10 +44,21 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import sharding as sh
 from ..kernels.moe_gemm import moe_grouped_gemm
+from ..sharding import MeshContext, Spec
 from .config import LMConfig
 
 Params = Mapping[str, torch.Tensor]
+
+CAPACITY_FACTOR = 1.25
+CAPACITY_ROUND = 128  # the capacity is rounded up to a multiple of this
+
+
+def moe_specs(cfg: LMConfig, ctx: MeshContext) -> Dict[str, Spec]:
+    fsdp, tp = ctx.fsdp_axis(), ctx.tp_axis()
+    return {"router": (None, fsdp, None), "w_gate": (None, tp, fsdp, None),
+            "w_up": (None, tp, fsdp, None), "w_down": (None, tp, None, fsdp)}
 
 
 def moe_shapes(cfg: LMConfig) -> Tuple[Dict[str, Tuple[int, ...]], Dict[str, Tuple[int, ...]]]:
@@ -121,10 +141,75 @@ def _moe_local(xt: torch.Tensor, p: Params, cfg: LMConfig,
     return y.index_add_(0, st, out_rows * scale[:, None]), lb
 
 
-def apply_moe(p: Params, x: torch.Tensor, cfg: LMConfig, *,
-              aux: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+def expert_shard(xt: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
+                 wu: torch.Tensor, wd: torch.Tensor, cfg: LMConfig, e0: int,
+                 capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``_moe_local``: all tokens xt [t, d] routed with the
+    whole router, the contribution of the local experts e0 .. e0 + E_local
+    (wg, wu, wd their weights) over at most ``capacity`` rows: (y [t, d],
+    the load-balance loss)."""
+    topi, weights, probs = _route(xt, router, cfg)
+    lb = load_balance_loss(probs, topi, cfg.moe.n_experts)
+    return _expert_rows(xt, topi, weights, wg, wu, wd, e0, capacity), lb
+
+
+def _expert_rows(xt: torch.Tensor, topi: torch.Tensor, weights: torch.Tensor,
+                 wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor, e0: int,
+                 capacity: int) -> torch.Tensor:
+    """The local experts' weighted rows added back to their tokens: the
+    (token, slot) pairs sorted by expert, the segment from the first local
+    pair taken ``capacity`` long (wrapping), and pairs outside the local
+    experts or past ``capacity`` in the sorted order dropped."""
+    t, d = xt.shape
+    k = topi.shape[1]
+    e_local = wg.shape[0]
+    # a capacity past the pairs would take pairs twice (the reference wraps
+    # its index and does): at t k it takes each once, dropless
+    capacity = min(capacity, t * k)
+    eids, wts = topi.reshape(-1), weights.reshape(-1)
+    tids = torch.arange(t, device=xt.device).repeat_interleave(k)
+    order = torch.argsort(eids, stable=True)
+    se, st, sw = eids[order], tids[order], wts[order]
+    lo = torch.searchsorted(se, torch.tensor(e0, dtype=se.dtype, device=se.device))
+    idxr = (torch.arange(capacity, device=xt.device) + lo) % (t * k)
+    re = se[idxr]
+    valid = (re >= e0) & (re < e0 + e_local)
+    rows_idx = st[idxr]
+    counts = torch.zeros(e_local, dtype=torch.int64, device=xt.device).index_add_(
+        0, (re - e0).clamp(0, e_local - 1), valid.long())
+    cum = torch.cumsum(counts, 0)
+    gs = (cum.clamp(max=capacity) - (cum - counts).clamp(max=capacity)).to(torch.int32)
+    out_rows = _expert_compute(xt[rows_idx], gs, wg, wu, wd)
+    scale = (sw[idxr] * valid).to(out_rows.dtype)
+    y = torch.zeros((t, d), dtype=out_rows.dtype, device=xt.device)
+    return y.index_add_(0, rows_idx, out_rows * scale[:, None])
+
+
+def capacity_for(t_local: int, cfg: LMConfig, tp: int) -> int:
+    """A tp rank's row capacity over ``t_local`` tokens."""
+    cap = int(CAPACITY_FACTOR * t_local * cfg.moe.top_k / tp + CAPACITY_ROUND - 1)
+    return cap // CAPACITY_ROUND * CAPACITY_ROUND
+
+
+def apply_moe(p: Params, x: torch.Tensor, cfg: LMConfig, *, aux: bool = True,
+              ctx: Optional[MeshContext] = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """MoE FFN, x [B, S, d] -> (y [B, S, d] in x's dtype, the load-balance
-    loss, fp32 scalar; None when ``aux`` is false)."""
+    loss, fp32 scalar; None when ``aux`` is false).  On a mesh with tp > 1
+    x is this rank's dp shard and ``p`` holds its experts (expert
+    parallel); the loss is the rank's own, its mean over dp being the
+    reference's."""
     b, s, d = x.shape
-    y, lb = _moe_local(x.reshape(b * s, d), p, cfg, aux)
-    return y.reshape(b, s, d).to(x.dtype), lb
+    if ctx is None or not ctx.has_ranks or ctx.tp_size <= 1:
+        y, lb = _moe_local(x.reshape(b * s, d), p, cfg, aux)
+        return y.reshape(b, s, d).to(x.dtype), lb
+    tp = ctx.tp_size
+    xt = x.reshape(b * s, d)
+    # every tp rank routes the same tokens alike (the routing and its loss
+    # are replicated), then computes its experts' rows
+    topi, weights, probs = _route(xt, p["router"], cfg)
+    lb = load_balance_loss(probs, topi, cfg.moe.n_experts) if aux else None
+    e_per = cfg.moe.n_experts // tp
+    y = _expert_rows(sh.copy_to_tp(xt, ctx), topi, sh.copy_to_tp(weights, ctx),
+                     p["w_gate"], p["w_up"], p["w_down"], ctx.tp_rank() * e_per,
+                     capacity_for(xt.shape[0], cfg, tp))
+    return sh.reduce_from_tp(y, ctx).reshape(b, s, d).to(x.dtype), lb

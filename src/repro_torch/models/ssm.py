@@ -1,7 +1,6 @@
 """Mamba2 (SSD) blocks on PyTorch: the full-sequence and decode paths.
 
-The port of the JAX package's ``repro.models.ssm`` on one device (its
-tensor-parallel layout has no counterpart here), for the mamba2 pattern
+The port of the JAX package's ``repro.models.ssm``, for the mamba2 pattern
 and for zamba2's mamba2 layers, which take the same paths and the same
 per-layer cache.  A layer's parameters
 are a mapping of tensors in the reference's layout (one layer's slice of
@@ -17,19 +16,50 @@ kernel on the card, its plain version on the CPU) with B and C passed as
 version ``kernels.ssd_scan.ssd_scan_plain``.  ``decode_mamba_block`` is
 the O(1) recurrent step in plain torch (the reference has no kernel for
 it).
+
+On a mesh (``ctx`` over ranks with tp > 1) the inner dimension and so the
+SSM heads shard over tp (``mamba_block_specs``, the reference's layout):
+each rank scans its heads with the group's B and C, which every rank
+computes whole; the gated norm's mean square is summed over tp and the
+output projection's partial products too.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from .. import sharding as sh
 from ..kernels.ssd_scan import ssd_scan
+from ..sharding import MeshContext, Spec
 from .config import LMConfig
 
 Params = Mapping[str, torch.Tensor]
+Ctx = Optional[MeshContext]
+
+
+def _tp(ctx: Ctx) -> bool:
+    return ctx is not None and ctx.has_ranks and ctx.tp_size > 1
+
+
+def mamba_block_specs(cfg: LMConfig, ctx: MeshContext) -> Dict[str, Spec]:
+    fsdp, tp = ctx.fsdp_axis(), ctx.tp_axis()
+    return {
+        "wz": (None, fsdp, tp), "wx": (None, fsdp, tp), "wB": (None, fsdp, None),
+        "wC": (None, fsdp, None), "wdt": (None, fsdp, tp), "conv_x": (None, None, tp),
+        "conv_B": (None, None, None), "conv_C": (None, None, None), "A_log": (None, tp),
+        "D": (None, tp), "dt_bias": (None, tp), "norm_scale": (None, tp), "ln": (None, None),
+        "out_proj": (None, tp, fsdp),
+    }
+
+
+def mamba_cache_specs(cfg: LMConfig, ctx: MeshContext, batch: int) -> Dict[str, Spec]:
+    bspec = ctx.batch_spec(batch, 0)[0]
+    tp = ctx.tp_axis()
+    return {"conv_x": (None, bspec, None, tp), "conv_B": (None, bspec, None, None),
+            "conv_C": (None, bspec, None, None), "h": (None, bspec, tp, None, None)}
 
 
 def _dims(cfg: LMConfig):
@@ -86,9 +116,16 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+         ctx: Ctx = None) -> torch.Tensor:
+    """RMS norm over the last dimension; with ``ctx`` x holds this rank's
+    columns of it, whose squares are summed over tp."""
     xf = x.float()
-    var = (xf * xf).mean(-1, keepdim=True)
+    if _tp(ctx):
+        var = sh.reduce_partial((xf * xf).sum(-1, keepdim=True), ctx) / (
+            x.shape[-1] * ctx.tp_size)
+    else:
+        var = (xf * xf).mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
@@ -97,48 +134,41 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _projections(p: Params, x: torch.Tensor):
-    return x @ p["wz"], x @ p["wx"], x @ p["wB"], x @ p["wC"], x @ p["wdt"]
+def _projections(p: Params, x: torch.Tensor, ctx: Ctx = None):
+    """z, x, B, C, dt: on a mesh z, x and dt over this rank's heads, B and
+    C whole (then entering the rank's scan: ``copy_to_tp``)."""
+    xf = sh.copy_to_tp(x, ctx)
+    return xf @ p["wz"], xf @ p["wx"], x @ p["wB"], x @ p["wC"], xf @ p["wdt"]
 
 
-def apply_mamba_block(p: Params, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+def apply_mamba_block(p: Params, x: torch.Tensor, cfg: LMConfig,
+                      ctx: Ctx = None) -> torch.Tensor:
     """Full mamba2 residual block (norm -> SSD -> gated norm -> out),
     x [B, S, d]."""
     s, d, di, nh, hd, ds, G = _dims(cfg)
+    tp = ctx.tp_size if _tp(ctx) else 1
+    if tp > 1 and G > 1:
+        raise NotImplementedError(f"{cfg.name}: the heads shard over tp with one group only")
+    di, nh = di // tp, nh // tp
     b, seqlen, _ = x.shape
     res = x
     x = _rms(x, p["ln"])
-    z, xc, Bc, Cc, dt = _projections(p, x)
+    z, xc, Bc, Cc, dt = _projections(p, x, ctx)
     xc = F.silu(_causal_conv(xc, p["conv_x"]))
     Bc = F.silu(_causal_conv(Bc, p["conv_B"]))
     Cc = F.silu(_causal_conv(Cc, p["conv_C"]))
     dt = _softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     xh = xc.reshape(b, seqlen, nh, hd)
+    Bc, Cc = sh.copy_to_tp(Bc, ctx), sh.copy_to_tp(Cc, ctx)
     y = ssd_scan(xh, dt, A, Bc.view(b, seqlen, G, ds), Cc.view(b, seqlen, G, ds),
                  chunk=s.chunk)
     # D x is added in fp32 after the scan's rounding to x's dtype, as in
     # the reference
     y = y + xh.float() * p["D"][None, None, :, None]
     y = y.reshape(b, seqlen, di).to(x.dtype)
-    y = _rms(y * F.silu(z), p["norm_scale"])
-    return res + (y @ p["out_proj"]).to(res.dtype)
-
-
-def init_mamba_cache(cfg: LMConfig, n_layers: int, batch: int, dtype: torch.dtype,
-                     device: torch.device) -> Dict[str, torch.Tensor]:
-    """Zeroed decode state in the reference's layout: the last K-1 inputs
-    of each convolution (conv_x [L, B, K-1, d_inner], conv_B and conv_C
-    [L, B, K-1, G ds]) in the model's dtype, and the SSM state h [L, B, nh,
-    hd, ds] in fp32."""
-    s, d, di, nh, hd, ds, G = _dims(cfg)
-    k = s.d_conv - 1
-    return {
-        "conv_x": torch.zeros((n_layers, batch, k, di), dtype=dtype, device=device),
-        "conv_B": torch.zeros((n_layers, batch, k, G * ds), dtype=dtype, device=device),
-        "conv_C": torch.zeros((n_layers, batch, k, G * ds), dtype=dtype, device=device),
-        "h": torch.zeros((n_layers, batch, nh, hd, ds), dtype=torch.float32, device=device),
-    }
+    y = _rms(y * F.silu(z), p["norm_scale"], ctx=ctx)
+    return res + sh.reduce_from_tp(y @ p["out_proj"], ctx).to(res.dtype)
 
 
 def _conv_step(state: torch.Tensor, new: torch.Tensor,
@@ -150,16 +180,20 @@ def _conv_step(state: torch.Tensor, new: torch.Tensor,
 
 
 def decode_mamba_block(p: Params, x: torch.Tensor, cache: Mapping[str, torch.Tensor],
-                       cfg: LMConfig) -> torch.Tensor:
+                       cfg: LMConfig, ctx: Ctx = None) -> torch.Tensor:
     """Single-token recurrent update, O(1) in the context length: x [B, 1,
-    d] and one layer's slices of ``init_mamba_cache``.  The convolution
+    d] and one layer's slices of the model's decode cache
+    (``TransformerLM.cache_struct``, shapes ``cache_shapes``; on a mesh
+    this rank's shard of them, ``mamba_cache_specs``).  The convolution
     windows and the state are written into ``cache`` in place (the
     reference returns updated copies); returns the block's output."""
     s, d, di, nh, hd, ds, G = _dims(cfg)
+    tp = ctx.tp_size if _tp(ctx) else 1
+    di, nh = di // tp, nh // tp
     b = x.shape[0]
     res = x
     x = _rms(x, p["ln"])
-    z, xc, Bc, Cc, dt = _projections(p, x[:, 0])
+    z, xc, Bc, Cc, dt = _projections(p, x[:, 0], ctx)
     xc, cx = _conv_step(cache["conv_x"], xc, p["conv_x"])
     Bc, cB = _conv_step(cache["conv_B"], Bc, p["conv_B"])
     Cc, cC = _conv_step(cache["conv_C"], Cc, p["conv_C"])
@@ -174,9 +208,9 @@ def decode_mamba_block(p: Params, x: torch.Tensor, cache: Mapping[str, torch.Ten
     h = cache["h"] * decay[:, :, None, None] + (xh * dt[..., None])[..., None] * Bh[:, :, None, :]
     y = torch.einsum("bnc,bnhc->bnh", Ch, h) + xh * p["D"][None, :, None]
     y = y.reshape(b, di).to(x.dtype)
-    y = _rms((y * F.silu(z))[:, None], p["norm_scale"])[:, 0]
+    y = _rms((y * F.silu(z))[:, None], p["norm_scale"], ctx=ctx)[:, 0]
     cache["conv_x"].copy_(cx)
     cache["conv_B"].copy_(cB)
     cache["conv_C"].copy_(cC)
     cache["h"].copy_(h)
-    return res + (y @ p["out_proj"])[:, None].to(res.dtype)
+    return res + sh.reduce_from_tp(y @ p["out_proj"], ctx)[:, None].to(res.dtype)

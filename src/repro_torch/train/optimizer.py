@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Iterator, List, Mapping, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -98,14 +98,36 @@ def _is_factored(cfg: AdamWSettings, p: torch.Tensor) -> bool:
     return cfg.factored_v and p.dim() >= 2 and p.shape[-1] > 1 and p.shape[-2] > 1
 
 
-def adamw_init(params: Tree, cfg: AdamWSettings = AdamWSettings()) -> Dict[str, Tree]:
+def opt_state_specs(cfg: AdamWSettings, params: Tree, param_specs: Tree) -> Dict[str, Tree]:
+    """The specs of ``adamw_init``'s trees (``sharding``'s tuples, one
+    entry per dimension): master and moments as their parameters'; a
+    factored second moment's ``r`` and ``c`` drop the reduced axis from
+    the parameter's spec.  ``params`` holds tensors (meta ones do) or
+    anything with ``shape`` and ``dim()``."""
+    specs = dict(tree_items(param_specs))
+
+    def v_spec(p: Any, spec: Tuple[Any, ...]) -> Any:
+        if _is_factored(cfg, p):
+            parts = tuple(spec) + (None,) * (p.dim() - len(spec))
+            return {"r": parts[:-1], "c": parts[:-2] + (parts[-1],)}
+        return spec
+
+    items = list(tree_items(params))
+    return {"master": param_specs, "m": param_specs,
+            "v": tree_build([(n, v_spec(p, specs[n])) for n, p in items])}
+
+
+def adamw_init(params: Tree, cfg: AdamWSettings = AdamWSettings(),
+               whole: Optional[Mapping[Path, torch.Tensor]] = None) -> Dict[str, Tree]:
     """``{"master", "m", "v"}`` trees matching ``params``: fp32 copies of
     the weights, zero first moments in ``m_dtype`` and zero fp32 second
-    moments (``{"r": [..., D], "c": [..., F]}`` for a factored leaf)."""
+    moments (``{"r": [..., D], "c": [..., F]}`` for a factored leaf).  On
+    a mesh ``params`` holds shards, and ``whole`` (path -> a tensor of the
+    whole leaf's shape, meta will do) decides which leaves are factored."""
     mdt = getattr(torch, cfg.m_dtype)
 
-    def v_init(p: torch.Tensor) -> Any:
-        if _is_factored(cfg, p):
+    def v_init(path: Path, p: torch.Tensor) -> Any:
+        if _is_factored(cfg, p if whole is None else whole[path]):
             return {"r": torch.zeros(p.shape[:-1], dtype=torch.float32, device=p.device),
                     "c": torch.zeros(p.shape[:-2] + p.shape[-1:], dtype=torch.float32,
                                      device=p.device)}
@@ -116,7 +138,7 @@ def adamw_init(params: Tree, cfg: AdamWSettings = AdamWSettings()) -> Dict[str, 
         "master": tree_build([(n, p.detach().float().clone()) for n, p in items]),
         "m": tree_build([(n, torch.zeros(p.shape, dtype=mdt, device=p.device))
                          for n, p in items]),
-        "v": tree_build([(n, v_init(p)) for n, p in items]),
+        "v": tree_build([(n, v_init(n, p)) for n, p in items]),
     }
 
 
@@ -129,20 +151,27 @@ def global_norm(grads: Tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def _mean(t: torch.Tensor, dim: int, leaf_dim: int, keepdim: bool = False) -> torch.Tensor:
+    return t.mean(dim, keepdim=keepdim)
+
+
 def _update_leaf(cfg: AdamWSettings, lr: float, c1: float, c2: float, master: torch.Tensor,
-                 m: torch.Tensor, v: Any, g: torch.Tensor) -> None:
+                 m: torch.Tensor, v: Any, g: torch.Tensor, mean: Any = _mean) -> None:
     """One leaf's AdamW step on fp32 gradients g, in place.  Temporaries
     are updated in place where the operation allows (the same operations
     in the same order, so the same bits), so that a leaf of N values holds
     about four more fp32 tensors of N at once: the largest leaves (an
-    embedding of 200k rows) set the step's peak memory."""
+    embedding of 200k rows) set the step's peak memory.  ``mean(t, dim,
+    leaf_dim, keepdim)`` is the factored moment's mean over ``dim`` of t,
+    which runs along the leaf's dimension ``leaf_dim`` (on a mesh a shard's
+    mean summed over the dimension's axes)."""
     m_new = cfg.beta1 * m.float() + (1 - cfg.beta1) * g
     if isinstance(v, Mapping):  # factored second moment
         g2 = g * g
-        v["r"].copy_(cfg.beta2 * v["r"] + (1 - cfg.beta2) * g2.mean(-1))
-        v["c"].copy_(cfg.beta2 * v["c"] + (1 - cfg.beta2) * g2.mean(-2))
+        v["r"].copy_(cfg.beta2 * v["r"] + (1 - cfg.beta2) * mean(g2, -1, -1))
+        v["c"].copy_(cfg.beta2 * v["c"] + (1 - cfg.beta2) * mean(g2, -2, -2))
         del g2
-        denom = torch.clamp(v["r"].mean(-1, keepdim=True), min=1e-30)
+        denom = torch.clamp(mean(v["r"], -1, -2, keepdim=True), min=1e-30)
         vh = (v["r"] / denom)[..., None] * v["c"][..., None, :]
         vh.div_(c2)
     else:
@@ -159,15 +188,21 @@ def _update_leaf(cfg: AdamWSettings, lr: float, c1: float, c2: float, master: to
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWSettings, params: Tree, opt_state: Dict[str, Tree], grads: Tree,
-                 step: int) -> Tuple[Tree, Dict[str, Tree], Dict[str, Any]]:
+                 step: int, *, norm: Callable[[Tree], torch.Tensor] = global_norm,
+                 mean_of: Callable[[Tuple[str, ...], torch.Tensor], Any] = lambda path, g: _mean
+                 ) -> Tuple[Tree, Dict[str, Tree], Dict[str, Any]]:
     """One AdamW step at ``step`` (0-based): returns (new compute weights,
     the optimizer state, metrics ``grad_norm`` and ``lr``).  ``params`` is
     read only for its leaves' dtypes (bf16 weights stay bf16, fp32 norms
     fp32); ``grads`` has the same leaves in any float dtype.  The state
     is updated in place; a new weight of an fp32 leaf is its master.  The
     gradients are clipped to a global norm of ``clip_norm`` leaf by leaf
-    as they are used (no clipped copy of the tree is made)."""
-    gnorm = global_norm(grads)
+    as they are used (no clipped copy of the tree is made).  On a mesh the
+    gradients and the state are this rank's shards: ``norm(grads)`` is
+    then the global norm summed over the mesh, and ``mean_of(path, g)``
+    the leaf's factored mean (``_update_leaf``'s ``mean``) summed over its
+    dimensions' axes."""
+    gnorm = norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     lr = schedule(cfg, step)
     f = np.float32
@@ -179,6 +214,7 @@ def adamw_update(cfg: AdamWSettings, params: Tree, opt_state: Dict[str, Tree], g
     vs = dict(tree_items(opt_state["v"]))
     new = []
     for (path, g), (_, like) in zip(tree_items(grads), tree_items(params)):
-        _update_leaf(cfg, lr, c1, c2, masters[path], ms[path], vs[path], g.float() * scale)
+        _update_leaf(cfg, lr, c1, c2, masters[path], ms[path], vs[path], g.float() * scale,
+                     mean_of(path, g))
         new.append((path, masters[path].to(like.dtype)))
     return tree_build(new), opt_state, {"grad_norm": gnorm, "lr": lr}

@@ -593,3 +593,45 @@ def test_wgmma_probe_matches_matmul(cuda, mode):
     torch.cuda.synchronize()
     assert err == 0
     assert (out - want).abs().max().item() < 1e-3
+
+
+@pytest.mark.cuda
+def test_one_rank_mesh_step_on_card_equals_no_mesh():
+    """The one-rank NCCL mesh (data 1, model 1) on the card: two AdamW
+    steps of a narrow fp32 internlm2 equal the no-mesh steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    code = (
+        "import dataclasses, torch\n"
+        "from repro_torch import configs\n"
+        "from repro_torch.models import TransformerLM\n"
+        "from repro_torch.launch.mesh import init_ranks, make_host_mesh\n"
+        "from repro_torch.sharding import ctx_for_mesh\n"
+        "from repro_torch.train import AdamWSettings, TrainStepBuilder\n"
+        "cfg = dataclasses.replace(configs.get_config('internlm2-1.8b'), n_layers=2,"
+        " d_model=256, n_heads=4, n_kv_heads=2, d_ff=512, vocab=1000, dtype='float32')\n"
+        "init_ranks('cuda')\n"
+        "ctx = ctx_for_mesh(make_host_mesh())\n"
+        "g = torch.Generator(device='cuda').manual_seed(3)\n"
+        "batch = {k: torch.randint(0, 1000, (2, 256), generator=g, device='cuda')"
+        ".int() for k in ('tokens', 'labels')}\n"
+        "out = []\n"
+        "for mesh in (False, True):\n"
+        "    m = TransformerLM(cfg, device='cuda').init(torch.Generator(device='cuda')"
+        ".manual_seed(0))\n"
+        "    if mesh: m.shard_parameters(ctx)\n"
+        "    b = TrainStepBuilder(m, AdamWSettings(lr=1e-3, warmup_steps=0))\n"
+        "    st = b.init_state()\n"
+        "    out.append([float(b.train_step(st, batch)[1]['loss']) for _ in range(2)])\n"
+        "assert all(abs(a - c) <= 1e-6 * abs(c) for a, c in zip(*out)), out\n"
+        "print('ok')\n"
+    )
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parents[1] / "src"
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, env={**os.environ, "PYTHONPATH": str(src)})
+    assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr[-3000:]

@@ -331,3 +331,43 @@ def test_new_patterns_default_to_cuda(monkeypatch, arch):
         moe_grouped_gemm(torch.zeros(4, 16, device="meta"),
                          torch.zeros(2, 16, 8, device="meta"),
                          torch.zeros(2, dtype=torch.int32, device="meta"))
+
+
+def test_mesh_and_tooling_stand_alone():
+    """The mesh and the analysis tooling (``sharding``, ``launch.mesh``,
+    ``launch.op_cost``, ``launch.dryrun``, ``launch.perf``, ``roofline``)
+    import neither JAX nor ``repro``, and importing them starts no process
+    group."""
+    code = (
+        "import sys\n"
+        "import repro_torch.sharding, repro_torch.launch.mesh, repro_torch.launch.op_cost\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.perf, repro_torch.roofline\n"
+        "import repro_torch.launch.train, repro_torch.kernels._cost\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_mesh_train_step_defaults_to_cuda(monkeypatch):
+    """``launch.train --mesh host`` runs on CUDA unless asked for the CPU,
+    and raises with no card before it starts a process group; a mesh needs
+    one."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh, train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kind in ("host", "pod"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            train.main(["--smoke", "--mesh", kind, "--steps", "1"])
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="process group"):
+        mesh.make_host_mesh()
