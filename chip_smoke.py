@@ -235,6 +235,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
      step wall, tokens/s, peak memory and one profiled step; two
      fp32 steps of a narrow mamba2 and of a narrow zamba2 on the card
      against the CPU;
+ 17a. long_decode (zamba2-7b's long_500k cell: a decode at batch 1 over
+     524288 positions, whose cache a mesh with dp > 1 shards by
+     positions): the decode kernels' logsumexp (``return_lse``) against
+     the plain version, bf16 ``flash_decode_mma`` with one chunk and many
+     and fp32 ``flash_decode``, with a window, a softcap, a row with no
+     key (exactly -1e30) and q_offset >= Sk, two runs and the serving
+     call (no logsumexp) giving the same bits; the shared block's
+     attention at full width (32 heads over 32 KV heads of 112, bf16)
+     over a 524288-position cache drawn from a seed, at positions 1000,
+     262143 and 524287: the whole-cache decode kernel against the plain
+     version and against the dp ranks' parts (``layers.seq_shard_part``)
+     merged in one process (``layers.merge_attention_parts``) at dp 2 and
+     dp 16 (the pod's data axis: 32768 positions a rank), within 2e-2, and
+     the whole-cache decode and one dp-16 rank's part timed beside their
+     bounds; zamba2-7b at full width and 12 of its 81 layers (two
+     shared-block applications, 15 GB of cache) at batch 1 with caches of
+     524288 positions and mamba states drawn from a seed, 4 decode ticks
+     at the last positions (2 flash launches a tick, on the decode route)
+     against the same ticks through the plain attention, ms a tick and
+     the peak memory; and ``_seq_sharded_decode`` on two gloo ranks
+     sharing the card (a 65536-position cache), where gloo takes CUDA
+     tensors, against the whole-cache decode (else the phase says so);
  18. mesh: a one-rank NCCL process group (a local ``HashStore``) and
      ``make_host_mesh()`` (data 1 x model 1); internlm2-1.8b at full width
      and depth in bf16 (seeded random weights) takes 2 AdamW steps of the
@@ -247,7 +269,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
      ``launch.op_cost.OpCounter``: its matmul FLOPs against 6 N tokens (in
      [1, 3]), HBM bytes, the roofline's three terms on the H100 constants
      (``launch.mesh``), the measured step and the step's MFU beside the
-     card's name and power limit; then ``launch.dryrun`` of internlm2-1.8b
+     card's name and power limit; a checkpoint round trip on the mesh
+     (the narrow config in fp32 under deterministic algorithms: two steps,
+     ``save_state`` gathering each leaf whole, a restore into a fresh mesh
+     model, one more step equal bit for bit to the step without the round
+     trip); then ``launch.dryrun`` of internlm2-1.8b
      train_4k on the pod mesh (a fake group of 256 ranks, in a subprocess
      without the card, started after every timed phase so that it shares
      the host's CPU with none of them): its memory, FLOPs and collective
@@ -259,7 +285,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
      ``kimi_decode_bound_ms``, ``kimi_decode_library_ms``, and the last
      four families' shapes', ``gemma2_*``, ``zamba2_*``, ``llava_*`` and
      ``hubert_*`` (``_ms``, ``_plain_ms``, ``_bound_ms``,
-     ``_library_ms``, None where no PyTorch call computes a softcap);
+     ``_library_ms``, None where no PyTorch call computes a softcap), and
+     phase 17a's ``long_decode_ms``, ``long_decode_plain_ms``,
+     ``long_decode_bound_ms``, ``long_decode_library_ms`` (the
+     whole-cache decode at position 524287), ``long_decode_shard_ms`` and
+     ``long_decode_shard_bound_ms`` (one dp-16 rank's part),
+     ``long_decode_lse_err`` and ``long_decode_gloo_cuda``;
      waterfill's its measured ``chain_bound_ms`` beside the bytes bound;
      ssd_scan's its paths' ``launches_by_route``, the FMA route's
      ``fma_ms`` and zamba2's prefill shape's ``zamba2_prefill_*``;
@@ -273,7 +304,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      records' from phases 16 and 17), the card's name and power limit,
      and the closing status line.
 
-Eighteen main paths, each with the kernel launch counts set to 0 just
+Nineteen main paths, each with the kernel launch counts set to 0 just
 before it and read just after: phases 3-4 (planning), phases 5a-5b (the
 engine's regimes and re-planning), phase 5c (multi-job planning and the
 arrival service), phase 5d (the feature-cache tier), phase 5e (traces
@@ -283,13 +314,14 @@ steps, calibration and baseline plan of phase 6 (GraphSAGE), the
 the ``ServeEngine`` run of phases 8 (mamba2), 9 (MoE), 10 (kimi-k2), 11
 (gemma2), 12 (zamba2) and 13 (llava), the forward to per-frame
 logits of phase 14 (hubert), the training steps of phases 15, 16
-and 17 (forward and backward counts), and the mesh train steps of phase
-18.
+and 17 (forward and backward counts), the long-context decode ticks of
+phase 17a, and the mesh train steps of phase 18.
 Each phase's seconds are printed on a ``[time]`` line.  ``--only
 regimes`` (phases 5a-5b), ``tenants`` (5c), ``cache`` (5d), ``obs`` (5e), ``sage``,
 ``lm_serve``, ``mamba_serve``, ``moe_serve``, ``kimi_serve``,
 ``gemma2_serve``, ``zamba2_serve``, ``llava_serve``, ``hubert_encode``,
-``lm_train``, ``moe_train``, ``mamba_train`` or ``mesh`` builds the kernels and runs
+``lm_train``, ``moe_train``, ``mamba_train``, ``long_decode`` or ``mesh`` builds the
+kernels and runs
 that phase alone (for work on that path; it prints no
 closing status line).
 Imports nothing of JAX or of the ``repro`` package.
@@ -1933,15 +1965,16 @@ def _check_wgmma(tag, before, after, want):
                                  f"{moved}, expected {n} on the wgmma route")
 
 
-def _gate_prefill(tag, d_pre, want):
-    """Fail unless the kernel path's prefill logits are within PREFILL_RTOL
-    of the largest plain logit (``want``, the vocab's columns)."""
+def _gate_prefill(tag, d_pre, want, what="prefill"):
+    """Fail unless the kernel path's logits (a prefill's, or ``what``'s)
+    are within PREFILL_RTOL of the largest plain logit (``want``, the
+    vocab's columns)."""
     lim = PREFILL_RTOL * want.abs().max().item()
-    print(f"[{tag}] prefill against the plain path: max abs logit diff "
+    print(f"[{tag}] {what} against the plain path: max abs logit diff "
           f"{d_pre:.4g}, limit {lim:.4g} ({PREFILL_RTOL} of the largest plain "
           f"logit)", flush=True)
     if not d_pre <= lim:
-        raise AssertionError(f"{tag}: bf16 prefill through the kernels disagrees "
+        raise AssertionError(f"{tag}: bf16 {what} through the kernels disagrees "
                              f"with the plain path ({d_pre} > {lim})")
 
 
@@ -2858,7 +2891,7 @@ def _warm(call):
     return time.perf_counter() - t0
 
 
-def _against_plain(tag, label, cfg, got, call, names, wall):
+def _against_plain(tag, label, cfg, got, call, names, wall, what="prefill"):
     """The main path's ``got`` (logits, the vocabulary's columns first)
     against ``call()`` through the plain versions of ``names``, within
     PREFILL_RTOL of the largest plain logit; prints the first and warm
@@ -2877,7 +2910,7 @@ def _against_plain(tag, label, cfg, got, call, names, wall):
           f"(logits in [{got[..., :cfg.vocab].min().item():.3f}, "
           f"{got[..., :cfg.vocab].max().item():.3f}]), argmax agrees at "
           f"{100 * agree:.1f}% of the rows", flush=True)
-    _gate_prefill(tag, d, want[..., : cfg.vocab])
+    _gate_prefill(tag, d, want[..., : cfg.vocab], what)
 
 
 def _serve_family(tag, model, stats, reqs, launches, pre, per_tick, kernels):
@@ -3238,7 +3271,7 @@ def _entry(name, stem, replaces, nums, launches, by_route=None):
         "library_ms": nums.get("library_ms"),
         **{k: v for k, v in nums.items()
            if k.startswith(("prefill_", "kimi_", "chain_", "fma_", "bwd_", "probe_",
-                            "gemma2_", "zamba2_", "llava_", "hubert_"))},
+                            "gemma2_", "zamba2_", "llava_", "hubert_", "long_decode_"))},
         **({"launches_by_route": by_route} if by_route is not None else {}),
     }
 
@@ -4119,6 +4152,27 @@ def _train_card_vs_cpu(cfg=None, tag="lm train", seq=256, scan64=False):
     _free()
 
 
+@contextlib.contextmanager
+def _deterministic():
+    """``torch.use_deterministic_algorithms(True)`` for the block's
+    duration.  cuBLAS is deterministic on one stream; torch asks for
+    ``CUBLAS_WORKSPACE_CONFIG`` before it allows its products in
+    deterministic mode."""
+    import torch
+
+    saved = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if saved is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved
+
+
 def _train_resume_bitwise():
     """With ``torch.use_deterministic_algorithms(True)``, the narrow config
     in bf16: train 2, save, restore into other weights, train 2 equals a
@@ -4134,12 +4188,7 @@ def _train_resume_bitwise():
 
     cfg = _narrow_cfg("bfloat16")
     pipe = TokenPipeline(vocab=cfg.vocab, seq_len=256, global_batch=2, seed=4)
-    # cuBLAS is deterministic on one stream; torch asks for the setting
-    # before it allows its products in deterministic mode
-    saved = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    torch.use_deterministic_algorithms(True)
-    try:
+    with _deterministic():
         b, s = _builder(cfg, "cuda")
         for i in range(4):
             s, _ = b.train_step(s, _pipe_batch(pipe, i, "cuda"))
@@ -4154,12 +4203,6 @@ def _train_resume_bitwise():
         for i in range(2, 4):
             s, _ = b.train_step(s, _pipe_batch(pipe, i, "cuda"))
         torch.cuda.synchronize()
-    finally:
-        torch.use_deterministic_algorithms(False)
-        if saved is None:
-            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
-        else:
-            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved
     diff = [p for p, t in tree_items(stacked_weights(s.params)) if not torch.equal(t, direct[p])]
     if diff:
         raise AssertionError(f"lm train: the resumed run differs from the direct one at {diff}")
@@ -4779,6 +4822,414 @@ def phase_mamba_train(ss, fa):
     return nums, counts
 
 
+# long_decode: zamba2-7b's long_500k cell (configs.SHAPES: a decode at batch
+# 1 over 524288 positions).  On any mesh with dp > 1 the batch does not
+# divide dp, so each rank keeps 524288 / dp of the cache's positions and the
+# ranks' (o, lse) parts are merged (models.layers._seq_sharded_decode); the
+# 13 shared-block applications of zamba2-7b hold 97.7 GB of such cache, more
+# than one card.  On the one card: the decode kernels' logsumexp against the
+# plain version; the shared block's attention over the whole cache against
+# the dp ranks' parts and their merge run in one process over its shards
+# (LONG_DP); the model at full width and LONG_LAYERS layers (two shared-block
+# applications, 15 GB of cache) decoding LONG_TICKS ticks with no mesh; and
+# _seq_sharded_decode itself on two gloo ranks on the card (NCCL takes one
+# rank a card), where gloo takes CUDA tensors.
+LONG_ARCH, LONG_SMAX = "zamba2-7b", 524288
+LONG_DP = (2, 16)  # dp 16: the pod mesh's data axis, 32768 positions a rank
+# query positions: in the first dp-16 shard, mid-cache, the last
+LONG_POSITIONS = (1000, 262143, LONG_SMAX - 1)
+LONG_LAYERS, LONG_TICKS = 12, 4
+LONG_GLOO_SMAX = 65536  # the two gloo ranks' cache (32768 positions each)
+LONG_GLOO_POSITIONS = (100, 32767, 40000, 65535)  # rank 1 sees no key at the first two
+LONG_GLOO_TIMEOUT = 300
+# the long caches' keys are drawn at LONG_K_STD standard deviations, their
+# values standard normal: a query's scores then have that deviation, a few
+# hundred keys across the cache carry its output (|o| of order 0.1-1, where
+# keys drawn at 1 give sqrt(e / N), 1e-2 at 524288 positions), and the
+# shards' logsumexps differ by units, so that the merge's weights matter
+LONG_K_STD = 4.0
+# the decode outputs held to one another within LONG_RTOL of the plain
+# output's largest |o|: in bf16 two to four steps of the largest element, in
+# fp32 sums in another order.  A decode that returns zeros, one that drops
+# the last of its chunks, and a merge that drops its heaviest shard lie
+# further, which the phase checks (``_long_gate``)
+LONG_RTOL = {"float32": 2 ** -16, "bfloat16": 2 ** -6}
+# the decode kernels' logsumexp against the plain version's, of the largest
+# |lse| (a row that sees no key: exactly -1e30); fp32 sums in another order,
+# bf16 also in the log2 domain with ex2.approx (relative error ~2^-22)
+LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-4}
+# (label, (B, H, KV, 1, Sk, D), kwargs): one chunk (at most 256 keys) and
+# several, a window, a softcap, a row with no key, q_offset >= Sk (a rank
+# whose shard lies before the query)
+LSE_CHECKS = [
+    ("one chunk", (2, 16, 2, 1, 1024, 128), dict(q_offset=200)),
+    ("chunks", (2, 16, 2, 1, 4096, 128), dict(q_offset=3000)),
+    ("window over chunks", (1, 32, 32, 1, 8192, 112), dict(q_offset=7000, window=2000)),
+    ("softcap", (2, 8, 1, 1, 2048, 80), dict(q_offset=1500, softcap=30.0)),
+    ("no key", (1, 8, 2, 1, 600, 128), dict(q_offset=700, window=4)),
+    ("past the keys, one chunk", (1, 32, 32, 1, 200, 112), dict(q_offset=5000)),
+    ("past the keys, chunks", (1, 32, 32, 1, 32768, 112), dict(q_offset=40000)),
+]
+
+
+def _lse_checks(fa):
+    """Each LSE_CHECKS shape in fp32 (``flash_decode``) and bf16
+    (``flash_decode_mma``) on the decode route with its logsumexp, against
+    the plain version on the card: the output within LONG_RTOL of the
+    plain output's largest |o|, each row's
+    logsumexp within LSE_TOL of the largest |lse| and -1e30 exactly where
+    the row sees no key; two runs give the same bits, and the output the
+    same bits as the serving call's (no logsumexp).  Returns (the largest
+    output error, the largest logsumexp error)."""
+    import torch
+
+    worst_o = worst = 0.0
+    for seed, (label, shape, kw) in enumerate(LSE_CHECKS):
+        b, h, kv, _, sk, d = shape
+        chunks = fa.decode_plan(b, h, kv, sk, kw["q_offset"], True, kw.get("window") or 0)[3]
+        errs = {}
+        for dtype in ("float32", "bfloat16"):
+            q, k, v = _flash_qkv(seed, *shape, getattr(torch, dtype))
+            o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+            o2, lse2 = fa.flash_attention(q, k, v, return_lse=True, **kw)
+            served = fa.flash_attention(q, k, v, **kw)
+            want_o, want = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(o, o2) and torch.equal(lse, lse2) and torch.equal(o, served)):
+                raise AssertionError(f"long decode: {label} {dtype}: two runs, or the runs "
+                                     "with and without the logsumexp, differ")
+            none = want <= -1e29
+            if not (torch.equal(lse[none], want[none]) and (want[none] == -1e30).all()):
+                raise AssertionError(f"long decode: {label} {dtype}: a row that sees no key "
+                                     "has a logsumexp other than -1e30")
+            seen = ~none
+            err = ((lse - want)[seen].abs().max().item()
+                   / max(want[seen].abs().max().item(), 1.0)) if seen.any() else 0.0
+            err_o = (o.float() - want_o.float()).abs().max().item()
+            lim = LONG_RTOL[dtype] * want_o.float().abs().max().item()
+            if not (err <= LSE_TOL[dtype] and err_o <= lim):
+                raise AssertionError(f"long decode: {label} {dtype}: logsumexp err {err} (tol "
+                                     f"{LSE_TOL[dtype]}), output err {err_o} (limit {lim})")
+            errs[dtype] = (err_o, lim, err, int(none.sum()))
+            worst, worst_o = max(worst, err), max(worst_o, err_o)
+            del q, k, v, o, o2, lse, lse2, served, want_o, want
+        print(f"[long decode] lse {label}: q [{b}, {h}, 1, {d}] over {kv} KV heads x {sk} "
+              f"keys, {kw}, {chunks} chunk(s): " + "; ".join(
+                  f"{dt} output err {e[0]:.3g} (limit {e[1]:.3g}), lse err {e[2]:.3g} of the "
+                  f"largest |lse|, {e[3]} rows with no key at -1e30" for dt, e in errs.items())
+              + "; two runs and the serving call (no lse) give the same bits", flush=True)
+    return worst_o, worst
+
+
+def _merge_over(parts):
+    """``layers.merge_attention_parts`` over a list of shards' (o, lse) in
+    one process: the parts stacked on a leading dimension, reduced over
+    it."""
+    import torch
+
+    from repro_torch.models import layers
+
+    o, lse = (torch.stack(t) for t in zip(*parts))
+    return layers.merge_attention_parts(
+        o, lse, lambda x, op: x.amax(0) if op == "max" else x.sum(0))
+
+
+def _long_gate(tag, want, diffs, controls, rel):
+    """Hold ``diffs`` (name -> max abs difference) within ``rel`` of
+    ``want``'s largest |o|, and each of ``controls`` (name -> the max abs
+    difference of an output known to be wrong) beyond it; prints both
+    beside the limit."""
+    lim = rel * want.float().abs().max().item()
+    print(f"[long decode] {tag}: max abs diff " + ", ".join(
+        f"{n} {e:.3g}" for n, e in diffs.items()) + f"; limit {lim:.3g} ({rel:.3g} of the "
+          f"plain output's largest |o|); wrong outputs lie at " + ", ".join(
+        f"{n} {e:.3g}" for n, e in controls.items()), flush=True)
+    if not max(diffs.values()) <= lim:
+        raise AssertionError(f"long decode: {tag} disagrees: {diffs}, limit {lim}")
+    if not min(controls.values()) > lim:
+        raise AssertionError(f"long decode: {tag}: the gate does not see a wrong output: "
+                             f"{controls}, limit {lim}")
+
+
+def _long_attention(fa, cfg):
+    """The shared block's attention of ``cfg`` at full width over a
+    LONG_SMAX-position bf16 cache drawn from a seed (keys at LONG_K_STD),
+    batch 1, at LONG_POSITIONS: the whole-cache decode kernel, the plain
+    version, and for each dp of LONG_DP the ranks' parts
+    (``layers.seq_shard_part``) merged in one process, held to each other
+    by ``_long_gate`` against zeros, the plain decode without the kernel's
+    last chunk of keys, and each merge without its heaviest shard; then the
+    whole-cache decode and one dp-16 rank's part timed at the last
+    position.  Returns (the largest difference, the record's numbers)."""
+    import torch
+
+    from repro_torch.models import layers
+
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q = torch.randn(1, 1, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+    ck, cv = (torch.empty(1, LONG_SMAX, kv, d, dtype=torch.bfloat16, device="cuda")
+              .normal_(std=std, generator=gen) for std in (LONG_K_STD, 1.0))
+    kw = dict(causal=True, softcap=cfg.attn_softcap, scale=cfg.q_scaling())
+    qt, kt, vt = q.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2)
+    worst = 0.0
+    for pos in LONG_POSITIONS:
+        whole = fa.flash_attention(qt, kt, vt, q_offset=pos, **kw)
+        plain = fa.flash_attention_plain(qt, kt, vt, q_offset=pos, **kw)
+        chunk = fa.decode_plan(1, h, kv, LONG_SMAX, pos, True, 0)[2]
+        short = fa.flash_attention_plain(qt, kt, vt, q_offset=pos - chunk, **kw)
+        diffs = {"whole vs plain": (whole.float() - plain.float()).abs().max().item()}
+        controls = {"zeros": plain.float().abs().max().item(),
+                    f"the plain decode without the last chunk's {chunk} keys":
+                        (short.float() - plain.float()).abs().max().item()}
+        for dp in LONG_DP:
+            sl = LONG_SMAX // dp
+            parts = [layers.seq_shard_part(q, ck[:, i * sl:(i + 1) * sl],
+                                           cv[:, i * sl:(i + 1) * sl], pos - i * sl, cfg, None)
+                     for i in range(dp)]
+            merged = _merge_over(parts).to(q.dtype)
+            heavy = max(range(dp), key=lambda i: parts[i][1].max().item())
+            dropped = _merge_over(parts[:heavy] + parts[heavy + 1:]).to(q.dtype)
+            diffs[f"dp {dp} vs whole"] = (merged.float() - whole.float()).abs().max().item()
+            diffs[f"dp {dp} vs plain"] = (merged.float() - plain.float()).abs().max().item()
+            controls[f"dp {dp} without shard {heavy}"] = (
+                dropped.float() - plain.float()).abs().max().item()
+            del parts
+        torch.cuda.synchronize()
+        _long_gate(f"{cfg.name} shared attention, q [1, {h}, 1, {d}] over {kv} KV heads x "
+                   f"{LONG_SMAX} positions (bf16), query at {pos}", plain, diffs, controls,
+                   LONG_RTOL["bfloat16"])
+        worst = max([worst] + list(diffs.values()))
+        del whole, plain, short, merged, dropped
+    pos, sl = LONG_SMAX - 1, LONG_SMAX // LONG_DP[-1]
+    kwp = dict(kw, q_offset=pos)
+    ms = _device_ms(lambda: fa.flash_attention(qt, kt, vt, **kwp), 20, flush=True)
+    plain_ms = _device_ms(lambda: fa.flash_attention_plain(qt, kt, vt, **kwp), 2, flush=True)
+    lib = _sdpa(qt, kt, vt, kwp)
+    library_ms = _device_ms(lib, 20, flush=True) if lib is not None else None
+    bound, by = _bound(*fa.cost(qt, kt, True, None, pos), 2)
+    ks, vs = ck[:, -sl:], cv[:, -sl:]
+    shard_ms = _device_ms(lambda: layers.seq_shard_part(q, ks, vs, sl - 1, cfg, None), 50,
+                          flush=True)
+    shard_bound, _ = _bound(*fa.cost(qt, ks.transpose(1, 2), True, None, sl - 1), 2)
+    print(f"[long decode] bf16 device time per call at position {pos}, L2 flushed: "
+          f"whole-cache decode {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention {library_ms} ms; bound {bound:.6f} ms by {by}, "
+          f"{100 * bound / ms:.1f}% of the kernel's time); one dp-{LONG_DP[-1]} rank's part "
+          f"({sl} positions, with its logsumexp) {shard_ms:.4f} ms (bound {shard_bound:.6f} "
+          f"ms, {100 * shard_bound / shard_ms:.1f}%) ({_card()})", flush=True)
+    del ck, cv, kt, vt, ks, vs
+    _free()
+    return worst, {"long_decode_ms": ms, "long_decode_plain_ms": plain_ms,
+                   "long_decode_bound_ms": bound, "long_decode_library_ms": library_ms,
+                   "long_decode_shard_ms": shard_ms, "long_decode_shard_bound_ms": shard_bound}
+
+
+def _long_model(fa, ss, mg):
+    """zamba2-7b at full width and LONG_LAYERS layers, batch 1, no mesh:
+    caches of LONG_SMAX positions (keys at LONG_K_STD) and mamba states
+    drawn from a seed, then the main path: LONG_TICKS decode ticks at the
+    cache's last positions (counts set to 0 just before, read just after; 2
+    flash launches a tick, on the decode route), against the same ticks
+    through the plain attention (``_against_plain``; the mamba states
+    restored before each run); the same ticks with the caches' values
+    zeroed must fall outside that gate (it sees the attention); ms per tick
+    and the peak memory.  Returns the path's launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(LONG_ARCH), n_layers=LONG_LAYERS)
+    n_apps = cfg.n_layers // cfg.hybrid_every
+    model = _family_model("long decode", cfg, f"{cfg.n_layers} of 81 layers, {n_apps} "
+                          f"shared-block applications")
+    cache = model.cache_struct(1, LONG_SMAX)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for name, t in sorted(cache["attn"].items()):
+        t.normal_(std=LONG_K_STD if name == "k" else 1.0, generator=gen)
+    for name, t in cache["mamba"].items():
+        t.normal_(generator=gen).mul_(0.1 if name == "h" else 1.0)
+    kv_bytes = sum(t.numel() * t.element_size() for t in cache["attn"].values())
+    snap = {n: t.clone() for n, t in cache["mamba"].items()}
+    toks = torch.randint(0, cfg.vocab, (LONG_TICKS,), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(13))
+    first = LONG_SMAX - LONG_TICKS
+
+    def ticks():
+        for n, t in cache["mamba"].items():
+            t.copy_(snap[n])
+        return torch.stack([model.decode_step(cache, toks[i:i + 1], first + i)[1]
+                            for i in range(LONG_TICKS)])
+
+    got, wall, pre, _, launches, _ = _main_path(_lm_kernels(fa, ss, mg), ticks)
+    _expect_routes("long decode", pre, {"flash_attention": {"decode": n_apps * LONG_TICKS}})
+    ms_tick = 1e3 * _warm(ticks) / LONG_TICKS
+    _against_plain("long decode", f"{LONG_TICKS} decode ticks at positions {first}-"
+                   f"{LONG_SMAX - 1}", cfg, got, ticks, ("flash",), wall, "decode ticks")
+    cache["attn"]["v"].zero_()
+    off = (ticks() - got)[..., : cfg.vocab].abs().max().item()
+    lim = PREFILL_RTOL * got[..., : cfg.vocab].abs().max().item()
+    print(f"[long decode] the same ticks with the caches' values zeroed (but the ticks' "
+          f"own): max abs logit diff {off:.4g} from the kernel path's, beyond the gate's "
+          f"limit {lim:.4g}", flush=True)
+    if not off > lim:
+        raise AssertionError("long decode: the logits gate does not see the attention "
+                             f"({off} <= {lim})")
+    print(f"[long decode] {cfg.name} at {cfg.n_layers} layers, batch 1, caches of "
+          f"{LONG_SMAX} positions ({kv_bytes} bytes of shared-block KV): {ms_tick:.2f} ms a "
+          f"decode tick (warm); flash launches {launches['flash_attention']}; peak device "
+          f"memory {torch.cuda.max_memory_allocated()} bytes ({_card()})", flush=True)
+    del got, cache, snap, model
+    _free()
+    return launches
+
+
+class _OneAxisMesh:
+    """The dp axis of two gloo ranks, enough for ``MeshContext`` and
+    ``_seq_sharded_decode``: the rank's coordinate and the world group."""
+
+    mesh_dim_names, shape = ("data",), (2,)
+
+    def __init__(self, rank):
+        self.rank = rank
+
+    def get_local_rank(self, axis):
+        return self.rank
+
+    def get_group(self, axis):
+        import torch.distributed as dist
+
+        return dist.group.WORLD
+
+
+def _gloo_rank(rank, port, out):
+    """One of two gloo ranks on the card: an all-reduce of a CUDA tensor
+    first (does gloo take them?), then ``_seq_sharded_decode`` over this
+    rank's half of a LONG_GLOO_SMAX-position cache at LONG_GLOO_POSITIONS;
+    rank 0 holds the merged outputs against the whole-cache decode kernel
+    and writes the record to ``out``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import sharding as sh
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=120))
+    try:
+        try:
+            probe = sh.all_reduce(torch.full((4,), rank + 1.0, device="cuda"),
+                                  dist.group.WORLD)
+            ok = probe.device.type == "cuda" and probe.tolist() == [3.0] * 4
+            note = f"all_reduce gave {probe.tolist()} on {probe.device}"
+        except RuntimeError as e:
+            ok, note = False, f"{type(e).__name__}: {e}"
+        if not ok:
+            if rank == 0:
+                Path(out).write_text(json.dumps({"gloo_cuda": False, "note": note[:2000]}))
+            return
+        cfg = get_config(LONG_ARCH)
+        h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        gen = torch.Generator(device="cuda").manual_seed(14)
+        q = torch.randn(1, 1, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+        ck, cv = (torch.empty(1, LONG_GLOO_SMAX, kv, d, dtype=torch.bfloat16, device="cuda")
+                  .normal_(std=std, generator=gen) for std in (LONG_K_STD, 1.0))
+        sl = LONG_GLOO_SMAX // 2
+        ctx = sh.MeshContext(mesh=_OneAxisMesh(rank), dp=("data",), tp=None)
+        fa.flash_attention.launches = 0
+        outs = [layers._seq_sharded_decode(q, ck[:, rank * sl:(rank + 1) * sl],
+                                           cv[:, rank * sl:(rank + 1) * sl], pos, cfg, None, ctx)
+                for pos in LONG_GLOO_POSITIONS]
+        torch.cuda.synchronize()
+        launches = fa.flash_attention.launches
+        dist.barrier()
+        if rank == 0:
+            errs, lims = [], []
+            for pos, o in zip(LONG_GLOO_POSITIONS, outs):
+                whole = fa.flash_attention(
+                    q.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2), causal=True,
+                    scale=cfg.q_scaling(), softcap=cfg.attn_softcap, q_offset=pos)
+                errs.append((o.float() - whole.float()).abs().max().item())
+                lims.append(LONG_RTOL["bfloat16"] * whole.float().abs().max().item())
+            Path(out).write_text(json.dumps({"gloo_cuda": True, "note": note, "errs": errs,
+                                             "limits": lims, "launches": launches}))
+    finally:
+        dist.destroy_process_group()
+
+
+def _gloo_decode():
+    """``_gloo_rank`` on two processes sharing the card; returns its record
+    (whether gloo takes CUDA tensors, the probe's note, and where it does
+    the merged decode's differences from the whole-cache decode).  A rank
+    that fails or hangs fails the phase."""
+    import socket
+
+    out = ROOT / "build" / "long_decode_gloo.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    mp = get_context("spawn")
+    procs = [mp.Process(target=_gloo_rank, args=(r, port, str(out))) for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + LONG_GLOO_TIMEOUT
+    for p in procs:
+        p.join(max(1.0, deadline - time.perf_counter()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0, 0] or not out.exists():
+        raise AssertionError(f"long decode: the gloo ranks exited with {codes}")
+    rec = json.loads(out.read_text())
+    if not rec["gloo_cuda"]:
+        print(f"[long decode] gloo does not take CUDA tensors for all_reduce here "
+              f"({rec['note']}): the merge over ranks is verified by the CPU gloo tests "
+              f"only", flush=True)
+        return rec
+    print(f"[long decode] two gloo ranks on the card ({rec['note']}): _seq_sharded_decode "
+          f"over {LONG_GLOO_SMAX} positions, {LONG_GLOO_SMAX // 2} a rank, at positions "
+          f"{LONG_GLOO_POSITIONS}: max abs diff from the whole-cache decode "
+          f"{rec['errs']} (limits {rec['limits']}, {LONG_RTOL['bfloat16']} of the whole-cache "
+          f"decode's largest |o|); rank 0's flash launches {rec['launches']}", flush=True)
+    # rank 0 launches at every position (its local position is never < 0)
+    if not (all(e <= lim for e, lim in zip(rec["errs"], rec["limits"]))
+            and rec["launches"] == len(LONG_GLOO_POSITIONS)):
+        raise AssertionError(f"long decode: the gloo ranks' decode disagrees: {rec}")
+    return rec
+
+
+def phase_long_decode(fa, ss, mg, t):
+    """long_decode (see the note above LONG_ARCH).  Returns the flash
+    record's numbers (``long_decode_*``, the checks' largest errors) and
+    the main path's flash launches."""
+    from repro_torch.configs import get_config
+
+    err_o, err_lse = _lse_checks(fa)
+    t = _phase_done("long decode: the decode kernels' logsumexp against the plain version", t)
+    err_att, nums = _long_attention(fa, get_config(LONG_ARCH))
+    t = _phase_done(f"long decode: {LONG_ARCH}'s shared attention over {LONG_SMAX} positions, "
+                    f"whole and split over dp {LONG_DP}", t)
+    launches = _long_model(fa, ss, mg)
+    t = _phase_done(f"long decode: {LONG_ARCH} at {LONG_LAYERS} layers, {LONG_TICKS} ticks "
+                    f"over {LONG_SMAX} positions (main path)", t)
+    gloo = _gloo_decode()
+    t = _phase_done("long decode: two gloo ranks on the card", t)
+    nums.update(max_abs_err=max(err_o, err_att), long_decode_lse_err=err_lse,
+                long_decode_gloo_cuda=gloo["gloo_cuda"])
+    return nums, launches["flash_attention"], t
+
+
 # mesh: the mesh train step on one NCCL rank (make_host_mesh: data 1 x model
 # 1; NCCL takes one rank a card), internlm2-1.8b at full width and depth in
 # bf16, against the step without a mesh; the op counter and the roofline on
@@ -4866,6 +5317,56 @@ def _start_dryrun():
     return proc, out
 
 
+def _mesh_ckpt_round_trip(ctx):
+    """The narrow config in fp32 on the mesh, under deterministic
+    algorithms: two steps, ``save_state`` (each leaf gathered whole), the
+    state restored into a fresh mesh model drawn from another seed, then
+    one more step from each: the two states after it equal bit for bit."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import TransformerLM
+    from repro_torch.train import (AdamWSettings, TrainStepBuilder, latest_checkpoint,
+                                   restore_state, save_state)
+    from repro_torch.train.checkpoint import leaf_paths
+    from repro_torch.train.train_loop import state_tree
+
+    cfg = _narrow_cfg("float32")
+    batch = _pipe_batch(TokenPipeline(vocab=cfg.vocab, seq_len=256, global_batch=2, seed=5),
+                        0, "cuda")
+
+    def fresh(seed):
+        model = TransformerLM(cfg, device="cuda").init(
+            torch.Generator(device="cuda").manual_seed(seed)).shard_parameters(ctx)
+        b = TrainStepBuilder(model, AdamWSettings(lr=LM_TRAIN_FP32_LR, warmup_steps=1,
+                                                  total_steps=LM_TRAIN_STEPS))
+        return b, b.init_state()
+
+    with _deterministic():
+        b, s = fresh(2)
+        for _ in range(2):
+            s, _ = b.train_step(s, batch)
+        with tempfile.TemporaryDirectory() as d:
+            path = save_state(d, s)
+            n_files = len(list(path.glob("*.npy")))
+            b2, s2 = fresh(9)
+            s2 = restore_state(latest_checkpoint(d), s2)
+        s, m = b.train_step(s, batch)
+        s2, m2 = b2.train_step(s2, batch)
+        torch.cuda.synchronize()
+    want = dict(leaf_paths(state_tree(s)))
+    diff = [n for n, t in leaf_paths(state_tree(s2)) if not torch.equal(t, want[n])]
+    if diff or m["loss"].item() != m2["loss"].item():
+        raise AssertionError(f"mesh: the step after the checkpoint round trip differs at "
+                             f"{diff[:8]} (losses {m['loss'].item()}, {m2['loss'].item()})")
+    print(f"[mesh] checkpoint round trip on the mesh, narrow fp32 config: save at step 2 "
+          f"({n_files} leaves, each whole), restore into a fresh mesh model, one more step: "
+          f"the {len(want)} state leaves and the loss ({m['loss'].item()}) equal the step "
+          f"without the round trip bit for bit", flush=True)
+
+
 def phase_mesh(fa, card):
     """The mesh phase (see the note above MESH_STEPS): the timed steps
     first, then the dry-run cell, which runs alone on the host.  Returns
@@ -4949,6 +5450,8 @@ def phase_mesh(fa, card):
     _mesh_agree("narrow fp32", plain, mesh)
     del plain, mesh
     _free()
+    _mesh_ckpt_round_trip(ctx)
+    _free()
     dist.destroy_process_group()
     t = _phase_done("mesh train step (one NCCL rank) and its op count", t)
     # the dry-run cell, on the CPU in its own process, after the timed steps
@@ -5026,7 +5529,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=("regimes", "tenants", "cache", "obs", "sage",
                                        "lm_serve", "mamba_serve", "moe_serve",
                                        "kimi_serve", *FAMILY_PHASES, "lm_train",
-                                       "moe_train", "mamba_train", "mesh"),
+                                       "moe_train", "mamba_train", "long_decode", "mesh"),
                     default=None, help="build the kernels and run this phase alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -5096,6 +5599,11 @@ def main(argv=None) -> int:
             print(json.dumps({"backward": nums, "train_launches": counts}))
             print(f"[done] {time.perf_counter() - t_start:.1f} s ({args.only} only)")
             return 0
+        elif args.only == "long_decode":
+            nums, launches, t = phase_long_decode(fa, ss, mg, t)
+            print(json.dumps({"flash_attention": nums, "long_decode_launches": launches}))
+            print(f"[done] {time.perf_counter() - t_start:.1f} s ({args.only} only)")
+            return 0
         elif args.only == "mesh":
             fwd, bwd = phase_mesh(fa, _card())
             print(json.dumps({"mesh_flash_launches": [fwd, bwd]}))
@@ -5153,6 +5661,9 @@ def main(argv=None) -> int:
     flash["max_abs_err"] = max(flash["max_abs_err"], train_nums["bwd_max_abs_err"])
     moe_bwd, moe_counts = phase_moe_train(mg, fa)
     ssd_bwd, ssd_counts = phase_mamba_train(ss, fa)
+    long_nums, long_launches, t = phase_long_decode(fa, ss, mg, time.perf_counter())
+    flash["max_abs_err"] = max(flash["max_abs_err"], long_nums.pop("max_abs_err"))
+    flash.update(long_nums)
     mesh_fwd, mesh_bwd = phase_mesh(fa, _card())
     t = time.perf_counter()
     moe_serve_launches = moe_entry["launches"]
@@ -5175,7 +5686,7 @@ def main(argv=None) -> int:
             _sage_entry(sage, sage_launches),
             _flash_entry(flash, flash_launches + moe_flash_launches
                          + kimi_launches["flash_attention"] + family_flash_launches
-                         + train_flash_launches),
+                         + long_launches + train_flash_launches),
             ssd_entry,
             moe_entry,
         ]
@@ -5193,7 +5704,8 @@ def main(argv=None) -> int:
           f"{flash['bwd_launches']} backward (internlm2 and llama4-scout); MoE training "
           f"path: moe_gemm {moe_counts['moe_gemm'][0]} forward, {moe_counts['moe_gemm'][1]} "
           f"backward; mamba2 training path: ssd_scan {ssd_counts['ssd_scan'][0]} forward, "
-          f"{ssd_counts['ssd_scan'][1]} backward; mesh training path: flash_attention "
+          f"{ssd_counts['ssd_scan'][1]} backward; long decode path: flash_attention "
+          f"{long_launches}; mesh training path: flash_attention "
           f"{mesh_fwd} forward, {mesh_bwd} backward", flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(line))

@@ -94,12 +94,19 @@
 //     every chunk's m at -1e30, so the merge weights the chunks equally:
 //     the mean of v over all Sk keys, as before.
 //
-// For training, the two prefill kernels (wgmma, tiled) also write each
-// query row's logsumexp when the caller passes an lse buffer: fp32, the
-// natural domain, log sum_j exp(s_j) over the row's scores as above (the
-// wgmma kernel's m and l are in the log2 domain: (m + log2 l) ln 2), at
-// lse[(b H + h) lse_stride + i].  flash_attention_bwd.cu reads it and
-// recomputes nothing.  Serving passes null: its outputs keep their bits.
+// Every kernel also writes each query row's logsumexp when the caller
+// passes an lse buffer: fp32, the natural domain, log sum_j exp(s_j) over
+// the row's scaled, soft-capped and masked scores as above (the bf16
+// kernels' m and l are in the log2 domain: (m + log2 l) ln 2), at
+// lse[(b H + h) lse_stride + i].  The prefill kernels (wgmma, tiled) write
+// it for training: flash_attention_bwd.cu reads it and recomputes nothing.
+// The decode kernels write it for a query whose keys are split over ranks
+// (a cache whose positions are sharded), whose (o, lse) pairs the caller
+// merges: with one chunk the block that writes the output, else
+// flash_decode_merge from the chunks' (m, l).  A row that sees no key has
+// its m at -1e30, and its logsumexp, -1e30 + log(n keys), is written as
+// -1e30 (row_lse), as the plain version's rounds in fp32.  Serving passes
+// null: its outputs keep their bits.
 //
 // q, k, v and o are addressed by strides (elements; the head dimension is
 // contiguous), so the model's [B, S, N, D] projections and the [B, Smax,
@@ -151,9 +158,9 @@ struct Args {
   // partial results' scratch when n_chunks > 1
   int lo, hi, chunk, n_chunks;
   float* part;
-  // prefill, for the backward: each row's logsumexp, natural domain
-  // (lse[(b H + h) lse_stride + i] = log sum_j exp(s_ij) over the scores
-  // s of the note above, masked keys at -1e30), or null (serving)
+  // each row's logsumexp, natural domain (lse[(b H + h) lse_stride + i] =
+  // log sum_j exp(s_ij) over the scores s of the note above, masked keys at
+  // -1e30), or null (serving)
   float* lse;
   int lse_stride;
 };
@@ -166,6 +173,13 @@ __device__ __forceinline__ float cap(const Args& a, float dot) {
   float x = dot * a.scale;
   if (a.softcap > 0.0f) x = a.softcap * tanhf(x / a.softcap);
   return x;
+}
+
+// A row's logsumexp from its natural-domain max m and sum l: m + log l,
+// or -1e30 for a row that sees no key (m at the masked score, which the
+// bf16 kernels' log2-domain m leaves at -1e30 ln 2).
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return m < 0.5f * kMasked ? kMasked : m + logf(l);
 }
 
 // The keys [lo, hi] that the query positions [qa, qb] can see; every key
@@ -722,6 +736,8 @@ __global__ void __launch_bounds__(kDecThreads, GC <= 2 ? 2 : 1) flash_decode(con
     if (a.n_chunks == 1) {
       float* O = static_cast<float*>(a.o) + b * a.o_sb + (h0 + g) * a.o_sh;
       O[d] = osum / fmaxf(lsum, 1e-30f);
+      if (a.lse != nullptr && d == 0)
+        a.lse[(static_cast<long long>(b) * a.H + h0 + g) * a.lse_stride] = row_lse(mx, lsum);
     } else {
       // scratch: acc [B, H, n_chunks, D], then m and l [B, H, n_chunks]
       const long long row = part_row + static_cast<long long>(g) * a.n_chunks;
@@ -944,6 +960,10 @@ __global__ void __launch_bounds__(kMmaThreads) flash_decode_mma(const Args a) {
     if (a.n_chunks == 1) {
       __nv_bfloat16* O = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb + (h0 + g) * a.o_sh;
       store(osum / fmaxf(lsum, 1e-30f), &O[d]);
+      // (m + log2 l) ln 2, from the log2-domain max
+      if (a.lse != nullptr && d == 0)
+        a.lse[(static_cast<long long>(b) * a.H + h0 + g) * a.lse_stride] =
+            row_lse(mxw * kLn2, lsum);
     } else {
       // the partials as the fp32 kernel writes them: m in the natural log domain
       const long long row = part_row + static_cast<long long>(g) * a.n_chunks;
@@ -957,7 +977,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_decode_mma(const Args a) {
 }
 
 // The chunks' partial (m, l, acc) of one (head, batch) combined in chunk
-// order; one thread per output column.
+// order; one thread per output column; thread 0 writes the row's
+// logsumexp when asked (the partials' m is in the natural domain).
 template <typename T>
 __global__ void flash_decode_merge(const Args a) {
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
@@ -975,6 +996,8 @@ __global__ void flash_decode_merge(const Args a) {
   }
   T* O = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
   store(osum / fmaxf(lsum, 1e-30f), &O[d]);
+  if (a.lse != nullptr && d == 0)
+    a.lse[(static_cast<long long>(b) * a.H + h) * a.lse_stride] = row_lse(mx, lsum);
 }
 
 // ------------------------------------------------------------- dispatch
@@ -1137,9 +1160,10 @@ extern "C" {
 // flash_wgmma (bfloat16, D in {64, 80, 96, 112, 128}).  Decode reads the keys
 // [lo, hi] in n_chunks chunks of `chunk` keys; with n_chunks > 1, scratch
 // holds B * H * n_chunks * (D + 2) floats (the other routes ignore these).
-// lse, when not null (routes 0 and 2 only; decode ignores it), receives
-// each query row's logsumexp at lse[(b * H + h) * lse_stride + i], fp32,
-// natural domain (the backward's input); serving passes null.
+// lse, when not null (every route), receives each query row's logsumexp
+// at lse[(b * H + h) * lse_stride + i], fp32, natural domain (-1e30 for a
+// row that sees no key): the backward's input, and the decode's for a
+// merge of key shards; serving passes null.
 int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o,
     long long q_sb, long long q_sh, long long q_ss,

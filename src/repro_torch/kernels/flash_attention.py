@@ -30,7 +30,10 @@ There is no fallback between the routes: a CUDA tensor launches the
 kernel of its route or raises.  Each launch adds one to
 ``flash_attention.launches`` and to its route's count in
 ``flash_attention.launches_by_route`` (a decode over several chunks is
-one launch of the wrapper: the kernel and its merge).  Under an op
+one launch of the wrapper: the kernel and its merge).  Every route also
+writes each row's logsumexp when asked (``return_lse``: the decode over
+a cache whose positions are split over ranks merges the ranks' (o, lse)
+pairs, ``models.layers.merge_attention_parts``).  Under an op
 counter (``launch.op_cost``) a CPU call is counted at ``cost`` and its
 backward at ``backward_cost``, the bounds ``chip_smoke.py`` times the
 kernels against (``_cost``).
@@ -269,13 +272,15 @@ def backward_cost(q: torch.Tensor, k: torch.Tensor, causal: bool,
 
 
 class _Counted:
-    """A CPU call under an op counter (``_cost.CountedCall``)."""
+    """A CPU call under an op counter (``_cost.CountedCall``); with
+    ``with_lse`` its outputs are (o, lse)."""
 
     name = "flash_attention"
 
-    def __init__(self, causal, window, softcap, scale, q_offset):
+    def __init__(self, causal, window, softcap, scale, q_offset, with_lse=False):
         self.mask = dict(causal=causal, window=window, softcap=softcap, scale=scale)
         self.q_offset = q_offset
+        self.with_lse = with_lse
 
     def cost(self, q, k, v):
         return cost(q, k, self.mask["causal"], self.mask["window"], self.q_offset)
@@ -286,12 +291,12 @@ class _Counted:
     def run(self, q, k, v):
         o, lse = flash_attention_plain(q, k, v, q_offset=self.q_offset, return_lse=True,
                                        **self.mask)
-        return (o,), (o, lse)
+        return ((o, lse) if self.with_lse else (o,)), (o, lse)
 
     def empty(self, q, k, v):
         o = torch.empty_like(q)
-        return (o,), (o, q.new_empty((*q.shape[:2], lse_stride(q.shape[2])),
-                                     dtype=torch.float32))
+        lse = q.new_empty((*q.shape[:2], lse_stride(q.shape[2])), dtype=torch.float32)
+        return ((o, lse.narrow(2, 0, q.shape[2])) if self.with_lse else (o,)), (o, lse)
 
     def grad(self, inputs, saved, grads):
         return flash_attention_backward_plain(*inputs, *saved, grads[0], **self.mask)
@@ -399,9 +404,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @_cost.reports("flash_attention", lambda q, k, v, causal, window, softcap, scale, q_offset,
                *_, **__: cost(q, k, causal, window, q_offset))
 def _launch(q, k, v, causal, window, softcap, scale, q_offset, want_lse=False):
-    """The forward launch: o, or (o, lse) with ``want_lse`` (the prefill
-    routes' logsumexp, [B, H, lse_stride(Sq)] of which the first Sq rows
-    of a head are written)."""
+    """The forward launch: o, or (o, lse) with ``want_lse`` (each row's
+    logsumexp, which every route writes: [B, H, lse_stride(Sq)] of which
+    the first Sq rows of a head are written).  On fake tensors (a dry run
+    on card tensors) the outputs are empty tensors of these shapes and
+    nothing is launched or counted."""
     B, H, Sq, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     if D not in HEAD_DIMS:
@@ -411,7 +418,8 @@ def _launch(q, k, v, causal, window, softcap, scale, q_offset, want_lse=False):
     if max(Sq, Sk) + q_offset >= 2**31:
         raise ValueError("positions too large for the kernel's int32 indices")
     r = route(q.dtype, Sq, D)
-    if r in ("wgmma", "decode"):
+    fake = _cost.is_fake(q)
+    if r in ("wgmma", "decode") and not fake:
         _check_aligned(r, q=q, k=k, v=v)
     # the output in q's memory layout (a [B, S, H, D] view stays one)
     o = torch.empty_like(q)
@@ -424,11 +432,10 @@ def _launch(q, k, v, causal, window, softcap, scale, q_offset, want_lse=False):
     n_scratch = decode_scratch_floats(B, H, D, n_chunks)
     scratch = (torch.empty(n_scratch, dtype=torch.float32, device=q.device)
                if n_scratch else None)
-    lse = None
-    if want_lse:
-        if r == "decode":
-            raise ValueError("the decode route writes no logsumexp")
-        lse = torch.empty((B, H, lse_stride(Sq)), dtype=torch.float32, device=q.device)
+    lse = (torch.empty((B, H, lse_stride(Sq)), dtype=torch.float32, device=q.device)
+           if want_lse else None)
+    if fake:
+        return (o, lse) if want_lse else o
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -451,27 +458,37 @@ def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, window: Optional[int] = None,
     softcap: Optional[float] = None, scale: Optional[float] = None,
-    q_offset: int = 0,
-) -> torch.Tensor:
+    q_offset: int = 0, return_lse: bool = False,
+):
     """softmax(mask(softcap(scale * q k^T))) v over grouped KV heads.
 
     q [B, H, Sq, D], k and v [B, KV, Sk, D], float32 or bfloat16, any
     strides with the last dimension contiguous; query position i is
     ``i + q_offset``, key position j is j.  ``scale`` defaults to
     D**-0.5.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel of ``route`` (D in ``HEAD_DIMS``)."""
+    the kernel of ``route`` (D in ``HEAD_DIMS``).  With ``return_lse``
+    (no gradient) also each row's logsumexp, fp32 [B, H, Sq] in the natural
+    domain, -1e30 for a row that sees no key: ``(o, lse)``, which a caller
+    that splits the keys (a decode over a cache sharded by positions)
+    merges."""
     _check(q, k, v, window, softcap, q_offset)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         if _cost.counting():
-            return _cost.counted(_Counted(causal, window, softcap, scale, q_offset), q, k, v)
+            return _cost.counted(_Counted(causal, window, softcap, scale, q_offset,
+                                          with_lse=return_lse), q, k, v)
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale,
-                                     q_offset=q_offset)
+                                     q_offset=q_offset, return_lse=return_lse)
     if q.device.type == "cuda":
         if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            if return_lse:
+                raise NotImplementedError("flash_attention's return_lse takes no gradient")
             _check_backward(q, k, q_offset)
             return _Attention.apply(q, k, v, causal, window, softcap, scale)
+        if return_lse:
+            o, lse = _launch(q, k, v, causal, window, softcap, scale, q_offset, want_lse=True)
+            return o, lse.narrow(2, 0, q.shape[2])
         return _launch(q, k, v, causal, window, softcap, scale, q_offset)
     raise ValueError(f"no flash_attention kernel for device {q.device}")
 

@@ -14,8 +14,11 @@ The port of ``repro.launch.train`` with the same flags and defaults, plus
 on cards), or on one rank without ``torchrun``; ``pod`` and ``multipod``
 on 256 or 512 of them: every rank draws the same weights, keeps its
 shards (``TransformerLM.shard_parameters``) and steps on its dp shard of
-each batch; rank 0 prints.  Checkpoints are written without a mesh
-only.
+each batch; rank 0 prints.  With ``--ckpt-dir`` on a mesh every leaf
+is gathered whole to rank 0's host, slice by slice, and rank 0 writes it
+(the same files as without a mesh, ``train_loop.save_state``); each rank
+restores its shards from the latest checkpoint, whether a mesh wrote it
+or not.
 Features: DGTP infeed planning (``--plan-infeed``, the port's
 ``plan_infeed``), the deterministic sharded data pipeline, AdamW with
 optional gradient accumulation and bf16 first moments with a factored
@@ -74,8 +77,6 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     device = resolve_device(args.device)
     mesh, rank = None, 0
     if args.mesh != "none":
-        if args.ckpt_dir:
-            raise SystemExit("checkpoints are written without a mesh only")
         rank, _ = init_ranks(device.type)
         mesh = (make_host_mesh(model=args.tp) if args.mesh == "host"
                 else make_production_mesh(multi_pod=args.mesh == "multipod"))
@@ -123,7 +124,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             save_state(args.ckpt_dir, state)
     if args.ckpt_dir:
         save_state(args.ckpt_dir, state)
-        print(f"final checkpoint at {args.ckpt_dir}")
+        say(f"final checkpoint at {args.ckpt_dir}")
     if mesh is not None:
         import torch.distributed as dist
 

@@ -35,14 +35,13 @@ nothing of this runs and KV heads are never repeated.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .. import sharding as sh
-from ..kernels import _cost
-from ..kernels.flash_attention import cost as flash_cost, flash_attention
+from ..kernels.flash_attention import NEG_INF, flash_attention
 from ..sharding import MeshContext, Spec
 from .config import LMConfig
 
@@ -281,63 +280,64 @@ def apply_attn(p: Params, x: torch.Tensor, cos: Optional[torch.Tensor],
     return _out_tp(p, o, x, cfg, ctx) if tp else _out(p, o, x)
 
 
+def merge_attention_parts(o: torch.Tensor, lse: torch.Tensor,
+                          reduce: Callable[[torch.Tensor, str], torch.Tensor]) -> torch.Tensor:
+    """The attention over keys cut into parts, from one part's output o
+    [B, H, Sq, hd] and logsumexp lse [B, H, Sq] (fp32, natural domain;
+    -1e30 where the part sees no key): with ``top = reduce(lse, "max")``
+    and w = exp(lse - top), sum(w o) / sum(w), the sums ``reduce(., "sum")``,
+    in fp32.  ``reduce(x, op)`` combines a tensor over the parts: the
+    all-reduce over the dp ranks (``_seq_sharded_decode``), or a max or sum
+    over a leading dimension that stacks the parts in one process.  A part
+    that sees no key weighs 0."""
+    top = reduce(lse, "max")
+    w = torch.exp(lse - top).unsqueeze(-1)
+    return reduce(w * o.float(), "sum") / reduce(w, "sum")
+
+
+def seq_shard_part(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
+                   local: int, cfg: LMConfig,
+                   window: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One rank's part of a decode over a cache whose positions are cut
+    into shards: q [B, 1, H, hd] against this shard [B, sl, KV, hd], whose
+    first position lies ``local`` before the query's.  Returns (o [B, H,
+    1, hd], lse [B, H, 1] fp32).  Where ``local >= 0``, ``flash_attention``
+    at ``q_offset = local`` with the logsumexp (the decode kernel on the
+    card, the plain version on the CPU; past the shard, ``local >= sl``, it
+    sees the whole shard unless the window cuts it), counted under an op
+    counter at the flash kernel's formula at ``local``; where ``local <
+    0`` the shard holds no key the query sees and nothing is launched: o =
+    0, lse = -1e30."""
+    qt = q.transpose(1, 2)
+    if local < 0:
+        return (torch.zeros_like(qt),
+                torch.full(qt.shape[:3], NEG_INF, dtype=torch.float32, device=q.device))
+    return flash_attention(qt, cache_k.transpose(1, 2), cache_v.transpose(1, 2), causal=True,
+                           window=window, softcap=cfg.attn_softcap, scale=cfg.q_scaling(),
+                           q_offset=local, return_lse=True)
+
+
 def _seq_sharded_decode(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
                         pos: int, cfg: LMConfig, window: Optional[int],
                         ctx: MeshContext) -> torch.Tensor:
     """One query per row against a cache whose positions are sharded over
-    dp (this rank's ``Smax / dp`` of them): each rank's (max, sum, weighted
-    values) over its keys, merged over dp by one max and two sum
-    all-reduces.  q [B, 1, H, hd] -> o [B, H, 1, hd].
-
-    The local part is the plain version, on CPU tensors only (the decode
-    kernel writes no logsumexp to merge, so CUDA tensors raise; fake ones
-    get its outputs' shapes), counted under an op counter at the flash
-    kernel's formula."""
-    if q.device.type != "cpu":
-        raise NotImplementedError(
-            "decode with the cache's positions sharded over dp (batch not divisible "
-            f"by dp {ctx.dp_size}) has no kernel: flash_attention's decode route "
-            "writes no logsumexp for the ranks' outputs to be merged")
+    dp: this rank's ``sl = Smax / dp`` of them, at its local position
+    ``local = pos - index sl`` (``index`` its coordinate over the dp axes,
+    major first).  q [B, 1, H, hd] -> o [B, H, 1, hd].  The rank's part is
+    ``seq_shard_part``; the parts are merged over dp by
+    ``merge_attention_parts`` (one max and two sum all-reduces, every rank
+    taking part, also one that launched nothing) in fp32 and cast once to
+    q's dtype."""
     index, _ = ctx.coordinate(ctx.dp)
-    sl = cache_k.shape[1]
-    local = pos - index * sl
-
-    def part() -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        b, _, h, hd = q.shape
-        if _cost.is_fake(q):  # the dry run: the kernel's outputs, nothing computed
-            return (q.new_empty((b, h, 1, 1), dtype=torch.float32),
-                    q.new_empty((b, h, 1, 1), dtype=torch.float32),
-                    q.new_empty((b, h, 1, hd), dtype=torch.float32))
-        g = h // cache_k.shape[2]
-        kk = cache_k.repeat_interleave(g, dim=2).float()
-        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) * cfg.q_scaling()
-        if cfg.attn_softcap:
-            s = cfg.attn_softcap * torch.tanh(s / cfg.attn_softcap)
-        key = torch.arange(sl, device=q.device)
-        seen = key <= local
-        if window is not None:
-            seen &= key > local - window
-        s = torch.where(seen, s, torch.full_like(s, -1e30))
-        m = s.amax(-1, keepdim=True)
-        w = torch.exp(s - m)
-        return m, w.sum(-1, keepdim=True), torch.einsum(
-            "bhqk,bkhd->bhqd", w, cache_v.repeat_interleave(g, dim=2).float())
-
-    if _cost.counting():
-        with _cost.kernel("flash_attention", *flash_cost(
-                q.transpose(1, 2), cache_k.transpose(1, 2), True, window, local)):
-            m, l, o = part()
-    else:
-        m, l, o = part()
+    o, lse = seq_shard_part(q, cache_k, cache_v, pos - index * cache_k.shape[1], cfg, window)
     groups = [ctx.group(a) for a in ctx.dp]
-    top = m
-    for grp in groups:
-        top = sh.all_reduce(top, grp, "max")
-    scale = torch.exp(m - top)  # 0 on a rank that sees none of the keys
-    l, o = l * scale, o * scale
-    for grp in groups:
-        l, o = sh.all_reduce(l, grp), sh.all_reduce(o, grp)
-    return (o / l).to(q.dtype)
+
+    def reduce(x: torch.Tensor, op: str) -> torch.Tensor:
+        for grp in groups:
+            x = sh.all_reduce(x, grp, op)
+        return x
+
+    return merge_attention_parts(o, lse, reduce).to(q.dtype)
 
 
 def decode_attn(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
@@ -352,7 +352,8 @@ def decode_attn(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     sin of position ``pos``.  On a mesh the cache is this rank's shard
     (``TransformerLM.cache_specs``): its KV heads in "heads" mode, every
     repeated KV head otherwise; positions sharded over dp where the batch
-    is not (``seq_shard_ok``), which the attention then sums over dp."""
+    is not (``seq_shard_ok``): each rank attends over its positions and
+    the ranks' parts are merged over dp (``_seq_sharded_decode``)."""
     tp = _tp(ctx)
     q, k, v = _qkv_tp(p, x, cos, sin, cfg, ctx) if tp else _qkv(p, x, cos, sin, cfg)
     mode = attn_shard_mode(cfg, ctx) if tp else "heads"

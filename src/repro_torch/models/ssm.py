@@ -19,9 +19,12 @@ it).
 
 On a mesh (``ctx`` over ranks with tp > 1) the inner dimension and so the
 SSM heads shard over tp (``mamba_block_specs``, the reference's layout):
-each rank scans its heads with the group's B and C, which every rank
-computes whole; the gated norm's mean square is summed over tp and the
-output projection's partial products too.
+every rank computes B and C whole (their projections, convolutions and
+convolution windows are replicated) and scans its heads with the groups
+they use (``rank_groups``: G / tp groups a rank where tp divides G, the
+one group its heads lie in where G divides tp); the gated norm's mean
+square is summed over tp and the output projection's partial products
+too.
 """
 from __future__ import annotations
 
@@ -56,6 +59,9 @@ def mamba_block_specs(cfg: LMConfig, ctx: MeshContext) -> Dict[str, Spec]:
 
 
 def mamba_cache_specs(cfg: LMConfig, ctx: MeshContext, batch: int) -> Dict[str, Spec]:
+    """The reference's: the state's heads over tp, the convolution windows
+    of B and C whole on every rank (each rank convolves them whole and then
+    takes its groups, ``rank_groups``)."""
     bspec = ctx.batch_spec(batch, 0)[0]
     tp = ctx.tp_axis()
     return {"conv_x": (None, bspec, None, tp), "conv_B": (None, bspec, None, None),
@@ -134,6 +140,25 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
+def rank_groups(cfg: LMConfig, ctx: Ctx) -> Tuple[int, int]:
+    """(first group, groups) of B and C that this rank's ``nh / tp`` SSM
+    heads use, in order: all G without tensor parallelism; where tp divides
+    G the rank's G / tp groups; where G divides tp the one group its heads
+    lie in.  Any other (G, tp) pair cuts a group's heads over ranks
+    unevenly, and raises."""
+    G = cfg.ssm.n_groups
+    if not _tp(ctx):
+        return 0, G
+    tp, r = ctx.tp_size, ctx.tp_rank()
+    if G % tp == 0:
+        return r * (G // tp), G // tp
+    if tp % G == 0:
+        return r // (tp // G), 1
+    raise NotImplementedError(
+        f"{cfg.name}: {G} B/C groups over tp {tp}: a rank's heads straddle a group "
+        "boundary (tp must divide the groups or the groups tp)")
+
+
 def _projections(p: Params, x: torch.Tensor, ctx: Ctx = None):
     """z, x, B, C, dt: on a mesh z, x and dt over this rank's heads, B and
     C whole (then entering the rank's scan: ``copy_to_tp``)."""
@@ -147,8 +172,7 @@ def apply_mamba_block(p: Params, x: torch.Tensor, cfg: LMConfig,
     x [B, S, d]."""
     s, d, di, nh, hd, ds, G = _dims(cfg)
     tp = ctx.tp_size if _tp(ctx) else 1
-    if tp > 1 and G > 1:
-        raise NotImplementedError(f"{cfg.name}: the heads shard over tp with one group only")
+    g0, ng = rank_groups(cfg, ctx)
     di, nh = di // tp, nh // tp
     b, seqlen, _ = x.shape
     res = x
@@ -160,9 +184,10 @@ def apply_mamba_block(p: Params, x: torch.Tensor, cfg: LMConfig,
     dt = _softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     xh = xc.reshape(b, seqlen, nh, hd)
-    Bc, Cc = sh.copy_to_tp(Bc, ctx), sh.copy_to_tp(Cc, ctx)
-    y = ssd_scan(xh, dt, A, Bc.view(b, seqlen, G, ds), Cc.view(b, seqlen, G, ds),
-                 chunk=s.chunk)
+    # this rank's groups of B and C (every rank's gradients summed over tp)
+    Bc, Cc = (sh.copy_to_tp(t, ctx).view(b, seqlen, G, ds)[:, :, g0:g0 + ng]
+              for t in (Bc, Cc))
+    y = ssd_scan(xh, dt, A, Bc, Cc, chunk=s.chunk)
     # D x is added in fp32 after the scan's rounding to x's dtype, as in
     # the reference
     y = y + xh.float() * p["D"][None, None, :, None]
@@ -189,6 +214,7 @@ def decode_mamba_block(p: Params, x: torch.Tensor, cache: Mapping[str, torch.Ten
     reference returns updated copies); returns the block's output."""
     s, d, di, nh, hd, ds, G = _dims(cfg)
     tp = ctx.tp_size if _tp(ctx) else 1
+    g0, ng = rank_groups(cfg, ctx)
     di, nh = di // tp, nh // tp
     b = x.shape[0]
     res = x
@@ -201,9 +227,9 @@ def decode_mamba_block(p: Params, x: torch.Tensor, cache: Mapping[str, torch.Ten
     dt = _softplus(dt.float() + p["dt_bias"])  # [B, nh]
     A = -torch.exp(p["A_log"])
     xh = xc.reshape(b, nh, hd).float()
-    rep = nh // G
-    Bh = Bc.reshape(b, G, ds).repeat_interleave(rep, dim=1).float()
-    Ch = Cc.reshape(b, G, ds).repeat_interleave(rep, dim=1).float()
+    # this rank's groups, each repeated over its heads
+    Bh, Ch = (t.reshape(b, G, ds)[:, g0:g0 + ng].repeat_interleave(nh // ng, dim=1).float()
+              for t in (Bc, Cc))
     decay = torch.exp(A * dt)  # [B, nh]
     h = cache["h"] * decay[:, :, None, None] + (xh * dt[..., None])[..., None] * Bh[:, :, None, :]
     y = torch.einsum("bnc,bnhc->bnh", Ch, h) + xh * p["D"][None, :, None]

@@ -10,11 +10,20 @@ leaf is stored as its raw ``uint16`` view with logical dtype
 mapping, the other restores.
 
 Leaves are ``torch.Tensor`` (any device; gathered to the host to save;
-numpy arrays are saved too).  Restore is exact (bitwise), validates
+numpy arrays are saved too), or functions of no arguments that return
+one, called as the leaf is written.  Restore is exact (bitwise), validates
 shapes against ``like`` and returns tensors.  Partial writes are never visible: the leaves and the
 manifest land in a temporary directory, the manifest last and fsync'd,
 which is then renamed into place (the manifest-last protocol), and
 ``latest_checkpoint`` only considers directories with a manifest.
+
+On a mesh (``train.train_loop.save_state``) each leaf is the whole
+logical array, as the reference's ``np.asarray(leaf)`` gathers it: rank
+0 calls ``save_checkpoint`` on a tree of gathering functions, which run
+one leaf at a time while the other ranks call the same functions in the
+same order; ``restore_checkpoint(..., place=)`` reads each whole array
+and keeps the rank's shard of it.  So a checkpoint holds
+the same files with or without a mesh, and each restores into the other.
 """
 from __future__ import annotations
 
@@ -23,7 +32,7 @@ import os
 import shutil
 import tempfile
 from pathlib import Path
-from typing import Any, Iterator, Mapping, Optional, Tuple, Union
+from typing import Any, Callable, Iterator, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,15 +44,15 @@ PathLike = Union[str, Path]
 _BF16 = "bfloat16"
 
 
-def _leaf_paths(tree: Tree, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[str, Any]]:
+def leaf_paths(tree: Tree, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[str, Any]]:
     """``(name, leaf)`` pairs, a mapping's keys in sorted order (the order
     the JAX package's tree flattening gives a dict)."""
     if isinstance(tree, Mapping):
         for k in sorted(tree, key=str):
-            yield from _leaf_paths(tree[k], prefix + (str(k),))
+            yield from leaf_paths(tree[k], prefix + (str(k),))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from _leaf_paths(v, prefix + (str(i),))
+            yield from leaf_paths(v, prefix + (str(i),))
     else:
         yield "__".join(prefix), tree
 
@@ -70,8 +79,8 @@ def save_checkpoint(directory: PathLike, tree: Tree, step: int) -> Path:
     ckpt = directory / f"step_{step:08d}"
     tmp = Path(tempfile.mkdtemp(prefix=".tmp_ckpt_", dir=directory))
     entries = {}
-    for name, leaf in _leaf_paths(tree):
-        arr, logical = _to_numpy(leaf)
+    for name, leaf in leaf_paths(tree):
+        arr, logical = _to_numpy(leaf() if callable(leaf) else leaf)
         np.save(tmp / f"{name}.npy", arr)
         entries[name] = {"shape": list(arr.shape), "dtype": logical}
     manifest = {"step": step, "entries": entries}
@@ -98,13 +107,11 @@ def latest_checkpoint(directory: PathLike) -> Optional[Path]:
     return candidates[-1] if candidates else None
 
 
-def _restored(arr: np.ndarray, logical: str, like: torch.Tensor) -> torch.Tensor:
-    """``arr`` as a tensor of ``like``'s dtype on ``like``'s device."""
+def _host_tensor(arr: np.ndarray, logical: str) -> torch.Tensor:
+    """``arr`` as a host tensor of its logical dtype."""
     if logical == _BF16:
-        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(arr)
-    return t.to(dtype=like.dtype).to(device=like.device)
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _rebuild(like: Tree, out: dict, prefix: Tuple[str, ...] = ()) -> Tree:
@@ -116,16 +123,25 @@ def _rebuild(like: Tree, out: dict, prefix: Tuple[str, ...] = ()) -> Tree:
     return out["__".join(prefix)]
 
 
-def restore_checkpoint(path: PathLike, like: Tree) -> Tuple[Tree, int]:
+def restore_checkpoint(
+    path: PathLike, like: Tree,
+    place: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None,
+) -> Tuple[Tree, int]:
     """Restore into the structure of ``like`` (a nested mapping of
     tensors; shapes validated); returns ``(tree, step)`` with each leaf of
-    ``like``'s dtype on ``like``'s device."""
+    ``like``'s dtype on ``like``'s device.  With ``place`` each leaf is
+    read whole and ``place(name, tensor)`` (the whole leaf on the host, in
+    its logical dtype) gives the part kept, such as a rank's shard, which
+    ``like`` then holds the shape of."""
     path = Path(path)
     manifest = json.loads((path / "manifest.json").read_text())
     out = {}
-    for name, leaf in _leaf_paths(like):
-        arr = np.load(path / f"{name}.npy")
-        if tuple(arr.shape) != tuple(leaf.shape):
-            raise ValueError(f"{name}: checkpoint shape {arr.shape} != {tuple(leaf.shape)}")
-        out[name] = _restored(arr, manifest["entries"][name]["dtype"], leaf)
+    for name, leaf in leaf_paths(like):
+        t = _host_tensor(np.load(path / f"{name}.npy"), manifest["entries"][name]["dtype"])
+        if place is not None:
+            t = place(name, t).clone()
+        if tuple(t.shape) != tuple(leaf.shape):
+            raise ValueError(f"{name}: checkpoint shape {tuple(t.shape)} != "
+                             f"{tuple(leaf.shape)}")
+        out[name] = t.to(dtype=leaf.dtype).to(device=leaf.device)
     return _rebuild(like, out), manifest["step"]

@@ -18,7 +18,9 @@ leaves (``TransformerLM.leaf_groups``).  A step:
 
 A state saves and restores through ``train.checkpoint`` as the tree
 ``{"opt", "params", "step"}``, the reference's ``TrainState`` leaves and
-names (``save_state``, ``restore_state``).
+names (``save_state``, ``restore_state``); on a mesh each leaf is saved
+whole, gathered from the ranks' shards, and restored into each rank's
+shard, so the files are the same with or without a mesh.
 
 On a mesh (a model placed with ``TransformerLM.shard_parameters``) the
 same step runs SPMD on every rank: the batch, which every rank holds
@@ -35,6 +37,7 @@ tensor mode (fake tensors in the dry run), and return it to be called.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
@@ -46,7 +49,7 @@ import torch
 from .. import sharding as sh
 from ..launch import inputs as inputs_mod
 from ..models.model import TransformerLM
-from .checkpoint import PathLike, restore_checkpoint, save_checkpoint
+from .checkpoint import PathLike, leaf_paths, restore_checkpoint, save_checkpoint
 from .optimizer import (AdamWSettings, Tree, adamw_init, adamw_update,
                         opt_state_specs, tree_build, tree_items)
 
@@ -98,6 +101,13 @@ def _write_weights(model: TransformerLM, new: Tree) -> None:
 
 def _micro(batch: Batch, k: int, i: int) -> Dict[str, torch.Tensor]:
     return {n: t.reshape(k, t.shape[0] // k, *t.shape[1:])[i] for n, t in batch.items()}
+
+
+def _whole_leaves(model: TransformerLM) -> Dict[Tuple[str, ...], torch.Tensor]:
+    """Meta tensors of the whole stacked leaves' shapes and dtypes."""
+    return {path: torch.empty((len(ps),) + tuple(ps[0].shape) if st else tuple(ps[0].shape),
+                              dtype=ps[0].dtype, device="meta")
+            for path, ps, st in model.leaf_groups()}
 
 
 def _stacked_specs(model: TransformerLM) -> Dict[Tuple[str, ...], Tuple[Any, ...]]:
@@ -190,10 +200,7 @@ class TrainStepBuilder:
                           step=0)
 
     def _whole_leaves(self) -> Dict[Tuple[str, ...], torch.Tensor]:
-        """Meta tensors of the whole stacked leaves' shapes."""
-        return {path: torch.empty((len(ps),) + tuple(ps[0].shape) if st
-                                  else tuple(ps[0].shape), device="meta")
-                for path, ps, st in self.model.leaf_groups()}
+        return _whole_leaves(self.model)
 
     def _local_batch(self, batch: Batch) -> Dict[str, torch.Tensor]:
         """This rank's dp shard of a batch every rank holds whole."""
@@ -315,16 +322,109 @@ def state_tree(state: TrainState) -> Tree:
             "step": torch.tensor(state.step, dtype=torch.int32)}
 
 
+def _names(tree: Any, prefix: Tuple[str, ...] = ()) -> Dict[str, Any]:
+    """A tree of specs or shapes (tuples are leaves) by checkpoint leaf
+    name: a mapping's keys, sorted, joined with ``__``."""
+    if isinstance(tree, Mapping):
+        return {n: v for k in sorted(tree) for n, v in _names(tree[k], prefix + (k,)).items()}
+    return {"__".join(prefix): tree}
+
+
+def _mesh_layout(state: TrainState) -> Tuple[Dict[str, Tuple[int, ...]], Dict[str, Any]]:
+    """On a mesh, each leaf of ``state_tree(state)`` by checkpoint name:
+    (its whole shape, its spec).  The parameters' specs are
+    ``param_specs``; the optimizer's ``opt_state_specs`` with a factored
+    second moment where the state has one, decided, as ``adamw_init(...,
+    whole=)`` decided it, from the whole leaf's shape."""
+    model = state.params
+    leaves = _whole_leaves(model)
+    factored = any(isinstance(v, Mapping) for _, v in tree_items(state.opt["v"]))
+    cfg = AdamWSettings(factored_v=factored)
+    params, specs = tree_build(list(leaves.items())), model.param_specs()
+    whole = {"params": params, "opt": adamw_init(params, cfg),  # meta: shapes only
+             "step": torch.empty((), device="meta")}
+    shapes = {n: tuple(t.shape) for n, t in leaf_paths(whole)}
+    return shapes, _names({"params": specs, "opt": opt_state_specs(cfg, params, specs),
+                           "step": ()})
+
+
+# the most bytes of a leaf that a mesh gathers at once to save it
+_GATHER_BYTES = 1 << 30
+
+
+def _gathered(ctx: sh.MeshContext, t: torch.Tensor, spec: Tuple[Any, ...],
+              shape: Tuple[int, ...], keep: bool) -> Optional[torch.Tensor]:
+    """The whole leaf of ``shape`` whose shard under ``spec`` this rank
+    holds as ``t``, on the host where ``keep`` (else None).  It is
+    gathered over the ranks in slices of the first dimension that the spec
+    does not shard, of at most ``_GATHER_BYTES`` each (one index where that
+    is more), each slice moved to the host before the next is gathered: a
+    card holds its shards and one slice whole, never the whole leaf."""
+    if not any(sh.axis_names(e) for e in spec):
+        return t.cpu() if keep else None
+    from torch.distributed.tensor import DTensor
+
+    place = sh.placements(spec, tuple(sh.mesh_shape(ctx.mesh)))
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    free = [d for d in range(len(shape)) if not sh.axis_names(spec[d]) and shape[d] > 1]
+    dim = free[0] if free else 0
+    per = shape[dim] if not free else max(
+        1, _GATHER_BYTES * shape[dim] // (math.prod(shape) * t.element_size()))
+    out = torch.empty(shape, dtype=t.dtype) if keep else None
+    for at in range(0, shape[dim], per):
+        n = min(per, shape[dim] - at)
+        part = t.narrow(dim, at, n).contiguous() if free else t
+        size = torch.Size(shape[:dim] + (n,) + shape[dim + 1:])
+        whole = DTensor.from_local(part, ctx.mesh, place, shape=size,
+                                   stride=torch.empty(size, device="meta").stride()).full_tensor()
+        if keep:
+            out.narrow(dim, at, n).copy_(whole)
+        del whole
+    return out
+
+
 def save_state(directory: PathLike, state: TrainState) -> Path:
-    """Checkpoint the state at its step (``train.checkpoint`` layout)."""
-    return save_checkpoint(directory, state_tree(state), state.step)
+    """Checkpoint the state at its step (``train.checkpoint`` layout).  On
+    a mesh every rank calls it: each leaf is gathered whole, one at a time
+    (``_gathered``), rank 0 writes it while the other ranks take part in
+    the same gathers in the same order, and every rank waits at a barrier
+    until rank 0 has published the manifest."""
+    ctx = state.params.ctx
+    if not ctx.has_ranks:
+        return save_checkpoint(directory, state_tree(state), state.step)
+    import torch.distributed as dist
+
+    shapes, specs = _mesh_layout(state)
+    writer = dist.get_rank() == 0
+    tree = {n: functools.partial(_gathered, ctx, t, specs[n], shapes[n], writer)
+            for n, t in leaf_paths(state_tree(state))}
+    if writer:
+        path = save_checkpoint(directory, tree, state.step)
+    else:
+        for _, gather in leaf_paths(tree):
+            gather()
+        path = Path(directory) / f"step_{state.step:08d}"
+    dist.barrier()
+    return path
 
 
 def restore_state(path: PathLike, state: TrainState) -> TrainState:
-    """Restore a ``save_state`` checkpoint into ``state`` (shapes checked;
-    a mismatch raises ``ValueError``): the model's weights, the optimizer
-    state and the step, bit for bit."""
-    tree, _ = restore_checkpoint(path, state_tree(state))
+    """Restore a ``save_state`` checkpoint, written with or without a
+    mesh, into ``state`` (shapes checked; a mismatch raises
+    ``ValueError``): the model's weights, the optimizer state and the step,
+    bit for bit.  On a mesh each rank reads the whole leaves and keeps its
+    shard of each by its spec."""
+    ctx, place = state.params.ctx, None
+    if ctx.has_ranks:
+        shapes, specs = _mesh_layout(state)
+
+        def place(name: str, t: torch.Tensor) -> torch.Tensor:
+            if tuple(t.shape) != shapes[name]:
+                raise ValueError(f"{name}: checkpoint shape {tuple(t.shape)} != the whole "
+                                 f"leaf's {shapes[name]}")
+            return ctx.shard(t, specs[name])
+
+    tree, _ = restore_checkpoint(path, state_tree(state), place)
     _write_weights(state.params, tree["params"])
     state.opt = tree["opt"]
     state.step = int(tree["step"])

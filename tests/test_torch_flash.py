@@ -25,14 +25,17 @@
     at positions on both sides of a chunk edge, 1, 2, 5, 8 and 12 query
     heads a KV head, a window inside one chunk and across chunks, softcap,
     a row with no valid key over several chunks, D 64-128, each giving
-    the same bits on two runs.  They skip without a card; run them there
-    with ``python -m pytest -m cuda tests/test_torch_flash.py``.
+    the same bits on two runs, and its logsumexp (``return_lse``, for a
+    merge over key shards) against the plain one's, also past the keys
+    (q_offset >= Sk).  They skip without a card; run them there with
+    ``python -m pytest -m cuda tests/test_torch_flash.py``.
 
   * gradients: on the CPU the wrapper's inputs that need a gradient get
     autograd through the plain version, equal to ``jax.grad`` of the
     oracle (K and V's gradients summed over each group); the plain
     forward's logsumexp (``return_lse``) against JAX's logsumexp of the
-    oracle's masked, softcapped scores, and the explicit plain backward
+    oracle's masked, softcapped scores (also a decode at q_offset >= 0,
+    past the keys, and a row with no key), and the explicit plain backward
     from (o, lse) against autograd and ``jax.grad`` (fp32, 1e-5 of the
     largest gradient), over the backward's cases; the backward's route
     by dtype and the logsumexp's padded stride.  Marked ``cuda``: the
@@ -402,6 +405,7 @@ DECODE_CASES = {
     "window_in_one_chunk": (2, 4, 2, 2048, 64, 1800, 100, None),
     "window_over_chunks": (1, 6, 2, 2048, 96, 1900, 700, 20.0),
     "no_valid_key_over_chunks": (1, 4, 2, 600, 128, 700, 4, None),
+    "past_the_keys_one_chunk": (1, 4, 2, 200, 64, 300, None, None),
 }
 
 
@@ -430,6 +434,38 @@ def test_decode_kernel_matches_plain(cuda, case, dtype):
     assert got.dtype == dt and got.shape == want.shape
     assert (got.float() - want.float()).abs().max().item() < TOL[dtype]
     assert torch.equal(got, again)
+
+
+LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-4}  # of the largest |lse|
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_decode_kernel_lse_matches_plain(cuda, case, dtype):
+    """The decode kernels' logsumexp (``return_lse``: the one-chunk
+    block's, or the merge's over several chunks) against the plain
+    version's, a row with no key exactly -1e30; the output has the same
+    bits with and without it, so serving, which does not ask, is
+    unchanged; two runs give the same bits."""
+    b, h, kv, smax, d, pos, window, softcap = DECODE_CASES[case]
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(8)
+    qs = torch.from_numpy(rng.standard_normal((b, 1, h, d)).astype(np.float32)).to(cuda, dt)
+    ck, cv = (torch.from_numpy(rng.standard_normal((b, smax, kv, d)).astype(np.float32))
+              .to(cuda, dt) for _ in range(2))
+    args = (qs.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2))
+    kw = dict(window=window, softcap=softcap, q_offset=pos)
+    before = flash_attention.launches_by_route["decode"]
+    o, lse = flash_attention(*args, return_lse=True, **kw)
+    o2, lse2 = flash_attention(*args, return_lse=True, **kw)
+    served = flash_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_route["decode"] == before + 3
+    assert lse.shape == (b, h, 1) and lse.dtype == torch.float32
+    assert torch.equal(o, served) and torch.equal(o, o2) and torch.equal(lse, lse2)
+    _, want = flash_attention_plain(*args, return_lse=True, **kw)
+    _lse_close(lse.cpu().numpy(), want.cpu().numpy(), LSE_TOL[dtype])
 
 
 @pytest.mark.cuda
@@ -551,9 +587,10 @@ def test_backward_refuses_what_it_does_not_compute(cuda):
         flash_attention(q, k, k, q_offset=3)
 
 
-def _jax_lse(jnp, q, k, causal, window, softcap):
+def _jax_lse(jnp, q, k, causal, window, softcap, q_offset=0):
     """JAX's logsumexp over keys of the oracle's scores (its formula:
-    scaled, softcapped, masked to -1e30), K repeated to H heads."""
+    scaled, softcapped, masked to -1e30), K repeated to H heads, query i at
+    position i + q_offset."""
     import jax
 
     g = q.shape[1] // k.shape[1]
@@ -561,7 +598,7 @@ def _jax_lse(jnp, q, k, causal, window, softcap):
                    preferred_element_type=jnp.float32) * q.shape[-1] ** -0.5
     if softcap:
         s = softcap * jnp.tanh(s / softcap)
-    iq = jnp.arange(q.shape[2])[:, None]
+    iq = jnp.arange(q.shape[2])[:, None] + q_offset
     jk = jnp.arange(k.shape[2])[None, :]
     mask = jnp.ones((q.shape[2], k.shape[2]), bool)
     if causal:
@@ -571,21 +608,54 @@ def _jax_lse(jnp, q, k, causal, window, softcap):
     return np.asarray(jax.nn.logsumexp(jnp.where(mask[None, None], s, -1e30), axis=-1))
 
 
-@pytest.mark.parametrize("case", sorted(BWD_CASES))
+# (b, h, kv, sk, d, pos, window, softcap): one decode query at q_offset
+# pos, as a rank of a cache sharded by positions asks for it (pos >= Sk:
+# the query lies past the shard)
+LSE_DECODE_CASES = {
+    "decode_pos77": (2, 4, 2, 128, 64, 77, None, None),
+    "decode_window": (2, 4, 2, 128, 64, 100, 16, None),
+    "decode_softcap_hd80": (1, 4, 4, 128, 80, 90, None, 30.0),
+    "decode_past_the_keys": (1, 4, 2, 64, 64, 100, None, None),
+    "decode_past_the_keys_window": (2, 6, 2, 64, 112, 70, 10, 20.0),
+    "decode_no_key": (1, 2, 1, 64, 64, 100, 8, None),
+}
+
+
+def _lse_close(lse, want, rtol):
+    """A row that sees a key within ``rtol`` of the largest such |lse|
+    (or 1); a row that sees none exactly -1e30, as JAX's rounds in fp32."""
+    none = want <= -1e29
+    assert np.array_equal(lse[none], want[none]) and (want[none] == np.float32(-1e30)).all()
+    seen = ~none
+    if seen.any():
+        err = np.abs(lse[seen] - want[seen]).max()
+        assert err <= rtol * max(np.abs(want[seen]).max(), 1.0), err
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES) + sorted(LSE_DECODE_CASES))
 def test_plain_lse_matches_jax_logsumexp(jx, case):
     """``flash_attention_plain(..., return_lse=True)``'s logsumexp, what the
-    forward kernels keep for the backward, against JAX's over the oracle's
-    scores; its output is the plain output."""
+    forward kernels keep for the backward and the decode kernels give a
+    merge over key shards, against JAX's over the oracle's scores, also at
+    q_offset >= Sk, with a window, a softcap and a row with no key; its
+    output is the plain output, and ``flash_attention(..., return_lse=True)``
+    gives the same pair on CPU tensors."""
     jnp = jx[0]
-    b, h, kv, s, d, causal, window, softcap = BWD_CASES[case]
-    q, k, v = _inputs(5, b, h, kv, s, s, d)
-    kw = dict(causal=causal, window=window, softcap=softcap)
+    if case in BWD_CASES:
+        b, h, kv, s, d, causal, window, softcap = BWD_CASES[case]
+        sq, sk, pos = s, s, 0
+    else:
+        b, h, kv, sk, d, pos, window, softcap = LSE_DECODE_CASES[case]
+        sq, causal = 1, True
+    q, k, v = _inputs(5, b, h, kv, sq, sk, d)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=pos)
     o, lse = flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v)),
                                    return_lse=True, **kw)
-    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
-    assert torch.equal(o, _plain(q, k, v, "float32", causal, window, softcap, 0))
-    want = _jax_lse(jnp, q, k, causal, window, softcap)
-    assert np.abs(lse.numpy() - want).max() <= 1e-5 * max(np.abs(want).max(), 1.0)
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    assert torch.equal(o, _plain(q, k, v, "float32", causal, window, softcap, pos))
+    o2, lse2 = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)), return_lse=True, **kw)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    _lse_close(lse.numpy(), _jax_lse(jnp, q, k, causal, window, softcap, pos), 1e-5)
 
 
 @pytest.mark.parametrize("case", sorted(BWD_CASES))

@@ -50,7 +50,7 @@ def test_no_jax_or_reference_imports_in_source():
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "engine_probe.py",
         ROOT / "flash_ablate.py", ROOT / "sage_ablate.py", ROOT / "ssd_ablate.py",
-        ROOT / "profiler_probe.py",
+        ROOT / "profiler_probe.py", ROOT / "decode_bits.py",
         ROOT / "examples" / "train_graphsage_torch.py",
         ROOT / "examples" / "dynamic_replan_torch.py",
         ROOT / "examples" / "arrivals_torch.py",

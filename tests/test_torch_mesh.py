@@ -13,15 +13,23 @@ loss per dp shard (``pmean``), and for the other archs the whole batch's
 loss; kimi-k2 at dp 1 is held against the whole batch's.  The reference's
 ``attn_mode`` changes nothing without a mesh.  Cases: internlm2 (dense, heads mode), kimi-k2 (expert
 parallel, top-2) and mamba2 (the head-sharded scan) at tp 4 and at dp 2
-x tp 2; starcoder2 at tp 8 in "head_dim" and "pad" mode (its 4 query
+x tp 2; mamba2 with 2 B/C groups at tp 2 and tp 4 and with 4 at tp 2
+(each rank scanning its heads over the groups they use); starcoder2 at
+tp 8 in "head_dim" and "pad" mode (its 4 query
 heads over 2 KV heads divide neither); one mesh AdamW step (plain and
 with a factored second moment; two steps, as the schedule's first lr is
 0) against the same steps without a mesh; internlm2's decode at batch 1 on
 dp 2 x tp 2 (the cache's positions sharded over dp, merged over the
 ranks) against the decode without a mesh, its attention counted at the
-flash kernel's formula, and the same decode refused on CUDA tensors.
-The one-rank mesh on a card is a ``cuda`` test in ``test_torch_cuda.py``,
-which imports no JAX.
+flash kernel's formula; zamba2's decode at batch 1 on dp 4 and on dp 2 x
+tp 2 against JAX's decode without a mesh, over steps where some ranks see
+no key; checkpoints on dp 2 x tp 2 (plain and factored AdamW): a resume
+equal bit for bit to the steps without it, a mesh checkpoint restored
+without a mesh and back with the same files, and the reference's
+``restore_checkpoint`` reading it; and, on fake card tensors, a rank's
+part of the sequence-sharded decode reaching the flash decode route with
+its logsumexp.  The one-rank mesh on a card is a ``cuda`` test in
+``test_torch_cuda.py``, which imports no JAX.
 """
 import dataclasses
 import json
@@ -52,6 +60,10 @@ PAD_CASES = [("starcoder2-3b", 8, mode) for mode in ("head_dim", "pad")]
 STEP_CASES = [False, True]  # factored second moment
 STEP_LR = 1e-2  # tests/torch_mesh_worker.py's
 DECODE_STEPS = 12  # a cache of 12 positions, 6 a dp rank: the steps cross ranks
+ZAMBA_DECODE = [1, 2]  # model axes: dp 4 (3 positions a rank) and dp 2 x tp 2
+# mamba2-smoke's 8 SSM heads: (groups, model axis) pairs where tp divides
+# the groups (2 at tp 2, 4 at tp 2) and where the groups divide tp (2 at 4)
+GROUP_CASES = [(2, 2), (2, 4), (4, 2)]
 
 
 def _port():
@@ -71,16 +83,23 @@ def _flat(tree, prefix=()):
 _CACHE = {}
 
 
-def _reference(arch, mode, whole=False):
+def _ref_cfg(arch, mode="head_dim", groups=None):
+    cfg = dataclasses.replace(ref_configs.get_smoke_config(arch), dtype="float32",
+                              attn_mode=mode)
+    if groups:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, n_groups=groups))
+    return cfg
+
+
+def _reference(arch, mode, whole=False, groups=None):
     """The reference's weights, batch, and loss and gradients: the mean of
     its jitted ``loss_fn`` over the batch's two halves (dp 2), or with
     ``whole`` over the whole batch (only the MoE load-balance loss tells
-    them apart)."""
-    key = (arch, mode, whole)
+    them apart); ``groups`` sets mamba2's B/C groups."""
+    key = (arch, mode, whole, groups)
     if key in _CACHE:
         return _CACHE[key]
-    cfg = dataclasses.replace(ref_configs.get_smoke_config(arch), dtype="float32",
-                              attn_mode=mode)
+    cfg = _ref_cfg(arch, mode, groups)
     model = ref_build(cfg, single_device_ctx())
     params = model.init(jax.random.key(0))
     rng = np.random.default_rng(7)
@@ -138,6 +157,27 @@ def world4(tmp_path_factory):
                   "decode": DECODE_STEPS, "inputs": _inputs(tmp, "decode", params, batch),
                   "output": str(tmp / "decode_out.npz")})
     refs["decode"] = cases[-1]["output"]
+    for factored in STEP_CASES:
+        name = f"ckpt_{factored}"
+        cases.append({"arch": "internlm2-1.8b", "model": 2, "mode": "head_dim",
+                      "ckpt": str(tmp / name), "factored": factored,
+                      "inputs": _inputs(tmp, name, params, batch),
+                      "output": str(tmp / f"{name}_out.npz")})
+        refs[("ckpt", factored)] = (Path(cases[-1]["ckpt"]), cases[-1]["output"])
+    zparams, zbatch, _, _ = _reference("zamba2-7b", "head_dim")
+    zinputs = _inputs(tmp, "zamba2_decode", zparams, zbatch)
+    for model in ZAMBA_DECODE:
+        cases.append({"arch": "zamba2-7b", "model": model, "mode": "head_dim",
+                      "decode": DECODE_STEPS, "inputs": zinputs,
+                      "output": str(tmp / f"zamba2_decode_{model}_out.npz")})
+        refs[("zamba2 decode", model)] = cases[-1]["output"]
+    for groups, model in GROUP_CASES:
+        params, batch, loss, grads = _reference("mamba2-1.3b", "head_dim", groups=groups)
+        name = f"mamba2_g{groups}_{model}"
+        cases.append({"arch": "mamba2-1.3b", "model": model, "mode": "head_dim",
+                      "groups": groups, "inputs": _inputs(tmp, name, params, batch),
+                      "output": str(tmp / f"{name}_out.npz")})
+        refs[("groups", groups, model)] = (loss, grads, cases[-1]["output"])
     _spawn(tmp, 4, cases)
     return refs
 
@@ -219,17 +259,145 @@ def test_seq_sharded_decode_equals_no_mesh_decode(world4):
     assert float(got["flash_flops"]) == want
 
 
-def test_seq_sharded_decode_refuses_cuda_tensors():
+@pytest.mark.parametrize("groups,model", GROUP_CASES)
+def test_mamba2_groups_over_tp_match_jax(world4, groups, model):
+    """mamba2-smoke with more than one B/C group on tp 2 and tp 4: the
+    loss and every gradient leaf (wB and wC's summed over tp) against
+    ``jax.grad`` without a mesh."""
+    _check(*world4[("groups", groups, model)])
+
+
+def _jax_decode(arch, params, tokens, n):
+    """The reference's logits of n decode steps of ``tokens`` [1, n]
+    without a mesh: [n, 1, vocab_padded]."""
+    import jax.numpy as jnp
+
+    model = ref_build(_ref_cfg(arch), single_device_ctx())
+    struct, _ = model.cache_struct(1, n)
+    cache = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype), struct)
+    step, out = jax.jit(model.decode_step), []
+    for pos in range(n):
+        cache, lg = step(params, cache, jnp.asarray(tokens[:, pos]), jnp.int32(pos))
+        out.append(np.asarray(lg))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("model", ZAMBA_DECODE)
+def test_zamba2_seq_sharded_decode_matches_jax(world4, model):
+    """zamba2-smoke's decode at batch 1 with the shared block's cache
+    positions sharded over dp 4 (3 a rank) or dp 2 x tp 2 (6 a rank),
+    every rank merging its (o, lse) over dp, against JAX's decode without
+    a mesh on the same weights: every real logit within 1e-5 of the
+    largest, over 12 steps, in the first of which ranks see no key.  Rank
+    0's attention in the last step is counted at the flash kernel's
+    formula at its local position: 4 hd flops a pair over its keys and
+    heads."""
+    params, batch, _, _ = _reference("zamba2-7b", "head_dim")
+    got = np.load(world4[("zamba2 decode", model)])
+    want = _jax_decode("zamba2-7b", params, batch["tokens"][:1], DECODE_STEPS)
+    a = got["mesh_logits"]
+    assert a.shape == want.shape == (DECODE_STEPS, 1, a.shape[-1])
+    real = np.abs(want) < 1e29  # the padded vocabulary's entries are -1e30
+    assert np.array_equal(real, np.abs(a) < 1e29)
+    assert np.abs(a - want)[real].max() <= 1e-5 * np.abs(want[real]).max()
+    cfg = ref_configs.get_smoke_config("zamba2-7b")
+    keys = DECODE_STEPS // (4 // model)  # rank 0 holds positions 0..keys-1
+    apps = cfg.n_layers // cfg.hybrid_every
+    # its 4 heads over 4 KV heads shard over tp ("heads" mode): n_heads / tp a rank
+    assert float(got["flash_flops"]) == apps * 4.0 * cfg.hd * (cfg.n_heads // model) * keys
+
+
+def _files(directory):
+    from repro_torch.train import latest_checkpoint
+
+    path = latest_checkpoint(directory)
+    return path, {f.name: np.load(f) for f in path.glob("*.npy")}
+
+
+@pytest.mark.parametrize("factored", STEP_CASES)
+def test_mesh_checkpoint_round_trip(world4, factored):
+    """internlm2-smoke on dp 2 x tp 2: a mesh checkpoint (each leaf
+    gathered whole, rank 0 writing) resumed into a fresh mesh state gives
+    the second step's state bit for bit; restored without a mesh and saved
+    again, and restored from that onto the mesh, it keeps its files bit for
+    bit; the reference's ``restore_checkpoint`` reads it into its
+    ``TrainState``."""
+    from repro.train import optimizer as ref_opt
+    from repro.train.checkpoint import restore_checkpoint as ref_restore
+    from repro.train.train_loop import TrainStepBuilder as RefBuilder
+
+    root, output = world4[("ckpt", factored)]
+    got = np.load(output)
+    assert float(got["resumed_loss"]) == float(got["direct_loss"])
+    a_path, a = _files(root / "a")
+    d_path, direct = _files(root / "direct")
+    assert a_path.name == "step_00000001" and d_path.name == "step_00000002"
+    assert any(n.startswith("opt__v__") and n.endswith(("__r.npy", "__c.npy"))
+               for n in a) == factored
+    for other in ("resumed",):
+        _, files = _files(root / other)
+        assert sorted(files) == sorted(direct)
+        assert all(np.array_equal(files[n], direct[n]) for n in direct), other
+    for other in ("plain", "back"):
+        path, files = _files(root / other)
+        assert path.name == a_path.name and sorted(files) == sorted(a)
+        assert all(np.array_equal(files[n], a[n]) for n in a), other
+    assert not all(np.array_equal(a[n], direct[n]) for n in a)  # the step moved the state
+    ref = ref_build(_ref_cfg("internlm2-1.8b"), single_device_ctx())
+    like = RefBuilder(ref, ref_opt.AdamWConfig(lr=1e-2, warmup_steps=1, factored_v=factored)
+                      ).init_state(jax.random.key(0))
+    restored, at = ref_restore(a_path, like)
+    assert at == 1 and int(restored.step) == 1
+    for path, arr in _flat(restored.params):
+        assert np.array_equal(arr, a["params__" + "__".join(path) + ".npy"]), path
+
+
+def test_seq_sharded_decode_reaches_the_decode_route(monkeypatch):
+    """On fake card tensors (nothing launched) rank (data 1, model 0) of
+    a 2 x 2 mesh takes its part of the sequence-sharded decode on the
+    flash kernel's decode route with the logsumexp, [B, H, lse_stride(1)],
+    counted at flash's formula at its local position (pos - 6), and merges
+    it by one max and two sum reductions over dp; at a position before its
+    shard it launches nothing and still takes part in the reductions."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch import configs
     from repro_torch import sharding as sh
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.op_cost import OpCounter
     from repro_torch.models import layers
 
-    cfg = configs.get_smoke_config("internlm2-1.8b")
-    ctx = sh.ctx_for_mesh(sh.MeshShape(("data", "model"), (2, 2)))
+    class Mesh:  # the rank's coordinates and group names; nothing runs
+        mesh_dim_names, shape = ("data", "model"), (2, 2)
+
+        def get_local_rank(self, axis):
+            return {"data": 1, "model": 0}[axis]
+
+        def get_group(self, axis):
+            return axis
+
+    cfg = dataclasses.replace(configs.get_smoke_config("zamba2-7b"), head_dim=64)
+    ctx = sh.MeshContext(mesh=Mesh(), dp=("data",), tp="model")
+    reduced, launched = [], []
+    monkeypatch.setattr(sh, "all_reduce", lambda x, grp, op="sum": reduced.append((grp, op)) or x)
+    real = fa._launch
+
+    def spy(q, k, v, *args, **kw):
+        out = real(q, k, v, *args, **kw)
+        launched.append((fa.route(q.dtype, q.shape[2], q.shape[3]), args[4],
+                         tuple(out[1].shape)))
+        return out
+
+    monkeypatch.setattr(fa, "_launch", spy)
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     with FakeTensorMode():
-        q = torch.empty(1, 1, cfg.n_heads // 2, cfg.hd, device="cuda")
-        k = torch.empty(1, 6, cfg.n_kv_heads // 2, cfg.hd, device="cuda")
-        with pytest.raises(NotImplementedError, match="logsumexp"):
-            layers._seq_sharded_decode(q, k, k, 3, cfg, None, ctx)
+        q = torch.empty(1, 1, h, d, device="cuda", dtype=torch.bfloat16)
+        k = torch.empty(1, 6, kv, d, device="cuda", dtype=torch.bfloat16)
+        with OpCounter() as counter:
+            o = layers._seq_sharded_decode(q, k, k, 9, cfg, None, ctx)
+        assert launched == [("decode", 3, (1, h, fa.lse_stride(1)))]
+        assert o.shape == (1, h, 1, d) and o.dtype == torch.bfloat16 and o.device.type == "cuda"
+        assert counter.kernels["flash_attention"]["flops"] == 4.0 * d * h * 4
+        assert reduced == [("data", "max"), ("data", "sum"), ("data", "sum")]
+        o = layers._seq_sharded_decode(q, k, k, 3, cfg, None, ctx)
+        assert len(launched) == 1 and len(reduced) == 6 and o.shape == (1, h, 1, d)

@@ -14,7 +14,9 @@ and the second step's loss and grad norm; for ``"decode": n`` cases the
 logits of n decode steps of the batch's first row (batch 1: the cache's
 positions sharded over dp) on the mesh and without it (``mesh_logits``,
 ``none_logits``), and the flash FLOPs that ``OpCounter`` counts on rank
-0 in the mesh's last step (``flash_flops``).
+0 in the mesh's last step (``flash_flops``); a case's ``"groups"`` sets
+the mamba2 B/C groups; for ``"ckpt": DIR`` cases the checkpoints of
+``_ckpt_case`` under DIR (the test compares their files).
 """
 import dataclasses
 import json
@@ -37,6 +39,59 @@ def _params(npz):
                        if k.startswith("leaf/")])
 
 
+def _ckpt_case(case, cfg, params, batch, mesh):
+    """Checkpoints on a mesh (AdamW, plain or with a factored second
+    moment), each written by ``save_state`` under ``case["ckpt"]``:
+    ``a`` after one mesh step; ``direct`` after a second step; ``resumed``
+    after ``a`` restored into a fresh mesh state and the same second step;
+    ``plain`` after ``a`` restored without a mesh and saved by rank 0;
+    ``back`` after ``plain`` restored into a fresh mesh state.  The
+    leaves are gathered in slices of at most 1 KiB, so that a sharded
+    leaf takes several gathers, as a large one does at the default size.
+    Returns the two second steps' losses."""
+    import torch.distributed as dist
+
+    from repro_torch.convert import lm_from_reference
+    from repro_torch.sharding import ctx_for_mesh
+    from repro_torch.train import latest_checkpoint, restore_state, save_state
+    from repro_torch.train import train_loop
+    from repro_torch.train.optimizer import AdamWSettings
+    from repro_torch.train.train_loop import TrainStepBuilder
+
+    train_loop._GATHER_BYTES = 1024
+    root = Path(case["ckpt"])
+    opt = AdamWSettings(lr=1e-2, warmup_steps=1, factored_v=case["factored"])
+
+    def fresh(on_mesh):
+        m = lm_from_reference(params, cfg, device="cpu")
+        if on_mesh:
+            m.shard_parameters(ctx_for_mesh(mesh))
+        b = TrainStepBuilder(m, opt)
+        return b, b.init_state()
+
+    out = {}
+    b, state = fresh(True)
+    state, _ = b.train_step(state, batch)
+    save_state(root / "a", state)
+    state, met = b.train_step(state, batch)
+    out["direct_loss"] = float(met["loss"])
+    save_state(root / "direct", state)
+    b, state = fresh(True)
+    state = restore_state(latest_checkpoint(root / "a"), state)
+    state, met = b.train_step(state, batch)
+    out["resumed_loss"] = float(met["loss"])
+    save_state(root / "resumed", state)
+    _, state = fresh(False)
+    state = restore_state(latest_checkpoint(root / "a"), state)
+    if dist.get_rank() == 0:
+        save_state(root / "plain", state)
+    dist.barrier()
+    _, state = fresh(True)
+    state = restore_state(latest_checkpoint(root / "plain"), state)
+    save_state(root / "back", state)
+    return out
+
+
 def _case(case):
     from repro_torch import configs
     from repro_torch.convert import lm_from_reference
@@ -48,10 +103,15 @@ def _case(case):
 
     cfg = dataclasses.replace(configs.get_smoke_config(case["arch"]), dtype="float32",
                               attn_mode=case["mode"])
+    if case.get("groups"):
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
+                                                               n_groups=case["groups"]))
     npz = np.load(case["inputs"])
     params = _params(npz)
     batch = {k: torch.from_numpy(npz[k]) for k in ("tokens", "labels")}
     mesh = make_host_mesh(model=case["model"])
+    if case.get("ckpt"):
+        return _ckpt_case(case, cfg, params, batch, mesh)
     model = lm_from_reference(params, cfg, device="cpu").shard_parameters(ctx_for_mesh(mesh))
     out = {}
     if case.get("decode"):
