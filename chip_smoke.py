@@ -201,8 +201,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      first 2 batches of 4 x 2048 tokens in turn (finite losses and grad
      norms, the loss falling, 48 forward and 24
      backward attention launches a step, every backward on the "wgmma"
-     route), step wall, tokens/s, peak
-     memory and one profiled step; two fp32 steps of a narrow config on
+     route), step wall, tokens/s and peak
+     memory; two fp32 steps of a narrow config on
      the card against the CPU, a resumed run (train 2, save, restore,
      train 2) equal to 4 direct steps bit for bit under
      ``torch.use_deterministic_algorithms(True)``, and one step's bf16
@@ -221,7 +221,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      moment) of ``TrainStepBuilder`` on the stream's first 2 batches of 2
      x 2048 tokens in turn (the loss falling; 6 grouped-GEMM and 2
      attention forward launches, 3 and 1 backward launches, a layer and
-     step, the backwards on "wgmma"), step wall, tokens/s, peak memory and one profiled step; two
+     step, the backwards on "wgmma"), step wall, tokens/s and peak memory; two
      fp32 steps of a narrow llama4 on the card against the CPU;
  17. mamba_train (mamba2-1.3b, bf16, full width and depth): the SSD scan's
      backward kernels against the plain backward at mamba2-1.3b's training
@@ -232,7 +232,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      backward, and its device time by kernel; 4 AdamW steps on the
      stream's first 2 batches of 4 x 2048 tokens in turn (2 forward and 1
      backward scan launches a layer and step, the backwards on "wgmma"),
-     step wall, tokens/s, peak memory and one profiled step; two
+     step wall, tokens/s and peak memory; two
      fp32 steps of a narrow mamba2 and of a narrow zamba2 on the card
      against the CPU;
  17a. long_decode (zamba2-7b's long_500k cell: a decode at batch 1 over
@@ -4262,59 +4262,12 @@ def _train_grads_vs_plain(fa):
     _free()
 
 
-# a train step's device time by kernel family, from the kernels' names
-# (the first family whose words a name holds; then matmul and other)
-_TRAIN_SPLIT = ("ssd backward", "flash backward", "moe backward", "moe forward",
-                "ssd forward", "flash forward")
-_TRAIN_SPLIT_WORDS = (("bwd_states", "bwd_pass", "bwd_keys", "bwd_queries", "bwd_finalize",
-                       "bwd_reduce", "bwd_seg", "bwd_scan", "bwd_cb"),
-                      ("bwd_delta", "bwd_dkdv", "bwd_dq"),
-                      ("moe_wgmma_dx", "moe_dx_fma", "moe_dw_", "moe_wgmma_dw"),
-                      ("moe_",), ("ssd_",), ("flash_",))
-
-
-def _profile_train_step(builder, state, batch, step_ms, tag="lm train"):
-    """One profiled train step: the device's busy share and its time split
-    into the attention's, the grouped GEMM's and the SSD scan's forward and
-    backward kernels, the matrix products and the rest."""
-    import torch
-
-    def step():
-        t0 = time.perf_counter()
-        out, _ = builder.train_step(state, batch)
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
-    (state, wall), rows = _traced(step)
-    dev_ms = sum(_device_us(a) for a in rows) / 1e3
-    split = dict.fromkeys(_TRAIN_SPLIT + ("matmul", "other"), 0.0)
-    for a in rows:
-        key = a.key.lower()
-        part = next((name for name, words in zip(_TRAIN_SPLIT, _TRAIN_SPLIT_WORDS)
-                     if any(w in key for w in words)), None)
-        if part is None:
-            part = ("matmul" if any(w in key for w in ("gemm", "nvjet", "gemv", "cutlass"))
-                    else "other")
-        split[part] += _device_us(a) / 1e3
-    print(f"[{tag}] one profiled step: wall {1e3 * wall:.1f} ms, device busy "
-          f"{dev_ms:.1f} ms ({100 * dev_ms / 1e3 / wall:.1f}% of the profiled wall; the "
-          f"unprofiled step {step_ms:.1f} ms), {sum(a.count for a in rows)} device "
-          f"operations; split: " + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items()
-                                             if v or k in ("matmul", "other")),
-          flush=True)
-    for a in rows[:8]:
-        print(f"[{tag}]   {_device_us(a) / 1e3:9.3f} ms {a.count:5d}x {a.key[:70]}",
-              flush=True)
-    return state
-
-
 def phase_lm_train(fa):
     """LM training on the card: the backward kernels' checks and times;
     then the main path, internlm2-1.8b at full width training on
     TokenPipeline batches through TrainStepBuilder (the counts set to 0
     just before the steps and read just after: the forward twice a layer
-    and the backward once a layer each step); then a profiled step and
-    the parity checks (fp32 card vs CPU, bitwise resume, bf16 gradients
+    and the backward once a layer each step); then the parity checks (fp32 card vs CPU, bitwise resume, bf16 gradients
     against the plain attention's).  Returns the flash record's bwd_*
     numbers and the path's forward launches."""
     import torch
@@ -4374,10 +4327,9 @@ def phase_lm_train(fa):
           f"step: {fwd // LM_TRAIN_STEPS} forward ({cfg.n_layers} and {cfg.n_layers} "
           f"rematerialised), {bwd // LM_TRAIN_STEPS} backward; peak device memory "
           f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
-    state = _profile_train_step(builder, state, batches[0], step_ms)
     del builder, state, model, batches
     _free()
-    t = _phase_done("lm train (internlm2-1.8b at full width: steps, profile)", t)
+    t = _phase_done("lm train (internlm2-1.8b at full width: steps)", t)
     _train_card_vs_cpu()
     _train_resume_bitwise()
     _train_grads_vs_plain(fa)
@@ -4709,7 +4661,6 @@ def _train_path(tag, cfg, opt, batch, seq, counted):
           f"{step_ms:.1f} ms, {tokens / step_ms * 1e3:.0f} tokens/s); launches over the "
           f"{TRAIN_STEPS} steps (forward, backward): {counts}; peak device memory "
           f"{torch.cuda.max_memory_allocated()} bytes", flush=True)
-    state = _profile_train_step(builder, state, batches[0], step_ms, tag)
     del builder, state, model, batches
     _free()
     return counts
@@ -4742,7 +4693,7 @@ def phase_moe_train(mg, fa):
     L, n = cfg.n_layers, TRAIN_STEPS
     if counts != {"moe_gemm": (6 * L * n, 3 * L * n), "flash_attention": (2 * L * n, L * n)}:
         raise AssertionError(f"moe train: launches {counts} over {n} steps of {L} layers")
-    t = _phase_done(f"moe train ({MOE_ARCH} at {L} layer(s), full width: steps, profile)", t)
+    t = _phase_done(f"moe train ({MOE_ARCH} at {L} layer(s), full width: steps)", t)
     base = get_config(MOE_ARCH)
     narrow = dataclasses.replace(base, name="llama4-narrow", dtype="float32",
                                  moe=dataclasses.replace(base.moe, d_ff_expert=512),
@@ -4812,7 +4763,7 @@ def phase_mamba_train(ss, fa):
     L, n = cfg.n_layers, TRAIN_STEPS
     if counts != {"ssd_scan": (2 * L * n, L * n), "flash_attention": (0, 0)}:
         raise AssertionError(f"mamba train: launches {counts} over {n} steps of {L} layers")
-    t = _phase_done(f"mamba train ({MAMBA_ARCH} at {L} layers, full width: steps, profile)", t)
+    t = _phase_done(f"mamba train ({MAMBA_ARCH} at {L} layers, full width: steps)", t)
     for label, arch, narrow in (("mamba2", MAMBA_ARCH, MAMBA_TRAIN_NARROW),
                                 ("zamba2", "zamba2-7b", ZAMBA_TRAIN_NARROW)):
         cfg_n = dataclasses.replace(get_config(arch), name=f"{label}-narrow", dtype="float32",

@@ -72,6 +72,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import sharding as sh
 from ..core.engine import DeviceLike, resolve_device
+from ..obs.spans import span
 from ..sharding import MeshContext, Spec, single_device_ctx
 from . import layers as ly
 from . import moe as moe_mod
@@ -315,7 +316,14 @@ class TransformerLM(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
         def run(fn, h):
-            return checkpoint(fn, h, use_reentrant=False) if train else fn(h)
+            if not train:
+                return fn(h)
+
+            def block(h):  # rematerialised: the recompute opens the span again
+                with span("model.block"):
+                    return fn(h)
+
+            return checkpoint(block, h, use_reentrant=False)
 
         if cfg.block_pattern in ("mamba2", "zamba2"):
             # zamba2: the shared block after each full group of
@@ -509,7 +517,9 @@ class TransformerLM(nn.Module):
         backward; returns (final-normed hidden states, aux) with aux the
         MoE layers' summed load-balance loss (the reference's
         ``forward``)."""
-        x, aux = self._apply_stack(self._inputs(tokens, frames, patches), train=True)
+        with span("model.embed"):
+            x = self._inputs(tokens, frames, patches)
+        x, aux = self._apply_stack(x, train=True)
         return ly.apply_norm(self._local(self.final_norm), x, self.cfg), aux
 
     def loss_fn(self, batch: Mapping[str, torch.Tensor]
@@ -525,38 +535,40 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         x, aux = self.forward_train(batch.get("tokens"), frames=batch.get("frames"),
                                     patches=batch.get("patches"))
-        logits = self._head_logits(x)
-        labels = batch["labels"].long()
-        if cfg.frontend == "patches":
-            pad = torch.full((labels.shape[0], batch["patches"].shape[1]), -1,
-                             dtype=labels.dtype, device=labels.device)
-            labels = torch.cat([pad, labels], dim=1)
-        mask = labels >= 0
-        if self._vocab_tp:  # the logsumexp and the gold logit summed over tp
-            ctx, n = self.ctx, logits.shape[-1]
-            m = sh.tp_max(logits.amax(-1), ctx)
-            lse = m + torch.log(sh.reduce_from_tp(torch.exp(logits - m[..., None]).sum(-1), ctx))
-            ids = labels.clamp(min=0) - self._vocab_offset(n)
-            hit = (ids >= 0) & (ids < n)
-            gold = torch.gather(logits, -1, ids.clamp(0, n - 1)[..., None])[..., 0]
-            gold = sh.reduce_from_tp(torch.where(hit, gold, torch.zeros_like(gold)), ctx)
-        else:
-            lse = torch.logsumexp(logits, dim=-1)
-            gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
-        per_tok = torch.where(mask, lse - gold, torch.zeros_like(lse))
-        aux = aux / max(cfg.n_layers, 1)
-        if self.ctx.has_ranks and self.ctx.dp_size > 1:
-            # this dp shard's share: its token losses over the whole batch's
-            # count and its aux over dp; the gradients sum over dp
-            ntok = self._dp_sum(mask.sum().float()).clamp(min=1)
-            loss, aux = per_tok.sum() / ntok, aux / self.ctx.dp_size
-            metrics = {"loss": self._dp_sum(loss.detach()),
-                       "aux_loss": self._dp_sum(aux.detach()), "tokens": ntok}
-            return loss + 0.01 * aux, metrics
-        ntok = mask.sum().clamp(min=1)
-        loss = per_tok.sum() / ntok
-        metrics = {"loss": loss, "aux_loss": aux, "tokens": ntok}
-        return loss + 0.01 * metrics["aux_loss"], metrics
+        with span("model.head_loss"):
+            logits = self._head_logits(x)
+            labels = batch["labels"].long()
+            if cfg.frontend == "patches":
+                pad = torch.full((labels.shape[0], batch["patches"].shape[1]), -1,
+                                 dtype=labels.dtype, device=labels.device)
+                labels = torch.cat([pad, labels], dim=1)
+            mask = labels >= 0
+            if self._vocab_tp:  # the logsumexp and the gold logit summed over tp
+                ctx, n = self.ctx, logits.shape[-1]
+                m = sh.tp_max(logits.amax(-1), ctx)
+                lse = m + torch.log(sh.reduce_from_tp(torch.exp(logits - m[..., None]).sum(-1),
+                                                      ctx))
+                ids = labels.clamp(min=0) - self._vocab_offset(n)
+                hit = (ids >= 0) & (ids < n)
+                gold = torch.gather(logits, -1, ids.clamp(0, n - 1)[..., None])[..., 0]
+                gold = sh.reduce_from_tp(torch.where(hit, gold, torch.zeros_like(gold)), ctx)
+            else:
+                lse = torch.logsumexp(logits, dim=-1)
+                gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+            per_tok = torch.where(mask, lse - gold, torch.zeros_like(lse))
+            aux = aux / max(cfg.n_layers, 1)
+            if self.ctx.has_ranks and self.ctx.dp_size > 1:
+                # this dp shard's share: its token losses over the whole batch's
+                # count and its aux over dp; the gradients sum over dp
+                ntok = self._dp_sum(mask.sum().float()).clamp(min=1)
+                loss, aux = per_tok.sum() / ntok, aux / self.ctx.dp_size
+                metrics = {"loss": self._dp_sum(loss.detach()),
+                           "aux_loss": self._dp_sum(aux.detach()), "tokens": ntok}
+                return loss + 0.01 * aux, metrics
+            ntok = mask.sum().clamp(min=1)
+            loss = per_tok.sum() / ntok
+            metrics = {"loss": loss, "aux_loss": aux, "tokens": ntok}
+            return loss + 0.01 * metrics["aux_loss"], metrics
 
     def _dp_sum(self, x: torch.Tensor) -> torch.Tensor:
         for a in self.ctx.dp:

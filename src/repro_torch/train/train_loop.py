@@ -16,6 +16,11 @@ leaves (``TransformerLM.leaf_groups``).  A step:
   3. ``adamw_update`` on the stacked leaves, and the new weights written
      back into the model's parameters.
 
+While a profiler records, the step and each of its parts open a span
+(``obs.spans``: ``train.step``, ``train.forward``, ``train.backward``,
+``train.stack_grads``, ``train.adamw``, ``train.write_weights``; the
+model opens ``model.embed``, ``model.block`` and ``model.head_loss``).
+
 A state saves and restores through ``train.checkpoint`` as the tree
 ``{"opt", "params", "step"}``, the reference's ``TrainState`` leaves and
 names (``save_state``, ``restore_state``); on a mesh each leaf is saved
@@ -49,6 +54,7 @@ import torch
 from .. import sharding as sh
 from ..launch import inputs as inputs_mod
 from ..models.model import TransformerLM
+from ..obs.spans import span
 from .checkpoint import PathLike, leaf_paths, restore_checkpoint, save_checkpoint
 from .optimizer import (AdamWSettings, Tree, adamw_init, adamw_update,
                         opt_state_specs, tree_build, tree_items)
@@ -214,25 +220,31 @@ class TrainStepBuilder:
             for p in ps:
                 p.grad = None
         if k <= 1:
-            total, metrics = model.loss_fn(batch)
-            total.backward()
-            return _stacked_grads(model), {n: m.detach() for n, m in metrics.items()}
+            with span("train.forward"):
+                total, metrics = model.loss_fn(batch)
+            with span("train.backward"):
+                total.backward()
+            with span("train.stack_grads"):
+                return _stacked_grads(model), {n: m.detach() for n, m in metrics.items()}
         n = next(iter(batch.values())).shape[0]
         if n % k:
             raise ValueError(f"batch {n} does not split into {k} microbatches")
         grads: Optional[Dict[Tuple[str, ...], torch.Tensor]] = None
         sums: Dict[str, torch.Tensor] = {}
         for i in range(k):
-            total, metrics = model.loss_fn(_micro(batch, k, i))
-            total.backward()
-            gi = dict(tree_items(_stacked_grads(model)))
-            if grads is None:
-                grads = {p: torch.zeros(g.shape, dtype=torch.float32, device=g.device)
-                         for p, g in gi.items()}
-            for p, g in gi.items():
-                grads[p] = grads[p] + g.float() / k
-            for name, m in metrics.items():
-                sums[name] = sums.get(name, 0.0) + m.detach().float() / k
+            with span("train.forward"):
+                total, metrics = model.loss_fn(_micro(batch, k, i))
+            with span("train.backward"):
+                total.backward()
+            with span("train.stack_grads"):
+                gi = dict(tree_items(_stacked_grads(model)))
+                if grads is None:
+                    grads = {p: torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+                             for p, g in gi.items()}
+                for p, g in gi.items():
+                    grads[p] = grads[p] + g.float() / k
+                for name, m in metrics.items():
+                    sums[name] = sums.get(name, 0.0) + m.detach().float() / k
         return tree_build(list(grads.items())), sums
 
     def train_step(self, state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, Any]]:
@@ -242,19 +254,22 @@ class TrainStepBuilder:
         ``grad_norm`` as tensors, ``lr`` as a float)."""
         if state.params is not self.model:
             raise ValueError("the state holds another model than the builder's")
-        hooks = {}
-        if self.ctx.has_ranks:
-            batch = self._local_batch(batch)
-            ctx, specs = self.ctx, _stacked_specs(self.model)
-            hooks = {"norm": lambda g: _mesh_norm(ctx, specs, g),
-                     "mean_of": lambda path, g: _mesh_mean(ctx, specs[path], g.dim())}
-        grads, metrics = self._grads(batch)
-        dtypes = tree_build([(path, ps[0]) for path, ps, _ in self.model.leaf_groups()])
-        new, _, opt_metrics = adamw_update(self.opt_cfg, dtypes, state.opt, grads, state.step,
-                                           **hooks)
-        del grads
-        _write_weights(self.model, new)
-        state.step += 1
+        with span("train.step"):
+            hooks = {}
+            if self.ctx.has_ranks:
+                batch = self._local_batch(batch)
+                ctx, specs = self.ctx, _stacked_specs(self.model)
+                hooks = {"norm": lambda g: _mesh_norm(ctx, specs, g),
+                         "mean_of": lambda path, g: _mesh_mean(ctx, specs[path], g.dim())}
+            grads, metrics = self._grads(batch)
+            dtypes = tree_build([(path, ps[0]) for path, ps, _ in self.model.leaf_groups()])
+            with span("train.adamw"):
+                new, _, opt_metrics = adamw_update(self.opt_cfg, dtypes, state.opt, grads,
+                                                   state.step, **hooks)
+            del grads
+            with span("train.write_weights"):
+                _write_weights(self.model, new)
+            state.step += 1
         return state, {**metrics, **opt_metrics}
 
     @torch.no_grad()
